@@ -2,24 +2,35 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and drives the
-flat progressive-search serving path at the paper's deployment size
-(1,000,000 documents x 3584 dims, 2,470 queries, schedule d_start=128,
-d_max=3584, k0=64, final_k=10), in phases that each print one JSON line:
+serving paths at the paper's deployment size (1,000,000 documents x 3584
+dims, 2,470 queries, schedule d_start=128, d_max=3584, k0=64, final_k=10),
+in phases that each print one JSON line:
 
   1. device    — ``nvidia-smi`` name and power limit, kernel build time
-  2. kernels   — each kernel against its plain PyTorch version on the card,
-                 at the serving shapes, with CUDA-event timings
+  2. kernels   — the flat stage-0 and rescore kernels against their plain
+                 PyTorch versions on the card, at the serving shapes, with
+                 CUDA-event timings; the IVF and PQ scan kernels on their
+                 edge cases (empty and fully tombstoned lists, k beyond the
+                 rows scanned)
   3. corpus    — synthetic corpus generated on the card from ``--seed``,
-                 loaded into a ``RetrievalEngine`` and warmed up
+                 loaded into a ``RetrievalEngine`` (flat backend), warmed up
   4. serving   — ``engine.search`` over every query and requests from client
                  threads through ``EngineDriver``; recall@10 / top-1 against
                  an exact full-dim search, agreement with the plain path,
                  and the kernels' launch counts during the phase; then one
-                 more search traced with ``torch.profiler`` (device time
-                 per kernel, the device's busy share)
+                 more search traced with ``torch.profiler``
   5. mutations — deletes (sources of 50 queries among them) and appends,
                  then searches again: no deleted id may come back
-  6. kernels line, card line, and the final ``{"ok": true, ...}`` line.
+  6. variants  — the same corpus behind each IVF / quantized backend (ivf
+                 float32 / int8 / pq slabs, quantized pq / int8), one engine
+                 at a time: build, ``engine.search`` over every query
+                 (launch counts read around it), agreement with the same
+                 backend's plain route on the same state, each scan kernel
+                 against its plain version on that state after deletes
+                 (tombstones inside lists), and no deleted id returned; the
+                 float32 IVF engine also serves through ``EngineDriver``, is
+                 profiled, and absorbs 1,000 appends into spare list slots
+  7. kernels line, card line, and the final ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero.  Run it from the
 root of a checkout: ``python3 chip_smoke.py [--seed N]``.  It needs a CUDA
@@ -30,6 +41,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -48,12 +60,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_DOCS, D_EMB, N_QUERIES = 1_000_000, 3584, 2470
 D_START, K0, FINAL_K = 128, 64, 10
 CAPACITY = 1 << 20
+BUCKETS = (1, 2, 4, 8, 16, 32)
 N_REQUESTS, N_CLIENTS = 256, 4
+N_DELETE, N_APPEND = N_DOCS // 100, 10_000
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth and
 # float32 rate outside the tensor cores — the kernels compute in FMA float32.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+
+KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan")
 
 
 def emit(obj) -> None:
@@ -93,6 +109,32 @@ def cuda_ms(torch, fn, *, runs: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, own, *, runs: int = 10):
+    """Device time per call of ``fn`` from ``torch.profiler``: (every CUDA
+    kernel and copy it launches, only those whose name contains one of
+    ``own`` — the hand-written kernels).  The CUDA-event time of a call also
+    counts the device's idle gaps while the host enqueues its small ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = mine = 0.0
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        total += us
+        if any(name in ev.key for name in own):
+            mine += us
+    return total / runs / 1e3, mine / runs / 1e3
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_FLOPS * 1e3
@@ -125,6 +167,26 @@ def compare(torch, got, want, *, rtol: float = 2e-5, atol: float = 1e-3):
     return max_err, float(agree.float().mean()), tol
 
 
+def counters():
+    """name -> (module, attribute) of every kernel's launch counter."""
+    from repro_torch.kernels import (distance_topk, gather_rescore, ivf_scan,
+                                     pq_scan)
+    return {"distance_topk.l2_topk": (distance_topk, "launches"),
+            "gather_rescore.gather_rescore_topk": (gather_rescore, "launches"),
+            "ivf_scan.ivf_scan_topk": (ivf_scan, "launches"),
+            "pq_scan.pq_scan_topk": (pq_scan, "flat_launches"),
+            "pq_scan.pq_ivf_scan_topk": (pq_scan, "ivf_launches")}
+
+
+def zero_counts() -> None:
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+
+
 def run(args) -> None:
     import torch
 
@@ -141,10 +203,10 @@ def run(args) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.core import make_schedule, progressive_search_plain
+    from repro_torch.core import make_schedule
     from repro_torch.core import truncated as T
     from repro_torch.core.index import prefix_squared_norms
-    from repro_torch.engine import EngineConfig, EngineDriver, RetrievalEngine
+    from repro_torch.engine import EngineConfig, RetrievalEngine
     from repro_torch.kernels import _build, distance_topk, gather_rescore
 
     dev = torch.device("cuda")
@@ -152,8 +214,8 @@ def run(args) -> None:
 
     # -- 1. device + build ---------------------------------------------------
     t0 = time.perf_counter()
-    _build.library("distance_topk")
-    _build.library("gather_rescore")
+    for stem in KERNEL_LIBS:                 # the first call builds them all
+        _build.library(stem)
     build_s = time.perf_counter() - t0
     ptxas = {stem: [ln.strip() for ln in rep.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -278,31 +340,36 @@ def run(args) -> None:
         cand = got[1]
     del db, sq_all, valid, sq0
     torch.cuda.empty_cache()
+    scan_edge_cases(torch, dev)
 
     # -- 3. corpus on the card ----------------------------------------------
+    def load_corpus(engine):
+        """Append the seeded corpus: the same rows for every engine."""
+        cgen = torch.Generator(device=dev)
+        cgen.manual_seed(args.seed + 1)
+        for lo in range(0, N_DOCS, 1 << 16):
+            rows = torch.randn((min(1 << 16, N_DOCS - lo), d_emb),
+                               generator=cgen, device=dev) * scales
+            engine.add_docs(rows)
+        if engine.store.size != N_DOCS or engine.store.capacity != cap:
+            fail(f"store holds {engine.store.size} rows at capacity "
+                 f"{engine.store.capacity}")
+
     t0 = time.perf_counter()
     engine = RetrievalEngine(
         config=EngineConfig(d_emb=d_emb, d_start=d_start, k0=k0,
-                            final_k=final_k, capacity=cap,
-                            buckets=(1, 2, 4, 8, 16, 32)),
+                            final_k=final_k, capacity=cap, buckets=BUCKETS),
         device="cuda")
-    n_docs = N_DOCS
-    chunk = 1 << 16
-    for lo in range(0, n_docs, chunk):
-        rows = torch.randn((min(chunk, n_docs - lo), d_emb), generator=gen,
-                           device=dev) * scales
-        engine.add_docs(rows)
+    load_corpus(engine)
     store = engine.store
-    if store.size != n_docs or store.capacity != cap:
-        fail(f"store holds {store.size} rows at capacity {store.capacity}")
     nq = N_QUERIES
-    src_rows = torch.randperm(n_docs, generator=gen, device=dev)[:nq]
+    src_rows = torch.randperm(N_DOCS, generator=gen, device=dev)[:nq]
     sig = 1.25 * torch.exp(0.55 * torch.randn((nq,), generator=gen, device=dev))
     queries = (store.db[src_rows] + sig[:, None] * scales
                * torch.randn((nq, d_emb), generator=gen, device=dev))
     engine.warmup()
     torch.cuda.synchronize()
-    emit({"phase": "corpus", "n_docs": n_docs, "d_emb": d_emb,
+    emit({"phase": "corpus", "n_docs": N_DOCS, "d_emb": d_emb,
           "capacity": cap, "queries": nq, "schedule": sched.describe(),
           "load_s": time.perf_counter() - t0,
           "gpu_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
@@ -310,6 +377,7 @@ def run(args) -> None:
     def exact_top(qs, k):
         """Exact full-dim L2 top-k over live rows (chunked torch.matmul;
         ground truth only)."""
+        n_store = store.size
         out = []
         norms = (store.db[:n_store] ** 2).sum(dim=1)
         dead = ~store.valid[:n_store]
@@ -326,22 +394,457 @@ def run(args) -> None:
 
     # -- 4. serving ------------------------------------------------------------
     q_host = queries.cpu().numpy()
-    n_store = store.size
+    src_host = src_rows.cpu().numpy()
     truth = exact_top(queries, final_k)
     torch.cuda.synchronize()           # the exact search is not search time
-    distance_topk.launches = 0
-    gather_rescore.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     s_eng, i_eng = engine.search(q_host)
     search_s = time.perf_counter() - t0
-    launches_search = (distance_topk.launches, gather_rescore.launches)
+    launches_search = read_counts()
+    if min(launches_search["distance_topk.l2_topk"],
+           launches_search["gather_rescore.gather_rescore_topk"]) <= 0:
+        fail(f"flat search launched no kernel: {launches_search}")
 
     stats0 = engine.stats.summary()
+    drv = driver_run(engine, q_host, i_eng)
+    launches = read_counts()
+    if launches["distance_topk.l2_topk"] \
+            <= launches_search["distance_topk.l2_topk"] \
+            or launches["gather_rescore.gather_rescore_topk"] \
+            <= launches_search["gather_rescore.gather_rescore_topk"]:
+        fail(f"kernel launch counters did not grow on the main path: "
+             f"{launches_search} then {launches}")
+
+    plain_ids = plain_route_ids(torch, engine, queries)
+    r_eng, top1_eng = recall(i_eng, truth)
+    r_plain, top1_plain = recall(plain_ids, truth)
+    source_top1 = float((i_eng[:, 0] == src_host).mean())
+    source_at_10 = float((i_eng == src_host[:, None]).any(axis=1).mean())
+    agree_plain = float((torch.as_tensor(i_eng, device=dev) == plain_ids)
+                        .float().mean())
+    if abs(r_eng - r_plain) > 0.01:
+        fail(f"recall@10 {r_eng} of the kernels vs {r_plain} of the plain path")
+    if not (np.isfinite(s_eng).all() and s_eng.shape == (nq, final_k)):
+        fail("engine scores not finite or of the wrong shape")
+    st = engine.stats.summary()
+    emit({"phase": "serving", "backend": "flat", "queries": nq,
+          "search_s": search_s, "search_qps": nq / search_s, **drv,
+          "latency_ms_p50": st["latency_ms_p50"],
+          "latency_ms_p95": st["latency_ms_p95"],
+          "compute_ms_p50": st["compute_ms_p50"],
+          "recall_at_10": r_eng, "top1": top1_eng,
+          "source_top1": source_top1, "source_in_10": source_at_10,
+          "plain_recall_at_10": r_plain, "plain_top1": top1_plain,
+          "ids_equal_plain": agree_plain,
+          "launches_search": launches_search, "launches": launches,
+          "batches": st["n_batches"] - stats0["n_batches"]})
+    profile_search(torch, engine, q_host, search_s, "flat")
+
+    # -- 5. mutations --------------------------------------------------------
+    extra = torch.randperm(N_DOCS, generator=gen, device=dev)[:N_DELETE - 50]
+    del_ids = torch.unique(torch.cat([src_rows[:50], extra])).cpu().numpy()
+    deleted = set(int(x) for x in del_ids)
+    zero_counts()
+    n_gone = engine.delete_docs(del_ids)
+    _, i_after = engine.search(q_host)
+    back = sorted(set(int(x) for x in i_after.ravel()) & deleted)
+    if back:
+        fail(f"deleted ids returned: {back[:10]}")
+    new_rows = torch.randn((N_APPEND, d_emb), generator=gen, device=dev) * scales
+    new_ids = engine.add_docs(new_rows)
+    if store.capacity != cap:
+        fail("appending within capacity grew the store")
+    _, i_new = engine.search(new_rows[:1000].cpu().numpy())
+    self_hit = float((i_new[:, 0] == new_ids[:1000]).mean())
+    _, i_again = engine.search(q_host)
+    back = sorted(set(int(x) for x in i_again.ravel()) & deleted)
+    if back:
+        fail(f"deleted ids returned after the append: {back[:10]}")
+    if self_hit < 0.99:
+        fail(f"appended rows found themselves top-1 for only {self_hit}")
+    mut_counts = read_counts()
+    truth2 = exact_top(queries, final_k)
+    r_after, top1_after = recall(i_again, truth2)
+    emit({"phase": "mutations", "backend": "flat", "deleted": int(n_gone),
+          "deleted_sources": 50, "deleted_returned": 0,
+          "appended": N_APPEND, "appended_self_top1": self_hit,
+          "recall_at_10": r_after, "top1": top1_after,
+          "launches": mut_counts})
+    if min(mut_counts["distance_topk.l2_topk"],
+           mut_counts["gather_rescore.gather_rescore_topk"]) <= 0:
+        fail("mutation phase searched without launching the kernels")
+    del engine, store, new_rows, truth2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6. the IVF and quantized backends -----------------------------------
+    ctx = dict(torch=torch, dev=dev, queries=queries, q_host=q_host,
+               src_host=src_host, truth=truth, recall=recall,
+               del_ids=del_ids, load_corpus=load_corpus, flush=flush,
+               scales=scales, gen=gen, d_emb=d_emb, sched=sched)
+    scan_rows = {}
+    for variant in VARIANTS:
+        scan_rows.update(serve_variant(variant, ctx, launches))
+    finish(torch, card, stage_rows, ladder_rows, launches, scan_rows)
+
+
+# (variant, backend block kwargs, scan kernel its stage 0 runs, full phase)
+VARIANTS = (
+    ("ivf", ("ivf", {}), "ivf_scan.ivf_scan_topk", True),
+    ("ivf_int8", ("ivf", {"stage0_dtype": "int8"}), "ivf_scan.ivf_scan_topk",
+     False),
+    ("ivf_pq", ("ivf", {"stage0_dtype": "pq"}), "pq_scan.pq_ivf_scan_topk",
+     False),
+    ("quantized_pq", ("quantized", {"codec": "pq"}), "pq_scan.pq_scan_topk",
+     False),
+    ("quantized_int8", ("quantized", {"codec": "int8"}), None, False),
+)
+
+
+def serve_variant(variant, ctx, launches) -> dict:
+    """Serve the corpus behind one IVF / quantized backend (phase 6).
+
+    Returns {kernel row key: measured row} for the scan kernel checked on
+    this engine's state, and adds its serving-search launch counts into
+    ``launches`` (the kernels line reports the main paths' counts)."""
+    torch, dev = ctx["torch"], ctx["dev"]
+    from repro_torch.engine import EngineConfig, RetrievalEngine
+    from repro_torch.engine.config import IVFConfig, QuantizedConfig
+
+    name, (backend, opts), kernel, full = variant
+    block = (IVFConfig if backend == "ivf" else QuantizedConfig)(**opts)
+    engine = RetrievalEngine(
+        config=EngineConfig(d_emb=D_EMB, d_start=D_START, k0=K0,
+                            final_k=FINAL_K, capacity=CAPACITY,
+                            buckets=BUCKETS, backend=block),
+        device="cuda")
+    t0 = time.perf_counter()
+    ctx["load_corpus"](engine)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine.maybe_rebuild(force=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine.warmup()
+    torch.cuda.synchronize()
+    store = engine.store
+    queries, q_host = ctx["queries"], ctx["q_host"]
+    nq = q_host.shape[0]
+
+    zero_counts()
+    t0 = time.perf_counter()
+    s_eng, i_eng = engine.search(q_host)
+    search_s = time.perf_counter() - t0
+    counts = read_counts()
+    needed = ["gather_rescore.gather_rescore_topk"] + ([kernel] if kernel
+                                                     else [])
+    if min(counts[n] for n in needed) <= 0:
+        fail(f"{name}: engine.search did not launch {needed}: {counts}")
+    for n in ("ivf_scan.ivf_scan_topk", "pq_scan.pq_scan_topk",
+              "pq_scan.pq_ivf_scan_topk"):
+        launches[n] = launches.get(n, 0) + counts[n]
+    if not (np.isfinite(s_eng).all() and s_eng.shape == (nq, FINAL_K)):
+        fail(f"{name}: engine scores not finite or of the wrong shape")
+
+    state = engine.index_state
+    plain_ids = plain_route_ids(torch, engine, queries)
+    recall, truth, src_host = ctx["recall"], ctx["truth"], ctx["src_host"]
+    r_eng, top1_eng = recall(i_eng, truth)
+    r_plain, top1_plain = recall(plain_ids, truth)
+    agree_plain = float((torch.as_tensor(i_eng, device=dev) == plain_ids)
+                        .float().mean())
+    if abs(r_eng - r_plain) > 0.01 or agree_plain < 0.99:
+        fail(f"{name}: recall@10 {r_eng} vs plain {r_plain}, ids equal on "
+             f"{agree_plain} of slots")
+    row = {"phase": "variant", "backend": name,
+           "describe": engine.backend.describe(), "queries": nq,
+           "load_s": load_s, "build_s": build_s, "search_s": search_s,
+           "search_qps": nq / search_s,
+           "recall_at_10": r_eng, "top1": top1_eng,
+           "source_top1": float((i_eng[:, 0] == src_host).mean()),
+           "plain_recall_at_10": r_plain, "plain_top1": top1_plain,
+           "ids_equal_plain": agree_plain, "launches": counts,
+           "gauges": {k: v for k, v in engine.backend.gauges(
+               state, store.stats()).items() if k in (
+                   "n_lists", "list_fill_frac", "coded_frac")},
+           "gpu_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    if full:
+        row.update(driver_run(engine, q_host, i_eng))
+        st = engine.stats.summary()
+        row.update({"latency_ms_p50": st["latency_ms_p50"],
+                    "latency_ms_p95": st["latency_ms_p95"],
+                    "compute_ms_p50": st["compute_ms_p50"]})
+    emit(row)
+    if full:
+        profile_search(torch, engine, q_host, search_s, name)
+
+    # deletes: no deleted id may come back; the scan kernels are then held
+    # against their plain versions on this state (tombstones inside lists)
+    del_ids = ctx["del_ids"]
+    deleted = set(int(x) for x in del_ids)
+    zero_counts()
+    engine.delete_docs(del_ids)
+    _, i_after = engine.search(q_host)
+    back = sorted(set(int(x) for x in i_after.ravel()) & deleted)
+    if back:
+        fail(f"{name}: deleted ids returned: {back[:10]}")
+    mut = {"phase": "mutations", "backend": name, "deleted": len(del_ids),
+           "deleted_returned": 0}
+    if full:
+        # appends land in spare list slots (absorbed), found top-1
+        new_rows = torch.randn((1000, D_EMB), generator=ctx["gen"],
+                               device=dev) * ctx["scales"]
+        new_ids = engine.add_docs(new_rows)
+        _, i_new = engine.search(new_rows.cpu().numpy())
+        g = engine.backend.gauges(engine.index_state, store.stats())
+        self_hit = float((i_new[:, 0] == new_ids).mean())
+        if g["absorbed_rows"] <= 0 or self_hit < 0.99:
+            fail(f"{name}: appends absorbed {g['absorbed_rows']}, found "
+                 f"top-1 {self_hit}")
+        _, i_again = engine.search(q_host)
+        back = sorted(set(int(x) for x in i_again.ravel()) & deleted)
+        if back:
+            fail(f"{name}: deleted ids returned after the append: {back[:10]}")
+        mut.update({"appended": 1000, "absorbed_rows": g["absorbed_rows"],
+                    "tail_pending": g["tail_pending"],
+                    "appended_self_top1": self_hit})
+    mut["launches"] = read_counts()
+    if kernel and mut["launches"][kernel] <= 0:
+        fail(f"{name}: mutation searches did not launch {kernel}")
+    emit(mut)
+
+    rows = {}
+    if kernel:
+        rows[name] = scan_kernel_row(name, kernel, engine, ctx)
+    del engine, store, state, plain_ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def plain_route_ids(torch, engine, queries):
+    """Ids of the engine's backend through its plain route (the kernels'
+    plain versions) on the same card tensors and index state, 32 queries
+    at a time as the engine dispatches them."""
+    store = engine.store
+    out = []
+    for a in range(0, queries.shape[0], 32):
+        _, ids = engine.backend.search_plain(
+            queries[a:a + 32], engine.index_state, store.db, store.valid,
+            sq_prefix=store.sq_prefix, n_total=store.size, k=FINAL_K)
+        out.append(ids)
+    return torch.cat(out)
+
+
+def scan_kernel_row(name, kernel, engine, ctx) -> dict:
+    """One scan kernel against its plain version on the engine's own state
+    (after deletes), at the serving dispatch shape (the first 32 queries),
+    with CUDA-event times, a gather + matmul + top-k yardstick and the
+    bound from the bytes and operations these inputs need: each probed
+    list (or coded row) read once however many queries probe it, padding
+    slots as ids only."""
+    torch, flush = ctx["torch"], ctx["flush"]
+    from repro_torch.core.ivf import _probe
+    from repro_torch.core.pq import _stage0_ids, pq_lut
+    from repro_torch.kernels import ivf_scan, pq_scan
+
+    store = engine.store
+    state = engine.index_state
+    be = engine.backend
+    q32 = ctx["queries"][:32].contiguous()
+    valid = store.valid
+    k0 = ctx["sched"].stages[0].k
+    if kernel == "pq_scan.pq_scan_topk":
+        idx = state.data["idx"]
+        cb, codes = idx["codebooks"], idx["codes"]
+        lut = pq_lut(q32[:, :cb.shape[0] * cb.shape[2]], cb, idx["cent_sq"])
+        ids = _stage0_ids(codes, valid, state.data["coded_upto"])
+        k = k0 * be.pq_oversample
+        kern = lambda: pq_scan.pq_scan_topk(lut, codes, ids, k=k)
+        plain = lambda: pq_scan.pq_scan_topk_plain(lut, codes, ids, k=k)
+
+        def yardstick():
+            s = torch.gather(lut, 2, codes.long().T[None].expand(
+                32, -1, -1)).sum(1)                     # (Q, N) ADC
+            return torch.topk(s.masked_fill(ids < 0, float("inf")), k,
+                              dim=1, largest=False)
+
+        n_live = int((ids >= 0).sum())
+        m = codes.shape[1]
+        n_bytes = (4 * codes.shape[0] + m * n_live + lut.numel() * 4
+                   + 32 * k * 8)
+        model = 32 * pq_scan.flat_stage0_bytes_model(
+            n=codes.shape[0], k=k, row_bytes=m,
+            lut_bytes=4.0 * lut[0].numel())["fused_bytes"]
+        n_ops = 32.0 * n_live * m
+        shape = (f"Q=32 N={codes.shape[0]} M={m} k={k}")
+    else:
+        pack = state.data["pack"]
+        lists = state.data["lists"]
+        probe = _probe(q32, state.data["centroids"], be.n_probe, "l2",
+                       state.data["cent_sq"])
+        member = torch.where((lists >= 0) & valid[lists.clamp(min=0).long()],
+                             lists, torch.full_like(lists, -1))
+        max_len, d0 = pack["max_len"], pack["dim"]
+        pl = probe.long()
+        slab = (pl[:, :, None] * max_len
+                + torch.arange(max_len, device=pl.device)).reshape(32, -1)
+        live_q = int((member[pl] >= 0).sum())          # (query, member) pairs
+        distinct = torch.unique(pl)
+        live_d = int((member[distinct] >= 0).sum())    # members to read once
+        n_slots = distinct.numel() * max_len
+        if kernel == "ivf_scan.ivf_scan_topk":
+            k = k0
+            kern = lambda: ivf_scan.ivf_scan_topk(q32, probe, member, pack,
+                                                  k=k)
+            plain = lambda: ivf_scan.ivf_scan_topk_plain(q32, probe, member,
+                                                         pack, k=k)
+            qd = ivf_scan._query(q32, pack)
+
+            def yardstick():
+                rows = pack["rows"][slab].to(torch.float32)
+                ip = torch.matmul(rows, qd[:, :, None])[..., 0]
+                s = pack["sq"].reshape(-1)[slab] - 2.0 * ip
+                s = s.masked_fill(member[pl].reshape(32, -1) < 0,
+                                  float("inf"))
+                return torch.topk(s, k, dim=1, largest=False)
+
+            row_b = pack["rows"].element_size() * d0
+            n_bytes = (4 * n_slots + (row_b + 4) * live_d + 32 * d0 * 4
+                       + probe.numel() * 4 + 32 * k * 8)
+            model = 32 * ivf_scan.stage0_bytes_model(
+                n_lists=lists.shape[0], max_len=max_len, n_probe=be.n_probe,
+                d0=d0, k=k, member_bytes=pack["rows"].element_size(),
+            )["fused_bytes"]
+            n_ops = 2.0 * live_q * d0
+            shape = (f"Q=32 n_probe={be.n_probe} max_len={max_len} dim={d0} "
+                     f"k={k} {pack['dtype']}")
+        else:
+            k = k0 * be.pq_oversample
+            lut = pq_lut(q32[:, :d0], pack["codebooks"], pack["cent_sq"])
+            kern = lambda: pq_scan.pq_ivf_scan_topk(q32, probe, member, pack,
+                                                    k=k, lut=lut)
+            plain = lambda: pq_scan.pq_ivf_scan_topk_plain(
+                q32, probe, member, pack, k=k, lut=lut)
+            m = pack["rows"].shape[1]
+
+            def yardstick():
+                c = pack["rows"][slab].long()                  # (Q, C, M)
+                s = torch.gather(lut, 2, c.transpose(1, 2)).sum(1)
+                s = s.masked_fill(member[pl].reshape(32, -1) < 0,
+                                  float("inf"))
+                return torch.topk(s, k, dim=1, largest=False)
+
+            n_bytes = (4 * n_slots + m * live_d + lut.numel() * 4
+                       + probe.numel() * 4 + 32 * k * 8)
+            model = 32 * ivf_scan.stage0_bytes_model(
+                n_lists=lists.shape[0], max_len=max_len, n_probe=be.n_probe,
+                d0=d0, k=k, row_bytes=m, lut_bytes=4.0 * lut[0].numel(),
+                norms=False)["fused_bytes"]
+            n_ops = float(live_q) * m
+            shape = (f"Q=32 n_probe={be.n_probe} max_len={max_len} M={m} "
+                     f"k={k}")
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err, agree, tol = compare(torch, got, want)
+    if agree < 1.0 or err > tol:
+        fail(f"{kernel} on the {name} state: max|Δ|={err} (tol {tol}), "
+             f"agree={agree}")
+    n_dead_slots = int((got[1] == -1).sum())
+    b, by = bound_ms(n_bytes, n_ops)
+    dev_all, dev_own = device_ms(
+        torch, kern, ("ivf_list_kernel", "pq_part_kernel", "merge_kernel"))
+    row = {"kernel": kernel, "backend": name, "shape": shape,
+           "max_abs_err": err, "tol": tol, "ids_agree": agree,
+           "empty_slots": n_dead_slots,
+           "ms": cuda_ms(torch, kern, flush=flush),
+           "plain_ms": cuda_ms(torch, plain, flush=flush),
+           "gather_matmul_topk_ms": cuda_ms(torch, yardstick, flush=flush),
+           "device_ms": dev_all, "kernel_device_ms": dev_own,
+           "bound_ms": b, "bound_by": by, "bytes": n_bytes, "ops": n_ops,
+           # the per-query fused byte model summed over the batch: every
+           # query's probed rows read for it alone, padding slots included
+           "model_bytes": model, "model_bound_ms": bound_ms(model, 0)[0]}
+    emit({"phase": "kernels", **row})
+    return row
+
+
+def scan_edge_cases(torch, dev) -> None:
+    """The IVF and PQ scans against their plain versions on small cases:
+    an empty list, a fully tombstoned list, tombstones inside lists, every
+    member masked, and k beyond the rows scanned."""
+    from repro_torch.kernels import ivf_scan, pq_scan
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    n_lists, max_len, dim = 16, 64, 128
+    n = n_lists * max_len
+    db = torch.randn((n, dim), generator=g, device=dev)
+    slot = torch.arange(max_len, device=dev)
+    fill = torch.randint(16, max_len + 1, (n_lists,), generator=g, device=dev)
+    lists = torch.arange(n_lists, device=dev)[:, None] * max_len + slot
+    lists = torch.where(slot < fill[:, None], lists, -1).to(torch.int32)
+    lists[0] = -1                                      # an empty list
+    valid = torch.rand((n,), generator=g, device=dev) > 0.2
+    valid[lists[1].clamp(min=0).long()] = False        # fully tombstoned
+    member = torch.where((lists >= 0) & valid[lists.clamp(min=0).long()],
+                         lists, torch.full_like(lists, -1))
+    none = torch.full_like(lists, -1)
+    q = torch.randn((8, dim), generator=g, device=dev)
+    probe = torch.stack([torch.randperm(n_lists, generator=g, device=dev)[:4]
+                         for _ in range(8)]).to(torch.int32)
+    probe[0, :2] = torch.tensor([0, 1], device=dev)
+    cb = torch.randn((16, 256, dim // 16), generator=g, device=dev)
+    packs = {dt: ivf_scan.pack_ivf_lists(db, lists, dim=dim, dtype=dt,
+                                         pq_codebooks=cb)
+             for dt in ("float32", "int8", "pq")}
+    lut = torch.randn((8, 16, 256), generator=g, device=dev)
+    codes = torch.randint(0, 256, (n, 16), generator=g, device=dev,
+                          dtype=torch.uint8)
+    ids = torch.where(valid, torch.arange(n, device=dev, dtype=torch.int32),
+                      torch.full((n,), -1, dtype=torch.int32, device=dev))
+    cases = []                  # (name, case, k, kernel, plain, args)
+    for case, mem in (("tombstones", member), ("all_masked", none)):
+        for k in (64, 300):                   # 300 > 4 lists x 64 slots
+            for dt in ("float32", "int8", "pq"):
+                kern, plain = ((ivf_scan.ivf_scan_topk,
+                                ivf_scan.ivf_scan_topk_plain) if dt != "pq"
+                               else (pq_scan.pq_ivf_scan_topk,
+                                     pq_scan.pq_ivf_scan_topk_plain))
+                cases.append((f"ivf_scan[{dt}]" if dt != "pq"
+                              else "pq_ivf_scan", case, k, kern, plain,
+                              (q, probe, mem, packs[dt])))
+    for case, idv, k in (("tombstones", ids, 256),
+                         ("all_masked", torch.full_like(ids, -1), 64),
+                         ("k_beyond_rows", ids[:200], 256)):
+        cases.append(("pq_scan", case, k, pq_scan.pq_scan_topk,
+                      pq_scan.pq_scan_topk_plain,
+                      (lut, codes[:idv.numel()], idv)))
+    for kern_name, case, k, kern, plain, a in cases:
+        got, want = kern(*a, k=k), plain(*a, k=k)
+        torch.cuda.synchronize()
+        err, agree, tol = compare(torch, got, want)
+        n_empty = int((got[1] == -1).sum())
+        if agree < 1.0 or err > tol:
+            fail(f"{kern_name} {case} k={k}: agree={agree} err={err}")
+        if case == "all_masked" and n_empty != got[1].numel():
+            fail(f"{kern_name} all masked returned an id")
+        emit({"phase": "kernels", "kernel": kern_name, "case": case, "k": k,
+              "empty_slots": n_empty, "ids_agree": agree, "max_abs_err": err})
+
+
+def driver_run(engine, q_host, i_eng) -> dict:
+    """Requests from client threads through ``EngineDriver``; each result
+    must agree with ``engine.search`` on the same query."""
+    from repro_torch.engine import EngineDriver
+
+    nq = q_host.shape[0]
     driver = EngineDriver(engine, max_wait_ms=2.0).start()
     per_client = N_REQUESTS // N_CLIENTS
-    errors = []
-    lat = []
-    same = []
+    errors, lat, same = [], [], []
 
     def client(c):
         try:
@@ -370,93 +873,14 @@ def run(args) -> None:
     if len(same) != per_client * N_CLIENTS or statistics.mean(same) < 0.99:
         fail(f"driver results agree with engine.search on "
              f"{statistics.mean(same) if same else 0} of ids")
-    launches = {"distance_topk.l2_topk": distance_topk.launches,
-                "gather_rescore.gather_rescore_topk": gather_rescore.launches}
-    if min(launches_search) <= 0 or distance_topk.launches <= launches_search[0] \
-            or gather_rescore.launches <= launches_search[1]:
-        fail(f"kernel launch counters did not grow on the main path: "
-             f"{launches_search} then {launches}")
-
-    # plain progressive_search on the same CUDA tensors
-    plain_ids = []
-    for a in range(0, nq, 32):
-        _, ids = progressive_search_plain(
-            queries[a:a + 32], store.db, engine.sched,
-            sq_prefix=store.sq_prefix, index_dims=engine.dims,
-            valid=store.valid)
-        plain_ids.append(ids[:, :final_k])
-    plain_ids = torch.cat(plain_ids)
-    r_eng, top1_eng = recall(i_eng, truth)
-    r_plain, top1_plain = recall(plain_ids, truth)
-    src_host = src_rows.cpu().numpy()
-    source_top1 = float((i_eng[:, 0] == src_host).mean())
-    source_at_10 = float((i_eng == src_host[:, None]).any(axis=1).mean())
-    agree_plain = float((torch.as_tensor(i_eng, device=dev) == plain_ids)
-                        .float().mean())
-    if abs(r_eng - r_plain) > 0.01:
-        fail(f"recall@10 {r_eng} of the kernels vs {r_plain} of the plain path")
-    if not (np.isfinite(s_eng).all() and s_eng.shape == (nq, final_k)):
-        fail("engine scores not finite or of the wrong shape")
-    st = engine.stats.summary()
-    emit({"phase": "serving", "queries": nq,
-          "search_s": search_s, "search_qps": nq / search_s,
-          "driver_requests": per_client * N_CLIENTS,
-          "driver_clients": N_CLIENTS, "driver_s": driver_s,
-          "driver_qps": per_client * N_CLIENTS / driver_s,
-          "latency_ms_p50": st["latency_ms_p50"],
-          "latency_ms_p95": st["latency_ms_p95"],
-          "compute_ms_p50": st["compute_ms_p50"],
-          "driver_latency_ms_p50": statistics.median(lat),
-          "driver_ids_equal_search": statistics.mean(same),
-          "recall_at_10": r_eng, "top1": top1_eng,
-          "source_top1": source_top1, "source_in_10": source_at_10,
-          "plain_recall_at_10": r_plain, "plain_top1": top1_plain,
-          "ids_equal_plain": agree_plain,
-          "launches_search": list(launches_search), "launches": launches,
-          "batches": st["n_batches"] - stats0["n_batches"]})
-    profile_search(torch, engine, q_host, search_s)
-
-    # -- 5. mutations --------------------------------------------------------
-    distance_topk.launches = 0
-    gather_rescore.launches = 0
-    n_del = n_docs // 100
-    extra = torch.randperm(n_docs, generator=gen, device=dev)[:n_del - 50]
-    del_ids = torch.unique(torch.cat([src_rows[:50], extra])).cpu().numpy()
-    n_gone = engine.delete_docs(del_ids)
-    _, i_after = engine.search(q_host)
-    deleted = set(int(x) for x in del_ids)
-    back = sorted(set(int(x) for x in i_after.ravel()) & deleted)
-    if back:
-        fail(f"deleted ids returned: {back[:10]}")
-    n_new = 10_000
-    new_rows = torch.randn((n_new, d_emb), generator=gen, device=dev) * scales
-    new_ids = engine.add_docs(new_rows)
-    if store.capacity != cap:
-        fail("appending within capacity grew the store")
-    _, i_new = engine.search(new_rows[:1000].cpu().numpy())
-    self_hit = float((i_new[:, 0] == new_ids[:1000]).mean())
-    _, i_again = engine.search(q_host)
-    back = sorted(set(int(x) for x in i_again.ravel()) & deleted)
-    if back:
-        fail(f"deleted ids returned after the append: {back[:10]}")
-    if self_hit < 0.99:
-        fail(f"appended rows found themselves top-1 for only {self_hit}")
-    n_store = store.size
-    truth2 = exact_top(queries, final_k)
-    r_after, top1_after = recall(i_again, truth2)
-    emit({"phase": "mutations", "deleted": int(n_gone),
-          "deleted_sources": 50, "deleted_returned": 0,
-          "appended": n_new, "appended_self_top1": self_hit,
-          "recall_at_10": r_after, "top1": top1_after,
-          "launches": {"distance_topk.l2_topk": distance_topk.launches,
-                       "gather_rescore.gather_rescore_topk":
-                           gather_rescore.launches}})
-    if min(distance_topk.launches, gather_rescore.launches) <= 0:
-        fail("mutation phase searched without launching the kernels")
-    finish(torch, card, stage_rows, ladder_rows, launches)
+    return {"driver_requests": per_client * N_CLIENTS,
+            "driver_clients": N_CLIENTS, "driver_s": driver_s,
+            "driver_qps": per_client * N_CLIENTS / driver_s,
+            "driver_latency_ms_p50": statistics.median(lat),
+            "driver_ids_equal_search": statistics.mean(same)}
 
 
-def profile_search(torch, engine, q_host, search_s: float) -> None:
+def profile_search(torch, engine, q_host, search_s: float, backend) -> None:
     """Trace one ``engine.search`` over every query with ``torch.profiler``:
     device time per kernel, and the device's busy share of the untraced
     search's wall time ``search_s``."""
@@ -478,13 +902,31 @@ def profile_search(torch, engine, q_host, search_s: float) -> None:
                          "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    emit({"phase": "profile", "device_busy_ms": busy,
+    emit({"phase": "profile", "backend": backend, "device_busy_ms": busy,
           "search_wall_ms": search_s * 1e3,
           "device_busy_share": busy / (search_s * 1e3),
           "kernels": rows[:12]})
 
 
-def finish(torch, card, stage_rows, ladder_rows, launches) -> None:
+def _scan_entry(name, source, replaces, launches, rows) -> dict:
+    first = rows[0]
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           "max_abs_err": max(r["max_abs_err"] for r in rows),
+           "ms": first["ms"], "plain_ms": first["plain_ms"],
+           "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+           "library_ms": None,
+           "gather_matmul_topk_ms": first["gather_matmul_topk_ms"],
+           "shape": first["shape"]}
+    out["kernel_device_ms"] = first["kernel_device_ms"]
+    for r in rows[1:]:                 # the int8 slabs of the same kernel
+        out[r["backend"]] = {key: r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "gather_matmul_topk_ms",
+            "kernel_device_ms", "shape")}
+    return out
+
+
+def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows) -> None:
     """Print the kernels line, the card line and the final result line."""
     s32 = [r for r in stage_rows if r["Q"] == 32][0]
     lad = {key: sum(r[key] for r in ladder_rows)
@@ -511,6 +953,19 @@ def finish(torch, card, stage_rows, ladder_rows, launches) -> None:
          "shape": "sum of the 5 ladder steps of one Q=32 dispatch, (C,dim,k)="
                   + ",".join(f"({r['C']},{r['dim']},{r['k']})"
                              for r in ladder_rows)},
+        _scan_entry("ivf_scan.ivf_scan_topk", "src/repro_torch/csrc/ivf_scan.cu",
+                    "src/repro/kernels/ivf_scan.py:275",
+                    launches["ivf_scan.ivf_scan_topk"],
+                    [scan_rows["ivf"], scan_rows["ivf_int8"]]),
+        _scan_entry("pq_scan.pq_scan_topk", "src/repro_torch/csrc/pq_scan.cu",
+                    "src/repro/kernels/pq_scan.py:130",
+                    launches["pq_scan.pq_scan_topk"],
+                    [scan_rows["quantized_pq"]]),
+        _scan_entry("pq_scan.pq_ivf_scan_topk",
+                    "src/repro_torch/csrc/pq_scan.cu",
+                    "src/repro/kernels/pq_scan.py:224",
+                    launches["pq_scan.pq_ivf_scan_topk"],
+                    [scan_rows["ivf_pq"]]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -70,14 +70,17 @@ def rescore_ladder(
     valid: Optional[Tensor] = None,
     metric: str = "l2",
     scores: Optional[Tensor] = None,
+    impl=ops,
 ) -> Tuple[Tensor, Tensor]:
     """Chain ``rescore_candidates`` over ``stages`` — the refinement ladder
     every search path shares once it has a candidate table.
 
     ``scores`` is returned unchanged when ``stages`` is empty (degenerate
-    single-stage schedules).
+    single-stage schedules).  ``impl`` is `repro_torch.kernels.ops` (the
+    kernels on CUDA tensors) or ``ops.plain`` (the plain versions on any
+    device, for the ``*_plain`` reference entries).
     """
-    return _ladder(ops.rescore_candidates, q, db, cand, stages,
+    return _ladder(impl.rescore_candidates, q, db, cand, stages,
                    sq_prefix=sq_prefix, index_dims=index_dims, valid=valid,
                    metric=metric, scores=scores)
 

@@ -65,7 +65,8 @@ class FlatConfig(BackendConfig):
 
 @dataclasses.dataclass(frozen=True)
 class IVFConfig(BackendConfig):
-    """IVF coarse quantizer (not ported yet: ``make_backend`` rejects it)."""
+    """IVF coarse quantizer: only the probed lists' members are scored
+    (the IVF scan kernels on CUDA), then the exact rescore ladder."""
 
     name: ClassVar[str] = "ivf"
 
@@ -571,8 +572,8 @@ class EngineConfig:
                         help="index backend behind the retrieval engine")
         ap.add_argument("--use-kernel", type=str, default="auto",
                         choices=("auto", "true", "false"),
-                        help="ivf/quantized-pq: fused stage-0 kernel "
-                             "(those backends are not ported yet)")
+                        help="ivf/quantized-pq: stage 0 through the IVF / "
+                             "PQ scan kernels (auto: on CUDA)")
         ap.add_argument("--stage0-dtype", type=str, default="float32",
                         choices=("float32", "int8", "pq"),
                         help="ivf only: member-slab dtype for the fused "

@@ -19,10 +19,10 @@ surveys in PAPERS.md):
   candidate list.
 * **Pluggable index backends** — the search structure is an
   `repro_torch.index_backends.IndexBackend` (``backend=`` config:
-  ``'flat'``; ``'ivf'`` and ``'quantized'`` are not ported yet).  Backends declare staleness from the store's
-  mutation counters; the engine rebuilds at a safe point between batches
-  (synchronously, or on a background thread with ``rebuild_mode=
-  'background'``) and atomically swaps the index state.  A rebuild doubles
+  ``'flat'``, ``'ivf'`` or ``'quantized'``).  Backends declare staleness
+  from the store's mutation counters; the engine rebuilds at a safe point
+  between batches (synchronously, or on a background thread with
+  ``rebuild_mode='background'``) and atomically swaps the index state.  A rebuild doubles
   as tombstone compaction: past ``compact_dead_frac`` dead rows the store's
   buffers are rebuilt without tombstones (live doc ids are REMAPPED —
   ``on_remap`` callbacks let id-holding callers follow).
@@ -30,7 +30,8 @@ surveys in PAPERS.md):
   padding waste, and rebuild/compaction counts.
 * **Device** — the store's buffers live on the engine's ``device``
   (``"cuda"`` unless the caller passes ``device="cpu"``); on CUDA every
-  dispatch runs the hand-written stage-0 and rescore kernels.
+  dispatch runs the hand-written kernels: the flat stage-0 scan, the IVF
+  and PQ scans, and the rescore step.
 
 The engine is synchronous and single-host by design: ``step()`` is the unit a
 driver loop calls, and ``execute_batch()`` is the direct entry point the
@@ -1017,7 +1018,8 @@ class RetrievalEngine:
         identical to calling ``progressive_search`` directly on the live
         corpus (padding queries are per-query-independent and sliced off);
         the ``ivf`` and ``quantized`` backends return their approximate
-        results, exactly as the queued request path would.
+        results (stage 0 over probed lists or coded rows), exactly as the
+        queued request path would.
         """
         q = np.asarray(queries, np.float32)
         if q.ndim == 1:

@@ -13,7 +13,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.progressive import progressive_search, rescore_ladder
+from repro_torch.core.progressive import (
+    progressive_search,
+    progressive_search_plain,
+    rescore_ladder,
+)
 from repro_torch.index_backends.base import (
     IndexBackend,
     IndexState,
@@ -72,6 +76,23 @@ class FlatProgressiveBackend(IndexBackend):
         )
         # scores ascend; the leading k columns are the top results (only a
         # single-stage schedule is wider than the engine's out_k)
+        return scores[:, :k], ids[:, :k]
+
+    def search_plain(
+        self,
+        q: Array,
+        state: IndexState,
+        db: Array,
+        valid: Array,
+        *,
+        sq_prefix: Optional[Array] = None,
+        n_total: int,
+        k: int,
+    ) -> Tuple[Array, Array]:
+        scores, ids = progressive_search_plain(
+            q, db, self.sched, sq_prefix=sq_prefix, index_dims=self.dims,
+            valid=valid, block_n=min(self.block_n, db.shape[0]),
+            metric=self.metric)
         return scores[:, :k], ids[:, :k]
 
     def search_fenced(

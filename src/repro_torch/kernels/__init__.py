@@ -3,6 +3,8 @@ PyTorch version.
 
   distance_topk   — fused truncated-L2 scan + top-k (stage 0)
   gather_rescore  — candidate gather + rescore + top-k (each ladder step)
+  ivf_scan        — IVF stage 0 over float32 / int8 list-major slabs
+  pq_scan         — PQ ADC stage 0, flat and over list-major code slabs
 
 Search code calls the `ops` entry points, which send CUDA tensors to the
 kernels and CPU tensors to the plain versions.  The kernels are compiled

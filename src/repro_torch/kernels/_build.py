@@ -1,6 +1,7 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file compiles on its own with ``nvcc`` for ``sm_90a``
+Every ``csrc/*.cu`` file (with the ``*.cuh`` headers it includes)
+compiles on its own with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, all sources at once in
 parallel.  Libraries land in ``build/repro_torch_kernels/`` at the root of
 the checkout, named by a hash of the sources and flags, so an edited source
@@ -52,7 +53,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")):
+    for p in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

@@ -1,19 +1,24 @@
-"""Device dispatch for the search path's two kernels.
+"""Device dispatch for the search path's kernels.
 
 A CUDA tensor always goes to the hand-written kernel; a CPU tensor goes to
-the plain version in `repro_torch.core.truncated`.  There is no switch that
-sends CUDA tensors down the plain path: on the card it is the kernel or an
-exception.  Search code calls these, never the kernels directly.
+the kernel's plain version.  There is no switch that sends CUDA tensors
+down the plain path: on the card it is the kernel or an exception.  Search
+code calls these, never the kernels directly.
+
+``plain`` holds the same five entry points bound to the plain versions on
+any device; only the ``*_plain`` reference searches pass it (as ``impl=``),
+to check the kernels' results on the card.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import types
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import truncated as T
-from repro_torch.kernels import distance_topk, gather_rescore
+from repro_torch.kernels import distance_topk, gather_rescore, ivf_scan, pq_scan
 
 Tensor = torch.Tensor
 
@@ -65,3 +70,36 @@ def rescore_candidates(
     return T.rescore_candidates(q, db, cand, dim=dim, k=k,
                                 db_sq_at_dim=db_sq_at_dim, valid=valid,
                                 metric=metric)
+
+
+def ivf_scan_topk(q: Tensor, probe: Tensor, member_ids: Tensor, pack: Dict,
+                  *, k: int) -> Tuple[Tensor, Tensor]:
+    """IVF stage 0 over float32 or int8 member slabs."""
+    if _on_cuda(q):
+        return ivf_scan.ivf_scan_topk(q, probe, member_ids, pack, k=k)
+    return ivf_scan.ivf_scan_topk_plain(q, probe, member_ids, pack, k=k)
+
+
+def pq_scan_topk(lut: Tensor, codes: Tensor, ids: Tensor,
+                 *, k: int) -> Tuple[Tensor, Tensor]:
+    """Flat PQ ADC stage 0 over the whole code block."""
+    if _on_cuda(lut):
+        return pq_scan.pq_scan_topk(lut, codes, ids, k=k)
+    return pq_scan.pq_scan_topk_plain(lut, codes, ids, k=k)
+
+
+def pq_ivf_scan_topk(q: Tensor, probe: Tensor, member_ids: Tensor,
+                     pack: Dict, *, k: int) -> Tuple[Tensor, Tensor]:
+    """IVF-PQ ADC stage 0 over list-major code slabs."""
+    if _on_cuda(q):
+        return pq_scan.pq_ivf_scan_topk(q, probe, member_ids, pack, k=k)
+    return pq_scan.pq_ivf_scan_topk_plain(q, probe, member_ids, pack, k=k)
+
+
+plain = types.SimpleNamespace(
+    truncated_search=T.truncated_search,
+    rescore_candidates=T.rescore_candidates,
+    ivf_scan_topk=ivf_scan.ivf_scan_topk_plain,
+    pq_scan_topk=pq_scan.pq_scan_topk_plain,
+    pq_ivf_scan_topk=pq_scan.pq_ivf_scan_topk_plain,
+)

@@ -43,3 +43,90 @@ def gather_rescore_ref(q: Tensor, db: Tensor, cand: Tensor) -> Tensor:
     ip = torch.einsum("qd,qcd->qc", q.to(torch.float32), rows)
     s = sq - 2.0 * ip
     return s.masked_fill(cand < 0, float("inf"))
+
+
+def _smallest(s: Tensor, cand: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """Top-k smallest of each row of ``s`` (ties to the earlier column),
+    their ids from ``cand`` and -1 where the score is not finite."""
+    top_s, pos = torch.sort(s, dim=1, stable=True)
+    top_s, pos = top_s[:, :k], pos[:, :k]
+    idx = torch.gather(cand, 1, pos)
+    idx = torch.where(torch.isfinite(top_s), idx, torch.full_like(idx, -1))
+    return top_s, idx.to(torch.int32)
+
+
+def ivf_scan_ref(
+    q: Tensor, db: Tensor, member_ids: Tensor, probe: Tensor, *, dim: int,
+    k: int,
+) -> Tuple[Tensor, Tensor]:
+    """Fused IVF stage-0 oracle: exact top-k over each query's probed lists.
+
+    Args:
+      q:          (Q, D) queries; db: (N, D) corpus.
+      member_ids: (n_lists, max_len) int32 global ids, -1 = masked/padding.
+      probe:      (Q, n_probe) int32 probed list indices (distinct per row).
+      dim:        stage-0 truncation; k: neighbours kept (k <= C).
+    Returns:
+      ((Q, k) scores ascending, +inf empties; (Q, k) int32 ids, -1 empties).
+    """
+    cand = member_ids[probe.long()].reshape(q.shape[0], -1)
+    s = gather_rescore_ref(q[:, :dim], db[:, :dim], cand)
+    return _smallest(s, cand, k)
+
+
+def pq_adc_ref(lut: Tensor, codes: Tensor) -> Tensor:
+    """ADC scores of every query against every coded row.
+
+    Args:
+      lut:   (Q, M, C) per-query lookup tables (rank-equivalent distances).
+      codes: (N, M) uint8 PQ codes.
+    Returns:
+      (Q, N) float32: ``sum_m lut[q, m, codes[n, m]]``, summed over m in
+      order.
+    """
+    idx = codes.long()
+    acc = lut[:, 0, :][:, idx[:, 0]]
+    for j in range(1, idx.shape[1]):
+        acc = acc + lut[:, j, :][:, idx[:, j]]
+    return acc
+
+
+def pq_scan_ref(
+    lut: Tensor, codes: Tensor, ids: Tensor, *, k: int
+) -> Tuple[Tensor, Tensor]:
+    """Fused flat PQ scan oracle: exact ADC top-k over masked rows.
+
+    Args:
+      lut:   (Q, M, C) per-query lookup tables.
+      codes: (N, M) uint8 codes.
+      ids:   (N,) int32 ids, -1 = masked (tombstoned / uncoded).
+      k:     neighbours kept (k <= N).
+    Returns:
+      ((Q, k) scores ascending, +inf empties; (Q, k) int32 ids, -1 empties).
+    """
+    s = pq_adc_ref(lut, codes)
+    s = s.masked_fill(ids[None, :] < 0, float("inf"))
+    return _smallest(s, ids[None, :].expand(s.shape[0], -1), k)
+
+
+def pq_ivf_scan_ref(
+    lut: Tensor, codes: Tensor, member_ids: Tensor, probe: Tensor, *, k: int
+) -> Tuple[Tensor, Tensor]:
+    """Fused IVF-PQ stage-0 oracle: ADC top-k over each query's probed lists.
+
+    Args:
+      lut:        (Q, M, C) per-query lookup tables.
+      codes:      (N, M) uint8 codes indexed by *global* doc id.
+      member_ids: (n_lists, max_len) int32 global ids, -1 = masked/padding.
+      probe:      (Q, n_probe) int32 probed lists (distinct per row).
+      k:          neighbours kept (k <= C).
+    Returns:
+      ((Q, k) scores ascending, +inf empties; (Q, k) int32 ids, -1 empties).
+    """
+    cand = member_ids[probe.long()].reshape(lut.shape[0], -1)
+    idx = codes.long()[torch.clamp(cand, min=0).long()]     # (Q, C, M)
+    acc = torch.gather(lut[:, 0, :], 1, idx[:, :, 0])
+    for j in range(1, idx.shape[2]):
+        acc = acc + torch.gather(lut[:, j, :], 1, idx[:, :, j])
+    acc = acc.masked_fill(cand < 0, float("inf"))
+    return _smallest(acc, cand, k)

@@ -9,8 +9,10 @@ only PyTorch:
 Each CUDA kernel is held against its plain PyTorch version on the same
 inputs, at shapes that reach every code path (16-byte and scalar loads,
 precomputed and in-kernel norms, several query tiles, k > N, padding and
-invalid candidates).  Tolerance: scores ``rtol=1e-5, atol=1e-4`` (another
-float32 summation order); ids equal up to near-ties.
+invalid candidates; for the IVF and PQ scans float32 and int8 slabs, empty
+and fully tombstoned lists, k beyond the rows scanned).  Tolerance: scores
+``rtol=1e-5, atol=1e-4`` (another float32 summation order); ids equal up to
+near-ties.
 """
 
 import numpy as np
@@ -19,8 +21,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import progressive_search_plain
-from repro_torch.engine import RetrievalEngine
-from repro_torch.kernels import distance_topk, gather_rescore, ops
+from repro_torch.engine import EngineConfig, RetrievalEngine
+from repro_torch.engine.config import IVFConfig, QuantizedConfig
+from repro_torch.kernels import (distance_topk, gather_rescore, ivf_scan, ops,
+                                 pq_scan)
 
 RTOL, ATOL = 1e-5, 1e-4
 
@@ -107,6 +111,116 @@ class TestKernelsOnCard:
             ops.truncated_search(q, db, dim=8, k=4, metric="cosine")
 
 
+def _ivf_case(dev, nq, n_lists, max_len, dim, n_probe, dtype, seed):
+    """(q, probe, masked member ids, pack): random lists with padding, an
+    empty list, a fully tombstoned list and scattered tombstones."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = n_lists * max_len
+    db = torch.randn((n, dim), generator=g, device=dev)
+    fill = torch.randint(max_len // 2, max_len + 1, (n_lists,), generator=g,
+                         device=dev)
+    slot = torch.arange(max_len, device=dev)
+    lists = (torch.arange(n_lists, device=dev)[:, None] * max_len + slot)
+    lists = torch.where(slot < fill[:, None], lists, -1).to(torch.int32)
+    lists[0] = -1                                     # an empty list
+    valid = torch.rand((n,), generator=g, device=dev) > 0.1
+    valid[lists[1].clamp(min=0).long()] = False       # all tombstoned
+    cb = None
+    if dtype == "pq":
+        m = 8 if dim % 8 == 0 else 1
+        cb = torch.randn((m, 256, dim // m), generator=g, device=dev)
+    pack = ivf_scan.pack_ivf_lists(db, lists, dim=dim, dtype=dtype,
+                                   block_m=min(128, max_len),
+                                   pq_codebooks=cb)
+    masked = torch.where((lists >= 0) & valid[lists.clamp(min=0).long()],
+                         lists, torch.full_like(lists, -1))
+    q = torch.randn((nq, dim + 3), generator=g, device=dev)
+    probe = torch.stack([torch.randperm(n_lists, generator=g, device=dev)
+                         [:n_probe] for _ in range(nq)]).to(torch.int32)
+    probe[0, :2] = torch.tensor([0, 1], device=dev)   # empty + tombstoned
+    return q, probe, masked, pack
+
+
+@pytest.mark.cuda
+class TestScanKernelsOnCard:
+    @pytest.mark.parametrize("dtype", ["float32", "int8"])
+    @pytest.mark.parametrize("nq,n_lists,max_len,dim,n_probe,k", [
+        (5, 16, 64, 32, 4, 10),
+        (3, 12, 48, 30, 5, 300),      # scalar loads, k > rows scanned
+        (32, 64, 512, 128, 12, 64),   # the serving shape, fewer lists
+    ])
+    def test_ivf_scan_matches_plain(self, cuda, dtype, nq, n_lists, max_len,
+                                    dim, n_probe, k):
+        q, probe, masked, pack = _ivf_case(cuda, nq, n_lists, max_len, dim,
+                                           n_probe, dtype, seed=k)
+        before = ivf_scan.launches
+        got = ivf_scan.ivf_scan_topk(q, probe, masked, pack, k=k)
+        want = ivf_scan.ivf_scan_topk_plain(q, probe, masked, pack, k=k)
+        torch.cuda.synchronize()
+        assert ivf_scan.launches == before + 1
+        assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+        ids = got[1]
+        live = set(masked[masked >= 0].tolist())
+        assert set(ids[ids >= 0].tolist()) <= live      # no tombstone back
+
+    @pytest.mark.parametrize("nq,n_lists,max_len,dim,n_probe,k", [
+        (4, 16, 64, 32, 4, 20),
+        (3, 12, 48, 24, 5, 300),      # k > rows scanned
+        (32, 64, 512, 128, 12, 256),  # the serving shape, fewer lists
+    ])
+    def test_pq_ivf_scan_matches_plain(self, cuda, nq, n_lists, max_len, dim,
+                                       n_probe, k):
+        q, probe, masked, pack = _ivf_case(cuda, nq, n_lists, max_len, dim,
+                                           n_probe, "pq", seed=k)
+        before = pq_scan.ivf_launches
+        got = pq_scan.pq_ivf_scan_topk(q, probe, masked, pack, k=k)
+        want = pq_scan.pq_ivf_scan_topk_plain(q, probe, masked, pack, k=k)
+        torch.cuda.synchronize()
+        assert pq_scan.ivf_launches == before + 1
+        assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+
+    @pytest.mark.parametrize("nq,n,m,k", [
+        (1, 70000, 16, 256),          # many row ranges, 16-byte code loads
+        (32, 20000, 16, 256),
+        (5, 3001, 4, 40),             # 4-byte loads
+        (3, 100, 3, 150),             # byte loads, k > N
+    ])
+    def test_pq_scan_matches_plain(self, cuda, nq, n, m, k):
+        g = torch.Generator(device=cuda).manual_seed(n)
+        lut = torch.randn((nq, m, 256), generator=g, device=cuda)
+        codes = torch.randint(0, 256, (n, m), generator=g, device=cuda,
+                              dtype=torch.uint8)
+        ids = torch.arange(n, device=cuda, dtype=torch.int32)
+        ids[torch.rand((n,), generator=g, device=cuda) < 0.2] = -1
+        before = pq_scan.flat_launches
+        got = pq_scan.pq_scan_topk(lut, codes, ids, k=k)
+        want = pq_scan.pq_scan_topk_plain(lut, codes, ids, k=k)
+        torch.cuda.synchronize()
+        assert pq_scan.flat_launches == before + 1
+        assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+
+    def test_all_masked_ties_and_rejections(self, cuda):
+        q, probe, masked, pack = _ivf_case(cuda, 2, 8, 32, 16, 3, "float32",
+                                           seed=1)
+        none = torch.full_like(masked, -1)
+        s, i = ivf_scan.ivf_scan_topk(q, probe, none, pack, k=9)
+        assert (i == -1).all() and torch.isinf(s).all()
+        lut = torch.zeros((2, 4, 256), device=cuda)
+        codes = torch.zeros((50, 4), dtype=torch.uint8, device=cuda)
+        ids = torch.arange(50, dtype=torch.int32, device=cuda)
+        s, i = pq_scan.pq_scan_topk(lut, codes, torch.full_like(ids, -1), k=5)
+        assert (i == -1).all() and torch.isinf(s).all()
+        # equal scores keep the lower row, as lax.top_k orders them
+        ids[3] = -1
+        _, i = pq_scan.pq_scan_topk(lut, codes, ids, k=5)
+        assert i.cpu().tolist() == [[0, 1, 2, 4, 5]] * 2
+        with pytest.raises(ValueError):
+            ivf_scan.ivf_scan_topk(q, probe, masked, pack,
+                                   k=ivf_scan.MAX_K + 1)
+        with pytest.raises(ValueError):
+            pq_scan.pq_scan_topk(lut, codes.to(torch.int32), ids, k=5)
+
+
 @pytest.mark.cuda
 class TestEngineOnCard:
     def test_engine_matches_plain_path(self, cuda):
@@ -129,3 +243,39 @@ class TestEngineOnCard:
                                           index_dims=eng.dims, valid=st.valid)
         assert_topk_close((s, i), (ws[:, :5].cpu(), wi[:, :5].cpu()))
         assert not np.isin(i, gone).any()
+
+    @pytest.mark.parametrize("block,counter", [
+        (IVFConfig(n_lists=32, n_probe=8), "ivf_scan.launches"),
+        (IVFConfig(n_lists=32, n_probe=8, stage0_dtype="int8"),
+         "ivf_scan.launches"),
+        (IVFConfig(n_lists=32, n_probe=8, stage0_dtype="pq"),
+         "pq_scan.ivf_launches"),
+        (QuantizedConfig(codec="pq"), "pq_scan.flat_launches"),
+        (QuantizedConfig(codec="int8"), "gather_rescore.launches"),
+    ])
+    def test_backend_serves_through_kernels(self, cuda, block, counter):
+        mod, attr = counter.split(".")
+        mod = {"ivf_scan": ivf_scan, "pq_scan": pq_scan,
+               "gather_rescore": gather_rescore}[mod]
+        g = torch.Generator(device=cuda).manual_seed(3)
+        docs = torch.randn((3000, 64), generator=g, device=cuda)
+        eng = RetrievalEngine(config=EngineConfig(
+            d_emb=64, d_start=16, k0=32, final_k=5, buckets=(1, 8),
+            capacity=4096, backend=block))
+        eng.add_docs(docs)
+        gone = np.arange(0, 3000, 7)
+        eng.delete_docs(gone)
+        q = docs[:20] + 0.1 * torch.randn((20, 64), generator=g, device=cuda)
+        before = getattr(mod, attr)
+        s, i = eng.search(q.cpu().numpy())
+        assert getattr(mod, attr) > before
+        assert not np.isin(i, gone).any()
+        st = eng.store
+        ws, wi = eng.backend.search_plain(
+            q, eng.index_state, st.db, st.valid, sq_prefix=st.sq_prefix,
+            n_total=st.size, k=5)
+        assert_topk_close((s, i), (ws.cpu(), wi.cpu()))
+        new = torch.randn((4, 64), generator=g, device=cuda) * 3
+        ids = eng.add_docs(new)
+        _, i = eng.search(new.cpu().numpy())
+        np.testing.assert_array_equal(i[:, 0], ids)

@@ -14,6 +14,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -238,8 +239,184 @@ class TestPackageRules:
             DocStore(8, (4, 8))
 
     def test_unported_backends_raise(self):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            RetrievalEngine(16, d_start=4, k0=4, backend="ivf", device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            RetrievalEngine(16, d_start=4, k0=4, backend="quantized",
-                            device="cpu")
+        # every backend of the JAX package is served; a name neither
+        # package runs is refused with the list of those it does
+        from repro_torch.index_backends import backend_names
+        assert set(backend_names()) >= {"flat", "ivf", "quantized"}
+        with pytest.raises(ValueError, match="unknown index backend"):
+            RetrievalEngine(16, d_start=4, k0=4, backend="hnsw", device="cpu")
+
+
+# -- the backend contract (mirrors tests/test_backends.py) -------------------
+
+RNG = np.random.default_rng(11)
+_IVF = dict(n_lists=12, n_probe=6, min_index_rows=32, min_rebuild_rows=16)
+_KERNEL = dict(_IVF, use_kernel=True, kernel_block_m=16)
+VARIANTS = {
+    "ivf": ("ivf", _IVF),                        # CPU 'auto': the sched route
+    "ivf_kernel": ("ivf", _KERNEL),              # the scan's plain version
+    "ivf_int8": ("ivf", dict(_KERNEL, stage0_dtype="int8")),
+    "ivf_pq": ("ivf", dict(_KERNEL, stage0_dtype="pq")),
+    "quantized": ("quantized", dict(min_rebuild_rows=16)),
+    "quantized_pq": ("quantized", dict(min_rebuild_rows=16, codec="pq")),
+}
+
+
+def make_engine(variant, n_docs=200, seed=7, backend_opts=None, **kw):
+    name, opts = VARIANTS[variant]
+    kw = {**dict(d_start=8, k0=16, buckets=(4,), capacity=64, block_n=64),
+          **kw}
+    eng = RetrievalEngine(D, backend=name,
+                          backend_opts=backend_opts or dict(opts),
+                          device="cpu", **kw)
+    db = np.random.default_rng(seed).normal(size=(n_docs, D)).astype(np.float32)
+    eng.add_docs(db)
+    return eng, db
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+class TestBackendContract:
+    """Every IVF and quantized variant passes the JAX package's engine
+    contract on ``device="cpu"``: deleted ids never come back, appended rows
+    are reachable at once, and the rebuild / absorb lifecycle holds."""
+
+    def test_exact_query_self_retrieval(self, variant):
+        eng, db = make_engine(variant)
+        _, idx = eng.search(db[:8])
+        np.testing.assert_array_equal(idx[:, 0], np.arange(8))
+
+    def test_deleted_doc_never_returned(self, variant):
+        eng, db = make_engine(variant)
+        _, before = eng.search(db[17:18])
+        assert before[0, 0] == 17
+        eng.delete_docs([17])
+        _, after = eng.search(db[17:18])
+        assert 17 not in after
+        rid = eng.submit(db[17])
+        eng.run_until_idle()
+        assert 17 not in eng.poll(rid).doc_ids
+
+    def test_added_doc_visible_without_rebuild(self, variant):
+        eng, db = make_engine(variant)
+        eng.search(db[:1])                       # the initial build
+        n_rebuilds = eng.stats.n_rebuilds
+        new = RNG.normal(size=(1, D)).astype(np.float32) * 5.0
+        [nid] = eng.add_docs(new)
+        _, idx = eng.search(new)
+        assert idx[0, 0] == nid
+        assert eng.stats.n_rebuilds == n_rebuilds
+
+    def test_delete_survives_rebuild(self, variant):
+        eng, db = make_engine(variant)
+        eng.delete_docs([5])
+        _, idx = eng.search(db[5:6])
+        assert 5 not in idx
+        assert eng.maybe_rebuild(force=True)
+        _, idx = eng.search(db[5:6])
+        assert 5 not in idx
+        assert eng.index_state.built_active == len(db) - 1
+
+    def test_churn_triggers_natural_rebuild(self, variant):
+        eng, db = make_engine(variant)
+        eng.search(db[:1])
+        n_rebuilds = eng.stats.n_rebuilds
+        extra = RNG.normal(size=(80, D)).astype(np.float32)
+        ids = eng.add_docs(extra)
+        _, idx = eng.search(extra[:4])
+        np.testing.assert_array_equal(idx[:, 0], ids[:4])
+        assert eng.stats.n_rebuilds > n_rebuilds
+
+    def test_fully_deleted_corpus_returns_sentinel(self, variant):
+        eng, db = make_engine(variant, n_docs=40)
+        eng.delete_docs(np.arange(40))
+        scores, idx = eng.search(db[:2])
+        assert (idx == -1).all() and np.isposinf(scores).all()
+
+    def test_tail_overflow_forces_rebuild_even_when_off(self, variant):
+        opts = dict(VARIANTS[variant][1], min_rebuild_rows=4,
+                    rebuild_frac=0.01)
+        if variant.startswith("ivf"):
+            opts["append_spare"] = 0
+        else:
+            opts["encode_appends"] = False
+        eng, db = make_engine(variant, backend_opts=opts, rebuild_mode="off")
+        eng.search(db[:1])
+        n_rebuilds = eng.stats.n_rebuilds
+        extra = RNG.normal(size=(12, D)).astype(np.float32)  # > tail_cap=4
+        ids = eng.add_docs(extra)
+        _, idx = eng.search(extra)
+        np.testing.assert_array_equal(idx[:, 0], ids)
+        assert eng.stats.n_rebuilds > n_rebuilds
+
+    def test_appends_absorbed_between_rebuilds(self, variant):
+        # a few appends are absorbed into the index (spare list slots /
+        # codes on the frozen grid), stay reachable and trigger no rebuild;
+        # an absorbed row that is deleted never comes back
+        eng, db = make_engine(variant, capacity=256)
+        eng.search(db[:1])
+        n_rebuilds = eng.stats.n_rebuilds
+        new = RNG.normal(size=(6, D)).astype(np.float32) * 4.0
+        ids = eng.add_docs(new)
+        _, idx = eng.search(new)
+        np.testing.assert_array_equal(idx[:, 0], ids)
+        state = eng.index_state
+        g = eng.backend.gauges(state, eng.store.stats())
+        if variant.startswith("ivf"):
+            assert g["absorbed_rows"] == 6
+            assert np.isin(ids, state.data["lists"].numpy()).sum() \
+                + g["tail_pending"] == 6
+        else:
+            assert g["coded_upto"] == len(db) + 6 and g["tail_load"] == 0
+        assert eng.stats.n_rebuilds == n_rebuilds
+        eng.delete_docs(ids[:2])
+        _, idx = eng.search(new)
+        assert not np.isin(idx, ids[:2]).any()
+        np.testing.assert_array_equal(idx[2:, 0], ids[2:])
+
+    def test_post_compaction_search_correct(self, variant):
+        eng, db = make_engine(variant, n_docs=120, compact_dead_frac=0.3)
+        eng.search(db[:1])
+        eng.delete_docs(np.arange(0, 120, 2))    # half the corpus
+        _, idx = eng.search(db[1:7:2])           # odd (surviving) docs
+        assert eng.stats.n_compactions == 1
+        np.testing.assert_array_equal(idx[:, 0], [0, 1, 2])
+
+    def test_background_build_adopts_state(self, variant):
+        opts = dict(VARIANTS[variant][1], min_rebuild_rows=8,
+                    rebuild_frac=0.05)
+        eng, db = make_engine(variant, backend_opts=opts,
+                              rebuild_mode="background")
+        eng.search(db[:1])
+        n_before = eng.stats.n_rebuilds
+        extra = RNG.normal(size=(16, D)).astype(np.float32)
+        ids = eng.add_docs(extra)
+        _, idx = eng.search(extra[:4])           # old state + tail / absorb
+        np.testing.assert_array_equal(idx[:, 0], ids[:4])
+        deadline = time.perf_counter() + 30
+        while eng.stats.n_rebuilds == n_before \
+                and time.perf_counter() < deadline:
+            eng.maybe_rebuild()                  # adopt when ready
+            time.sleep(0.02)
+        assert eng.stats.n_rebuilds > n_before
+        _, idx = eng.search(extra[:4])
+        np.testing.assert_array_equal(idx[:, 0], ids[:4])
+
+    def test_warmup_covers_adaptive_levels(self, variant):
+        from repro_torch.engine import AdaptiveConfig, EngineConfig
+        from repro_torch.engine.config import IVFConfig, QuantizedConfig
+        name, opts = VARIANTS[variant]
+        block = (IVFConfig if name == "ivf" else QuantizedConfig)(**opts)
+        eng = RetrievalEngine(config=EngineConfig(
+            d_emb=D, d_start=16, k0=16, buckets=(1, 4), capacity=256,
+            block_n=64, backend=block,
+            adaptive=AdaptiveConfig(enabled=True, levels=2, min_d_start=8)),
+            device="cpu")
+        db = RNG.normal(size=(150, D)).astype(np.float32)
+        eng.add_docs(db)
+        eng.warmup()
+        assert len(eng._level_overrides) == 2
+        for lvl in (0, 1, 2):
+            ov = eng._level_overrides.get(lvl)
+            s, i, _ = eng._dispatch(db[:4], overrides=ov)
+            np.testing.assert_array_equal(np.asarray(i)[:, 0], np.arange(4))
+            assert np.isfinite(np.asarray(s)).all()
