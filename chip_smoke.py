@@ -30,7 +30,31 @@ in phases that each print one JSON line:
                  (tombstones inside lists), and no deleted id returned; the
                  float32 IVF engine also serves through ``EngineDriver``, is
                  profiled, and absorbs 1,000 appends into spare list slots
-  7. kernels line, card line, and the final ``{"ok": true, ...}`` line.
+  7. rag       — the RAG generation path at full width: Mistral-Nemo-12B
+                 (40 layers x 5120, bf16, random weights from ``--seed``)
+                 behind a 262,144 x 5120 flat corpus of mean-pooled
+                 256-token documents; 64 queries that copy documents are
+                 retrieved through ``EngineDriver`` from 4 client threads
+                 (top-1 must be the source) and answered with 32 greedy
+                 tokens by ``RAGPipeline.generate`` in batches of 8 (prompt
+                 512 tokens); every prefill and decode layer goes through
+                 the flash-attention kernel (launches counted: 10,240).  The
+                 kernel path's logits are then held against the plain path
+                 (the same LM code, each attention call given to the
+                 kernel's plain version) on the same weights and prompts,
+                 the plain path fed the kernel path's tokens (teacher
+                 forcing), and every attention call of the replay against
+                 the plain version on its own inputs; a control (one
+                 layer's causal mask shifted by one key) must fail the
+                 call-by-call check; one ``generate`` is traced with
+                 ``torch.profiler``
+  8. kernels line, card line, and the final ``{"ok": true, ...}`` line.
+
+Phase 2 also holds the flash-attention kernel against its plain version
+in bfloat16 and float32 at the serving shapes (prefill over 512 tokens,
+decode over a 543-position cache prefix, with the layouts the LM path
+gives them) and on the edge cases of the JAX package's tests, with CUDA-event and profiler times beside
+``F.scaled_dot_product_attention`` (timed only here, as a yardstick).
 
 Any failed check raises and the script exits non-zero.  Run it from the
 root of a checkout: ``python3 chip_smoke.py [--seed N]``.  It needs a CUDA
@@ -64,12 +88,35 @@ BUCKETS = (1, 2, 4, 8, 16, 32)
 N_REQUESTS, N_CLIENTS = 256, 4
 N_DELETE, N_APPEND = N_DOCS // 100, 10_000
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth and
-# float32 rate outside the tensor cores — the kernels compute in FMA float32.
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth,
+# float32 rate outside the tensor cores (the search kernels compute in FMA
+# float32) and the dense bf16 tensor-core rate (attention on bf16 inputs).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
-KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan")
+KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan",
+               "flash_attention")
+
+# The RAG phase (configs/mistral_nemo_12b.py at full width): a flat corpus
+# of 262,144 documents of 256 tokens, 64 queries, 32 new tokens per request
+# in LM batches of 8; the prompt is document + query = 512 tokens.
+RAG_DOCS, RAG_DOC_LEN, RAG_QUERIES = 262_144, 256, 64
+RAG_BATCH, RAG_NEW_TOKENS = 8, 32
+# Tolerances.  Flash kernel vs its plain version: float32 2e-4 (the JAX
+# package's own); bfloat16 2e-2, a small multiple of the 7.8e-3 (one bf16
+# step between 1 and 2) measured over every case — also the limit for each
+# attention call of the RAG path replayed against the plain version on the
+# same inputs.  LM logits (float32) of the kernel path vs the plain path
+# (the same LM code, every attention call given to the kernel's plain
+# version, which rounds where the kernel rounds) after 40 bf16 layers:
+# twice the 0.127 measured on the H100 — a one-step bf16 difference in one
+# layer grows to about that by the logits.  An argmax disagreement is
+# allowed only where the plain path's top-2 margin is below LOGIT_TOL (a
+# near-tie); the logit check alone would allow margins up to twice that.
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+LOGIT_TOL = 0.25
+NEAR_TIE = LOGIT_TOL
 
 
 def emit(obj) -> None:
@@ -135,9 +182,9 @@ def device_ms(torch, fn, own, *, runs: int = 10):
     return total / runs / 1e3, mine / runs / 1e3
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -169,13 +216,14 @@ def compare(torch, got, want, *, rtol: float = 2e-5, atol: float = 1e-3):
 
 def counters():
     """name -> (module, attribute) of every kernel's launch counter."""
-    from repro_torch.kernels import (distance_topk, gather_rescore, ivf_scan,
-                                     pq_scan)
+    from repro_torch.kernels import (distance_topk, flash_attention,
+                                     gather_rescore, ivf_scan, pq_scan)
     return {"distance_topk.l2_topk": (distance_topk, "launches"),
             "gather_rescore.gather_rescore_topk": (gather_rescore, "launches"),
             "ivf_scan.ivf_scan_topk": (ivf_scan, "launches"),
             "pq_scan.pq_scan_topk": (pq_scan, "flat_launches"),
-            "pq_scan.pq_ivf_scan_topk": (pq_scan, "ivf_launches")}
+            "pq_scan.pq_ivf_scan_topk": (pq_scan, "ivf_launches"),
+            "flash_attention.flash_attention": (flash_attention, "launches")}
 
 
 def zero_counts() -> None:
@@ -341,6 +389,7 @@ def run(args) -> None:
     del db, sq_all, valid, sq0
     torch.cuda.empty_cache()
     scan_edge_cases(torch, dev)
+    flash_rows = flash_kernel_phase(torch, dev, flush)
 
     # -- 3. corpus on the card ----------------------------------------------
     def load_corpus(engine):
@@ -486,7 +535,14 @@ def run(args) -> None:
     scan_rows = {}
     for variant in VARIANTS:
         scan_rows.update(serve_variant(variant, ctx, launches))
-    finish(torch, card, stage_rows, ladder_rows, launches, scan_rows)
+    del ctx, queries, truth, flush, scales
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 7. the RAG generation path ------------------------------------------
+    launches.update(rag_phase(torch, dev, args.seed))
+    finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
+           flash_rows)
 
 
 # (variant, backend block kwargs, scan kernel its stage 0 runs, full phase)
@@ -836,6 +892,418 @@ def scan_edge_cases(torch, dev) -> None:
               "empty_slots": n_empty, "ids_agree": agree, "max_abs_err": err})
 
 
+# (case, b, hq, hkv, sq, skv, dh, causal, window): the JAX package's
+# TestFlashAttention cases and rows with nothing to attend (sq > skv under
+# causal)
+FLASH_EDGE_CASES = (
+    ("causal", 2, 4, 4, 64, 64, 32, True, None),
+    ("gqa", 2, 4, 2, 64, 64, 32, False, None),
+    ("uneven_decode_aligned", 1, 2, 2, 50, 70, 32, True, None),
+    ("sliding_window", 1, 2, 2, 96, 96, 64, True, 16),
+    ("single_token_mqa", 1, 4, 1, 1, 128, 64, False, None),
+    ("padding_both_axes_window", 1, 2, 2, 33, 65, 16, True, 8),
+    ("nothing_to_attend", 1, 4, 2, 40, 24, 32, True, None),
+)
+
+
+def flash_keep(torch, sq, skv, causal, window, dev):
+    """(sq, skv) bool: the keys each query keeps, queries aligned to the end
+    of kv (the kernel's mask)."""
+    q_pos = torch.arange(sq, device=dev)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=dev)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window is not None:
+        keep &= k_pos > q_pos - window
+    return keep
+
+
+def flash_kernel_phase(torch, dev, flush) -> list:
+    """The flash-attention kernel against its plain version (phase 2), in
+    bfloat16 and float32: the serving shapes of the RAG phase (prefill over
+    the 512-token prompt; decode at the last step's position over a prefix
+    of the (8, 8, 544, 128) cache), the edge cases, and decode steps over
+    strided cache prefixes (positions 0, 64, 543); q, k and v of the
+    serving shapes have the layouts the LM path gives them.  Every case is timed beside its plain version
+    and ``F.scaled_dot_product_attention`` (the yardstick, which the port
+    never calls), with its bound from the bytes (q, k, v read once, the
+    output written once) and the operations (two products of 2 * dh for
+    every (query, key) pair the mask keeps) these inputs need.  Returns the
+    measured rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.layers.rope import apply_rope
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    s_prompt = 2 * RAG_DOC_LEN
+    s_cache = s_prompt + RAG_NEW_TOKENS
+    theta = 1e6                           # Mistral-Nemo-12B's rope_theta
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        tol = FLASH_TOL[dtype]
+        peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+
+        def projected(b, s, h, pos0=0):
+            """(B, H, S, Dh) as ``mha_forward`` / ``mha_decode`` hand q and
+            k to the kernel: a (B, S, H, Dh) projection, transposed and
+            rotated."""
+            pos = torch.arange(pos0, pos0 + s, device=dev)
+            return apply_rope(rnd(b, s, h, 128).transpose(1, 2), pos, theta)
+
+        # (case, q, k, v, causal, window); prefill's v is the transposed
+        # (B, S, Hkv, Dh) projection, a strided view, as on the path
+        cases = [("prefill", projected(RAG_BATCH, s_prompt, 32),
+                  projected(RAG_BATCH, s_prompt, 8),
+                  rnd(RAG_BATCH, s_prompt, 8, 128).transpose(1, 2), True,
+                  None)]
+        kc, vc = rnd(RAG_BATCH, 8, s_cache, 128), rnd(RAG_BATCH, 8, s_cache, 128)
+        cases.append(("decode", projected(RAG_BATCH, 1, 32, s_cache - 2),
+                      kc[:, :, :s_cache - 1], vc[:, :, :s_cache - 1], True,
+                      None))
+        for case, b, hq, hkv, sq, skv, dh, causal, window in FLASH_EDGE_CASES:
+            cases.append((case, rnd(b, hq, sq, dh), rnd(b, hkv, skv, dh),
+                          rnd(b, hkv, skv, dh), causal, window))
+        kc2, vc2 = rnd(2, 8, 544, 128), rnd(2, 8, 544, 128)
+        for pos in (0, 64, 543):
+            cases.append((f"strided_cache_prefix_pos{pos}",
+                          projected(2, 1, 32, pos), kc2[:, :, :pos + 1],
+                          vc2[:, :, :pos + 1], True, None))
+        for case, q, k, v, causal, window in cases:
+            b, hq, sq, dh = q.shape
+            hkv, skv = k.shape[1], k.shape[2]
+            keep = flash_keep(torch, sq, skv, causal, window, dev)
+            if bool(keep.all()):
+                sdpa_kw = {}
+            elif causal and window is None and sq == skv:
+                sdpa_kw = {"is_causal": True}     # top-left = end-aligned here
+            else:
+                sdpa_kw = {"attn_mask": keep}     # end-aligned, explicit
+            kern = lambda: fa.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+            plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal,
+                                                     window=window)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True, **sdpa_kw)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if err > tol or not bool(torch.isfinite(got).all()):
+                fail(f"flash_attention {case} {dtype}: max|Δ|={err} "
+                     f"(tol {tol})")
+            empty_rows = int((~keep.any(dim=1)).sum())
+            if empty_rows and bool(got[:, :, ~keep.any(dim=1)].any()):
+                fail(f"flash_attention {case} {dtype}: a row with nothing "
+                     f"to attend is not 0")
+            n_bytes = q.element_size() * dh * (2 * b * hq * sq
+                                               + 2 * b * hkv * skv)
+            n_ops = 4.0 * dh * b * hq * int(keep.sum())
+            bnd, by = bound_ms(n_bytes, n_ops, peak)
+            dev_all, dev_own = device_ms(torch, kern,
+                                         ("flash_attention_kernel",))
+            row = {"kernel": "flash_attention.flash_attention", "case": case,
+                   "dtype": dtype,
+                   "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} "
+                            f"causal={causal} window={window}",
+                   "strides": [list(t.stride()) for t in (q, k, v)],
+                   "max_abs_err": err, "tol": tol, "empty_rows": empty_rows,
+                   "ms": cuda_ms(torch, kern, flush=flush),
+                   "plain_ms": cuda_ms(torch, plain, flush=flush),
+                   "library_ms": cuda_ms(torch, sdpa, flush=flush),
+                   "device_ms": dev_all, "kernel_device_ms": dev_own,
+                   "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
+                   "ops": n_ops}
+            rows.append(row)
+            emit({"phase": "kernels", **row})
+        del cases, kc, vc, kc2, vc2
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rag_phase(torch, dev, seed) -> dict:
+    """The RAG generation path at full width (phase 7); returns the launch
+    counts of its main path (retrieval through the driver, then
+    generation)."""
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    from repro_torch.launch.serve import run_clients
+    from repro_torch.models import lm as LM
+    from repro_torch.rag import RAGPipeline, mean_pool_embedder
+
+    cfg = CONFIG
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM.init_lm(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    doc_tokens = torch.randint(1, cfg.vocab, (RAG_DOCS, RAG_DOC_LEN),
+                               generator=g, device=dev, dtype=torch.int32)
+    t0 = time.perf_counter()
+    embed = mean_pool_embedder(lm)
+    db = embed(doc_tokens)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe = RAGPipeline(lm, db, doc_tokens, d_start=D_START, k0=K0,
+                       buckets=BUCKETS, device=dev)
+    del db
+    pipe.engine.warmup()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    src = torch.randperm(RAG_DOCS, generator=g, device=dev)[:RAG_QUERIES]
+    queries = doc_tokens[src].cpu().numpy()      # copies of documents
+    src = src.cpu().numpy()
+    del doc_tokens
+    emit({"phase": "rag_setup", "model": cfg.name, "params": n_params,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "dtype": cfg.param_dtype, "init_s": init_s, "docs": RAG_DOCS,
+          "doc_len": RAG_DOC_LEN, "d_emb": cfg.d_model, "embed_s": embed_s,
+          "engine_load_s": load_s, "schedule": pipe.sched.describe(),
+          "gpu_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+
+    # -- the main path: retrieval through the driver, then generation --------
+    zero_counts()
+    qvecs = embed(queries).cpu().numpy()
+    driver = pipe.start_driver(max_wait_ms=2.0)
+    try:
+        results, wall = run_clients(driver, qvecs, N_CLIENTS, 0.0)
+    finally:
+        pipe.stop_driver()
+    retrieved = np.stack([r.doc_ids for r in results])
+    lat = sorted(r.stats.latency_ms for r in results)
+    hit = float((retrieved[:, 0] == src).mean())
+    if hit < 1.0:
+        fail(f"rag: top-1 is the source document for only {hit} of queries")
+    gen_ms, generated = [], []
+    for i in range(0, RAG_QUERIES, RAG_BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe.generate(queries[i:i + RAG_BATCH],
+                            retrieved[i:i + RAG_BATCH],
+                            max_new_tokens=RAG_NEW_TOKENS)
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+        generated.append(out)
+    counts = read_counts()
+    n_batches = RAG_QUERIES // RAG_BATCH
+    want_launches = n_batches * cfg.n_layers * RAG_NEW_TOKENS  # 1 prefill + 31 steps
+    if counts["flash_attention.flash_attention"] != want_launches:
+        fail(f"rag: flash_attention launched "
+             f"{counts['flash_attention.flash_attention']} times, expected "
+             f"{want_launches}")
+    if min(counts["distance_topk.l2_topk"],
+           counts["gather_rescore.gather_rescore_topk"]) <= 0:
+        fail(f"rag: retrieval launched no search kernel: {counts}")
+    generated = torch.cat(generated)
+    if generated.shape != (RAG_QUERIES, RAG_NEW_TOKENS) or bool(
+            ((generated < 0) | (generated >= cfg.vocab)).any()):
+        fail(f"rag: generated tokens of shape {tuple(generated.shape)} "
+             f"out of range")
+
+    emit({"phase": "rag", "queries": RAG_QUERIES, "clients": N_CLIENTS,
+          "retrieval_s": wall, "retrieval_qps": RAG_QUERIES / wall,
+          "retrieval_latency_ms_p50": lat[len(lat) // 2],
+          "retrieval_latency_ms_p95": lat[int(0.95 * (len(lat) - 1))],
+          "top1_hit_rate": hit, "batch": RAG_BATCH,
+          "prompt_len": 2 * RAG_DOC_LEN, "new_tokens": RAG_NEW_TOKENS,
+          "generate_ms": gen_ms, "generate_ms_mean": statistics.mean(gen_ms),
+          "launches": counts,
+          "gpu_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    profile_generate(torch, pipe, queries[:RAG_BATCH],
+                     retrieved[:RAG_BATCH], gen_ms[0])
+
+    # -- kernel path vs plain path, teacher-forced ---------------------------
+    teacher_forced_check(torch, pipe, queries, retrieved, generated)
+    del pipe, lm, embed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention.flash_attention":
+            counts["flash_attention.flash_attention"]}
+
+
+def teacher_forced_check(torch, pipe, queries, retrieved, generated) -> None:
+    """Replay every batch through the kernel path and the plain path — the
+    same LM code with each attention call given to the kernel's plain
+    version (``flash_attention_plain``: dense, with the kernel's masks and
+    rounding) — both fed the kernel path's generated tokens, and compare
+    the prefill logits and every decode step's logits.  The plain replay
+    also runs the kernel on each call's inputs (the path's shapes, strides
+    and data) and holds it against the plain output, call by call.
+
+    The control: the first batch again, with the kernel's causal mask
+    shifted by one key (each query loses its own) in the first, the middle
+    and the last layer in turn; the call-by-call check must reject each.
+    A one-key shift in a late layer moves the logits no more than bf16
+    noise does, so the logit check alone cannot see it; the line reports
+    how far each control moved them.  Times the kernel path's prefill and
+    decode steps on the way."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm as LM
+
+    lm, cfg = pipe.lm, pipe.cfg
+    prefill_ms, step_ms = [], []
+
+    def run(prompts, toks, route=None, timed=False):
+        """(B, T, V) float32 logits, attention through ``route`` (the
+        kernel unless given)."""
+        kernel = ops.flash_attention
+        if route is not None:
+            ops.flash_attention = route
+        try:
+            s = prompts.shape[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = LM.prefill(lm, prompts,
+                                       decode_len=s + RAG_NEW_TOKENS)
+            if timed:
+                torch.cuda.synchronize()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            out = [logits]
+            for i in range(RAG_NEW_TOKENS - 1):
+                t0 = time.perf_counter()
+                logits, cache = LM.decode_step(lm, cache, toks[:, i:i + 1],
+                                               s + i)
+                if timed:
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                out.append(logits)
+        finally:
+            ops.flash_attention = kernel
+        return torch.stack(out, dim=1)
+
+    def paired(err, shift_layer=None):
+        """A route running the kernel (its causal mask shifted by one key
+        in ``shift_layer``) and the plain version on each call's inputs;
+        keeps the largest |Δ| of prefill and of decode calls in ``err`` and
+        returns the plain output, or the shifted kernel's in a control."""
+        calls = [0]
+
+        def route(q, k, v, *, causal=False, window=None, scale=None):
+            shift = calls[0] % cfg.n_layers == shift_layer
+            calls[0] += 1
+            kk, vv = (k[:, :, :-1], v[:, :, :-1]) if shift else (k, v)
+            got = fa.flash_attention(q, kk, vv, causal=causal, window=window,
+                                     scale=scale)
+            want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, scale=scale)
+            kind = "decode" if q.shape[2] == 1 else "prefill"
+            err[kind] = max(err[kind],
+                            float((got.float() - want.float()).abs().max()))
+            return got if shift_layer is not None else want
+        return route
+
+    def gap(got, plain):
+        """max |Δ|, positions, argmax agreements, near-ties, disagreements
+        at a plain margin >= NEAR_TIE, largest margin of a disagreement."""
+        top2 = plain.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        agree = got.argmax(-1) == plain.argmax(-1)
+        return (float((got - plain).abs().max()), agree.numel(),
+                int(agree.sum()), int((margin < NEAR_TIE).sum()),
+                int((~agree & (margin >= NEAR_TIE)).sum()),
+                float(margin[~agree].max()) if bool((~agree).any()) else 0.0)
+
+    max_diff = pre_diff = worst_margin = 0.0
+    n_cmp = n_agree = n_near = n_far = pre_agree = n_replay_same = 0
+    call_err = {"prefill": 0.0, "decode": 0.0}
+    plain0 = None
+    for i in range(0, RAG_QUERIES, RAG_BATCH):
+        prompts = pipe.assemble_prompts(queries[i:i + RAG_BATCH],
+                                        retrieved[i:i + RAG_BATCH])
+        toks = generated[i:i + RAG_BATCH]
+        kern = run(prompts, toks, timed=True)
+        n_replay_same += int(torch.equal(kern.argmax(-1), toks))
+        plain = run(prompts, toks, paired(call_err))
+        diff, n, agree, near, far, margin = gap(kern, plain)
+        max_diff, worst_margin = max(max_diff, diff), max(worst_margin, margin)
+        n_cmp, n_agree, n_near, n_far = (n_cmp + n, n_agree + agree,
+                                         n_near + near, n_far + far)
+        diff, _, agree, _, _, _ = gap(kern[:, :1], plain[:, :1])
+        pre_diff, pre_agree = max(pre_diff, diff), pre_agree + agree
+        if plain0 is None:
+            plain0 = (prompts, toks, plain)
+        del kern, plain
+
+    controls = {}
+    prompts, toks, plain = plain0
+    for layer in (0, cfg.n_layers // 2, cfg.n_layers - 1):
+        err = {"prefill": 0.0, "decode": 0.0}
+        c = gap(run(prompts, toks, paired(err, layer)), plain)
+        controls[str(layer)] = {"call_max_abs_err": err,
+                                "logit_max_abs_diff": c[0],
+                                "argmax_disagree": c[1] - c[2],
+                                "disagree_at_margin_ge_near_tie": c[4]}
+    del plain0, plain
+    call_tol = FLASH_TOL["bfloat16"]
+    emit({"phase": "rag_check",
+          "prefill_ms_per_batch": statistics.mean(prefill_ms),
+          "decode_ms_per_token": statistics.mean(step_ms),
+          "decode_ms_per_token_p50": statistics.median(step_ms),
+          "calls_checked": RAG_QUERIES // RAG_BATCH * cfg.n_layers
+          * RAG_NEW_TOKENS, "call_max_abs_err": call_err,
+          "call_tol": call_tol,
+          "logits_compared": n_cmp, "logit_max_abs_diff": max_diff,
+          "prefill_logit_max_abs_diff": pre_diff,
+          "prefill_argmax_agree": pre_agree / RAG_QUERIES,
+          "logit_tol": LOGIT_TOL, "argmax_agree": n_agree / n_cmp,
+          "argmax_disagree": n_cmp - n_agree,
+          "disagree_max_plain_margin": worst_margin,
+          "near_tie_margin": NEAR_TIE, "near_ties": n_near,
+          "replay_tokens_equal_batches": n_replay_same,
+          "control_shifted_causal_mask_by_layer": controls})
+    if max(call_err.values()) > call_tol:
+        fail(f"rag: an attention call of the path differs from its plain "
+             f"version by {call_err} > {call_tol}")
+    if max_diff > LOGIT_TOL:
+        fail(f"rag: kernel vs plain logits differ by {max_diff} > {LOGIT_TOL}")
+    if n_far:
+        fail(f"rag: {n_far} argmax disagreements where the plain top-2 "
+             f"margin is >= {NEAR_TIE}")
+    blind = [layer for layer, c in controls.items()
+             if max(c["call_max_abs_err"].values()) <= call_tol]
+    if blind:
+        fail(f"rag: the call-by-call check misses a causal mask shifted by "
+             f"one key in layer(s) {blind}: {controls}")
+
+
+def profile_generate(torch, pipe, queries, retrieved, wall_ms) -> None:
+    """Trace one ``generate`` with ``torch.profiler``: device time by
+    kernel, and the device's busy share of the untraced call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.generate(queries, retrieved, max_new_tokens=RAG_NEW_TOKENS)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append({"name": ev.key[:80], "count": ev.count,
+                         "device_ms": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    flash = sum(r["device_ms"] for r in rows
+                if "flash_attention_kernel" in r["name"])
+    emit({"phase": "profile", "path": "rag generate", "batch": RAG_BATCH,
+          "device_busy_ms": busy, "generate_wall_ms": wall_ms,
+          "device_busy_share": busy / wall_ms,
+          "flash_attention_device_ms": flash, "kernels": rows[:12]})
+
+
 def driver_run(engine, q_host, i_eng) -> dict:
     """Requests from client threads through ``EngineDriver``; each result
     must agree with ``engine.search`` on the same query."""
@@ -926,7 +1394,34 @@ def _scan_entry(name, source, replaces, launches, rows) -> dict:
     return out
 
 
-def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows) -> None:
+def _flash_entry(launches, rows) -> dict:
+    """The kernels-line entry: the bf16 serving rows (prefill first), every
+    case's largest error per type."""
+    serve = {r["case"]: r for r in rows if r["dtype"] == "bfloat16"}
+    f32 = {r["case"]: r for r in rows if r["dtype"] == "float32"
+           and r["case"] in ("prefill", "decode")}
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "kernel_device_ms",
+            "bound_ms", "bound_by", "shape")
+    pre = serve["prefill"]
+    return {"name": "flash_attention.flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:108",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_abs_err_bf16": max(r["max_abs_err"] for r in rows
+                                    if r["dtype"] == "bfloat16"),
+            "max_abs_err_float32": max(r["max_abs_err"] for r in rows
+                                       if r["dtype"] == "float32"),
+            "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+            "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+            "library_ms": pre["library_ms"],
+            "kernel_device_ms": pre["kernel_device_ms"], "shape": pre["shape"],
+            "decode": {k: serve["decode"][k] for k in keys},
+            "float32": {c: {k: r[k] for k in keys} for c, r in f32.items()}}
+
+
+def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
+           flash_rows) -> None:
     """Print the kernels line, the card line and the final result line."""
     s32 = [r for r in stage_rows if r["Q"] == 32][0]
     lad = {key: sum(r[key] for r in ladder_rows)
@@ -966,6 +1461,7 @@ def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows) -> None:
                     "src/repro/kernels/pq_scan.py:224",
                     launches["pq_scan.pq_ivf_scan_topk"],
                     [scan_rows["ivf_pq"]]),
+        _flash_entry(launches["flash_attention.flash_attention"], flash_rows),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

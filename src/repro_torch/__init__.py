@@ -1,15 +1,21 @@
 """PyTorch / CUDA port of progressive retrieval and its serving engine.
 
 Beside the JAX package ``repro`` (the reference), this package runs the
-flat progressive-search serving path on an NVIDIA H100: stage 0 and every
-rescore step are hand-written CUDA kernels (``csrc/``), and the engine,
-driver, batching and observability layers are the same host code.
+progressive-search serving path and the RAG generation path on an NVIDIA
+H100: stage 0, every rescore step and the LM's attention are hand-written
+CUDA kernels (``csrc/``), and the engine, driver, batching and
+observability layers are the same host code.
 
   repro_torch.core            — schedules, prefix-norm index, plain search
   repro_torch.kernels         — CUDA kernels + device dispatch (``ops``)
-  repro_torch.index_backends  — the flat backend behind the engine
+  repro_torch.index_backends  — flat, IVF and quantized backends
   repro_torch.engine          — DocStore, RetrievalEngine, EngineDriver
   repro_torch.obs             — metrics registry and request traces
+  repro_torch.configs         — LM configurations (Mistral-Nemo-12B)
+  repro_torch.layers          — norms, FFN, RoPE, GQA attention
+  repro_torch.models          — the dense GQA LM (prefill, decode)
+  repro_torch.rag             — RAGPipeline: retrieve, assemble, generate
+  repro_torch.launch          — the closed-loop serving demo
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.

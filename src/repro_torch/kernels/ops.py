@@ -1,11 +1,11 @@
-"""Device dispatch for the search path's kernels.
+"""Device dispatch for the search path's and the LM's kernels.
 
 A CUDA tensor always goes to the hand-written kernel; a CPU tensor goes to
 the kernel's plain version.  There is no switch that sends CUDA tensors
 down the plain path: on the card it is the kernel or an exception.  Search
-code calls these, never the kernels directly.
+and LM code call these, never the kernels directly.
 
-``plain`` holds the same five entry points bound to the plain versions on
+``plain`` holds the five search entry points bound to the plain versions on
 any device; only the ``*_plain`` reference searches pass it (as ``impl=``),
 to check the kernels' results on the card.
 """
@@ -18,7 +18,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import truncated as T
-from repro_torch.kernels import distance_topk, gather_rescore, ivf_scan, pq_scan
+from repro_torch.kernels import (distance_topk, flash_attention as fa,
+                                 gather_rescore, ivf_scan, pq_scan)
 
 Tensor = torch.Tensor
 
@@ -94,6 +95,17 @@ def pq_ivf_scan_topk(q: Tensor, probe: Tensor, member_ids: Tensor,
     if _on_cuda(q):
         return pq_scan.pq_ivf_scan_topk(q, probe, member_ids, pack, k=k)
     return pq_scan.pq_ivf_scan_topk_plain(q, probe, member_ids, pack, k=k)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> Tensor:
+    """Fused attention (prefill and decode), queries aligned to the end of kv."""
+    if _on_cuda(q, k, v):
+        return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale)
+    return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    scale=scale)
 
 
 plain = types.SimpleNamespace(

@@ -130,3 +130,49 @@ def pq_ivf_scan_ref(
         acc = acc + torch.gather(lut[:, j, :], 1, idx[:, :, j])
     acc = acc.masked_fill(cand < 0, float("inf"))
     return _smallest(acc, cand, k)
+
+
+def flash_attention_ref(
+    q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
+    window: Optional[int] = None, scale: Optional[float] = None,
+) -> Tensor:
+    """Dense softmax attention with the flash kernel's rules.
+
+    Args:
+      q: (B, Hq, Sq, Dh); k, v: (B, Hkv, Skv, Dh), Hq a multiple of Hkv
+         (q head h reads kv head ``h // (Hq / Hkv)``).
+      causal / window: the mask, queries aligned to the end of kv (query
+         row i sits at position ``i + Skv - Sq``); key j is kept when
+         ``j <= pos`` (causal) and ``j > pos - window`` (window given).
+      scale: ``Dh ** -0.5`` unless given.
+
+    Masked scores are -1e30 and their weights exactly 0; the weights are
+    rounded to v's dtype before the product with V and the row sum is taken
+    over the unrounded weights; the output is ``(p V) / max(l, 1e-30)`` in
+    q's dtype, so a row with nothing to attend gives 0 (the JAX package's
+    ``flash_attention_ref`` uses -inf and gives NaN there).
+    """
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if skv == 0:                                  # nothing to attend
+        return torch.zeros_like(q)
+    if hkv != hq:
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    s = torch.matmul(q.to(torch.float32),
+                     k.to(torch.float32).transpose(-1, -2)) * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.matmul(p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return (pv / torch.clamp(l, min=1e-30)).to(q.dtype)

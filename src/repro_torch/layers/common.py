@@ -1,0 +1,89 @@
+"""Core layers: norms, dense projections, FFN variants, initializers.
+
+The port of ``src/repro/layers/common.py``.  Weights keep the JAX
+package's layout, (d_in, d_out), and every projection is ``x @ w``, so a
+carried weight needs no transpose.  Initializers draw from an explicit
+``torch.Generator`` on the weight's device: the same seed does not give the
+JAX package's numbers, so parity tests carry weights across instead
+(`repro_torch.models.lm.load_jax_params`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tensor = torch.Tensor
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------- init ----
+
+def _trunc_normal(shape, generator: torch.Generator, device) -> Tensor:
+    """float32 standard normal truncated to [-3, 3]."""
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    return nn.init.trunc_normal_(out, 0.0, 1.0, -3.0, 3.0, generator=generator)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
+               *, device=None, scale: Optional[float] = None) -> Tensor:
+    """Truncated-normal fan-in init (matches common LM practice)."""
+    if scale is None:
+        scale = d_in ** -0.5
+    return (_trunc_normal((d_in, d_out), generator, device)
+            .mul_(scale).to(dtype))
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int, dtype,
+               *, device=None) -> Tensor:
+    return _trunc_normal((vocab, d), generator, device).to(dtype)
+
+
+# --------------------------------------------------------------- norms ----
+
+def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMSNorm in fp32 with a ``1 + scale`` gain, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- FFN ----
+
+class FFN(nn.Module):
+    """SwiGLU or GELU MLP; weights (d_in, d_out) as in the JAX package."""
+
+    def __init__(self, w_in: Tensor, w_out: Tensor,
+                 w_gate: Optional[Tensor] = None):
+        super().__init__()
+        self.w_in = nn.Parameter(w_in, requires_grad=False)
+        self.w_out = nn.Parameter(w_out, requires_grad=False)
+        self.w_gate = (None if w_gate is None
+                       else nn.Parameter(w_gate, requires_grad=False))
+
+
+def ffn_init(generator: torch.Generator, d_model: int, d_ff: int,
+             ffn_type: str, dtype, *, device=None) -> FFN:
+    w_in = dense_init(generator, d_model, d_ff, dtype, device=device)
+    w_out = dense_init(generator, d_ff, d_model, dtype, device=device)
+    w_gate = (dense_init(generator, d_model, d_ff, dtype, device=device)
+              if ffn_type == "swiglu" else None)
+    return FFN(w_in, w_out, w_gate)
+
+
+def ffn_apply(p: FFN, x: Tensor, ffn_type: str) -> Tensor:
+    h = x @ p.w_in
+    if ffn_type == "swiglu":
+        h = F.silu(x @ p.w_gate) * h
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h, approximate="tanh")
+    return h @ p.w_out

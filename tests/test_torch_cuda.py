@@ -12,7 +12,10 @@ precomputed and in-kernel norms, several query tiles, k > N, padding and
 invalid candidates; for the IVF and PQ scans float32 and int8 slabs, empty
 and fully tombstoned lists, k beyond the rows scanned).  Tolerance: scores
 ``rtol=1e-5, atol=1e-4`` (another float32 summation order); ids equal up to
-near-ties.
+near-ties.  The flash-attention kernel is held against its plain version
+at ``2e-4`` in float32 (the JAX package's own tolerance) and ``2e-2`` in
+bfloat16 (a small multiple of the one bf16 step, 7.8e-3, measured), and the LM's ``decode_step`` on the card against
+``device="cpu"`` at the smoke config.
 """
 
 import numpy as np
@@ -23,8 +26,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import progressive_search_plain
 from repro_torch.engine import EngineConfig, RetrievalEngine
 from repro_torch.engine.config import IVFConfig, QuantizedConfig
-from repro_torch.kernels import (distance_topk, gather_rescore, ivf_scan, ops,
-                                 pq_scan)
+from repro_torch.configs.mistral_nemo_12b import SMOKE_CONFIG
+from repro_torch.kernels import (distance_topk, flash_attention, gather_rescore,
+                                 ivf_scan, ops, pq_scan)
+from repro_torch.models import lm as LM
 
 RTOL, ATOL = 1e-5, 1e-4
 
@@ -279,3 +284,111 @@ class TestEngineOnCard:
         ids = eng.add_docs(new)
         _, i = eng.search(new.cpu().numpy())
         np.testing.assert_array_equal(i[:, 0], ids)
+
+
+# (b, hq, hkv, sq, skv, dh, causal, window): the JAX package's
+# TestFlashAttention cases, decode steps, every head dim, a group of 5
+# (rows not a multiple of the group), and rows with nothing to attend
+FLASH_CASES = [
+    (2, 4, 4, 64, 64, 32, True, None),
+    (2, 4, 2, 64, 64, 32, False, None),     # GQA
+    (1, 2, 2, 50, 70, 32, True, None),      # uneven + decode-aligned
+    (1, 2, 2, 96, 96, 64, True, 16),        # sliding window
+    (1, 4, 1, 1, 128, 64, False, None),     # single-token decode (MQA)
+    (1, 2, 2, 33, 65, 16, True, 8),         # padding both axes + window
+    (2, 32, 8, 1, 300, 128, True, None),    # decode, Mistral's group of 4
+    (1, 8, 2, 200, 200, 128, True, None),   # prefill, several tiles
+    (1, 10, 2, 70, 90, 256, True, 40),      # group of 5, window
+    (1, 4, 2, 40, 24, 32, True, None),      # 16 rows with nothing to attend
+    (1, 4, 4, 17, 0, 16, False, None),      # no keys at all
+]
+
+
+@pytest.mark.cuda
+class TestFlashAttentionOnCard:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window", FLASH_CASES)
+    def test_matches_plain(self, cuda, dtype, b, hq, hkv, sq, skv, dh, causal,
+                           window):
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device=cuda).manual_seed(sq * 31 + skv)
+        q = torch.randn((b, hq, sq, dh), generator=g, device=cuda).to(dt)
+        k = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(dt)
+        v = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(dt)
+        before = flash_attention.launches
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                     window=window)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert got.dtype == dt and got.shape == (b, hq, sq, dh)
+        assert torch.isfinite(got).all()
+        tol = 2e-4 if dtype == "float32" else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if causal and sq > skv:
+            assert not got[:, :, :sq - skv].any()
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_strided_cache_prefix(self, cuda, dtype):
+        """Decode reads k_cache[:, :, :pos + 1] in place (a strided view),
+        and a non-contiguous v (prefill's transposed projection)."""
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device=cuda).manual_seed(3)
+        kc = torch.randn((2, 8, 544, 128), generator=g, device=cuda).to(dt)
+        vc = torch.randn((2, 8, 544, 128), generator=g, device=cuda).to(dt)
+        q = torch.randn((2, 32, 1, 128), generator=g, device=cuda).to(dt)
+        tol = 2e-4 if dtype == "float32" else 2e-2
+        for pos in (0, 63, 64, 300, 543):
+            kp, vp = kc[:, :, :pos + 1], vc[:, :, :pos + 1]
+            got = ops.flash_attention(q, kp, vp, causal=True)
+            want = flash_attention.flash_attention_plain(
+                q, kp.contiguous(), vp.contiguous(), causal=True)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+        x = torch.randn((2, 70, 4, 32), generator=g, device=cuda).to(dt)
+        vt = x.transpose(1, 2)                        # (2, 4, 70, 32) view
+        got = ops.flash_attention(vt, vt, vt, causal=True)
+        want = flash_attention.flash_attention_plain(
+            vt.contiguous(), vt.contiguous(), vt.contiguous(), causal=True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+    def test_rejections(self, cuda):
+        q = torch.zeros((1, 4, 8, 48), device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_attention(q, q, q)
+        q = torch.zeros((1, 6, 8, 32), device=cuda)
+        k = torch.zeros((1, 4, 8, 32), device=cuda)
+        with pytest.raises(ValueError, match="multiple"):
+            ops.flash_attention(q, k, k)
+        with pytest.raises(ValueError, match="float32 or all bfloat16"):
+            ops.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.cuda
+class TestLMOnCard:
+    def test_decode_step_matches_cpu(self, cuda):
+        """The smoke config on the card (kernel path) against the same
+        weights on the CPU (plain path): prefill, then four decode steps."""
+        lm_gpu = LM.init_lm(SMOKE_CONFIG, seed=3, device=cuda)
+        lm_cpu = LM.init_lm(SMOKE_CONFIG, seed=3, device="cpu")
+        lm_cpu.load_state_dict({k: v.cpu() for k, v in
+                                lm_gpu.state_dict().items()})
+        g = torch.Generator().manual_seed(0)
+        toks = torch.randint(1, SMOKE_CONFIG.vocab, (3, 20), generator=g)
+        before = flash_attention.launches
+        lg, cg = LM.prefill(lm_gpu, toks.to(cuda))
+        lc, cc = LM.prefill(lm_cpu, toks)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-4, atol=2e-4)
+        cg = LM.prefill_to_decode_cache(SMOKE_CONFIG, cg, 20, 24)
+        cc = LM.prefill_to_decode_cache(SMOKE_CONFIG, cc, 20, 24)
+        tok = lc.argmax(-1, keepdim=True)
+        for i in range(4):
+            lg, cg = LM.decode_step(lm_gpu, cg, tok.to(cuda), 20 + i)
+            lc, cc = LM.decode_step(lm_cpu, cc, tok, 20 + i)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=2e-4, atol=2e-4)
+            tok = lc.argmax(-1, keepdim=True)
+        torch.testing.assert_close(cg["k"].cpu(), cc["k"], rtol=2e-4,
+                                   atol=2e-4)
+        assert flash_attention.launches == before + 2 * 5
