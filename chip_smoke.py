@@ -48,9 +48,38 @@ in phases that each print one JSON line:
                  layer's causal mask shifted by one key) must fail the
                  call-by-call check; one ``generate`` is traced with
                  ``torch.profiler``
-  8. kernels line, card line, and the final ``{"ok": true, ...}`` line.
+  8. recsys    — the recsys serving path at CONFIG width, random weights
+                 from ``--seed``, one model at a time: two-tower retrieval
+                 (4 + 4 fields of 1M x 256 rows, towers 1024-1024-512-256)
+                 builds a 1M-item DB with ``tower_item``, serves user
+                 batches of 8 and 512 with ``retrieval_serve`` (progressive
+                 search 64 -> 256, k0 128, final_k 10) and scores 512 users x
+                 4,096 candidates with ``serve_candidates``; DLRM-RM2 (26 x
+                 5M x 64 tables) runs ``recsys_forward`` at 512 and 262,144
+                 rows; DIN and AutoInt one 512-row batch each.  Every
+                 embedding-bag lookup goes through the CUDA kernel (launches
+                 counted); each model is held against its plain path (the
+                 same code with every ``ops`` entry given its plain version)
+                 on the same weights and inputs; recall@10 of retrieval
+                 against an exact search is recorded
+  9. gnn       — EGNN at CONFIG width (4 layers x 64, 47 classes) on the
+                 ogbn-products shape (2,449,029 nodes, 61,859,140 power-law
+                 edges made on the card from ``--seed``), then the molecule
+                 shape (128 graphs x 30 nodes / 64 edges): 12 segment-sum
+                 launches per forward; logits and coordinates against the
+                 plain path; every segment-sum call of a replay against the
+                 plain version on its own inputs, and a control (one call's
+                 row pointer shifted by one edge) that must fail that check;
+                 one forward traced with ``torch.profiler``
+ 10. kernels line, card line, and the final ``{"ok": true, ...}`` line.
 
-Phase 2 also holds the flash-attention kernel against its plain version
+Phase 2 also holds the embedding-bag and segment-sum kernels against their
+plain versions on their edge cases (bags of 8 and 100 ids with padding, sum
+and mean, all-padding bags, an id beyond the vocabulary, bf16 tables; empty
+segments, no rows, one segment holding half the rows); phases 8 and 9 time
+them at the path's shapes beside ``F.embedding_bag`` and
+``Tensor.index_add_`` / ``torch.segment_reduce`` (yardsticks, timed only
+there).  Phase 2 also holds the flash-attention kernel against its plain version
 in bfloat16 and float32 at the serving shapes (prefill over 512 tokens,
 decode over a 543-position cache prefix, with the layouts the LM path
 gives them) and on the edge cases of the JAX package's tests, with CUDA-event and profiler times beside
@@ -65,6 +94,8 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -96,7 +127,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 
 KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan",
-               "flash_attention")
+               "flash_attention", "embedding_bag", "segment_sum")
 
 # The RAG phase (configs/mistral_nemo_12b.py at full width): a flat corpus
 # of 262,144 documents of 256 tokens, 64 queries, 32 new tokens per request
@@ -117,6 +148,31 @@ RAG_BATCH, RAG_NEW_TOKENS = 8, 32
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 LOGIT_TOL = 0.25
 NEAR_TIE = LOGIT_TOL
+
+# The recsys phase: a 1M-item DB from the item tower, user batches of 8
+# (one request) and 512 (serve_p99), 512 users x 4,096 candidates; DLRM at
+# serve_p99 and serve_bulk (configs/shapes.py).
+TT_ITEMS, TT_BATCHES, TT_CANDIDATES = 1_000_000, (8, 512), 4096
+P99_BATCH, BULK_BATCH = 512, 262_144
+# Tolerances.  Embedding bag vs its plain version: float32 rtol 1e-5 / atol
+# 1e-6 (both sum each bag in id order); bf16 tables one bf16 step (rtol
+# 2**-7) of the float32-accumulated plain value.  Segment sum: 1e-5 of each
+# segment's sum of |x| plus 1e-6 (the kernel's float32 order against the
+# plain version's float64 sum).  DLRM logits 1e-4 relative to the largest.
+# EGNN: logits within EGNN_LOGIT_TOL node-wise (max |Δ| of a node's row over
+# the max |plain| of that row; a global ratio is dominated by the hubs and
+# barely sees a wrong sum at a small node); coordinates within
+# EGNN_COORD_TOL of the largest |plain| coordinate (a node's coordinates
+# can cancel far below the terms summed into them, so their node-wise gap
+# is recorded, not gated).  Set on the H100 from the measured gaps (logits
+# 1.4e-6 node-wise, coordinates 3.5e-12 globally) and the shifted-pointer
+# control (0.27 and 5.8e-4): about 70x and 3e5x the former, far below the
+# latter.
+EB_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2 ** -7, 1e-6)}
+SEG_RTOL, SEG_ATOL = 1e-5, 1e-6
+DLRM_TOL = 1e-4
+EGNN_LOGIT_TOL = 1e-4
+EGNN_COORD_TOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -179,6 +235,8 @@ def device_ms(torch, fn, own, *, runs: int = 10):
         total += us
         if any(name in ev.key for name in own):
             mine += us
+    if mine <= 0.0:            # the trace caught no kernel: not measured
+        return None, None
     return total / runs / 1e3, mine / runs / 1e3
 
 
@@ -216,14 +274,37 @@ def compare(torch, got, want, *, rtol: float = 2e-5, atol: float = 1e-3):
 
 def counters():
     """name -> (module, attribute) of every kernel's launch counter."""
-    from repro_torch.kernels import (distance_topk, flash_attention,
-                                     gather_rescore, ivf_scan, pq_scan)
+    from repro_torch.kernels import (distance_topk, embedding_bag,
+                                     flash_attention, gather_rescore,
+                                     ivf_scan, pq_scan, segment_sum)
     return {"distance_topk.l2_topk": (distance_topk, "launches"),
             "gather_rescore.gather_rescore_topk": (gather_rescore, "launches"),
             "ivf_scan.ivf_scan_topk": (ivf_scan, "launches"),
             "pq_scan.pq_scan_topk": (pq_scan, "flat_launches"),
             "pq_scan.pq_ivf_scan_topk": (pq_scan, "ivf_launches"),
-            "flash_attention.flash_attention": (flash_attention, "launches")}
+            "flash_attention.flash_attention": (flash_attention, "launches"),
+            "embedding_bag.embedding_bag": (embedding_bag, "launches"),
+            "segment_sum.sorted_segment_sum": (segment_sum, "launches")}
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Every ``ops`` entry of ``ops.plain`` given its plain version while the
+    block runs: the plain path of a model is its own code on the plain
+    versions (checked to launch no kernel)."""
+    from repro_torch.kernels import ops
+
+    saved = {name: getattr(ops, name) for name in vars(ops.plain)}
+    before = read_counts()
+    for name, fn in vars(ops.plain).items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    if read_counts() != before:
+        fail(f"the plain path launched a kernel: {before} -> {read_counts()}")
 
 
 def zero_counts() -> None:
@@ -390,6 +471,8 @@ def run(args) -> None:
     torch.cuda.empty_cache()
     scan_edge_cases(torch, dev)
     flash_rows = flash_kernel_phase(torch, dev, flush)
+    bag_rows = bag_edge_cases(torch, dev, flush)
+    seg_rows = segment_edge_cases(torch, dev, flush)
 
     # -- 3. corpus on the card ----------------------------------------------
     def load_corpus(engine):
@@ -541,8 +624,16 @@ def run(args) -> None:
 
     # -- 7. the RAG generation path ------------------------------------------
     launches.update(rag_phase(torch, dev, args.seed))
+
+    # -- 8. the recsys serving path, 9. EGNN inference -------------------------
+    counts, rows = recsys_phase(torch, dev, args.seed)
+    launches.update(counts)
+    bag_rows += rows
+    counts, rows = gnn_phase(torch, dev, args.seed)
+    launches.update(counts)
+    seg_rows += rows
     finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
-           flash_rows)
+           flash_rows, bag_rows, seg_rows)
 
 
 # (variant, backend block kwargs, scan kernel its stage 0 runs, full phase)
@@ -1304,6 +1395,668 @@ def profile_generate(torch, pipe, queries, retrieved, wall_ms) -> None:
           "flash_attention_device_ms": flash, "kernels": rows[:12]})
 
 
+# ---------------------------------------------------------------------------
+# embedding bag and segment sum: kernel rows (phase 2 edge cases, phases 8-9
+# path shapes)
+# ---------------------------------------------------------------------------
+
+def bag_row(torch, case, tables, ids, mode="sum", *, flush=None,
+            library=False, runs=20) -> dict:
+    """The embedding-bag kernel against its plain version on one input,
+    timed beside it (and beside ``F.embedding_bag``, the yardstick, where
+    ``library``), with its bound from the bytes these ids need."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as eb
+
+    kern = lambda: eb.embedding_bag(tables, ids, mode=mode)
+    plain = lambda: eb.embedding_bag_plain(tables, ids, mode=mode)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    dtype = str(tables.dtype).replace("torch.", "")
+    rtol, atol = EB_TOL[dtype]
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not bool(torch.isfinite(got).all()) or bool(
+            ((got - want).abs() > rtol * want.abs() + atol).any()):
+        fail(f"embedding_bag {case}: max|Δ|={err} beyond rtol {rtol} / "
+             f"atol {atol}")
+    b, f, bag_len = ids.shape
+    n_bytes = eb.bound_bytes(tables, ids)
+    bnd, by = bound_ms(n_bytes, float(int((ids >= 0).sum())) * tables.shape[-1])
+    dev_all, dev_own = device_ms(torch, kern, ("embedding_bag_kernel",))
+    row = {"kernel": "embedding_bag.embedding_bag", "case": case,
+           "shape": f"tables {tuple(tables.shape)} {dtype}, ids "
+                    f"{tuple(ids.shape)}, {mode}",
+           "max_abs_err": err, "rtol": rtol, "atol": atol,
+           "ms": cuda_ms(torch, kern, flush=flush, runs=runs),
+           "plain_ms": cuda_ms(torch, plain, flush=flush, runs=runs),
+           "library_ms": None, "device_ms": dev_all,
+           "kernel_device_ms": dev_own, "bound_ms": bnd, "bound_by": by,
+           "bytes": n_bytes}
+    if library:
+        # one (F * V, D) table, ids offset by field: the same sums (the
+        # path's bags hold no padding; ids >= V clamped as the kernel does)
+        v, d = tables.shape[1], tables.shape[2]
+        flat = tables.reshape(-1, d)
+        off = (ids.long().clamp(max=v - 1)
+               + v * torch.arange(f, device=ids.device)[None, :, None]
+               ).reshape(b * f, bag_len)
+        row["library_ms"] = cuda_ms(
+            torch, lambda: F.embedding_bag(off, flat, mode=mode), flush=flush,
+            runs=runs)
+    emit({"phase": "kernels", **row})
+    return row
+
+
+def bag_edge_cases(torch, dev, flush) -> list:
+    """The embedding-bag kernel on its edge cases (phase 2): bags of 8 and
+    100 ids with -1 padding in sum and mean, all-padding bags, ids beyond
+    the vocabulary, bf16 tables."""
+    from repro_torch.kernels import embedding_bag as eb
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    rows = []
+    f, v, d, b = 4, 100_000, 64, 4096
+    for dtype in (torch.float32, torch.bfloat16):
+        tabs = (torch.randn((f, v, d), generator=g, device=dev)
+                * d ** -0.5).to(dtype)
+        for bag_len in (8, 100):
+            ids = torch.randint(0, v, (b, f, bag_len), generator=g,
+                                device=dev, dtype=torch.int32)
+            ids[torch.rand((b, f, bag_len), generator=g, device=dev) < 0.3] = -1
+            ids[:64] = -1                                  # all padding
+            ids[64:80, :, 0] = v + torch.arange(16, device=dev,
+                                                dtype=torch.int32)[:, None]
+            for mode in ("sum", "mean"):
+                rows.append(bag_row(torch, f"L{bag_len}_padded_{mode}_{dtype}"
+                                    .replace("torch.", ""), tabs, ids, mode,
+                                    flush=flush, runs=10))
+            got = eb.embedding_bag(tabs, ids, mode="sum")
+            if bool(got[:64].any()):
+                fail("embedding_bag: an all-padding bag is not 0")
+            # an id beyond the vocabulary reads row V - 1: the same bags with
+            # that id replaced by V - 1
+            fixed = ids[64:80].clone()
+            fixed[:, :, 0] = v - 1
+            if not torch.equal(got[64:80],
+                               eb.embedding_bag(tabs, fixed, mode="sum")):
+                fail("embedding_bag: an id beyond the vocabulary did not "
+                     "read row V - 1")
+        del tabs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def seg_ratio(torch, got, want, data, seg, n) -> float:
+    """max |kernel - plain| / (SEG_RTOL * segment sum of |x| + SEG_ATOL),
+    the sum of |x| built in row chunks (no full-size temporary)."""
+    from repro_torch.kernels import segment_sum as ss
+
+    if got.numel() == 0:
+        return 0.0
+    scale = torch.zeros_like(got)
+    step = 1 << 23
+    for lo in range(0, data.shape[0], step):
+        scale += ss.segment_sum_plain(data[lo:lo + step].abs(),
+                                      seg[lo:lo + step], num_segments=n)
+    return float(((got - want).abs() / (SEG_RTOL * scale + SEG_ATOL)).max())
+
+
+def seg_row(torch, case, data, seg, indptr, n, *, flush=None,
+            library=False, runs=20) -> dict:
+    """The segment-sum kernel (sorted entry) against its plain version on
+    one input, timed beside it (and beside ``index_add_`` and
+    ``torch.segment_reduce``, the yardsticks, where ``library``)."""
+    from repro_torch.kernels import segment_sum as ss
+
+    kern = lambda: ss.sorted_segment_sum(data, seg, indptr, num_segments=n)
+    plain = lambda: ss.sorted_segment_sum_plain(data, seg, indptr,
+                                                num_segments=n)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    ratio = seg_ratio(torch, got, want, data, seg, n)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if ratio > 1.0 or not bool(torch.isfinite(got).all()):
+        fail(f"sorted_segment_sum {case}: |Δ| at {ratio} of the limit "
+             f"(max|Δ| {err})")
+    n_live = int(indptr[-1])
+    d = data.shape[1] if data.dim() == 2 else 1
+    n_bytes = ss.bound_bytes(data, n_live, n)
+    bnd, by = bound_ms(n_bytes, float(n_live) * d)
+    dev_all, dev_own = device_ms(torch, kern, ("segment_sum_kernel",))
+    lengths = indptr[1:] - indptr[:-1]
+    row = {"kernel": "segment_sum.sorted_segment_sum", "case": case,
+           "shape": f"data {tuple(data.shape)}, N {n}",
+           "max_abs_err": err, "err_over_limit": ratio,
+           "max_segment_rows": int(lengths.max()) if n else 0,
+           "mean_segment_rows": n_live / max(n, 1),
+           "empty_segments": int((lengths == 0).sum()),
+           "ms": cuda_ms(torch, kern, flush=flush, runs=runs),
+           "plain_ms": cuda_ms(torch, plain, flush=flush, runs=runs),
+           "library_ms": None, "device_ms": dev_all,
+           "kernel_device_ms": dev_own, "bound_ms": bnd, "bound_by": by,
+           "bytes": n_bytes}
+    if library:
+        seg_l = seg.long().clamp(max=n)
+        rows2 = data if data.dim() == 2 else data[:, None]
+        row["library_ms"] = cuda_ms(
+            torch, lambda: torch.zeros((n + 1, d), device=data.device)
+            .index_add_(0, seg_l, rows2), flush=flush, runs=runs)
+        live, off = rows2[:n_live], indptr.long()
+        row["segment_reduce_ms"] = cuda_ms(
+            torch, lambda: torch.segment_reduce(live, "sum", offsets=off,
+                                                axis=0),
+            flush=flush, runs=runs)
+    emit({"phase": "kernels", **row})
+    return row
+
+
+def segment_edge_cases(torch, dev, flush) -> list:
+    """The segment-sum kernel on its edge cases (phase 2), through the
+    sorted entry (timed) and the unsorted one: empty segments, no rows, one
+    segment holding half the rows, EGNN's widths 64 / 3 / 1."""
+    from repro_torch.kernels import segment_sum as ss
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    rows = []
+    n, e = 100_000, 2_000_000
+    for case, d, n_rows in (("sparse_64", 64, e // 100),
+                            ("uniform_64", 64, e),
+                            ("uniform_3", 3, e),
+                            ("uniform_1", 1, e),
+                            ("half_in_one_64", 64, e),
+                            ("no_rows_64", 64, 0)):
+        seg = torch.randint(-1, n, (n_rows,), generator=g, device=dev,
+                            dtype=torch.int32)
+        if case.startswith("half"):
+            seg[: n_rows // 2] = 7
+        data = torch.randn((n_rows, d), generator=g, device=dev)
+        if d == 1:
+            data = data[:, 0]
+        order, seg_s, indptr = ss.sort_by_segment(seg, n)
+        rows.append(seg_row(torch, case, data[order], seg_s, indptr, n,
+                            flush=flush, runs=10))
+        got = ss.segment_sum(data, seg, num_segments=n)
+        want = ss.segment_sum_plain(data, seg, num_segments=n)
+        ratio = seg_ratio(torch, got, want, data, seg, n)
+        empty = indptr[1:] == indptr[:-1]
+        if ratio > 1.0 or bool(got[empty].any()):
+            fail(f"segment_sum {case} (unsorted entry): |Δ| at {ratio} of "
+                 f"the limit, or an empty segment is not 0")
+    del data, seg
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the recsys serving path
+# ---------------------------------------------------------------------------
+
+def recsys_phase(torch, dev, seed):
+    """Two-tower retrieval, DLRM-RM2, DIN and AutoInt at CONFIG width, one
+    model at a time.  Returns ({embedding_bag: launches of the main paths},
+    the embedding-bag rows at the path's shapes)."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    counts, rows = two_tower_run(torch, dev, seed)
+    n_dlrm, rows_dlrm = dlrm_run(torch, dev, seed, flush)
+    counts += n_dlrm
+    rows += rows_dlrm
+    for arch in ("din", "autoint"):
+        counts += ctr_run(torch, dev, seed, arch)
+    del flush
+    torch.cuda.empty_cache()
+    return {"embedding_bag.embedding_bag": counts}, rows
+
+
+def _batch(torch, dev, cfg, batch, seed):
+    from repro_torch.data.synth import recsys_batch_stream
+
+    b = next(recsys_batch_stream(
+        np.random.default_rng(seed), cfg.family, batch, n_sparse=cfg.n_sparse,
+        multi_hot=cfg.multi_hot, vocab=cfg.vocab_per_field,
+        n_dense=cfg.n_dense, seq_len=cfg.seq_len))
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def _free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def two_tower_run(torch, dev, seed):
+    """The two-tower retrieval path; returns (embedding-bag launches of the
+    main path, kernel rows at the item-build shape)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import make_schedule
+    from repro_torch.models import recsys as R
+
+    cfg = get_arch("two-tower-retrieval").CONFIG
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = R.recsys_init(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nf = params["item_tables"].shape[0]
+    item_ids = torch.arange(TT_ITEMS, dtype=torch.int32, device=dev)[
+        :, None, None].expand(TT_ITEMS, nf, 1).contiguous()
+    users = {bs: _batch(torch, dev, cfg, bs, seed + 10 + bs)["user_ids"]
+             for bs in TT_BATCHES}
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 4)
+    cand = torch.randperm(TT_ITEMS, generator=g, device=dev)[
+        :TT_CANDIDATES].to(torch.int32)
+    sched = make_schedule(cfg.retrieval_d_start, cfg.tower_mlp[-1],
+                          cfg.retrieval_k0, final_k=10)
+
+    def path():
+        db = R.tower_item(params, item_ids)
+        out = {bs: R.retrieval_serve(params, u, db, cfg, sched=sched)
+               for bs, u in users.items()}
+        sc = R.serve_candidates(params, {"user_ids": users[P99_BATCH]}, cand,
+                                cfg)
+        return db, out, sc
+
+    path()                                         # warm-up (cuBLAS, build)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    db, out, sc = path()
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = read_counts()
+    want_bags = 1 + len(TT_BATCHES) + 2
+    if counts["embedding_bag.embedding_bag"] != want_bags \
+            or counts["distance_topk.l2_topk"] != len(TT_BATCHES) \
+            or counts["gather_rescore.gather_rescore_topk"] \
+            != len(TT_BATCHES) * (len(sched.stages) - 1):
+        fail(f"two-tower: launches {counts}")
+    with plain_ops():
+        db_p, out_p, sc_p = path()
+    torch.cuda.synchronize()
+    if not torch.equal(db, db_p):
+        fail(f"two-tower: item DB differs from the plain path by "
+             f"{float((db - db_p).abs().max())}")
+    ids_agree, score_err = {}, 0.0
+    for bs in TT_BATCHES:
+        err, agree, tol = compare(torch, out[bs], out_p[bs])
+        if agree < 1.0 or err > tol:
+            fail(f"two-tower retrieval B={bs}: ids agree {agree}, max|Δ| "
+                 f"{err} (tol {tol})")
+        ids_agree[bs], score_err = agree, max(score_err, err)
+    sc_err = float((sc - sc_p).abs().max())
+    if sc_err > 1e-5 or sc.shape != (P99_BATCH, TT_CANDIDATES):
+        fail(f"two-tower serve_candidates: max|Δ| {sc_err}, shape "
+             f"{tuple(sc.shape)}")
+    del db_p, out_p, sc_p
+    # recall@10 of the served ids against an exact full-dim search
+    u = R.tower_user(params, users[P99_BATCH])
+    s = (db * db).sum(1)[None] - 2.0 * (u @ db.T)
+    truth = torch.topk(s, 10, dim=1, largest=False).indices
+    got = out[P99_BATCH][1].long()
+    recall = float((got[:, :, None] == truth[:, None, :]).any(2).float().mean())
+    del s, u
+    timed = {bs: cuda_ms(torch, lambda bs=bs: R.retrieval_serve(
+        params, users[bs], db, cfg, sched=sched), runs=10) for bs in TT_BATCHES}
+    build_ms = cuda_ms(torch, lambda: R.tower_item(params, item_ids), runs=5)
+    cand_ms = cuda_ms(torch, lambda: R.serve_candidates(
+        params, {"user_ids": users[P99_BATCH]}, cand, cfg), runs=10)
+    emit({"phase": "recsys", "model": cfg.name, "init_s": init_s,
+          "items": TT_ITEMS, "schedule": sched.describe(),
+          "path_s": path_s, "item_db_build_ms": build_ms,
+          "retrieval_ms": {str(k): v for k, v in timed.items()},
+          "retrieval_qps": {str(k): k / v * 1e3 for k, v in timed.items()},
+          "serve_candidates_ms": cand_ms,
+          "serve_candidates_shape": [P99_BATCH, TT_CANDIDATES],
+          "item_db_equal_plain": True,
+          "ids_equal_plain_up_to_ties": {str(k): v
+                                         for k, v in ids_agree.items()},
+          "score_max_abs_err": score_err,
+          "serve_candidates_max_abs_err": sc_err,
+          "recall_at_10_vs_exact": recall, "launches": counts,
+          "gpu_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    profile_call(torch, lambda: R.retrieval_serve(
+        params, users[P99_BATCH], db, cfg, sched=sched),
+        timed[P99_BATCH], f"two-tower retrieval_serve B={P99_BATCH}")
+    rows = [bag_row(torch, "two_tower_item_build", params["item_tables"],
+                    item_ids, library=True, runs=10)]
+    del params, db, out, sc, item_ids, users
+    _free(torch)
+    return counts["embedding_bag.embedding_bag"], rows
+
+
+def dlrm_run(torch, dev, seed, flush):
+    """DLRM-RM2 at serve_p99 and serve_bulk; returns (embedding-bag
+    launches of the main path, kernel rows at both shapes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys as R
+
+    cfg = get_arch("dlrm-rm2").CONFIG
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = R.recsys_init(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = {bs: _batch(torch, dev, cfg, bs, seed + 20 + bs)
+               for bs in (P99_BATCH, BULK_BATCH)}
+
+    def run():
+        return {bs: R.recsys_forward(params, b, cfg)
+                for bs, b in batches.items()}
+
+    run()
+    torch.cuda.synchronize()
+    zero_counts()
+    logits = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["embedding_bag.embedding_bag"] != len(batches):
+        fail(f"dlrm: launches {counts}")
+    with plain_ops():
+        plain = run()
+    rel = {}
+    for bs in batches:
+        got, want = logits[bs], plain[bs]
+        if got.shape != (bs,) or not bool(torch.isfinite(got).all()):
+            fail(f"dlrm B={bs}: logits of shape {tuple(got.shape)} not finite")
+        rel[bs] = float((got - want).abs().max() / want.abs().max())
+        if rel[bs] > DLRM_TOL:
+            fail(f"dlrm B={bs}: logits differ from the plain path by "
+                 f"{rel[bs]} relative > {DLRM_TOL}")
+    fwd_ms = {bs: cuda_ms(torch, lambda b=b: R.recsys_forward(params, b, cfg),
+                          flush=flush, runs=10) for bs, b in batches.items()}
+    emit({"phase": "recsys", "model": cfg.name, "init_s": init_s,
+          "table_gb": params["tables"].numel() * 4 / 1e9,
+          "forward_ms": {str(k): v for k, v in fwd_ms.items()},
+          "rows_per_s": {str(k): k / v * 1e3 for k, v in fwd_ms.items()},
+          "logit_rel_err_vs_plain": {str(k): v for k, v in rel.items()},
+          "logit_tol": DLRM_TOL, "launches": counts,
+          "gpu_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    rows = [bag_row(torch, f"dlrm_{name}", params["tables"],
+                    batches[bs]["ids"], flush=flush, library=True, runs=10)
+            for name, bs in (("bulk", BULK_BATCH), ("p99", P99_BATCH))]
+    del params, batches, logits, plain
+    _free(torch)
+    return counts["embedding_bag.embedding_bag"], rows
+
+
+def ctr_run(torch, dev, seed, arch) -> int:
+    """One serve_p99 batch of DIN or AutoInt at CONFIG width against the
+    plain path; returns the embedding-bag launches of the forward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys as R
+
+    cfg = get_arch(arch).CONFIG
+    torch.cuda.reset_peak_memory_stats()
+    params = R.recsys_init(cfg, seed=seed, device=dev)
+    batch = _batch(torch, dev, cfg, P99_BATCH, seed + 30)
+    R.recsys_forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    logits = R.recsys_forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = 1 if cfg.family == "autoint" else 0      # DIN's pooling is weighted
+    if counts["embedding_bag.embedding_bag"] != want:
+        fail(f"{arch}: launches {counts}")
+    with plain_ops():
+        plain = R.recsys_forward(params, batch, cfg)
+    rel = float((logits - plain).abs().max() / plain.abs().max())
+    if logits.shape != (P99_BATCH,) or not bool(torch.isfinite(logits).all()) \
+            or rel > DLRM_TOL:
+        fail(f"{arch}: logits {tuple(logits.shape)}, relative gap to the "
+             f"plain path {rel}")
+    emit({"phase": "recsys", "model": cfg.name, "batch": P99_BATCH,
+          "forward_ms": cuda_ms(torch, lambda: R.recsys_forward(
+              params, batch, cfg), runs=10),
+          "logit_rel_err_vs_plain": rel, "launches": counts,
+          "gpu_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    del params, batch
+    _free(torch)
+    return counts["embedding_bag.embedding_bag"]
+
+
+# ---------------------------------------------------------------------------
+# phase 9: EGNN inference
+# ---------------------------------------------------------------------------
+
+def ogb_graph(torch, dev, seed, shape, n_classes):
+    """The ogbn-products shape as the port's ``random_graph`` makes it
+    (power-law senders and receivers from Pareto(2) + 1 node weights,
+    normal features and coordinates), drawn on the card from ``seed``."""
+    from repro_torch.models.graph import Graph
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 5)
+    n, e = shape.n_nodes, shape.n_edges
+    u = torch.rand((n,), generator=g, device=dev, dtype=torch.float64)
+    w = torch.exp(-torch.log1p(-u) / 2.0)              # pareto(2.0) + 1
+    cdf = torch.cumsum(w / w.sum(), 0)
+
+    def draw():
+        x = torch.rand((e,), generator=g, device=dev, dtype=torch.float64)
+        return torch.searchsorted(cdf, x, right=True).clamp_(max=n - 1).to(
+            torch.int32)
+
+    senders, receivers = draw(), draw()
+    return Graph(
+        nodes=torch.randn((n, shape.d_feat), generator=g, device=dev),
+        coords=torch.randn((n, 3), generator=g, device=dev),
+        senders=senders, receivers=receivers,
+        edge_attr=torch.zeros((e, 0), device=dev),
+        node_mask=torch.ones((n,), dtype=torch.bool, device=dev),
+        edge_mask=torch.ones((e,), dtype=torch.bool, device=dev),
+        labels=torch.randint(0, n_classes, (n,), generator=g, device=dev,
+                             dtype=torch.int32))
+
+
+def gaps(torch, got, want) -> dict:
+    """{"global": max |Δ| / max |plain|, "node": max over nodes of max |Δ|
+    in the node's row / max |plain| of that row}."""
+    diff = (got - want).abs()
+    return {"global": float(diff.max() / want.abs().max()),
+            "node": float((diff.amax(1) / want.abs().amax(1).clamp(min=1e-30))
+                          .max())}
+
+
+@contextlib.contextmanager
+def checked_segment_sums(torch, record, *, control_call=None, keep=None):
+    """While the block runs, every ``ops.sorted_segment_sum`` call runs the
+    kernel and the plain version on the call's inputs and appends the
+    kernel's |Δ| over its limit to ``record``; the kernel's output goes on.
+    ``control_call``: that call's kernel gets its row pointer shifted by one
+    edge (the check must reject it).  ``keep``: the first three calls'
+    inputs (layer 0: degree, coordinate update, messages) are appended."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as ss
+
+    kernel, calls = ops.sorted_segment_sum, [0]
+
+    def route(data, seg_ids, indptr, *, num_segments):
+        i = calls[0]
+        calls[0] += 1
+        ip = indptr
+        if i == control_call:
+            ip = (indptr + 1).clamp_(max=data.shape[0])
+            ip[0] = indptr[0]
+        got = ss.sorted_segment_sum(data, seg_ids, ip,
+                                    num_segments=num_segments)
+        want = ss.sorted_segment_sum_plain(data, seg_ids, indptr,
+                                           num_segments=num_segments)
+        record.append(seg_ratio(torch, got, want, data, seg_ids,
+                                num_segments))
+        if keep is not None and i < 3:
+            keep.append((data, seg_ids, indptr))
+        return got
+
+    ops.sorted_segment_sum = route
+    try:
+        yield
+    finally:
+        ops.sorted_segment_sum = kernel
+
+
+def gnn_phase(torch, dev, seed):
+    """EGNN on ogbn-products and the molecule batch; returns
+    ({sorted_segment_sum: launches of the main paths}, the segment-sum rows
+    at the path's shapes)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import egnn as EG
+    from repro_torch.models.graph import batched_molecules
+
+    arch = get_arch("egnn")
+    shape = arch.SHAPES["ogb_products"]
+    cfg = dataclasses.replace(arch.CONFIG, d_feat_in=shape.d_feat)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph = ogb_graph(torch, dev, seed, shape, cfg.n_classes)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    max_in_degree = int(torch.bincount(graph.receivers,
+                                       minlength=shape.n_nodes).max())
+    params = EG.egnn_init(cfg, seed=seed, device=dev)
+    per_forward = 3 * cfg.n_layers
+
+    EG.egnn_forward(params, graph, cfg)                # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, coords = EG.egnn_forward(params, graph, cfg)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["segment_sum.sorted_segment_sum"] != per_forward:
+        fail(f"egnn: launches {counts}")
+    if logits.shape != (shape.n_nodes, cfg.n_classes) \
+            or coords.shape != (shape.n_nodes, 3) \
+            or not bool(torch.isfinite(logits).all()
+                        & torch.isfinite(coords).all()):
+        fail("egnn: logits or coordinates of the wrong shape or not finite")
+    fwd_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    with plain_ops():
+        p_logits, p_coords = EG.egnn_forward(params, graph, cfg)
+    gap_logits = gaps(torch, logits, p_logits)
+    gap_coords = gaps(torch, coords, p_coords)
+    del p_logits, p_coords
+    _free(torch)
+
+    ratios, kept = [], []
+    with checked_segment_sums(torch, ratios, keep=kept):
+        r_logits, r_coords = EG.egnn_forward(params, graph, cfg)
+    replay_equal = bool(torch.equal(r_logits, logits)
+                        and torch.equal(r_coords, coords))
+    del r_logits, r_coords
+    rows = [seg_row(torch, f"egnn_layer0_{name}", data, seg, indptr,
+                    shape.n_nodes, library=True, runs=10)
+            for name, (data, seg, indptr) in zip(("deg", "wdx", "m"), kept)]
+    del kept
+    _free(torch)
+    control_call = 2                                  # layer 0's message sum
+    c_ratios = []
+    with checked_segment_sums(torch, c_ratios, control_call=control_call):
+        c_logits, c_coords = EG.egnn_forward(params, graph, cfg)
+    control_gap = {"logits": gaps(torch, c_logits, logits),
+                   "coords": gaps(torch, c_coords, coords)}
+    del c_logits, c_coords
+    _free(torch)
+    emit({"phase": "gnn", "model": cfg.name, "shape": shape.name,
+          "nodes": shape.n_nodes, "edges": shape.n_edges,
+          "layers": cfg.n_layers, "d_hidden": cfg.d_hidden,
+          "graph_s": graph_s, "max_in_degree": max_in_degree,
+          "mean_in_degree": shape.n_edges / shape.n_nodes,
+          "forward_s": fwd_s, "launches": counts,
+          "logit_gap_vs_plain": gap_logits,
+          "coord_gap_vs_plain": gap_coords,
+          "logit_node_tol": EGNN_LOGIT_TOL, "coord_global_tol": EGNN_COORD_TOL,
+          "calls_checked": len(ratios),
+          "call_err_over_limit_max": max(ratios),
+          "replay_equals_main_path": replay_equal,
+          "control_call": control_call,
+          "control_err_over_limit": c_ratios,
+          "control_gap_vs_path": control_gap,
+          "forward_gpu_mem_gb": fwd_peak,
+          "gpu_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    if len(ratios) != per_forward or max(ratios) > 1.0:
+        fail(f"egnn: a segment-sum call of the path is beyond its limit: "
+             f"{ratios}")
+    if c_ratios[control_call] <= 1.0:
+        fail(f"egnn: the call-by-call check misses a row pointer shifted by "
+             f"one edge: {c_ratios}")
+    if gap_logits["node"] > EGNN_LOGIT_TOL \
+            or gap_coords["global"] > EGNN_COORD_TOL:
+        fail(f"egnn: kernel vs plain path gap {gap_logits} (logits), "
+             f"{gap_coords} (coordinates)")
+    if control_gap["logits"]["node"] <= EGNN_LOGIT_TOL:
+        fail(f"egnn: the shifted-pointer control stays within the logit "
+             f"limit: {control_gap}")
+    if not replay_equal:
+        fail("egnn: the checked replay's kernel outputs differ from the main "
+             "path's (the kernel is not deterministic)")
+    profile_call(torch, lambda: EG.egnn_forward(params, graph, cfg),
+                 fwd_s * 1e3, f"egnn forward {shape.name}")
+    del graph, logits, coords, params
+    _free(torch)
+
+    # the molecule batch: 128 graphs x 30 nodes / 64 edges
+    mol = arch.SHAPES["molecule"]
+    mcfg = dataclasses.replace(arch.CONFIG, d_feat_in=mol.d_feat)
+    mparams = EG.egnn_init(mcfg, seed=seed, device=dev)
+    mg = batched_molecules(np.random.default_rng(seed), mol.graph_batch,
+                           mol.n_nodes, mol.n_edges, mol.d_feat,
+                           n_classes=mcfg.n_classes, device=dev)
+    EG.egnn_forward(mparams, mg, mcfg)
+    torch.cuda.synchronize()
+    zero_counts()
+    m_logits, m_coords = EG.egnn_forward(mparams, mg, mcfg)
+    torch.cuda.synchronize()
+    m_counts = read_counts()
+    with plain_ops():
+        p_logits, p_coords = EG.egnn_forward(mparams, mg, mcfg)
+    m_gap = {"logits": gaps(torch, m_logits, p_logits),
+             "coords": gaps(torch, m_coords, p_coords)}
+    m_ms = cuda_ms(torch, lambda: EG.egnn_forward(mparams, mg, mcfg), runs=10)
+    emit({"phase": "gnn", "model": mcfg.name, "shape": mol.name,
+          "graphs": mol.graph_batch, "nodes": mg.nodes.shape[0],
+          "edges": mg.senders.shape[0], "forward_ms": m_ms,
+          "gap_vs_plain": m_gap, "launches": m_counts})
+    if m_counts["segment_sum.sorted_segment_sum"] != per_forward \
+            or m_gap["logits"]["node"] > EGNN_LOGIT_TOL \
+            or m_gap["coords"]["global"] > EGNN_COORD_TOL:
+        fail(f"egnn molecule: launches {m_counts}, node gap {m_gap}")
+    del mparams, mg
+    _free(torch)
+    return {"segment_sum.sorted_segment_sum":
+            counts["segment_sum.sorted_segment_sum"]
+            + m_counts["segment_sum.sorted_segment_sum"]}, rows
+
+
+def profile_call(torch, fn, wall_ms, label) -> None:
+    """Trace one call of ``fn`` with ``torch.profiler``: device time by
+    kernel, and the device's busy share of the untraced call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append({"name": ev.key[:80], "count": ev.count,
+                         "device_ms": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    emit({"phase": "profile", "path": label, "device_busy_ms": busy,
+          "wall_ms": wall_ms, "device_busy_share": busy / wall_ms,
+          "kernels": rows[:12]})
+
+
 def driver_run(engine, q_host, i_eng) -> dict:
     """Requests from client threads through ``EngineDriver``; each result
     must agree with ``engine.search`` on the same query."""
@@ -1420,8 +2173,44 @@ def _flash_entry(launches, rows) -> dict:
             "float32": {c: {k: r[k] for k in keys} for c, r in f32.items()}}
 
 
+def _bag_entry(launches, rows) -> dict:
+    """The kernels-line entry: the two-tower item build first, the DLRM
+    shapes beside it, every case's largest error."""
+    by = {r["case"]: r for r in rows}
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "kernel_device_ms",
+            "bound_ms", "bound_by", "shape")
+    first = by["two_tower_item_build"]
+    return {"name": "embedding_bag.embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag.py:79",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: first[k] for k in keys},
+            "dlrm_bulk": {k: by["dlrm_bulk"][k] for k in keys},
+            "dlrm_p99": {k: by["dlrm_p99"][k] for k in keys}}
+
+
+def _seg_entry(launches, rows) -> dict:
+    """The kernels-line entry: EGNN's layer-0 message sum first, its degree
+    and coordinate sums beside it, every case's largest error."""
+    by = {r["case"]: r for r in rows}
+    keys = ("ms", "plain_ms", "library_ms", "segment_reduce_ms", "device_ms",
+            "kernel_device_ms", "bound_ms", "bound_by", "shape",
+            "max_segment_rows")
+    first = by["egnn_layer0_m"]
+    return {"name": "segment_sum.sorted_segment_sum", "route": "cuda",
+            "source": "src/repro_torch/csrc/segment_sum.cu",
+            "replaces": "src/repro/kernels/segment_sum.py:100",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_err_over_limit": max(r["err_over_limit"] for r in rows),
+            **{k: first[k] for k in keys},
+            "wdx": {k: by["egnn_layer0_wdx"][k] for k in keys},
+            "deg": {k: by["egnn_layer0_deg"][k] for k in keys}}
+
+
 def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
-           flash_rows) -> None:
+           flash_rows, bag_rows, seg_rows) -> None:
     """Print the kernels line, the card line and the final result line."""
     s32 = [r for r in stage_rows if r["Q"] == 32][0]
     lad = {key: sum(r[key] for r in ladder_rows)
@@ -1462,6 +2251,8 @@ def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
                     launches["pq_scan.pq_ivf_scan_topk"],
                     [scan_rows["ivf_pq"]]),
         _flash_entry(launches["flash_attention.flash_attention"], flash_rows),
+        _bag_entry(launches["embedding_bag.embedding_bag"], bag_rows),
+        _seg_entry(launches["segment_sum.sorted_segment_sum"], seg_rows),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,19 +1,20 @@
-"""Config dataclasses of the language models the RAG path runs.
+"""Config dataclasses of the architectures the port serves.
 
-The port's own copy of ``LMConfig``, ``MoEConfig`` and ``MLAConfig`` from
-the JAX package (``src/repro/configs/base.py``), field for field, so that
-a configuration reads the same in both packages.  Configs are frozen
-dataclasses.  Every architecture module in ``repro_torch.configs``
-exposes
+The port's own copy of ``LMConfig``, ``MoEConfig``, ``MLAConfig``,
+``ShapeSpec``, ``EGNNConfig`` and ``RecsysConfig`` from the JAX package
+(``src/repro/configs/base.py``), field for field, so that a configuration
+reads the same in both packages.  Configs are frozen dataclasses.  Every
+architecture module in ``repro_torch.configs`` exposes
 
     CONFIG        — the exact published configuration
     SMOKE_CONFIG  — a reduced same-family configuration for CPU tests
+    SHAPES        — shape name -> ShapeSpec (recsys and GNN modules)
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 # --------------------------------------------------------------------------
@@ -115,3 +116,80 @@ class LMConfig:
         all_experts = (L - e.first_k_dense) * e.n_experts * gmul * d * e.d_ff_expert
         active_experts = (L - e.first_k_dense) * e.top_k * gmul * d * e.d_ff_expert
         return total - all_experts + active_experts
+
+
+# --------------------------------------------------------------------------
+# input shapes
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (architecture x input-shape) cell of the shape matrix."""
+
+    name: str
+    kind: str                      # 'train' | 'prefill' | 'decode' | 'graph' | 'recsys'
+    seq_len: int = 0
+    global_batch: int = 0
+    # graph shapes
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    graph_batch: int = 0           # batched-small-graphs
+    # recsys shapes
+    n_candidates: int = 0
+    skip_reason: str = ""          # non-empty -> documented skip
+
+
+# --------------------------------------------------------------------------
+# GNN
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EGNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    d_feat_in: int = 0             # set per shape
+    d_coord: int = 3
+    d_edge: int = 0
+    n_classes: int = 16
+    param_dtype: str = "float32"
+    # dtype of the gathered per-edge message tensors
+    message_dtype: str = "float32"
+
+
+# --------------------------------------------------------------------------
+# RecSys
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    family: str                    # 'two_tower' | 'din' | 'autoint' | 'dlrm'
+    embed_dim: int
+    n_dense: int = 0
+    n_sparse: int = 0
+    vocab_per_field: int = 1_000_000
+    multi_hot: int = 1             # ids per sparse field (bag size)
+    # two-tower
+    tower_mlp: Tuple[int, ...] = ()
+    # din
+    seq_len: int = 0
+    attn_mlp: Tuple[int, ...] = ()
+    mlp: Tuple[int, ...] = ()
+    # autoint
+    n_attn_layers: int = 0
+    n_attn_heads: int = 0
+    d_attn: int = 0
+    # dlrm
+    bot_mlp: Tuple[int, ...] = ()
+    top_mlp: Tuple[int, ...] = ()
+    interaction: str = "dot"
+    param_dtype: str = "float32"
+    # progressive-retrieval integration (two-tower serving)
+    retrieval_d_start: int = 64
+    retrieval_k0: int = 128
+    # Matryoshka auxiliary losses on truncated prefixes (training only)
+    matryoshka_dims: Tuple[int, ...] = ()

@@ -1,13 +1,15 @@
-"""Device dispatch for the search path's and the LM's kernels.
+"""Device dispatch for the search path's, the LM's, the recsys models' and
+EGNN's kernels.
 
 A CUDA tensor always goes to the hand-written kernel; a CPU tensor goes to
 the kernel's plain version.  There is no switch that sends CUDA tensors
 down the plain path: on the card it is the kernel or an exception.  Search
 and LM code call these, never the kernels directly.
 
-``plain`` holds the five search entry points bound to the plain versions on
-any device; only the ``*_plain`` reference searches pass it (as ``impl=``),
-to check the kernels' results on the card.
+``plain`` holds the search, embedding-bag and segment-sum entry points
+bound to the plain versions on any device; the ``*_plain`` reference
+searches pass it (as ``impl=``), and a check on the card may put its
+entries in place of this module's to run a path on the plain versions.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import truncated as T
-from repro_torch.kernels import (distance_topk, flash_attention as fa,
-                                 gather_rescore, ivf_scan, pq_scan)
+from repro_torch.kernels import (distance_topk, embedding_bag as eb,
+                                 flash_attention as fa, gather_rescore,
+                                 ivf_scan, pq_scan, segment_sum as ss)
 
 Tensor = torch.Tensor
 
@@ -108,10 +111,42 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
                                     scale=scale)
 
 
+def embedding_bag(tables: Tensor, ids: Tensor, *, mode: str = "sum") -> Tensor:
+    """EmbeddingBag over stacked (F, V, D) tables with (B, F, L) ids (or one
+    (V, D) table with (B, L) ids): float32 per-bag sum / mean / max."""
+    if _on_cuda(tables, ids):
+        if mode == "max":
+            raise NotImplementedError(
+                "mode='max' on CUDA is not ported yet: the CUDA kernel "
+                "reduces 'sum' and 'mean' only (the CPU path supports 'max')")
+        return eb.embedding_bag(tables, ids, mode=mode)
+    return eb.embedding_bag_plain(tables, ids, mode=mode)
+
+
+def segment_sum(data: Tensor, seg_ids: Tensor, *, num_segments: int) -> Tensor:
+    """Float32 segment sum of unsorted rows; ids outside [0, N) dropped."""
+    if _on_cuda(data, seg_ids):
+        return ss.segment_sum(data, seg_ids, num_segments=num_segments)
+    return ss.segment_sum_plain(data, seg_ids, num_segments=num_segments)
+
+
+def sorted_segment_sum(data: Tensor, seg_ids: Tensor, indptr: Tensor, *,
+                       num_segments: int) -> Tensor:
+    """Float32 segment sum of rows sorted by segment, with CSR ``indptr``."""
+    if _on_cuda(data, indptr):
+        return ss.sorted_segment_sum(data, seg_ids, indptr,
+                                     num_segments=num_segments)
+    return ss.sorted_segment_sum_plain(data, seg_ids, indptr,
+                                       num_segments=num_segments)
+
+
 plain = types.SimpleNamespace(
     truncated_search=T.truncated_search,
     rescore_candidates=T.rescore_candidates,
     ivf_scan_topk=ivf_scan.ivf_scan_topk_plain,
     pq_scan_topk=pq_scan.pq_scan_topk_plain,
     pq_ivf_scan_topk=pq_scan.pq_ivf_scan_topk_plain,
+    embedding_bag=eb.embedding_bag_plain,
+    segment_sum=ss.segment_sum_plain,
+    sorted_segment_sum=ss.sorted_segment_sum_plain,
 )

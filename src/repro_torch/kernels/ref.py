@@ -176,3 +176,60 @@ def flash_attention_ref(
     l = p.sum(dim=-1, keepdim=True)
     pv = torch.matmul(p.to(v.dtype).to(torch.float32), v.to(torch.float32))
     return (pv / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def embedding_bag_ref(
+    table: Tensor, indices: Tensor, *, mode: str = "sum",
+    weights: Optional[Tensor] = None,
+) -> Tensor:
+    """EmbeddingBag: reduce table rows per bag.
+
+    Args:
+      table:   (V, D) embedding table, or stacked (F, V, D) per-field tables.
+      indices: (B, L) int ids for a (V, D) table, (B, F, L) for stacked
+               tables; negative = padding; ids >= V read row V - 1 (the JAX
+               package's gather clamps them so).
+      mode:    'sum' | 'mean' | 'max'.
+      weights: optional per-sample weights of the shape of ``indices``
+               (sum / mean only).
+    Returns:
+      (B, D) or (B, F, D) float32; an all-padding bag gives 0.  Sums are
+      taken over the bag in id order, one row at a time (the kernel's
+      order, so the two agree bit for bit).
+    """
+    v = table.shape[-2]
+    safe = indices.clamp(0, v - 1).long()
+    if table.dim() == 3:
+        field = torch.arange(table.shape[0], device=table.device)[None, :, None]
+        rows = table[field, safe].to(torch.float32)       # (B, F, L, D)
+    else:
+        rows = table[safe].to(torch.float32)              # (B, L, D)
+    valid = (indices >= 0)[..., None].to(torch.float32)
+    if weights is not None:
+        rows = rows * weights[..., None]
+    if mode in ("sum", "mean"):
+        acc = rows.new_zeros(rows.shape[:-2] + rows.shape[-1:])
+        for l in range(rows.shape[-2]):
+            acc = acc + rows[..., l, :] * valid[..., l, :]
+        if mode == "sum":
+            return acc
+        return acc / valid.sum(dim=-2).clamp(min=1.0)
+    if mode == "max":
+        neg = torch.where(valid > 0, rows, torch.full_like(rows, -float("inf")))
+        out = neg.amax(dim=-2)
+        return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    raise ValueError(f"unknown mode {mode}")
+
+
+def segment_sum_ref(data: Tensor, segment_ids: Tensor,
+                    num_segments: int) -> Tensor:
+    """Scatter-add rows of ``data`` into ``num_segments`` buckets
+    (``index_add_``); ids outside [0, num_segments) are dropped, as in
+    ``jax.ops.segment_sum``.  Returns data's dtype."""
+    seg = segment_ids.long()
+    keep = (seg >= 0) & (seg < num_segments)
+    seg = torch.where(keep, seg, torch.full_like(seg, num_segments))
+    out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]),
+                      dtype=data.dtype, device=data.device)
+    out.index_add_(0, seg, data)
+    return out[:num_segments]

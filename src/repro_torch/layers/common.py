@@ -1,4 +1,5 @@
-"""Core layers: norms, dense projections, FFN variants, initializers.
+"""Core layers: norms, dense projections, FFN variants, MLP towers,
+initializers.
 
 The port of ``src/repro/layers/common.py``.  Weights keep the JAX
 package's layout, (d_in, d_out), and every projection is ``x @ w``, so a
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -87,3 +89,62 @@ def ffn_apply(p: FFN, x: Tensor, ffn_type: str) -> Tensor:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
     return h @ p.w_out
+
+
+# ----------------------------------------------------------------- MLP ----
+
+class MLP(nn.Module):
+    """Plain MLP tower: weights (d_in, d_out) as in the JAX package's
+    ``mlp_init`` list of ``{"w", "b"}`` layers."""
+
+    def __init__(self, weights, biases):
+        super().__init__()
+        self.w = nn.ParameterList(
+            [nn.Parameter(w, requires_grad=False) for w in weights])
+        self.b = nn.ParameterList(
+            [nn.Parameter(b, requires_grad=False) for b in biases])
+
+    @classmethod
+    def from_numpy(cls, layers, dtype, *, device=None) -> "MLP":
+        """The JAX package's ``mlp_init`` layers, as numpy arrays."""
+        def t(a):
+            return torch.from_numpy(np.asarray(a, np.float32).copy()).to(
+                device=device, dtype=dtype)
+        return cls([t(l["w"]) for l in layers], [t(l["b"]) for l in layers])
+
+    def cast(self, dtype) -> "MLP":
+        """This MLP with its weights in ``dtype`` (itself when they are)."""
+        if self.w[0].dtype == dtype:
+            return self
+        return MLP([w.to(dtype) for w in self.w], [b.to(dtype) for b in self.b])
+
+
+def mlp_init(generator: torch.Generator, dims, dtype, *,
+             device=None) -> MLP:
+    """dims = (d_in, h1, ..., d_out); fan-in truncated-normal weights, zero
+    biases."""
+    pairs = list(zip(dims, dims[1:]))
+    return MLP([dense_init(generator, a, b, dtype, device=device)
+                for a, b in pairs],
+               [torch.zeros((b,), dtype=dtype, device=device) for _, b in pairs])
+
+
+def mlp_apply(mlp: MLP, x: Tensor, *, act=F.relu,
+              final_act: bool = False) -> Tensor:
+    n = len(mlp.w)
+    for i, (w, b) in enumerate(zip(mlp.w, mlp.b)):
+        x = x @ w + b
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it names CUDA and no
+    CUDA device is available (pass ``device="cpu"`` for the plain path)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but no CUDA device is available; pass "
+            "device='cpu' to run on the kernels' plain versions")
+    return device

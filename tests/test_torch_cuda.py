@@ -15,7 +15,13 @@ and fully tombstoned lists, k beyond the rows scanned).  Tolerance: scores
 near-ties.  The flash-attention kernel is held against its plain version
 at ``2e-4`` in float32 (the JAX package's own tolerance) and ``2e-2`` in
 bfloat16 (a small multiple of the one bf16 step, 7.8e-3, measured), and the LM's ``decode_step`` on the card against
-``device="cpu"`` at the smoke config.
+``device="cpu"`` at the smoke config.  The embedding-bag kernel is held
+against its plain version at ``rtol=1e-5, atol=1e-6`` for float32 tables
+(both sum in id order) and within one bf16 step (``rtol=2**-7``) for
+bfloat16 tables; the segment-sum kernel within ``1e-5`` of each segment's
+sum of |x| plus ``1e-6`` (another summation order; the plain version sums
+in float64).  The recsys models and EGNN at their smoke configs run on the
+card (kernel path) against the same weights on the CPU (plain path).
 """
 
 import numpy as np
@@ -26,10 +32,16 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import progressive_search_plain
 from repro_torch.engine import EngineConfig, RetrievalEngine
 from repro_torch.engine.config import IVFConfig, QuantizedConfig
+from repro_torch.configs import get_arch
 from repro_torch.configs.mistral_nemo_12b import SMOKE_CONFIG
-from repro_torch.kernels import (distance_topk, flash_attention, gather_rescore,
-                                 ivf_scan, ops, pq_scan)
+from repro_torch.kernels import (distance_topk, embedding_bag, flash_attention,
+                                 gather_rescore, ivf_scan, ops, pq_scan,
+                                 segment_sum)
+from repro_torch.layers.common import MLP
+from repro_torch.models import egnn as EG
+from repro_torch.models import graph as G
 from repro_torch.models import lm as LM
+from repro_torch.models import recsys as R
 
 RTOL, ATOL = 1e-5, 1e-4
 
@@ -392,3 +404,175 @@ class TestLMOnCard:
         torch.testing.assert_close(cg["k"].cpu(), cc["k"], rtol=2e-4,
                                    atol=2e-4)
         assert flash_attention.launches == before + 2 * 5
+
+
+def _bag_case(dev, f, v, d, b, l, dtype, seed):
+    """Stacked tables and (B, F, L) ids with padding, an all-padding bag and
+    an id beyond the vocabulary."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tabs = torch.randn((f, v, d), generator=g, device=dev).to(dtype)
+    ids = torch.randint(-1, v, (b, f, l), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[0, 0] = -1                                    # all padding
+    ids[-1, -1, 0] = v + 3                            # reads row V - 1
+    return tabs, ids
+
+
+@pytest.mark.cuda
+class TestEmbeddingBagOnCard:
+    @pytest.mark.parametrize("f,v,d,b,l", [
+        (4, 1000, 256, 64, 1),        # the two-tower shape (one id a bag)
+        (26, 500, 64, 33, 1),         # the DLRM shape
+        (3, 300, 16, 20, 8),          # AutoInt's width, padded bags
+        (2, 200, 64, 7, 100),         # long bags
+        (5, 97, 18, 11, 3),           # D not a multiple of 4: scalar loads
+    ])
+    @pytest.mark.parametrize("mode", ["sum", "mean"])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_matches_plain(self, cuda, f, v, d, b, l, mode, dtype):
+        tabs, ids = _bag_case(cuda, f, v, d, b, l, dtype, f * v + l)
+        before = embedding_bag.launches
+        got = ops.embedding_bag(tabs, ids, mode=mode)
+        assert embedding_bag.launches == before + 1
+        want = embedding_bag.embedding_bag_plain(tabs, ids, mode=mode)
+        torch.cuda.synchronize()
+        assert got.shape == (b, f, d) and got.dtype == torch.float32
+        rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (2 ** -7, 1e-6)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        assert not got[0, 0].any()
+
+    def test_two_d_table_and_strided_rows(self, cuda):
+        tabs, ids = _bag_case(cuda, 1, 300, 64, 40, 4, torch.float32, 1)
+        got = ops.embedding_bag(tabs[0], ids[:, 0], mode="mean")
+        want = embedding_bag.embedding_bag_plain(tabs[0], ids[:, 0],
+                                                 mode="mean")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        wide = torch.randn((2, 300, 70), device=cuda)
+        view = wide[:, :, 3:67]                  # row stride 70: no 16-byte loads
+        ids2 = ids.expand(40, 2, 4).contiguous()
+        torch.testing.assert_close(
+            ops.embedding_bag(view, ids2),
+            embedding_bag.embedding_bag_plain(view, ids2), rtol=1e-5, atol=1e-6)
+
+    def test_rejections(self, cuda):
+        tabs, ids = _bag_case(cuda, 2, 50, 8, 4, 2, torch.float32, 2)
+        with pytest.raises(NotImplementedError, match="max"):
+            ops.embedding_bag(tabs, ids, mode="max")
+        with pytest.raises(ValueError, match="int32"):
+            ops.embedding_bag(tabs, ids.long())
+        with pytest.raises(ValueError, match="contiguous"):
+            ops.embedding_bag(tabs, ids.transpose(0, 2).contiguous().transpose(0, 2))
+
+
+def _seg_ratio(got, want, data, seg, n):
+    """max |kernel - plain| / (1e-5 * segment sum of |x| + 1e-6)."""
+    scale = segment_sum.segment_sum_plain(data.abs(), seg, num_segments=n)
+    return float(((got - want).abs() / (1e-5 * scale + 1e-6)).max()) \
+        if got.numel() else 0.0
+
+
+@pytest.mark.cuda
+class TestSegmentSumOnCard:
+    @pytest.mark.parametrize("e,n,d", [
+        (1000, 256, 32), (500, 128, 64), (2000, 384, 16),
+        (50, 128, 8),                  # most segments empty
+        (5000, 300, 64), (3000, 200, 3), (3000, 200, 1),   # EGNN's widths
+        (0, 10, 64),                   # no rows
+        (70000, 64, 256),              # D > 128: two column passes
+    ])
+    def test_unsorted_matches_plain(self, cuda, e, n, d):
+        g = torch.Generator(device=cuda).manual_seed(e + n + d)
+        data = torch.randn((e, d), generator=g, device=cuda)
+        seg = torch.randint(-1, n + 2, (e,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        before = segment_sum.launches
+        got = ops.segment_sum(data, seg, num_segments=n)
+        assert segment_sum.launches == before + 1
+        want = segment_sum.segment_sum_plain(data, seg, num_segments=n)
+        torch.cuda.synchronize()
+        assert got.shape == (n, d)
+        assert _seg_ratio(got, want, data, seg, n) <= 1.0
+
+    def test_skewed_sorted_and_shifted_pointer(self, cuda):
+        """Half the rows in one segment (the JAX package's skewed case),
+        through the sorted entry; a pointer shifted by one row must fail
+        the same check."""
+        g = torch.Generator(device=cuda).manual_seed(5)
+        e, n, d = 80000, 128, 64
+        data = torch.randn((e, d), generator=g, device=cuda)
+        seg = torch.randint(0, n, (e,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        seg[: e // 2] = 0
+        order, seg_s, indptr = segment_sum.sort_by_segment(seg, n)
+        rows = data[order]
+        got = ops.sorted_segment_sum(rows, seg_s, indptr, num_segments=n)
+        want = segment_sum.sorted_segment_sum_plain(rows, seg_s, indptr,
+                                                    num_segments=n)
+        assert _seg_ratio(got, want, rows, seg_s, n) <= 1.0
+        shifted = (indptr + 1).clamp(max=e)
+        shifted[0] = 0
+        bad = ops.sorted_segment_sum(rows, seg_s, shifted, num_segments=n)
+        assert _seg_ratio(bad, want, rows, seg_s, n) > 1.0
+        col = torch.randn((e, 5), device=cuda)[:, 1:4]   # row stride 5
+        torch.testing.assert_close(
+            ops.sorted_segment_sum(col[order], seg_s, indptr, num_segments=n),
+            segment_sum.sorted_segment_sum_plain(col[order], seg_s, indptr,
+                                                 num_segments=n),
+            rtol=1e-4, atol=1e-4)
+
+
+def _params_to(p, dev):
+    if isinstance(p, torch.Tensor):
+        return p.to(dev)
+    if isinstance(p, MLP):
+        return MLP([w.to(dev) for w in p.w], [b.to(dev) for b in p.b])
+    if isinstance(p, list):
+        return [_params_to(x, dev) for x in p]
+    return {k: _params_to(v, dev) for k, v in p.items()}
+
+
+@pytest.mark.cuda
+class TestRecsysAndEGNNOnCard:
+    @pytest.mark.parametrize("arch", ["two-tower-retrieval", "autoint",
+                                      "dlrm-rm2"])
+    def test_smoke_path_matches_cpu(self, cuda, arch):
+        from repro_torch.data.synth import recsys_batch_stream
+        cfg = get_arch(arch).SMOKE_CONFIG
+        p_cpu = R.recsys_init(cfg, seed=1, device="cpu")
+        p_gpu = _params_to(p_cpu, cuda)
+        b = next(recsys_batch_stream(
+            np.random.default_rng(2), cfg.family, 16, n_sparse=cfg.n_sparse,
+            vocab=cfg.vocab_per_field, n_dense=cfg.n_dense))
+        bc = {k: torch.from_numpy(v) for k, v in b.items()}
+        bg = {k: v.to(cuda) for k, v in bc.items()}
+        before = embedding_bag.launches
+        if cfg.family == "two_tower":
+            items = torch.arange(500, dtype=torch.int32)[:, None, None].expand(
+                500, 2, 1)
+            db_c, db_g = R.tower_item(p_cpu, items), R.tower_item(p_gpu, items.to(cuda))
+            torch.testing.assert_close(db_g.cpu(), db_c, rtol=1e-5, atol=1e-5)
+            got = R.retrieval_serve(p_gpu, bg["user_ids"], db_g, cfg, k=5)
+            want = R.retrieval_serve(p_cpu, bc["user_ids"], db_c, cfg, k=5)
+            assert_topk_close([x.cpu() for x in got], want)
+            assert embedding_bag.launches == before + 2
+        else:
+            got = R.recsys_forward(p_gpu, bg, cfg)
+            want = R.recsys_forward(p_cpu, bc, cfg)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+            assert embedding_bag.launches == before + 1
+
+    @pytest.mark.parametrize("kind", ["random", "molecules"])
+    def test_egnn_matches_cpu(self, cuda, kind):
+        cfg = get_arch("egnn").SMOKE_CONFIG
+        rng = np.random.default_rng(3)
+        graph = (G.random_graph(rng, 64, 256, cfg.d_feat_in, device="cpu")
+                 if kind == "random" else
+                 G.batched_molecules(rng, 6, 10, 24, cfg.d_feat_in,
+                                     device="cpu"))
+        p_cpu = EG.egnn_init(cfg, seed=4, device="cpu")
+        before = segment_sum.launches
+        lg, xg = EG.egnn_forward(_params_to(p_cpu, cuda), graph.to(cuda), cfg)
+        assert segment_sum.launches == before + 3 * cfg.n_layers
+        lc, xc = EG.egnn_forward(p_cpu, graph, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(xg.cpu(), xc, rtol=1e-4, atol=1e-4)
