@@ -38,7 +38,10 @@ in phases that each print one JSON line:
                  (top-1 must be the source) and answered with 32 greedy
                  tokens by ``RAGPipeline.generate`` in batches of 8 (prompt
                  512 tokens); every prefill and decode layer goes through
-                 the flash-attention kernel (launches counted: 10,240).  The
+                 the flash-attention kernels (launches counted: 10,240, the
+                 320 prefill calls on the tensor-core ``prefill_wgmma``
+                 kernel, the 9,920 decode calls on ``decode_splitkv``, none
+                 on ``fma``).  The
                  kernel path's logits are then held against the plain path
                  (the same LM code, each attention call given to the
                  kernel's plain version) on the same weights and prompts,
@@ -79,11 +82,14 @@ and mean, all-padding bags, an id beyond the vocabulary, bf16 tables; empty
 segments, no rows, one segment holding half the rows); phases 8 and 9 time
 them at the path's shapes beside ``F.embedding_bag`` and
 ``Tensor.index_add_`` / ``torch.segment_reduce`` (yardsticks, timed only
-there).  Phase 2 also holds the flash-attention kernel against its plain version
-in bfloat16 and float32 at the serving shapes (prefill over 512 tokens,
-decode over a 543-position cache prefix, with the layouts the LM path
-gives them) and on the edge cases of the JAX package's tests, with CUDA-event and profiler times beside
-``F.scaled_dot_product_attention`` (timed only here, as a yardstick).
+there).  Phase 2 also holds the flash-attention kernels against their plain
+version in bfloat16 and float32 at the serving shapes (prefill over 512
+tokens, decode over a 543-position cache prefix, with the layouts the LM
+path gives them), on the edge cases of the JAX package's tests and on one
+compute-bound 4,096-token bf16 prompt, each row naming the kernel that
+served it, with CUDA-event and profiler times beside
+``F.scaled_dot_product_attention`` (timed only here, as a yardstick) and the
+wrapper's host time per decode call (1,000 calls, no synchronise).
 
 Any failed check raises and the script exits non-zero.  Run it from the
 root of a checkout: ``python3 chip_smoke.py [--seed N]``.  It needs a CUDA
@@ -134,6 +140,8 @@ KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan",
 # in LM batches of 8; the prompt is document + query = 512 tokens.
 RAG_DOCS, RAG_DOC_LEN, RAG_QUERIES = 262_144, 256, 64
 RAG_BATCH, RAG_NEW_TOKENS = 8, 32
+# The compute-bound flash case: one 4,096-token prompt at Mistral's heads.
+LONG_PROMPT = 4096
 # Tolerances.  Flash kernel vs its plain version: float32 2e-4 (the JAX
 # package's own); bfloat16 2e-2, a small multiple of the 7.8e-3 (one bf16
 # step between 1 and 2) measured over every case — also the limit for each
@@ -308,12 +316,23 @@ def plain_ops():
 
 
 def zero_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
+    for kind in fa.launches_by_kernel:
+        fa.launches_by_kernel[kind] = 0
 
 
 def read_counts() -> dict:
-    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    """Every launch counter, with the flash launches also by kernel
+    (``flash_attention.<kernel>``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
+    out.update({f"flash_attention.{kind}": n
+                for kind, n in fa.launches_by_kernel.items()})
+    return out
 
 
 def run(args) -> None:
@@ -1066,6 +1085,12 @@ def flash_kernel_phase(torch, dev, flush) -> list:
             cases.append((f"strided_cache_prefix_pos{pos}",
                           projected(2, 1, 32, pos), kc2[:, :, :pos + 1],
                           vc2[:, :, :pos + 1], True, None))
+        if dtype == "bfloat16":
+            # compute-bound: 137 GFLOP of causal products over 4,096 tokens
+            cases.append(("prefill_4k", projected(1, LONG_PROMPT, 32),
+                          projected(1, LONG_PROMPT, 8),
+                          rnd(1, LONG_PROMPT, 8, 128).transpose(1, 2), True,
+                          None))
         for case, q, k, v, causal, window in cases:
             b, hq, sq, dh = q.shape
             hkv, skv = k.shape[1], k.shape[2]
@@ -1082,8 +1107,13 @@ def flash_kernel_phase(torch, dev, flush) -> list:
                                                      window=window)
             sdpa = lambda: F.scaled_dot_product_attention(
                 q, k, v, enable_gqa=True, **sdpa_kw)
+            before = dict(fa.launches_by_kernel)
             got, want = kern(), plain()
             torch.cuda.synchronize()
+            served = [kind for kind, n in fa.launches_by_kernel.items()
+                      if n != before[kind]]
+            if served != [fa.route(q.dtype, dh, sq, hq // hkv, skv)]:
+                fail(f"flash_attention {case} {dtype}: served by {served}")
             err = float((got.float() - want.float()).abs().max())
             if err > tol or not bool(torch.isfinite(got).all()):
                 fail(f"flash_attention {case} {dtype}: max|Δ|={err} "
@@ -1099,7 +1129,7 @@ def flash_kernel_phase(torch, dev, flush) -> list:
             dev_all, dev_own = device_ms(torch, kern,
                                          ("flash_attention_kernel",))
             row = {"kernel": "flash_attention.flash_attention", "case": case,
-                   "dtype": dtype,
+                   "dtype": dtype, "served_by": served[0],
                    "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} "
                             f"causal={causal} window={window}",
                    "strides": [list(t.stride()) for t in (q, k, v)],
@@ -1110,6 +1140,15 @@ def flash_kernel_phase(torch, dev, flush) -> list:
                    "device_ms": dev_all, "kernel_device_ms": dev_own,
                    "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
                    "ops": n_ops}
+            if case == "decode":
+                # the wrapper's host time: enqueue only, no synchronise
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(1000):
+                    kern()
+                row["host_us_per_call"] = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+            row["launches_by_kernel"] = dict(fa.launches_by_kernel)
             rows.append(row)
             emit({"phase": "kernels", **row})
         del cases, kc, vc, kc2, vc2
@@ -1187,10 +1226,16 @@ def rag_phase(torch, dev, seed) -> dict:
     counts = read_counts()
     n_batches = RAG_QUERIES // RAG_BATCH
     want_launches = n_batches * cfg.n_layers * RAG_NEW_TOKENS  # 1 prefill + 31 steps
-    if counts["flash_attention.flash_attention"] != want_launches:
+    want_by_kernel = {"prefill_wgmma": n_batches * cfg.n_layers,
+                      "decode_splitkv": n_batches * cfg.n_layers
+                      * (RAG_NEW_TOKENS - 1), "fma": 0}
+    by_kernel = {kind: counts[f"flash_attention.{kind}"]
+                 for kind in want_by_kernel}
+    if counts["flash_attention.flash_attention"] != want_launches \
+            or by_kernel != want_by_kernel:
         fail(f"rag: flash_attention launched "
-             f"{counts['flash_attention.flash_attention']} times, expected "
-             f"{want_launches}")
+             f"{counts['flash_attention.flash_attention']} times "
+             f"({by_kernel}), expected {want_launches} ({want_by_kernel})")
     if min(counts["distance_topk.l2_topk"],
            counts["gather_rescore.gather_rescore_topk"]) <= 0:
         fail(f"rag: retrieval launched no search kernel: {counts}")
@@ -1217,8 +1262,8 @@ def rag_phase(torch, dev, seed) -> dict:
     del pipe, lm, embed
     gc.collect()
     torch.cuda.empty_cache()
-    return {"flash_attention.flash_attention":
-            counts["flash_attention.flash_attention"]}
+    return {name: n for name, n in counts.items()
+            if name.startswith("flash_attention.")}
 
 
 def teacher_forced_check(torch, pipe, queries, retrieved, generated) -> None:
@@ -1577,7 +1622,7 @@ def segment_edge_cases(torch, dev, flush) -> list:
             data = data[:, 0]
         order, seg_s, indptr = ss.sort_by_segment(seg, n)
         rows.append(seg_row(torch, case, data[order], seg_s, indptr, n,
-                            flush=flush, runs=10))
+                            flush=flush, library=True, runs=10))
         got = ss.segment_sum(data, seg, num_segments=n)
         want = ss.segment_sum_plain(data, seg, num_segments=n)
         ratio = seg_ratio(torch, got, want, data, seg, n)
@@ -2148,18 +2193,23 @@ def _scan_entry(name, source, replaces, launches, rows) -> dict:
 
 
 def _flash_entry(launches, rows) -> dict:
-    """The kernels-line entry: the bf16 serving rows (prefill first), every
-    case's largest error per type."""
+    """The kernels-line entry: the bf16 serving rows (prefill first, then
+    decode and the 4k prompt), every case's largest error per type, the
+    main path's launches in all and by kernel."""
     serve = {r["case"]: r for r in rows if r["dtype"] == "bfloat16"}
     f32 = {r["case"]: r for r in rows if r["dtype"] == "float32"
            and r["case"] in ("prefill", "decode")}
-    keys = ("ms", "plain_ms", "library_ms", "device_ms", "kernel_device_ms",
-            "bound_ms", "bound_by", "shape")
+    keys = ("served_by", "ms", "plain_ms", "library_ms", "device_ms",
+            "kernel_device_ms", "bound_ms", "bound_by", "shape")
     pre = serve["prefill"]
+    by_kernel = {name.split(".", 1)[1]: n for name, n in launches.items()
+                 if name.startswith("flash_attention.")
+                 and name != "flash_attention.flash_attention"}
     return {"name": "flash_attention.flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:108",
-            "launches": launches,
+            "launches": launches["flash_attention.flash_attention"],
+            "launches_by_kernel": by_kernel, "served_by": pre["served_by"],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_abs_err_bf16": max(r["max_abs_err"] for r in rows
                                     if r["dtype"] == "bfloat16"),
@@ -2169,7 +2219,9 @@ def _flash_entry(launches, rows) -> dict:
             "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
             "library_ms": pre["library_ms"],
             "kernel_device_ms": pre["kernel_device_ms"], "shape": pre["shape"],
-            "decode": {k: serve["decode"][k] for k in keys},
+            "decode": {k: serve["decode"][k]
+                       for k in keys + ("host_us_per_call",)},
+            "prefill_4k": {k: serve["prefill_4k"][k] for k in keys},
             "float32": {c: {k: r[k] for k in keys} for c, r in f32.items()}}
 
 
@@ -2250,7 +2302,7 @@ def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
                     "src/repro/kernels/pq_scan.py:224",
                     launches["pq_scan.pq_ivf_scan_topk"],
                     [scan_rows["ivf_pq"]]),
-        _flash_entry(launches["flash_attention.flash_attention"], flash_rows),
+        _flash_entry(launches, flash_rows),
         _bag_entry(launches["embedding_bag.embedding_bag"], bag_rows),
         _seg_entry(launches["segment_sum.sorted_segment_sum"], seg_rows),
     ]

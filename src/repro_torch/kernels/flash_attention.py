@@ -1,30 +1,46 @@
-"""Fused online-softmax attention: wrapper for the CUDA kernel.
+"""Fused online-softmax attention: wrapper for the CUDA kernels.
 
 Replaces the TPU kernel ``flash_attention`` of the JAX package
 (``src/repro/kernels/flash_attention.py:108``, body ``_kernel`` ``:38``,
 ``pallas_call`` ``:154``): attention over (B, Hq, Sq, Dh) queries and
 (B, Hkv, Skv, Dh) keys and values, causal and sliding-window masks aligned
-to the end of kv, so one kernel serves prefill (Sq == Skv) and decode
-(Sq << Skv).  The kernel (``csrc/flash_attention.cu``) maps q head h to kv
-head ``h // (Hq / Hkv)`` instead of repeating kv heads, and takes K and V
-by strides, so the decode cache prefix ``k_cache[:, :, :pos + 1]`` is read
-in place.
+to the end of kv, so one function serves prefill (Sq == Skv) and decode
+(Sq << Skv).  The kernels (``csrc/flash_attention.cu``) map q head h to kv
+head ``h // (Hq / Hkv)`` instead of repeating kv heads, and take K and V
+by strides, so the decode cache prefix ``k_cache[:, :, :pos + 1]`` and
+prefill's transposed ``v`` are read in place.
+
+Three kernels, chosen by dtype and shape alone (`route`):
+
+- ``prefill_wgmma``: bf16, head dim 64 or 128, more than one 64-row tile —
+  TMA loads and ``wgmma`` tensor-core products, warp-specialised.
+- ``decode_splitkv``: every call whose Sq * (Hq / Hkv) rows fit one 64-row
+  tile (each decode step), bf16 or float32 — the key range split over
+  blocks, partials merged in the same launch by the last block of each
+  (batch, kv head).
+- ``fma``: everything else (float32 prefill, head dims 16 / 32 / 256) —
+  float32 FMA from shared memory.
 
 Bound on an H100 SXM at Mistral-Nemo-12B's serving shapes (bf16, batch 8,
 32 / 8 heads, d_head 128): prefill over 512 tokens moves 84 MB — 25 us of
 bytes, above its 17 us of tensor-core work; decode reads an 18 MB cache
-prefix, 5.3 us.  The first kernel computes in float32 FMA from shared
-memory (see the source for its design and limits).
+prefix, 5.3 us (see the source for each kernel's design).
 
 On a CPU tensor the wrapper runs the plain version
 (`flash_attention_plain`, ``ref.flash_attention_ref``); on a CUDA tensor it
-launches the kernel or raises.
+launches a kernel or raises.  `decode_partials_plain` and
+`combine_partials` spell out the split-kv kernel's arithmetic in plain
+PyTorch for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+import struct
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,42 +49,152 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 Tensor = torch.Tensor
 
-#: Head dims the kernel is built for.
+#: Head dims the kernels are built for.
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: Head dims of the tensor-core prefill kernel.
+WGMMA_HEAD_DIMS = (64, 128)
 #: Largest q heads per kv head (a block holds 64 (position, head) rows).
 MAX_GROUP = 64
+#: Rows of one tile of the decode and FMA kernels.
+ROW_TILE = 64
+#: Keys of a decode split at the least, and the blocks a decode launch aims
+#: at (four per SM on the H100's 132).
+SPLIT_KEYS = 64
+TARGET_BLOCKS = 4 * 132
+#: Value of the running max where nothing has been kept.
+MASKED = -1e30
 
-#: Calls that launched the kernel on the card.
+#: Calls that launched a kernel on the card, in all and by kernel.
 launches = 0
+launches_by_kernel: Dict[str, int] = {"prefill_wgmma": 0,
+                                      "decode_splitkv": 0, "fma": 0}
 
+_KIND = {"fma": 0, "decode_splitkv": 1, "prefill_wgmma": 2}
+# FlashArgs of csrc/flash_attention.cu: q, k, v, o, part, counters, stream;
+# the nine strides; b, hq, hkv, sq, skv, dh, causal, has_window, window,
+# n_split, split_keys, is_bf16, vec; scale
+_ARGS = struct.Struct("@7Q9q13if")
+_lib = None
 _fn = None
+_local = threading.local()        # a packing buffer for each thread
+# per device: (int32 counters, all 0 between launches; float32 scratch)
+_workspace: Dict[int, Tuple[Tensor, Tensor]] = {}
 
 
 def _kernel():
-    global _fn
+    global _lib, _fn
     if _fn is None:
         lib = _build.library("flash_attention")
+        size = lib.flash_attention_args_size
+        size.argtypes, size.restype = [], ctypes.c_int
+        if size() != _ARGS.size:
+            raise RuntimeError(f"flash_attention: the library's argument "
+                               f"block is {size()} bytes, the wrapper packs "
+                               f"{_ARGS.size}")
         fn = lib.flash_attention_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_float]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = (lib, fn)
+        fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+        _lib, _fn = lib, fn
     return _fn
+
+
+def _args_buffer():
+    buf = getattr(_local, "buf", None)
+    if buf is None:
+        buf = _local.buf = ctypes.create_string_buffer(_ARGS.size)
+        _local.addr = ctypes.addressof(buf)
+    return buf, _local.addr
+
+
+def route(dtype: torch.dtype, dh: int, sq: int, rep: int, skv: int) -> str:
+    """The kernel a call goes to, from its dtype and shape alone."""
+    if sq * rep <= ROW_TILE:
+        return "decode_splitkv"
+    if dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS and skv > 0:
+        return "prefill_wgmma"
+    return "fma"
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_splits(b: int, hkv: int, skv: int) -> Tuple[int, int]:
+    """(splits, keys a split) of a decode launch over ``skv`` keys: runs of
+    a multiple of `SPLIT_KEYS` keys, as few as give about `TARGET_BLOCKS`
+    blocks over the b * hkv (batch, kv head) pairs; at least one split."""
+    runs = max(1, math.ceil(skv / SPLIT_KEYS))
+    per_pair = max(1, math.ceil(TARGET_BLOCKS / max(1, b * hkv)))
+    split_keys = SPLIT_KEYS * math.ceil(runs / per_pair)
+    return max(1, math.ceil(skv / split_keys)), split_keys
 
 
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           causal: bool = False, window: Optional[int] = None,
                           scale: Optional[float] = None) -> Tensor:
-    """The kernel's function in plain PyTorch (any device)."""
+    """The kernels' function in plain PyTorch (any device)."""
     return flash_attention_ref(q, k, v, causal=causal, window=window,
                                scale=scale)
 
 
-def _check(q, k, v):
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+def decode_partials_plain(q: Tensor, k: Tensor, v: Tensor, *,
+                          causal: bool = False, window: Optional[int] = None,
+                          scale: Optional[float] = None,
+                          split_keys: int = SPLIT_KEYS
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The split-kv kernel's partials in plain PyTorch: for each split of
+    ``split_keys`` keys, (m, l, acc) of shapes (n_split, B, Hq, Sq) and
+    (n_split, B, Hq, Sq, Dh), float32.  m is the split's largest masked
+    score (-1e30 where it keeps no key), l the sum of exp(s - m) over its
+    kept keys, acc the product of those weights, rounded to v's dtype, with
+    V.  A split with no kept key gives m = -1e30, l = 0, acc = 0."""
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window is not None:
+        keep &= k_pos > q_pos - window
+    s = torch.where(keep, s, torch.full_like(s, MASKED))
+    n_split = max(1, math.ceil(skv / split_keys))
+    ms, ls, accs = [], [], []
+    for i in range(n_split):
+        lo, hi = i * split_keys, min(skv, (i + 1) * split_keys)
+        si, ki = s[..., lo:hi], keep[:, lo:hi]
+        m = torch.full(si.shape[:-1], MASKED, device=q.device)
+        if hi > lo:
+            m = torch.maximum(m, si.amax(dim=-1))
+        p = torch.where(ki, torch.exp(si - m[..., None]), torch.zeros_like(si))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.matmul(p.to(v.dtype).float(), vf[:, :, lo:hi]))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def combine_partials(m: Tensor, l: Tensor, acc: Tensor,
+                     dtype: torch.dtype) -> Tensor:
+    """Merge split partials in split order, as the split-kv kernel's last
+    block does: weights exp(m_s - max_s m_s), out = Σ w acc / max(Σ w l,
+    1e-30) in ``dtype``; all-empty rows give 0."""
+    mx = m.amax(dim=0)
+    w = torch.exp(m - mx)
+    l_all = torch.zeros_like(mx)
+    out = torch.zeros_like(acc[0])
+    for i in range(m.shape[0]):
+        l_all = l_all + l[i] * w[i]
+        out = out + acc[i] * w[i][..., None]
+    return (out / torch.clamp(l_all, min=1e-30)[..., None]).to(dtype)
+
+
+def _check(q, k, v, devices):
+    dev, kd, vd = devices
+    if dev.type != "cuda" or kd != dev or vd != dev:
         raise ValueError(f"q, k and v must share one CUDA device, got "
-                         f"{q.device}, {k.device}, {v.device}")
+                         f"{dev}, {kd}, {vd}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k and v must all be float32 or all bfloat16, "
@@ -84,14 +210,23 @@ def _check(q, k, v):
                          f"of at most {MAX_GROUP}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
-    if any(t.stride(3) != 1 for t in (q, k, v)):
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("q, k and v need a unit stride on the head dim")
 
 
-def _aligned(t: Tensor) -> bool:
-    """16-byte loads are safe: base and every row start 16-byte aligned."""
-    per = 16 // t.element_size()
-    return t.data_ptr() % 16 == 0 and all(s % per == 0 for s in t.stride()[:3])
+def _workspace_for(dev: torch.device, n_pairs: int, n_floats: int):
+    """The device's (counters, scratch), grown to at least these sizes.
+    The counters are zeroed once; each launch leaves them 0."""
+    idx = dev.index
+    ws = _workspace.get(idx)
+    if ws is None or ws[0].numel() < n_pairs or ws[1].numel() < n_floats:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.zeros(max(n_pairs, old[0]), dtype=torch.int32,
+                          device=dev),
+              torch.empty(max(n_floats, old[1]), dtype=torch.float32,
+                          device=dev))
+        _workspace[idx] = ws
+    return ws
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
@@ -106,29 +241,53 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
       scale:  score scale, ``Dh ** -0.5`` unless given.
 
     Returns (B, Hq, Sq, Dh) contiguous, in q's dtype; a row with nothing to
-    attend is 0.
+    attend is 0.  The split-kv decode kernel keeps per-device scratch, so
+    calls on one device are issued on one stream at a time.
     """
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
+    devices = (q.device, k.device, v.device)
+    if all(d.type == "cpu" for d in devices):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     global launches
-    _check(q, k, v)
+    _check(q, k, v, devices)
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    out = torch.empty((b, hq, sq, dh), dtype=q.dtype, device=q.device)
+    dev = devices[0]
+    out = torch.empty((b, hq, sq, dh), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
-    lib, fn = _kernel()
-    strides = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (q, k, v)]
-    vec = all(_aligned(t) for t in (q, k, v))
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, hq, hkv, sq, skv, dh, *strides, float(scale), int(causal),
-             int(window is not None), 0 if window is None else int(window),
-             int(q.dtype == torch.bfloat16), int(vec),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_attention")
+    rep = hq // hkv
+    bf16 = q.dtype == torch.bfloat16
+    kind = route(q.dtype, dh, sq, rep, skv)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    per = 8 if bf16 else 4                  # elements in 16 bytes
+    # 16-byte loads (and TMA): every pointer and row start 16-byte aligned
+    aligned = not (ptrs[0] | ptrs[1] | ptrs[2]) % 16 \
+        and not any(st % per for st in strides)
+    part = counters = 0
+    n_split = split_keys = 0
+    if kind == "decode_splitkv":
+        n_split, split_keys = decode_splits(b, hkv, skv)
+        ws = _workspace_for(dev, b * hkv, b * hkv * n_split * sq * rep
+                            * (dh + 2))
+        counters, part = ws[0].data_ptr(), ws[1].data_ptr()
+    elif kind == "prefill_wgmma" and not aligned:
+        raise ValueError("the bf16 prefill kernel needs q, k and v with "
+                         "16-byte aligned pointers and strides")
+    elif kind == "prefill_wgmma" and scale <= 0:
+        raise ValueError(f"the bf16 prefill kernel needs a positive scale, "
+                         f"got {scale}")
+    fn = _kernel()
+    buf, addr = _args_buffer()
+    _ARGS.pack_into(buf, 0, *ptrs, out.data_ptr(), part, counters,
+                    torch._C._cuda_getCurrentRawStream(dev.index), *strides,
+                    b, hq, hkv, sq, skv, dh, int(causal), window is not None,
+                    0 if window is None else int(window), n_split, split_keys,
+                    bf16, aligned, scale)
+    _build.check(_lib, fn(addr, _KIND[kind]), f"flash_attention ({kind})")
     launches += 1
+    launches_by_kernel[kind] += 1
     return out

@@ -12,9 +12,11 @@ precomputed and in-kernel norms, several query tiles, k > N, padding and
 invalid candidates; for the IVF and PQ scans float32 and int8 slabs, empty
 and fully tombstoned lists, k beyond the rows scanned).  Tolerance: scores
 ``rtol=1e-5, atol=1e-4`` (another float32 summation order); ids equal up to
-near-ties.  The flash-attention kernel is held against its plain version
-at ``2e-4`` in float32 (the JAX package's own tolerance) and ``2e-2`` in
-bfloat16 (a small multiple of the one bf16 step, 7.8e-3, measured), and the LM's ``decode_step`` on the card against
+near-ties.  The flash-attention kernels (the tensor-core bf16 prefill, the
+split-kv decode, the FMA kernel for the rest) are held against their plain
+version at ``2e-4`` in float32 (the JAX package's own tolerance) and
+``2e-2`` in bfloat16 (a small multiple of the one bf16 step, 7.8e-3,
+measured), each case also checking which kernel served it; and the LM's ``decode_step`` on the card against
 ``device="cpu"`` at the smoke config.  The embedding-bag kernel is held
 against its plain version at ``rtol=1e-5, atol=1e-6`` for float32 tables
 (both sum in id order) and within one bf16 step (``rtol=2**-7``) for
@@ -376,6 +378,114 @@ class TestFlashAttentionOnCard:
             ops.flash_attention(q, k, k)
         with pytest.raises(ValueError, match="float32 or all bfloat16"):
             ops.flash_attention(q.half(), q.half(), q.half())
+
+
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+# (b, hq, hkv, sq, skv, dh, causal, window, v a transposed view): the
+# tensor-core prefill kernel (bf16, dh 64 / 128, more than 64 rows) at
+# groups of 1, 3, 4, 8 and 64, tiles cut short on both axes
+WGMMA_CASES = [
+    (2, 32, 8, 200, 200, 128, True, None, True),   # Mistral's group of 4
+    (1, 8, 8, 130, 130, 64, True, None, False),    # group 1: 128 positions
+    (1, 16, 2, 70, 70, 128, True, 33, False),      # group 8, window
+    (1, 64, 1, 9, 300, 64, True, None, False),     # group 64, sq < skv
+    (1, 8, 2, 100, 60, 128, True, None, False),    # 40 positions see nothing
+    (1, 4, 2, 150, 150, 64, False, None, True),    # no mask
+    (2, 12, 4, 77, 333, 128, True, 100, False),    # group 3: 126-row tiles
+    (1, 32, 8, 512, 512, 128, True, None, True),   # the RAG prefill, batch 1
+]
+
+# (b, hq, hkv, sq, skv, dh, causal, window): the split-kv decode kernel
+# (sq * hq / hkv <= 64), bf16 and float32
+SPLITKV_CASES = [
+    (2, 32, 8, 1, 543, 128, True, None),     # the RAG decode step, batch 2
+    (1, 8, 8, 1, 100, 64, True, None),       # group 1
+    (1, 16, 2, 1, 700, 128, True, 130),      # group 8: splits 0-8 outside
+    (1, 64, 1, 1, 257, 64, True, None),      # group 64
+    (1, 8, 2, 16, 90, 128, True, None),      # 16 positions x 4 heads
+    (1, 4, 2, 30, 20, 64, True, None),       # 10 positions see nothing
+    (3, 32, 8, 1, 5000, 128, True, None),    # 6 splits of 896 keys
+    (1, 4, 1, 1, 128, 256, False, None),     # dh 256
+    (2, 8, 2, 1, 77, 16, True, 5),           # dh 16, a window of 5
+]
+
+
+def _flash_on_card(q, k, v, causal, window, kind):
+    """Kernel vs plain version within FLASH_TOL; exactly one launch, of
+    ``kind``; rows with nothing to attend are 0."""
+    before = dict(flash_attention.launches_by_kernel)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+    torch.cuda.synchronize()
+    moved = {n: flash_attention.launches_by_kernel[n] - before[n]
+             for n in before}
+    assert moved == {**dict.fromkeys(before, 0), kind: 1}
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    tol = FLASH_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    sq, skv = q.shape[2], k.shape[2]
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window is not None:
+        keep &= k_pos > q_pos - window
+    assert not got[:, :, ~keep.any(dim=1)].any()
+
+
+@pytest.mark.cuda
+class TestFlashKernelsOnCard:
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window,vt",
+                             WGMMA_CASES)
+    def test_prefill_wgmma(self, cuda, b, hq, hkv, sq, skv, dh, causal,
+                           window, vt):
+        g = torch.Generator(device=cuda).manual_seed(sq * 7 + skv)
+        bf = torch.bfloat16
+        q = torch.randn((b, hq, sq, dh), generator=g, device=cuda).to(bf)
+        k = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(bf)
+        if vt:      # prefill's v: the (B, S, Hkv, Dh) projection, transposed
+            v = torch.randn((b, skv, hkv, dh), generator=g,
+                            device=cuda).to(bf).transpose(1, 2)
+        else:
+            v = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(bf)
+        _flash_on_card(q, k, v, causal, window, "prefill_wgmma")
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window",
+                             SPLITKV_CASES)
+    def test_decode_splitkv(self, cuda, dtype, b, hq, hkv, sq, skv, dh,
+                            causal, window):
+        g = torch.Generator(device=cuda).manual_seed(sq * 5 + skv)
+        q = torch.randn((b, hq, sq, dh), generator=g, device=cuda).to(dtype)
+        k = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(dtype)
+        v = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(dtype)
+        _flash_on_card(q, k, v, causal, window, "decode_splitkv")
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_decode_cache_prefix(self, cuda, dtype):
+        """The decode step reads k_cache[:, :, :pos + 1] in place at
+        positions 0, 64 and 543 of a 544 cache, and a misaligned view
+        (scalar loads); calls back to back share the kernel's counters."""
+        g = torch.Generator(device=cuda).manual_seed(4)
+        kc = torch.randn((8, 8, 544, 128), generator=g, device=cuda).to(dtype)
+        vc = torch.randn((8, 8, 544, 128), generator=g, device=cuda).to(dtype)
+        q = torch.randn((8, 32, 1, 128), generator=g, device=cuda).to(dtype)
+        for pos in (0, 64, 543):
+            _flash_on_card(q, kc[:, :, :pos + 1], vc[:, :, :pos + 1], True,
+                           None, "decode_splitkv")
+        x = torch.randn((1, 4, 41, 33), generator=g, device=cuda).to(dtype)
+        k1 = x[..., 1:]                          # rows 33 elements apart
+        _flash_on_card(q[:1, :8, :, :32], k1, k1, True, None,
+                       "decode_splitkv")
+
+    def test_prefill_rejects_misaligned(self, cuda):
+        x = torch.zeros((1, 8, 100, 65), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.flash_attention(x[..., 1:], x[..., 1:], x[..., 1:])
 
 
 @pytest.mark.cuda

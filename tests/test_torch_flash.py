@@ -1,0 +1,176 @@
+"""The split-kv decode arithmetic and the flash-attention dispatch rule, on
+the CPU.
+
+``decode_partials_plain`` / ``combine_partials`` spell out in plain PyTorch
+what the CUDA split-kv decode kernel computes: a partial (m, l, acc) per
+split of the key range, merged in split order.  The same seeded numpy
+inputs go through that mirror, the JAX package's Pallas kernel (interpret
+mode) and its ``flash_attention_ref``, with splits that keep no key (a
+window left of them, rows with nothing to attend).  The kernel itself is
+held against the plain version on the card in ``test_torch_cuda.py``.
+
+Tolerance: float32 ``2e-4`` (the JAX package's own; the splits rescale at
+other points than one softmax); bfloat16 ``5e-2``, as the JAX package's
+``TestFlashAttention.test_bf16`` (p is rounded relative to each split's
+max, the Pallas kernel's relative to its tile's).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+import jax.numpy as jnp
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops
+
+TOL = 2e-4
+BF16_TOL = 5e-2
+
+
+def _qkv(seed, b, hq, hkv, sq, skv, dh):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, hq, sq, dh)).astype(np.float32),
+            rng.normal(size=(b, hkv, skv, dh)).astype(np.float32),
+            rng.normal(size=(b, hkv, skv, dh)).astype(np.float32))
+
+
+def _split(q, k, v, causal, window, split_keys, dtype=torch.float32):
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    m, l, acc = tfa.decode_partials_plain(tq, tk, tv, causal=causal,
+                                          window=window,
+                                          split_keys=split_keys)
+    return m, l, acc, tfa.combine_partials(m, l, acc, dtype)
+
+
+# (b, hq, hkv, sq, skv, dh, causal, window, split_keys): decode steps of one
+# row tile (sq * hq / hkv <= 64), one split and many, a ragged last split
+SPLIT_CASES = [
+    (2, 8, 2, 1, 77, 16, True, None, 16),      # 5 splits, last one short
+    (1, 4, 1, 1, 128, 64, False, None, 64),    # MQA, 2 splits
+    (2, 32, 8, 1, 300, 32, True, None, 64),    # Mistral's group of 4
+    (1, 4, 4, 16, 90, 32, True, None, 32),     # 16 positions x 4 heads
+    (1, 64, 1, 1, 40, 16, True, None, 8),      # a group of 64
+    (1, 2, 2, 5, 200, 16, True, 24, 16),       # window: early splits empty
+    (1, 4, 2, 1, 5, 16, True, None, 64),       # fewer keys than a split
+]
+
+
+class TestSplitKvMirror:
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window,split_keys",
+                             SPLIT_CASES)
+    def test_matches_pallas_and_ref(self, b, hq, hkv, sq, skv, dh, causal,
+                                    window, split_keys):
+        q, k, v = _qkv(sq * 131 + skv, b, hq, hkv, sq, skv, dh)
+        m, l, acc, got = _split(q, k, v, causal, window, split_keys)
+        n_split = -(-skv // split_keys)
+        assert m.shape == (n_split, b, hq, sq)
+        assert acc.shape == (n_split, b, hq, sq, dh)
+        want = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal, window=window, block_q=16,
+                            block_k=16, interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                                   atol=TOL)
+        ref = jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), causal=causal,
+                                       window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL,
+                                   atol=TOL)
+
+    def test_empty_splits_weigh_nothing(self):
+        """A window that leaves the first splits without a key: they hold
+        m = -1e30, l = 0, acc = 0, and the merge equals one dense softmax
+        over the kept keys, finite everywhere."""
+        q, k, v = _qkv(5, 1, 4, 2, 1, 300, 32)
+        m, l, acc, got = _split(q, k, v, True, 80, 64)
+        assert m.shape[0] == 5
+        assert torch.all(m[:3] == tfa.MASKED) and torch.all(l[:3] == 0)
+        assert not acc[:3].any()
+        assert torch.all(l[3:] > 0)
+        assert torch.isfinite(got).all()
+        dense = tfa.flash_attention_plain(*(torch.from_numpy(a)
+                                            for a in (q, k, v)),
+                                          causal=True, window=80)
+        torch.testing.assert_close(got, dense, rtol=TOL, atol=TOL)
+
+    def test_nothing_to_attend_is_zero(self):
+        """sq > skv under causal: the first sq - skv rows keep no key in
+        any split and come out 0, not NaN; the others match Pallas."""
+        q, k, v = _qkv(6, 1, 4, 2, 24, 16, 16)
+        m, l, acc, got = _split(q, k, v, True, None, 8)
+        assert torch.all(m[:, :, :, :8] == tfa.MASKED)
+        assert torch.equal(got[:, :, :8], torch.zeros_like(got[:, :, :8]))
+        want = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=True, block_q=8, block_k=8,
+                            interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                                   atol=TOL)
+
+    def test_bf16(self):
+        q, k, v = _qkv(7, 2, 8, 2, 1, 150, 32)
+        _, _, _, got = _split(q, k, v, True, None, 32, torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        want = pallas_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                            causal=True, block_q=16, block_k=16,
+                            interpret=True)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+
+    def test_split_order_does_not_matter_beyond_rounding(self):
+        """The merge is a weighted sum over splits: any split size gives
+        the same output up to float32 rounding."""
+        q, k, v = _qkv(8, 1, 8, 2, 1, 257, 16)
+        outs = [_split(q, k, v, True, None, n)[3] for n in (8, 64, 128, 512)]
+        for o in outs[1:]:
+            torch.testing.assert_close(o, outs[0], rtol=1e-5, atol=1e-6)
+
+
+bf16, f32 = torch.bfloat16, torch.float32
+
+
+class TestDispatch:
+    @pytest.mark.parametrize("dtype,dh,sq,rep,skv,kind", [
+        (bf16, 128, 512, 4, 512, "prefill_wgmma"),    # the RAG prefill
+        (bf16, 128, 1, 4, 543, "decode_splitkv"),     # the RAG decode step
+        (f32, 128, 1, 4, 543, "decode_splitkv"),
+        (bf16, 64, 17, 4, 17, "prefill_wgmma"),       # 68 rows: two tiles
+        (bf16, 64, 16, 4, 16, "decode_splitkv"),      # 64 rows: one tile
+        (bf16, 128, 1, 64, 300, "decode_splitkv"),    # a group of 64
+        (bf16, 128, 2, 64, 300, "prefill_wgmma"),
+        (f32, 128, 512, 4, 512, "fma"),               # float32 prefill
+        (bf16, 32, 512, 4, 512, "fma"),               # head dims 16/32/256
+        (bf16, 256, 512, 4, 512, "fma"),
+        (bf16, 16, 100, 1, 100, "fma"),
+        (bf16, 128, 100, 1, 0, "fma"),                # no keys: no tensor map
+        (f32, 256, 1, 8, 40, "decode_splitkv"),
+    ])
+    def test_route(self, dtype, dh, sq, rep, skv, kind):
+        assert tfa.route(dtype, dh, sq, rep, skv) == kind
+
+    @pytest.mark.parametrize("b,hkv,skv,want", [
+        (8, 8, 543, (9, 64)),        # the RAG decode: 576 blocks
+        (8, 8, 513, (9, 64)),
+        (8, 8, 1, (1, 64)),
+        (1, 1, 0, (1, 64)),
+        (2, 8, 544, (9, 64)),
+        (1, 1, 10_000, (157, 64)),   # 528 blocks wanted, 157 runs of 64
+        (64, 8, 4096, (2, 2048)),    # 512 pairs: two blocks each suffice
+    ])
+    def test_decode_splits(self, b, hkv, skv, want):
+        n_split, split_keys = tfa.decode_splits(b, hkv, skv)
+        assert (n_split, split_keys) == want
+        assert split_keys % tfa.SPLIT_KEYS == 0
+        assert (n_split - 1) * split_keys < max(skv, 1) <= n_split * split_keys
+
+    def test_cpu_never_launches(self):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(9, 1, 4, 2, 1, 40, 16))
+        before = (tfa.launches, dict(tfa.launches_by_kernel))
+        got = ops.flash_attention(q, k, v, causal=True)
+        assert (tfa.launches, tfa.launches_by_kernel) == before
+        torch.testing.assert_close(
+            got, tfa.flash_attention_plain(q, k, v, causal=True))
