@@ -9,7 +9,9 @@ in phases that each print one JSON line:
   1. device    — ``nvidia-smi`` name and power limit, kernel build time
   2. kernels   — the flat stage-0 and rescore kernels against their plain
                  PyTorch versions on the card, at the serving shapes, with
-                 CUDA-event timings; the IVF and PQ scan kernels on their
+                 CUDA-event timings (stage 0 also with its device time, the
+                 kernel that served it and its bound both as float32 FMA
+                 and as 3xTF32); the IVF and PQ scan kernels on their
                  edge cases (empty and fully tombstoned lists, k beyond the
                  rows scanned)
   3. corpus    — synthetic corpus generated on the card from ``--seed``,
@@ -57,9 +59,12 @@ in phases that each print one JSON line:
                  builds a 1M-item DB with ``tower_item``, serves user
                  batches of 8 and 512 with ``retrieval_serve`` (progressive
                  search 64 -> 256, k0 128, final_k 10) and scores 512 users x
-                 4,096 candidates with ``serve_candidates``; DLRM-RM2 (26 x
-                 5M x 64 tables) runs ``recsys_forward`` at 512 and 262,144
-                 rows; DIN and AutoInt one 512-row batch each.  Every
+                 4,096 candidates with ``serve_candidates``, and times the
+                 stage-0 kernel at the two-tower's shape (Q 512, dim 64,
+                 k 128 over the item DB) beside ``matmul`` + ``topk``;
+                 DLRM-RM2 (26 x 5M x 64 tables) runs ``recsys_forward`` at
+                 512 and 262,144 rows; DIN and AutoInt one 512-row batch
+                 each.  Every
                  embedding-bag lookup goes through the CUDA kernel (launches
                  counted); each model is held against its plain path (the
                  same code with every ``ops`` entry given its plain version)
@@ -69,7 +74,8 @@ in phases that each print one JSON line:
                  ogbn-products shape (2,449,029 nodes, 61,859,140 power-law
                  edges made on the card from ``--seed``), then the molecule
                  shape (128 graphs x 30 nodes / 64 edges): 12 segment-sum
-                 launches per forward; logits and coordinates against the
+                 launches per forward (4 on the kernel for wide rows, 8 on
+                 the one for narrow rows); logits and coordinates against the
                  plain path; every segment-sum call of a replay against the
                  plain version on its own inputs, and a control (one call's
                  row pointer shifted by one edge) that must fail that check;
@@ -79,7 +85,8 @@ in phases that each print one JSON line:
 Phase 2 also holds the embedding-bag and segment-sum kernels against their
 plain versions on their edge cases (bags of 8 and 100 ids with padding, sum
 and mean, all-padding bags, an id beyond the vocabulary, bf16 tables; empty
-segments, no rows, one segment holding half the rows); phases 8 and 9 time
+segments, no rows, one segment holding half the rows, one holding
+ogbn-products' largest in-degree); phases 8 and 9 time
 them at the path's shapes beside ``F.embedding_bag`` and
 ``Tensor.index_add_`` / ``torch.segment_reduce`` (yardsticks, timed only
 there).  Phase 2 also holds the flash-attention kernels against their plain
@@ -131,6 +138,9 @@ N_DELETE, N_APPEND = N_DOCS // 100, 10_000
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# Dense TF32 tensor-core rate: the stage-0 kernel's 3xTF32 products take
+# three TF32 operations for each float32 one.
+PEAK_TF32_FLOPS = 495e12
 
 KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan",
                "flash_attention", "embedding_bag", "segment_sum")
@@ -178,6 +188,9 @@ P99_BATCH, BULK_BATCH = 512, 262_144
 # latter.
 EB_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2 ** -7, 1e-6)}
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-6
+# The largest in-degree of the ogbn-products graph made from seed 0 (the
+# phase-9 row's max_segment_rows): one segment-sum case has a hub this long.
+OGB_HUB_ROWS = 29_384
 DLRM_TOL = 1e-4
 EGNN_LOGIT_TOL = 1e-4
 EGNN_COORD_TOL = 1e-6
@@ -220,30 +233,47 @@ def cuda_ms(torch, fn, *, runs: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, own, *, runs: int = 10):
+def device_ms(torch, fn, own, *, per_call: int, runs: int = 10):
     """Device time per call of ``fn`` from ``torch.profiler``: (every CUDA
     kernel and copy it launches, only those whose name contains one of
-    ``own`` — the hand-written kernels).  The CUDA-event time of a call also
-    counts the device's idle gaps while the host enqueues its small ops."""
-    from torch.profiler import ProfilerActivity, profile
+    ``own`` — the hand-written kernels, ``per_call`` launches a call).  The
+    CUDA-event time of a call also counts the device's idle gaps while the
+    host enqueues its small ops.
+
+    After the RAG phase's large traces, a trace loses kernel records (one
+    of ten segment-sum calls held 19 of their 30 kernels; one of a single
+    call none), so the trace warms up on a first step of calls that the
+    schedule discards, and is not measured (None, None) unless it holds
+    all ``runs * per_call`` own launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for _ in range(2):                       # the warm-up step
             fn()
         torch.cuda.synchronize()
+        prof.step()
+        for _ in range(runs):                    # the measured step, kept
+            fn()                                 # by leaving inside it
+        torch.cuda.synchronize()
     total = mine = 0.0
+    launches = 0
     for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
+        if "CUDA" not in str(getattr(ev, "device_type", "")) \
+                or ev.key.startswith("ProfilerStep"):
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         total += us
         if any(name in ev.key for name in own):
             mine += us
-    if mine <= 0.0:            # the trace caught no kernel: not measured
+            launches += ev.count
+    if launches != runs * per_call:
+        emit({"phase": "trace", "own": list(own), "runs": runs,
+              "own_launches_expected": runs * per_call,
+              "own_launches_traced": launches, "measured": False})
         return None, None
     return total / runs / 1e3, mine / runs / 1e3
 
@@ -315,23 +345,29 @@ def plain_ops():
         fail(f"the plain path launched a kernel: {before} -> {read_counts()}")
 
 
-def zero_counts() -> None:
-    from repro_torch.kernels import flash_attention as fa
+def by_kernel_counters():
+    """module name -> its launches_by_kernel dict (the wrappers whose
+    calls go to one of several kernels)."""
+    from repro_torch.kernels import distance_topk, flash_attention, segment_sum
+    return {"flash_attention": flash_attention.launches_by_kernel,
+            "distance_topk": distance_topk.launches_by_kernel,
+            "segment_sum": segment_sum.launches_by_kernel}
 
+
+def zero_counts() -> None:
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
-    for kind in fa.launches_by_kernel:
-        fa.launches_by_kernel[kind] = 0
+    for counts in by_kernel_counters().values():
+        for kind in counts:
+            counts[kind] = 0
 
 
 def read_counts() -> dict:
-    """Every launch counter, with the flash launches also by kernel
-    (``flash_attention.<kernel>``)."""
-    from repro_torch.kernels import flash_attention as fa
-
+    """Every launch counter, with the launches of the flash, stage-0 and
+    segment-sum wrappers also by kernel (``<module>.<kernel>``)."""
     out = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
-    out.update({f"flash_attention.{kind}": n
-                for kind, n in fa.launches_by_kernel.items()})
+    for mod, counts in by_kernel_counters().items():
+        out.update({f"{mod}.{kind}": n for kind, n in counts.items()})
     return out
 
 
@@ -398,32 +434,9 @@ def run(args) -> None:
         src_rows = torch.randint(0, cap, (nq,), generator=gen, device=dev)
         q = db[src_rows] + torch.randn((nq, d_emb), generator=gen,
                                        device=dev) * scales
-        kern = lambda: distance_topk.l2_topk(q, db, dim=s0.dim, k=s0.k,
-                                             sq_at_dim=sq0, valid=valid)
-        plain = lambda: T.truncated_search(q, db, dim=s0.dim, k=s0.k,
-                                           db_sq_at_dim=sq0, valid=valid)
-
-        def yardstick():
-            s = sq0 - 2.0 * torch.matmul(q[:, :s0.dim], db[:, :s0.dim].T)
-            return torch.topk(s.masked_fill(~valid, float("inf")), s0.k,
-                              dim=1, largest=False)
-
-        got = kern()
-        want = plain()
-        torch.cuda.synchronize()
-        err, agree, tol = compare(torch, got, want)
-        if agree < 1.0 or err > tol:
-            fail(f"l2_topk Q={nq}: max|Δ|={err} (tol {tol}), agree={agree}")
-        b, by = bound_ms(n_valid * (4 * s0.dim + 4) + cap + nq * s0.dim * 4
-                         + nq * s0.k * 8, 2.0 * nq * n_valid * s0.dim)
-        row = {"kernel": "distance_topk.l2_topk", "Q": nq, "Ncap": cap,
-               "dim": s0.dim, "k": s0.k, "max_abs_err": err, "tol": tol,
-               "ids_agree": agree,
-               "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
-               "matmul_topk_ms": cuda_ms(torch, yardstick),
-               "bound_ms": b, "bound_by": by}
+        row, got = l2_row(torch, f"flat_stage0_q{nq}", q, db, s0.dim, s0.k,
+                          sq=sq0, valid=valid)
         stage_rows.append(row)
-        emit({"phase": "kernels", **row})
         if nq == 32:
             q32, out32 = q, got
 
@@ -566,6 +579,8 @@ def run(args) -> None:
             <= launches_search["gather_rescore.gather_rescore_topk"]:
         fail(f"kernel launch counters did not grow on the main path: "
              f"{launches_search} then {launches}")
+    if launches["distance_topk.wgmma"] != launches["distance_topk.l2_topk"]:
+        fail(f"a flat stage-0 call missed the tensor-core kernel: {launches}")
 
     plain_ids = plain_route_ids(torch, engine, queries)
     r_eng, top1_eng = recall(i_eng, truth)
@@ -645,9 +660,10 @@ def run(args) -> None:
     launches.update(rag_phase(torch, dev, args.seed))
 
     # -- 8. the recsys serving path, 9. EGNN inference -------------------------
-    counts, rows = recsys_phase(torch, dev, args.seed)
+    counts, rows, tt_stage_row = recsys_phase(torch, dev, args.seed)
     launches.update(counts)
     bag_rows += rows
+    stage_rows.append(tt_stage_row)
     counts, rows = gnn_phase(torch, dev, args.seed)
     launches.update(counts)
     seg_rows += rows
@@ -922,7 +938,8 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
     n_dead_slots = int((got[1] == -1).sum())
     b, by = bound_ms(n_bytes, n_ops)
     dev_all, dev_own = device_ms(
-        torch, kern, ("ivf_list_kernel", "pq_part_kernel", "merge_kernel"))
+        torch, kern, ("ivf_list_kernel", "pq_part_kernel", "merge_kernel"),
+        per_call=2)                              # the scan, the merge
     row = {"kernel": kernel, "backend": name, "shape": shape,
            "max_abs_err": err, "tol": tol, "ids_agree": agree,
            "empty_slots": n_dead_slots,
@@ -936,6 +953,58 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
            "model_bytes": model, "model_bound_ms": bound_ms(model, 0)[0]}
     emit({"phase": "kernels", **row})
     return row
+
+
+def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None):
+    """The stage-0 kernel on one input against its plain version, timed
+    beside it and beside ``torch.matmul`` + ``torch.topk`` (the yardstick),
+    with its device time and both bounds: operations at the float32 FMA
+    rate and as 3xTF32 on the tensor cores.  Returns (row, kernel output)."""
+    from repro_torch.core import truncated as T
+    from repro_torch.kernels import distance_topk
+
+    kern = lambda: distance_topk.l2_topk(q, db, dim=dim, k=k, sq_at_dim=sq,
+                                         valid=valid)
+    plain = lambda: T.truncated_search(q, db, dim=dim, k=k, db_sq_at_dim=sq,
+                                       valid=valid)
+
+    def yardstick():
+        x = db[:, :dim]
+        norms = (x * x).sum(1) if sq is None else sq
+        s = norms - 2.0 * torch.matmul(q[:, :dim], x.T)
+        if valid is not None:
+            s = s.masked_fill(~valid, float("inf"))
+        return torch.topk(s, k, dim=1, largest=False)
+
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err, agree, tol = compare(torch, got, want)
+    nq, n = q.shape[0], db.shape[0]
+    if agree < 1.0 or err > tol:
+        fail(f"l2_topk {case}: max|Δ|={err} (tol {tol}), agree={agree}")
+    n_read = n if valid is None else int(valid.sum())
+    n_bytes = (n_read * (4 * dim + (4 if sq is not None else 0))
+               + (n if valid is not None else 0) + nq * dim * 4 + nq * k * 8)
+    n_ops = 2.0 * nq * n_read * dim
+    b32, by32 = bound_ms(n_bytes, n_ops)
+    btf, bytf = bound_ms(n_bytes, 3 * n_ops, PEAK_TF32_FLOPS)
+    served = distance_topk.route(q, db, dim, k)
+    n_groups = distance_topk.plan(q, db, dim, k)[-1]
+    dev_all, dev_own = device_ms(torch, kern, ("l2_scan", "l2_merge"),
+                                 per_call=2 if n_groups == 1 else 3)
+    row = {"kernel": "distance_topk.l2_topk", "case": case, "Q": nq,
+           "Ncap": n, "dim": dim, "k": k, "served_by": served,
+           "max_abs_err": err, "tol": tol, "ids_agree": agree,
+           "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+           "matmul_topk_ms": cuda_ms(torch, yardstick),
+           "device_ms": dev_all, "kernel_device_ms": dev_own,
+           "bound_ms": btf if served == "wgmma" else b32,
+           "bound_by": bytf if served == "wgmma" else by32,
+           "bound_f32_ms": b32, "bound_3xtf32_ms": btf, "bytes": n_bytes,
+           "shape": f"Q={nq} Ncap={n} dim={dim} k={k}"}
+    emit({"phase": "kernels", **row})
+    return row, got
 
 
 def scan_edge_cases(torch, dev) -> None:
@@ -1127,7 +1196,8 @@ def flash_kernel_phase(torch, dev, flush) -> list:
             n_ops = 4.0 * dh * b * hq * int(keep.sum())
             bnd, by = bound_ms(n_bytes, n_ops, peak)
             dev_all, dev_own = device_ms(torch, kern,
-                                         ("flash_attention_kernel",))
+                                         ("flash_attention_kernel",),
+                                         per_call=1)
             row = {"kernel": "flash_attention.flash_attention", "case": case,
                    "dtype": dtype, "served_by": served[0],
                    "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} "
@@ -1468,7 +1538,8 @@ def bag_row(torch, case, tables, ids, mode="sum", *, flush=None,
     b, f, bag_len = ids.shape
     n_bytes = eb.bound_bytes(tables, ids)
     bnd, by = bound_ms(n_bytes, float(int((ids >= 0).sum())) * tables.shape[-1])
-    dev_all, dev_own = device_ms(torch, kern, ("embedding_bag_kernel",))
+    dev_all, dev_own = device_ms(torch, kern, ("embedding_bag_kernel",),
+                                 per_call=1)
     row = {"kernel": "embedding_bag.embedding_bag", "case": case,
            "shape": f"tables {tuple(tables.shape)} {dtype}, ids "
                     f"{tuple(ids.shape)}, {mode}",
@@ -1569,9 +1640,11 @@ def seg_row(torch, case, data, seg, indptr, n, *, flush=None,
     d = data.shape[1] if data.dim() == 2 else 1
     n_bytes = ss.bound_bytes(data, n_live, n)
     bnd, by = bound_ms(n_bytes, float(n_live) * d)
-    dev_all, dev_own = device_ms(torch, kern, ("segment_sum_kernel",))
+    dev_all, dev_own = device_ms(torch, kern, ("segment_sum_",),
+                                 per_call=3)      # partition, sum, fix-up
     lengths = indptr[1:] - indptr[:-1]
     row = {"kernel": "segment_sum.sorted_segment_sum", "case": case,
+           "served_by": ss.route(d),
            "shape": f"data {tuple(data.shape)}, N {n}",
            "max_abs_err": err, "err_over_limit": ratio,
            "max_segment_rows": int(lengths.max()) if n else 0,
@@ -1612,11 +1685,14 @@ def segment_edge_cases(torch, dev, flush) -> list:
                             ("uniform_3", 3, e),
                             ("uniform_1", 1, e),
                             ("half_in_one_64", 64, e),
+                            ("hub_29384_64", 64, e),
                             ("no_rows_64", 64, 0)):
         seg = torch.randint(-1, n, (n_rows,), generator=g, device=dev,
                             dtype=torch.int32)
         if case.startswith("half"):
             seg[: n_rows // 2] = 7
+        elif case.startswith("hub"):         # ogbn-products' largest in-degree
+            seg[:OGB_HUB_ROWS] = 7
         data = torch.randn((n_rows, d), generator=g, device=dev)
         if d == 1:
             data = data[:, 0]
@@ -1642,9 +1718,10 @@ def segment_edge_cases(torch, dev, flush) -> list:
 def recsys_phase(torch, dev, seed):
     """Two-tower retrieval, DLRM-RM2, DIN and AutoInt at CONFIG width, one
     model at a time.  Returns ({embedding_bag: launches of the main paths},
-    the embedding-bag rows at the path's shapes)."""
+    the embedding-bag rows at the path's shapes, the stage-0 row at the
+    two-tower's shape)."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    counts, rows = two_tower_run(torch, dev, seed)
+    counts, rows, stage_row = two_tower_run(torch, dev, seed)
     n_dlrm, rows_dlrm = dlrm_run(torch, dev, seed, flush)
     counts += n_dlrm
     rows += rows_dlrm
@@ -1652,7 +1729,7 @@ def recsys_phase(torch, dev, seed):
         counts += ctr_run(torch, dev, seed, arch)
     del flush
     torch.cuda.empty_cache()
-    return {"embedding_bag.embedding_bag": counts}, rows
+    return {"embedding_bag.embedding_bag": counts}, rows, stage_row
 
 
 def _batch(torch, dev, cfg, batch, seed):
@@ -1714,6 +1791,7 @@ def two_tower_run(torch, dev, seed):
     want_bags = 1 + len(TT_BATCHES) + 2
     if counts["embedding_bag.embedding_bag"] != want_bags \
             or counts["distance_topk.l2_topk"] != len(TT_BATCHES) \
+            or counts["distance_topk.wgmma"] != len(TT_BATCHES) \
             or counts["gather_rescore.gather_rescore_topk"] \
             != len(TT_BATCHES) * (len(sched.stages) - 1):
         fail(f"two-tower: launches {counts}")
@@ -1766,9 +1844,14 @@ def two_tower_run(torch, dev, seed):
         timed[P99_BATCH], f"two-tower retrieval_serve B={P99_BATCH}")
     rows = [bag_row(torch, "two_tower_item_build", params["item_tables"],
                     item_ids, library=True, runs=10)]
+    s0 = sched.stages[0]
+    stage_row, _ = l2_row(torch, "two_tower_stage0",
+                          R.tower_user(params, users[P99_BATCH]), db,
+                          s0.dim, s0.k)
+    stage_row["launches"] = counts["distance_topk.l2_topk"]
     del params, db, out, sc, item_ids, users
     _free(torch)
-    return counts["embedding_bag.embedding_bag"], rows
+    return counts["embedding_bag.embedding_bag"], rows, stage_row
 
 
 def dlrm_run(torch, dev, seed, flush):
@@ -1971,7 +2054,9 @@ def gnn_phase(torch, dev, seed):
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     counts = read_counts()
-    if counts["segment_sum.sorted_segment_sum"] != per_forward:
+    if counts["segment_sum.sorted_segment_sum"] != per_forward \
+            or counts["segment_sum.narrow"] != 2 * cfg.n_layers \
+            or counts["segment_sum.wide"] != cfg.n_layers:
         fail(f"egnn: launches {counts}")
     if logits.shape != (shape.n_nodes, cfg.n_classes) \
             or coords.shape != (shape.n_nodes, 3) \
@@ -2072,9 +2157,9 @@ def gnn_phase(torch, dev, seed):
         fail(f"egnn molecule: launches {m_counts}, node gap {m_gap}")
     del mparams, mg
     _free(torch)
-    return {"segment_sum.sorted_segment_sum":
-            counts["segment_sum.sorted_segment_sum"]
-            + m_counts["segment_sum.sorted_segment_sum"]}, rows
+    return {name: counts[name] + m_counts[name]
+            for name in ("segment_sum.sorted_segment_sum", "segment_sum.wide",
+                         "segment_sum.narrow")}, rows
 
 
 def profile_call(torch, fn, wall_ms, label) -> None:
@@ -2244,27 +2329,35 @@ def _bag_entry(launches, rows) -> dict:
 
 def _seg_entry(launches, rows) -> dict:
     """The kernels-line entry: EGNN's layer-0 message sum first, its degree
-    and coordinate sums beside it, every case's largest error."""
+    and coordinate sums, the one-hub cases beside it, every case's largest
+    error, the main path's launches in all and by kernel."""
     by = {r["case"]: r for r in rows}
-    keys = ("ms", "plain_ms", "library_ms", "segment_reduce_ms", "device_ms",
-            "kernel_device_ms", "bound_ms", "bound_by", "shape",
+    keys = ("served_by", "ms", "plain_ms", "library_ms", "segment_reduce_ms",
+            "device_ms", "kernel_device_ms", "bound_ms", "bound_by", "shape",
             "max_segment_rows")
     first = by["egnn_layer0_m"]
     return {"name": "segment_sum.sorted_segment_sum", "route": "cuda",
             "source": "src/repro_torch/csrc/segment_sum.cu",
             "replaces": "src/repro/kernels/segment_sum.py:100",
-            "launches": launches,
+            "launches": launches["segment_sum.sorted_segment_sum"],
+            "launches_by_kernel": {kind: launches[f"segment_sum.{kind}"]
+                                   for kind in ("wide", "narrow")},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_err_over_limit": max(r["err_over_limit"] for r in rows),
             **{k: first[k] for k in keys},
-            "wdx": {k: by["egnn_layer0_wdx"][k] for k in keys},
-            "deg": {k: by["egnn_layer0_deg"][k] for k in keys}}
+            **{case.replace("egnn_layer0_", ""): {k: by[case][k] for k in keys}
+               for case in ("egnn_layer0_wdx", "egnn_layer0_deg",
+                            "half_in_one_64", "hub_29384_64")}}
 
 
 def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
            flash_rows, bag_rows, seg_rows) -> None:
     """Print the kernels line, the card line and the final result line."""
-    s32 = [r for r in stage_rows if r["Q"] == 32][0]
+    s32 = [r for r in stage_rows if r["case"] == "flat_stage0_q32"][0]
+    tt = [r for r in stage_rows if r["case"] == "two_tower_stage0"][0]
+    s_keys = ("served_by", "ms", "plain_ms", "matmul_topk_ms", "device_ms",
+              "kernel_device_ms", "bound_ms", "bound_by", "bound_f32_ms",
+              "bound_3xtf32_ms", "shape")
     lad = {key: sum(r[key] for r in ladder_rows)
            for key in ("ms", "plain_ms", "matmul_topk_ms", "bound_ms")}
     kernels = [
@@ -2272,11 +2365,12 @@ def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
          "source": "src/repro_torch/csrc/distance_topk.cu",
          "replaces": "src/repro/kernels/distance_topk.py:128",
          "launches": launches["distance_topk.l2_topk"],
+         "launches_by_kernel": {kind: launches[f"distance_topk.{kind}"]
+                                for kind in ("wgmma", "fma")},
          "max_abs_err": max(r["max_abs_err"] for r in stage_rows),
-         "ms": s32["ms"], "plain_ms": s32["plain_ms"],
-         "bound_ms": s32["bound_ms"], "bound_by": s32["bound_by"],
-         "library_ms": None, "matmul_topk_ms": s32["matmul_topk_ms"],
-         "shape": f"Q=32 Ncap={s32['Ncap']} dim={s32['dim']} k={s32['k']}"},
+         "library_ms": None, **{k: s32[k] for k in s_keys},
+         "two_tower": {"launches": tt["launches"],
+                       **{k: tt[k] for k in s_keys}}},
         {"name": "gather_rescore.gather_rescore_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_rescore.cu",
          "replaces": "src/repro/kernels/gather_rescore.py:98",
@@ -2304,7 +2398,7 @@ def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
                     [scan_rows["ivf_pq"]]),
         _flash_entry(launches, flash_rows),
         _bag_entry(launches["embedding_bag.embedding_bag"], bag_rows),
-        _seg_entry(launches["segment_sum.sorted_segment_sum"], seg_rows),
+        _seg_entry(launches, seg_rows),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -68,9 +68,6 @@
 //    products, a warp per row for the softmax, p'V accumulated in
 //    registers; about 10 TFLOP/s.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder is
-                   // fetched from the CUDA driver API at run time, so the
-                   // library needs no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1128,31 +1125,8 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, the CUDA driver API's, fetched through the runtime.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
+using sm90::EncodeTiled;
+using sm90::encode_tiled;
 
 // A bf16 4-d tensor map: dims {d0 (contiguous), d1, d2, d3} with element
 // strides {s1, s2, s3}, a box of {64, b1, b2, 1} with the 128-byte swizzle;

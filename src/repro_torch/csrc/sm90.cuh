@@ -1,13 +1,46 @@
 // Hopper (sm_90a) building blocks in inline PTX: shared-memory barriers
 // (mbarrier), TMA tile loads and stores (cp.async.bulk.tensor), warpgroup matrix
-// multiplies (wgmma) and their shared-memory matrix descriptors.  Used by
-// the tensor-core prefill kernel in flash_attention.cu.
+// multiplies (wgmma) and their shared-memory matrix descriptors, named
+// barriers, and the host's tensor-map encoder.  Used by the tensor-core
+// prefill kernel in flash_attention.cu and the tensor-core stage-0 scan in
+// distance_topk.cu.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: the encoder is
+                   // fetched from the CUDA driver API at run time, so the
+                   // libraries need no -lcuda)
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
+
+// cuTensorMapEncodeTiled, the CUDA driver API's, fetched through the runtime
+// (null where the CUDA driver has none).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -78,6 +111,18 @@ __device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
       "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 2-d box of `map` at coordinates {c0, c1} (innermost first) into shared
+// memory at `dst`, counted on `bar` in bytes; elements past the tensor's
+// extent read as 0.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -207,6 +252,89 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// -- TF32 -------------------------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero):
+// the low 13 bits of the result are 0, so the tensor cores read it exactly.
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// D (64 x N, float32) += A (64 x 8 tf32, registers) * B (8 x N tf32, shared
+// memory, K-major), for N = 8, 16, 32.  A's fragment: a[0] row g, column t;
+// a[1] row g + 8, column t; a[2] row g, column t + 4; a[3] row g + 8, column
+// t + 4 (g = lane / 4, t = lane % 4, rows 16 w + ... for warp w of the
+// warpgroup).
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// -- named barriers -----------------------------------------------------------
+
+// Barrier `id` (1-15; 0 is __syncthreads') over `count` threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The same, returning whether `pred` held for any of the threads.
+__device__ __forceinline__ bool bar_or(int id, int count, bool pred) {
+  int r;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.s32 q, %1, 0;\n"
+      "bar.red.or.pred p, %2, %3, q;\n"
+      "selp.s32 %0, 1, 0, p;\n}\n"
+      : "=r"(r)
+      : "r"((int)pred), "r"(id), "r"(count)
+      : "memory");
+  return r != 0;
 }
 
 }  // namespace sm90

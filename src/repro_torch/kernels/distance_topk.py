@@ -9,19 +9,36 @@ Replaces the TPU kernel ``l2_topk`` of the JAX package
 
 Bound on an H100 SXM at the serving shape (1M rows, dim 128, bucket 32):
 one read of N·(4·dim + 5) bytes (542 MB, 0.16 ms at 3.35 TB/s) against
-2·Q·N·dim float32 operations (8.6 GFLOP, 0.13 ms at 67 TFLOP/s) — memory-
-bound with compute close behind.  The design streams each row once per
-query tile, splits the doc axis over enough blocks to fill every SM (a
-Hopper grid cannot carry a top-k the way the TPU's sequential grid does)
-and merges the per-block lists in a second small kernel.
+2·Q·N·dim operations — memory-bound.  At the two-tower's stage 0 (Q 512,
+dim 64, 1M rows) the operations lead: 67 GFLOP, 1.0 ms in float32 FMA and
+0.41 ms as 3xTF32 (three TF32 products at 495 TFLOP/s).
+
+Two pass-1 kernels, chosen from the shapes and strides alone (`route`):
+
+- ``wgmma``: the tensor-core scan — TMA loads of the rows' prefix, split
+  TF32 (3xTF32) products on ``wgmma``, query tiles of 8, 16 or 32, two or
+  three consumer warpgroups (`warpgroups`); for a row buffer that TMA can
+  read (16-byte aligned base, a row stride and a dim that are multiples of
+  4) and a dim whose query tiles fit shared memory (up to 256 at 32
+  queries a tile).
+- ``fma``: everything else — float32 FMA from shared memory, the first
+  kernel of this port.
+
+Both split the doc axis over enough blocks to fill every SM (a Hopper grid
+cannot carry a top-k the way the TPU's sequential grid does) and merge the
+per-block lists in pass 2, over groups of lists first when the batch is
+too small to fill the card.  `scores_3xtf32` spells out the tensor-core
+kernel's arithmetic in plain PyTorch for the tests.
 
 On a CPU tensor the wrapper runs the plain version (`l2_topk_plain`); on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -34,11 +51,32 @@ Tensor = torch.Tensor
 #: Largest k the kernel keeps per query (its per-query lists live in shared
 #: memory); larger k raises ValueError.
 MAX_K = 256
-_TILE_N = 128            # rows per tile, as in csrc/distance_topk.cu
+TILE_ROWS = 128          # rows per pass-1 tile of the FMA kernel
+#: Consumer warpgroups of the tensor-core kernel (64 rows of a tile each),
+#: by k (`warpgroups`): three hide more of the selection's latency; above
+#: k = 128 a 192-row tile leaves a list too little room above k.
+WGMMA_WARPGROUPS = (3, 2)
+#: Query tiles of the tensor-core kernel; it takes dims up to WGMMA_MAX_DIM
+#: (its query hi / lo tiles, 32 x dim floats each, stay in shared memory).
+WGMMA_TILES = (8, 16, 32)
+WGMMA_MAX_DIM = 256
+WGMMA_MAX_STAGES = 8
+#: Lists a pass-2 block folds (one round of its 32 warps).
+MERGE_GROUP = 32
+#: Shared memory a block may use on the H100 (227 KB).
+SMEM_LIMIT = 232448
 
-#: Calls that launched the kernel pair (scan + merge) on the card.
+#: Calls that launched a pass-1 kernel and its merge on the card, in all and
+#: by pass-1 kernel.
 launches = 0
+launches_by_kernel = {"wgmma": 0, "fma": 0}
 
+# L2Args of csrc/distance_topk.cu: q, db, sq, valid, part_s, part_i, mid_s,
+# mid_i, out_s, out_i, stream; ld_q, ld_db; nq, n, dim, k, kind, tile_q,
+# vec, n_split, tiles_per_split, n_groups, stages, wgs
+_ARGS = struct.Struct("@11Q2q12i")
+_KIND = {"fma": 0, "wgmma": 1}
+_local = threading.local()
 _fn = None
 
 
@@ -46,14 +84,109 @@ def _kernel():
     global _fn
     if _fn is None:
         lib = _build.library("distance_topk")
+        size = lib.l2_topk_args_size
+        size.argtypes, size.restype = [], ctypes.c_int
+        if size() != _ARGS.size:
+            raise RuntimeError(f"l2_topk: the library's argument block is "
+                               f"{size()} bytes, the wrapper packs "
+                               f"{_ARGS.size}")
         fn = lib.l2_topk_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
         smem = lib.l2_topk_scan_smem
         smem.argtypes = [ctypes.c_int, ctypes.c_int]
         smem.restype = ctypes.c_size_t
+        wg_smem = lib.l2_topk_wgmma_smem
+        wg_smem.argtypes = [ctypes.c_int] * 4
+        wg_smem.restype = ctypes.c_size_t
+        if wg_smem(32, 100, 3, 3) != wgmma_smem_bytes(32, 100, 3, 3):
+            raise RuntimeError("l2_topk: the library's shared-memory layout "
+                               "differs from wgmma_smem_bytes")
         _fn = (lib, fn, smem)
     return _fn
+
+
+def warpgroups(k: int) -> int:
+    """Consumer warpgroups of the tensor-core kernel at ``k``."""
+    return WGMMA_WARPGROUPS[0] if k <= 128 else WGMMA_WARPGROUPS[1]
+
+
+def wgmma_smem_bytes(nt: int, dim: int, stages: int, wgs: int) -> int:
+    """Shared memory of a tensor-core block, as ``wgmma_smem_bytes`` in the
+    source: the row ring (a stage is 64 * wgs rows of 128 bytes), the query
+    hi / lo tiles, nt lists of 512 (score, id) slots, their counts and
+    thresholds, the barriers."""
+    nbox = -(-dim // 32)
+    return (1024 + stages * 64 * wgs * 128 + 2 * nbox * nt * 128
+            + nt * 512 * 8 + nt * 12 + 8 + stages * 16)
+
+
+def wgmma_tile(nq: int, dim: int, wgs: int) -> Tuple[int, int]:
+    """(queries a tile, ring stages) of the tensor-core kernel for a batch
+    of nq at ``dim``: the smallest tile that holds the batch (at most 32),
+    then as many stages as shared memory holds (at most 8); (0, 0) when
+    not even two stages fit."""
+    for nt in WGMMA_TILES:
+        if nt >= nq or nt == WGMMA_TILES[-1]:
+            break
+    while True:
+        stages = WGMMA_MAX_STAGES
+        while stages >= 2 and wgmma_smem_bytes(nt, dim, stages,
+                                               wgs) > SMEM_LIMIT:
+            stages -= 1
+        if stages >= 2:
+            return nt, stages
+        if nt == WGMMA_TILES[0]:
+            return 0, 0
+        nt //= 2
+
+
+def route(q: Tensor, db: Tensor, dim: int, k: int = MAX_K) -> str:
+    """The pass-1 kernel a call goes to, from its shapes and strides alone."""
+    aligned = (db.data_ptr() % 16 == 0 and db.stride(0) % 4 == 0
+               and dim % 4 == 0)
+    if aligned and db.shape[0] > 0 and dim <= WGMMA_MAX_DIM \
+            and wgmma_tile(q.shape[0], dim, warpgroups(k))[0]:
+        return "wgmma"
+    return "fma"
+
+
+def splits(n_tiles: int, q_tiles: int, n_sm: int) -> Tuple[int, int]:
+    """(n_split, tiles a split): the doc axis cut so that the q_tiles x
+    n_split blocks make about one wave on n_sm SMs."""
+    n_split = min(n_tiles, max(1, n_sm // q_tiles))
+    per = -(-n_tiles // n_split)
+    return -(-n_tiles // per), per
+
+
+def merge_groups(nq: int, n_split: int, n_sm: int) -> int:
+    """Pass-2 groups per query: lists folded in groups of `MERGE_GROUP`
+    first when one block per query would leave SMs idle."""
+    if nq >= 2 * n_sm or n_split <= MERGE_GROUP:
+        return 1
+    return -(-n_split // MERGE_GROUP)
+
+
+def tf32_round(x: Tensor) -> Tensor:
+    """float32 rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero): ``cvt.rna.tf32.f32``, a bit mask on the float32 view."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def scores_3xtf32(q: Tensor, db: Tensor, dim: int,
+                  sq_at_dim: Optional[Tensor] = None) -> Tensor:
+    """(Q, N) scores ``||x||² − 2 q·x`` as the tensor-core kernel forms
+    them: each value split into hi = tf32(v) and lo = tf32(v − hi), the dot
+    product hi·hi + hi·lo + lo·hi (exact products, float32 sums here; the
+    kernel sums in its own order)."""
+    qf = q[:, :dim].float()
+    xf = db[:, :dim].float()
+    qh, xh = tf32_round(qf), tf32_round(xf)
+    ql, xl = tf32_round(qf - qh), tf32_round(xf - xh)
+    dot = (qh.double() @ xh.double().T + qh.double() @ xl.double().T
+           + ql.double() @ xh.double().T).float()
+    sq = (xf * xf).sum(1) if sq_at_dim is None else sq_at_dim.float()
+    return sq[None, :] - 2.0 * dot
 
 
 def l2_topk_plain(
@@ -124,32 +257,69 @@ def l2_topk(
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_s, out_i
-    lib, fn, smem_fn = _kernel()
-    props = torch.cuda.get_device_properties(dev)
-    # queries per warp: as many as the batch needs and shared memory holds
-    # (each query's candidate list lives in the block's shared memory)
-    rq = 1 if nq <= 8 else 2 if nq <= 16 else 4
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    while rq > 1 and smem_fn(rq, dim) > limit:
-        rq //= 2
-    q_tiles = -(-nq // (8 * rq))
-    n_tiles = max(-(-n // _TILE_N), 1)
-    # one block per SM: split the doc axis so every SM gets one block
-    n_split = min(n_tiles, max(1, -(-props.multi_processor_count // q_tiles)))
-    tiles_per_split = -(-n_tiles // n_split)
-    n_split = -(-n_tiles // tiles_per_split)
+    lib, fn, _ = _kernel()
+    kind, tile_q, stages, wgs, n_split, per, n_groups = plan(q, db, dim, k)
+    vec = 0
+    if kind == "fma":
+        vec = int(dim % 4 == 0 and q.stride(0) % 4 == 0
+                  and db.stride(0) % 4 == 0 and q.data_ptr() % 16 == 0
+                  and db.data_ptr() % 16 == 0)
     part_s = torch.empty((nq, n_split, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((nq, n_split, k), dtype=torch.int32, device=dev)
-    vec = (dim % 4 == 0 and q.stride(0) % 4 == 0 and db.stride(0) % 4 == 0
-           and q.data_ptr() % 16 == 0 and db.data_ptr() % 16 == 0)
-    err = fn(q.data_ptr(), db.data_ptr(),
-             None if sq_at_dim is None else sq_at_dim.data_ptr(),
-             None if valid is None else valid.data_ptr(),
-             part_s.data_ptr(), part_i.data_ptr(),
-             out_s.data_ptr(), out_i.data_ptr(),
-             nq, n, q.stride(0), db.stride(0), dim, k, rq, int(vec),
-             n_split, tiles_per_split,
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "l2_topk")
+    mid_s = mid_i = None
+    if n_groups > 1:
+        mid_s = torch.empty((nq, n_groups, k), dtype=torch.float32, device=dev)
+        mid_i = torch.empty((nq, n_groups, k), dtype=torch.int32, device=dev)
+    buf = getattr(_local, "buf", None)
+    if buf is None:
+        buf = _local.buf = ctypes.create_string_buffer(_ARGS.size)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    _ARGS.pack_into(buf, 0, q.data_ptr(), db.data_ptr(), ptr(sq_at_dim),
+                    ptr(valid), part_s.data_ptr(), part_i.data_ptr(),
+                    ptr(mid_s), ptr(mid_i), out_s.data_ptr(), out_i.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream,
+                    q.stride(0), db.stride(0), nq, n, dim, k, _KIND[kind],
+                    tile_q, vec, n_split, per, n_groups, stages, wgs)
+    _build.check(lib, fn(ctypes.addressof(buf)), f"l2_topk ({kind})")
     launches += 1
+    launches_by_kernel[kind] += 1
     return out_s, out_i
+
+
+def plan(q: Tensor, db: Tensor, dim: int, k: int
+         ) -> Tuple[str, int, int, int, int, int, int]:
+    """How a call on the card runs: (pass-1 kernel, its query tile — queries
+    a warp for ``fma`` —, ring stages, warpgroups, n_split, tiles a split,
+    pass-2 groups); pass 2 launches once, or twice with groups."""
+    nq, n = q.shape[0], db.shape[0]
+    kind = route(q, db, dim, k)
+    stages = 0
+    wgs = warpgroups(k)
+    if kind == "wgmma":
+        tile_q, stages = wgmma_tile(nq, dim, wgs)
+        q_tiles = -(-nq // tile_q)
+        n_tiles = max(-(-n // (64 * wgs)), 1)
+    else:
+        # queries per warp: as many as the batch needs and shared memory
+        # holds (each query's candidate list lives in the block's shared
+        # memory)
+        smem_fn = _kernel()[2]
+        tile_q = 1 if nq <= 8 else 2 if nq <= 16 else 4
+        while tile_q > 1 and smem_fn(tile_q, dim) > SMEM_LIMIT:
+            tile_q //= 2
+        q_tiles = -(-nq // (8 * tile_q))
+        n_tiles = max(-(-n // TILE_ROWS), 1)
+    n_sm = _sm_count(q.device)
+    n_split, per = splits(n_tiles, q_tiles, n_sm)
+    return kind, tile_q, stages, wgs, n_split, per, \
+        merge_groups(nq, n_split, n_sm)
+
+
+_n_sm = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _n_sm:
+        _n_sm[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _n_sm[idx]

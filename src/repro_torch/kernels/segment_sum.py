@@ -4,8 +4,16 @@ Replaces the TPU kernel ``sorted_segment_sum`` of the JAX package
 (``src/repro/kernels/segment_sum.py:100``, body ``_kernel`` ``:39``,
 ``pallas_call`` ``:126``) and its sort + CSR wrapper ``ops.segment_sum_op``
 (``src/repro/kernels/ops.py:75``): the scatter of GNN message passing.
-The kernel (``csrc/segment_sum.cu``) sums each segment's contiguous row
-range with one warp, no atomics.
+The kernel (``csrc/segment_sum.cu``) splits the merged list of segment
+ends and rows into equal tasks of `ITEMS` entries, one warp each (the
+merge-path partition), writes each segment that lies inside a task and
+leaves the parts of a segment cut by task edges unrounded, which a fix-up
+launch adds in task order and rounds once: no atomics, so the result is
+deterministic.  Rows of at most
+`NARROW_MAX_D` columns go to a kernel with lanes across the rows
+(``narrow``), wider rows to one with lanes across the columns (``wide``);
+`route` names the one a call takes.  `merge_path_plain` spells out the
+partition and the carry / fix-up merge in plain PyTorch for the tests.
 
 Two entries:
 
@@ -38,8 +46,21 @@ from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 
-#: Calls that launched the kernel on the card (both entries).
+#: Entries (segment ends plus rows) of the merged list per warp task, by
+#: kernel: a wide task reads up to 512 rows of D floats, a narrow one
+#: 1,024 rows of at most 4.
+ITEMS = {"wide": 512, "narrow": 1024}
+#: Entries per task where the rows are fewer than the segments: such a task
+#: is mostly zero stores of empty segments, so it is kept short to spread
+#: them over more warps.
+SPARSE_ITEMS = 64
+#: Widest rows of the narrow kernel (lanes across the rows).
+NARROW_MAX_D = 4
+
+#: Calls that launched the kernels on the card (both entries), in all and
+#: by main kernel.
 launches = 0
+launches_by_kernel = {"wide": 0, "narrow": 0}
 
 _fn = None
 
@@ -49,11 +70,72 @@ def _kernel():
     if _fn is None:
         lib = _build.library("segment_sum")
         fn = lib.segment_sum_launch
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = (lib, fn)
     return _fn
+
+
+def route(d: int) -> str:
+    """The main kernel a call with rows of ``d`` columns goes to."""
+    return "narrow" if d <= NARROW_MAX_D else "wide"
+
+
+def task_items(d: int, num_segments: int, n_rows: int) -> int:
+    """Entries of the merged list per warp task of a launch."""
+    return ITEMS[route(d)] if n_rows >= num_segments else SPARSE_ITEMS
+
+
+def n_tasks(num_segments: int, n_rows: int, items: int) -> int:
+    """Warp tasks of a launch: enough for every entry of the merged list
+    (the rows past indptr[N] counted too, so the host needs no sync)."""
+    return max(1, -(-(num_segments + n_rows) // items))
+
+
+def merge_path_plain(data: Tensor, indptr: Tensor, *, num_segments: int,
+                     items: int) -> Tensor:
+    """The kernel's partition and carry merge in plain PyTorch (float64
+    parts, rounded once): task t takes entries [t * items, (t + 1) * items)
+    of the merged list of segment ends and rows; each segment ending in a
+    task gets the task's own rows of it, and the carries of the earlier
+    tasks holding its rows are added in task order, as the fix-up launch
+    adds them.  indptr is clamped as the kernel clamps it."""
+    e = data.shape[0]
+    flat = data.reshape(e, -1).to(torch.float64)
+    d = flat.shape[1]
+    ip = indptr.long()
+    nnz = int(ip[-1].clamp(0, e))
+    p = ip.clamp(0, nnz)
+    p[-1] = nnz
+    total = num_segments + nnz
+    nt = n_tasks(num_segments, e, items)
+    # bounds[b]: segment ends among the first min(b * items, total) entries
+    # (segment s's end is entry s + p[s + 1] of the merged list)
+    keys = torch.arange(num_segments) + p[1:]
+    diag = torch.clamp(torch.arange(nt + 1) * items, max=total)
+    bounds = torch.searchsorted(keys, diag)
+    out = torch.zeros((num_segments, d), dtype=torch.float64)
+    carry = torch.zeros((nt, d), dtype=torch.float64)
+    for t in range(nt):
+        i0, i1 = int(bounds[t]), int(bounds[t + 1])
+        j0, j1 = int(diag[t]) - i0, int(diag[t + 1]) - i1
+        for s in range(i0, min(i1, num_segments - 1) + 1):
+            rb = max(int(p[s]), j0)
+            re = max(int(p[s + 1]) if s < i1 else j1, rb)
+            part = flat[rb:re].sum(0)
+            if s < i1:
+                out[s] = part
+            else:
+                carry[t] = part
+    for s in range(num_segments):
+        ta = (s + int(p[s])) // items
+        tf = (s + int(p[s + 1])) // items
+        for t in range(ta, tf):
+            out[s] += carry[t]
+    return out.to(torch.float32).reshape((num_segments,)
+                                         + tuple(data.shape[1:]))
 
 
 def sort_by_segment(seg_ids: Tensor, num_segments: int
@@ -162,18 +244,28 @@ def sorted_segment_sum(data: Tensor, seg_ids: Tensor, indptr: Tensor, *,
     global launches
     _check(data, indptr, num_segments)
     e, d = data.shape
-    out = torch.empty((num_segments, d), dtype=torch.float32,
-                      device=data.device)
+    dev = data.device
+    out = torch.empty((num_segments, d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     lib, fn = _kernel()
     ld = data.stride(0) if e > 1 else d
-    vec = d % 4 == 0 and ld % 4 == 0 and data.data_ptr() % 16 == 0
-    err = fn(data.data_ptr(), indptr.data_ptr(), out.data_ptr(), num_segments,
-             e, d, ld, int(vec),
-             torch.cuda.current_stream(data.device).cuda_stream)
+    kind = route(d)
+    aligned = data.data_ptr() % 16 == 0
+    vec = aligned and (ld == d if kind == "narrow"
+                       else d % 4 == 0 and ld % 4 == 0)
+    items = task_items(d, num_segments, e)
+    nt = n_tasks(num_segments, e, items)
+    # per-call workspace: the task bounds, each task's carry and head (the
+    # parts of the segments its edges cut: sums and errors)
+    bounds = torch.empty((nt + 1,), dtype=torch.int32, device=dev)
+    carry = torch.empty((nt, 4, d), dtype=torch.float32, device=dev)
+    err = fn(data.data_ptr(), indptr.data_ptr(), out.data_ptr(),
+             bounds.data_ptr(), carry.data_ptr(), num_segments, e, d, ld,
+             int(vec), items, nt, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "sorted_segment_sum")
     launches += 1
+    launches_by_kernel[kind] += 1
     return out
 
 

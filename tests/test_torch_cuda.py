@@ -111,6 +111,70 @@ class TestKernelsOnCard:
         torch.cuda.synchronize()
         assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
 
+    @pytest.mark.parametrize("nq", [1, 8, 32, 33, 256, 512])
+    @pytest.mark.parametrize("dim", [64, 128, 30])
+    def test_l2_topk_kernels_and_k(self, cuda, nq, dim):
+        """Both pass-1 kernels (dim 30 goes to ``fma``) at every k class,
+        held against the plain version; the route is counted."""
+        g = torch.Generator(device=cuda).manual_seed(nq * 7 + dim)
+        n = 20_000
+        db = torch.randn((n, dim + 4), generator=g, device=cuda)
+        q = torch.randn((nq, dim + 4), generator=g, device=cuda)
+        valid = torch.rand((n,), generator=g, device=cuda) > 0.05
+        kind = "wgmma" if dim % 4 == 0 else "fma"
+        assert distance_topk.route(q, db, dim) == kind
+        for k in (1, 64, 128, 256):
+            before = distance_topk.launches_by_kernel[kind]
+            got = distance_topk.l2_topk(q, db, dim=dim, k=k, valid=valid)
+            assert distance_topk.launches_by_kernel[kind] == before + 1
+            want = distance_topk.l2_topk_plain(q, db, dim=dim, k=k,
+                                               valid=valid)
+            torch.cuda.synchronize()
+            assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+
+    def test_l2_topk_edges(self, cuda):
+        """An unaligned row stride (``fma``), Ncap < k and all rows invalid
+        (``wgmma``), each against the plain version."""
+        g = torch.Generator(device=cuda).manual_seed(11)
+        q = torch.randn((40, 129), generator=g, device=cuda)
+        db = torch.randn((3000, 129), generator=g, device=cuda)
+        assert distance_topk.route(q, db, 64) == "fma"        # ld 129
+        assert distance_topk.route(q, db[:, 1:], 64) == "fma"  # base + 4 bytes
+        for qq, dd in ((q, db), (q[:, 1:], db[:, 1:])):
+            assert_topk_close(
+                [x.cpu() for x in distance_topk.l2_topk(qq, dd, dim=64, k=50)],
+                [x.cpu() for x in distance_topk.l2_topk_plain(qq, dd, dim=64,
+                                                              k=50)])
+        small = torch.randn((50, 64), generator=g, device=cuda)
+        s, i = distance_topk.l2_topk(q[:, :64], small, dim=64, k=64)
+        assert distance_topk.route(q, small, 64) == "wgmma"
+        assert (i[:, 50:] == -1).all() and torch.isinf(s[:, 50:]).all()
+        assert_topk_close([s.cpu(), i.cpu()],
+                          [x.cpu() for x in distance_topk.l2_topk_plain(
+                              q[:, :64], small, dim=64, k=64)])
+        none = torch.zeros((3000,), dtype=torch.bool, device=cuda)
+        s, i = distance_topk.l2_topk(q[:, :64].contiguous(), db[:, :64].contiguous(),
+                                     dim=64, k=16, valid=none)
+        assert (i == -1).all() and torch.isinf(s).all()
+
+    @pytest.mark.parametrize("nq,dim,k", [(32, 128, 64), (512, 64, 128),
+                                          (3, 36, 256)])
+    def test_l2_topk_split_count_does_not_matter(self, cuda, nq, dim, k,
+                                                 monkeypatch):
+        """The same call planned for 1, 7, 50 and 132 SMs (other splits of
+        the doc axis, other merge groups) gives the same bits."""
+        g = torch.Generator(device=cuda).manual_seed(nq + dim)
+        db = torch.randn((40_000, dim), generator=g, device=cuda)
+        q = torch.randn((nq, dim), generator=g, device=cuda)
+        sq = (db * db).sum(1)
+        outs = []
+        for n_sm in (1, 7, 50, 132):
+            monkeypatch.setitem(distance_topk._n_sm, cuda.index or 0, n_sm)
+            outs.append(distance_topk.l2_topk(q, db, dim=dim, k=k,
+                                              sq_at_dim=sq))
+        for s, i in outs[1:]:
+            assert torch.equal(s, outs[0][0]) and torch.equal(i, outs[0][1])
+
     def test_launch_counters_and_rejections(self, cuda):
         q = torch.randn((2, 16), device=cuda)
         db = torch.randn((100, 16), device=cuda)
@@ -629,6 +693,63 @@ class TestSegmentSumOnCard:
             segment_sum.sorted_segment_sum_plain(col[order], seg_s, indptr,
                                                  num_segments=n),
             rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+class TestSegmentSumPartitionOnCard:
+    @pytest.mark.parametrize("d", [1, 3, 8, 64, 65, 128])
+    def test_hub_tail_empties_and_determinism(self, cuda, d):
+        """A hub spanning many warp tasks, empty segments, rows past
+        indptr[N] poisoned with NaN; two launches give the same bits."""
+        g = torch.Generator(device=cuda).manual_seed(d)
+        n = 3000
+        lengths = torch.randint(0, 40, (n,), generator=g, device=cuda)
+        lengths[::7] = 0                                   # empty segments
+        items = segment_sum.ITEMS[segment_sum.route(d)]
+        lengths[1234] = 9 * items                          # >= 8 tasks
+        indptr = torch.zeros((n + 1,), dtype=torch.int32, device=cuda)
+        indptr[1:] = torch.cumsum(lengths, 0).to(torch.int32)
+        e_live = int(indptr[-1])
+        data = torch.randn((e_live + 100, d), generator=g, device=cuda)
+        data[e_live:] = float("nan")                       # never read
+        seg = torch.repeat_interleave(torch.arange(n, device=cuda),
+                                      lengths).to(torch.int32)
+        seg = torch.cat([seg, torch.full((100,), n, dtype=torch.int32,
+                                         device=cuda)])
+        before = dict(segment_sum.launches_by_kernel)
+        a = ops.sorted_segment_sum(data, seg, indptr, num_segments=n)
+        b = ops.sorted_segment_sum(data, seg, indptr, num_segments=n)
+        kind = segment_sum.route(d)
+        assert segment_sum.launches_by_kernel[kind] == before[kind] + 2
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+        assert not a[lengths == 0].any()
+        want = segment_sum.sorted_segment_sum_plain(data, seg, indptr,
+                                                    num_segments=n)
+        assert _seg_ratio(a, want, data[:e_live], seg[:e_live], n) <= 1.0
+        shifted = (indptr + 1).clamp(max=e_live)
+        shifted[0] = 0
+        bad = ops.sorted_segment_sum(data, seg, shifted, num_segments=n)
+        assert _seg_ratio(bad, want, data[:e_live], seg[:e_live], n) > 1.0
+
+    def test_segments_cut_at_task_edges(self, cuda):
+        """Segments whose end or last row falls on a task's edge, through
+        both kernels, against the plain version."""
+        for d in (1, 3, 64):
+            items = segment_sum.ITEMS[segment_sum.route(d)]
+            lengths = torch.tensor([items - 1, items - 1, items, items,
+                                    2 * items - 1, 1, 0, 2], device=cuda)
+            n = lengths.numel()
+            indptr = torch.zeros((n + 1,), dtype=torch.int32, device=cuda)
+            indptr[1:] = torch.cumsum(lengths, 0).to(torch.int32)
+            data = torch.randn((int(indptr[-1]), d), device=cuda)
+            seg = torch.repeat_interleave(torch.arange(n, device=cuda),
+                                          lengths).to(torch.int32)
+            got = ops.sorted_segment_sum(data, seg, indptr, num_segments=n)
+            want = segment_sum.sorted_segment_sum_plain(data, seg, indptr,
+                                                        num_segments=n)
+            assert _seg_ratio(got, want, data, seg, n) <= 1.0
 
 
 def _params_to(p, dev):

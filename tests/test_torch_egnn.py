@@ -144,6 +144,85 @@ class TestSegmentSum:
         assert tss.bound_bytes(torch.zeros((10, 4)), 8, 3) == 8 * 16 + 4 * 4 + 3 * 16
 
 
+def _indptr_of(lengths):
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+
+
+class TestMergePathPartition:
+    """`merge_path_plain` — the CUDA kernel's task partition and carry /
+    fix-up merge, with the wrapper's own `ITEMS` — against the JAX
+    package's ``sorted_segment_sum`` (interpret mode, behind
+    ``segment_sum_op``) and a float64 sum.
+
+    Tolerances: against float64, ``1e-6`` of each segment's sum of |x|
+    (the mirror sums float64 parts and rounds once, so only that rounding
+    shows); against the Pallas kernel, ``1e-5`` of the sum of |x| plus
+    ``1e-6`` (its float32 accumulation over up to 3,000 rows: about
+    sqrt(3000) * 6e-8 = 3e-6 of the sum of |x|), the limit of the card
+    check in ``chip_smoke.py``.
+    """
+
+    CASES = {
+        # one segment spanning many tasks (about 6 wide / 3 narrow ones)
+        "hub": lambda items: [5, 0, 3000, 7] + [3] * 40,
+        # segment ends at the last entry of a task, and ones whose last row
+        # is a task's last entry while the end opens the next task
+        "cut_at_edges": lambda items: [items - 1, items - 1, items,
+                                       items, 2 * items - 1, 1, 0, 2],
+        "all_empty": lambda items: [0] * 50,
+        "mostly_empty": lambda items: [0] * 30 + [4] + [0] * 300 + [1, 0, 9],
+    }
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    @pytest.mark.parametrize("d", [1, 3, 64])
+    def test_matches_pallas_interpret(self, case, d):
+        items = tss.ITEMS[tss.route(d)]
+        lengths = np.array(self.CASES[case](items))
+        n = lengths.size
+        indptr = _indptr_of(lengths)
+        e_live = int(indptr[-1])
+        rng = np.random.default_rng(len(case) * 100 + d)
+        tail = 37                                # rows past indptr[N]
+        data = rng.normal(size=(e_live + tail, d)).astype(np.float32)
+        data[e_live:] = np.nan                   # never read
+        got = tss.merge_path_plain(t(data), t(indptr), num_segments=n,
+                                   items=items)
+        assert got.shape == (n, d) and bool(torch.isfinite(got).all())
+        seg = np.repeat(np.arange(n), lengths).astype(np.int32)
+        live = data[:e_live].astype(np.float64)
+        want64 = np.zeros((n, d))
+        np.add.at(want64, seg, live)
+        scale = np.zeros((n, d))
+        np.add.at(scale, seg, np.abs(live))
+        assert (np.abs(got.numpy() - want64) <= 1e-6 * scale).all()
+        assert not got.numpy()[lengths == 0].any()      # empty segments: 0
+        if e_live:
+            want = segment_sum_op(jnp.asarray(data[:e_live]), jnp.asarray(seg),
+                                  num_segments=n, block_n=128, edge_chunk=256)
+            gap = np.abs(got.numpy() - np.asarray(want, np.float64))
+            assert (gap <= 1e-5 * scale + 1e-6).all()
+
+    def test_partition_covers_every_entry_once(self):
+        """Every row lands in exactly one task and every segment end in
+        exactly one: summing ones gives the degrees, for any items."""
+        lengths = np.array([0, 7, 1, 0, 0, 20, 3, 0, 11])
+        indptr = _indptr_of(lengths)
+        ones = torch.ones((int(indptr[-1]), 1))
+        for items in (1, 2, 3, 5, 8, 64):
+            got = tss.merge_path_plain(ones, t(indptr),
+                                       num_segments=lengths.size, items=items)
+            np.testing.assert_array_equal(got[:, 0].numpy(), lengths)
+
+    def test_route_and_tasks(self):
+        assert [tss.route(d) for d in (1, 3, 4, 5, 64)] == \
+            ["narrow"] * 3 + ["wide"] * 2
+        assert tss.n_tasks(10, 0, 512) == 1
+        assert tss.task_items(64, 100, 5000) == tss.ITEMS["wide"]
+        assert tss.task_items(1, 100, 5000) == tss.ITEMS["narrow"]
+        assert tss.task_items(64, 100_000, 0) == tss.SPARSE_ITEMS
+        assert tss.n_tasks(2_449_029, 61_859_140, 512) == 125_602
+
+
 class TestGraphs:
     @pytest.mark.parametrize("kind", ["random", "molecules"])
     def test_same_graph_as_the_reference(self, kind):

@@ -112,6 +112,98 @@ class TestL2TopkPlain:
         assert i.tolist() == [[2, 5, 7]]
 
 
+def _deployment_data(rng, nq, n, dim, d_emb=3584):
+    """Rows and noisy-copy queries with ``chip_smoke.py``'s dim scales
+    ``(1 + i)^-0.2``, normalised to d_emb over the full width."""
+    sc = (1.0 + np.arange(d_emb)) ** -0.2
+    sc = (sc / np.linalg.norm(sc) * d_emb ** 0.5)[:dim]
+    db = (rng.normal(size=(n, dim)) * sc).astype(np.float32)
+    q = (db[rng.integers(0, n, nq)] + rng.normal(size=(nq, dim)) * sc)
+    return q.astype(np.float32), db
+
+
+class TestStage0TensorCoreArithmetic:
+    """`scores_3xtf32` — the tensor-core kernel's split-TF32 products in
+    plain PyTorch — against the Pallas ``l2_topk`` in interpret mode, on the
+    deployment's data.
+
+    Tolerance: a quarter of ``chip_smoke.compare``'s ``1e-3 + 2e-5 *
+    max|score|`` (0.0031 at dim 64, 0.0041 at dim 128 here), so the card's
+    own summation order keeps three quarters of the limit; ids equal up to
+    near-ties (a swapped pair's scores within the same tolerance).
+    Measured on the data of the first test (4,096 rows, seeds 64 and 128):
+    3xTF32 is within 1.2e-4 (dim 64) and 1.6e-4 (dim 128) of a float64
+    score, while a single TF32 product (hi * hi alone) is off by 0.21 and
+    0.20 — about 8x the limit taken over all 4,096 scores (0.024 and
+    0.025), which is why the kernel takes three products.
+    """
+
+    @pytest.mark.parametrize("dim", [64, 128])
+    def test_3xtf32_matches_pallas_interpret(self, dim):
+        rng = np.random.default_rng(dim)
+        q, db = _deployment_data(rng, 32, 4096, dim)
+        k = 64
+        ws, wi = (np.asarray(x) for x in pallas_l2_topk(
+            jnp.asarray(q), jnp.asarray(db), k=k, block_q=8, block_n=512,
+            interpret=True))
+        scores = distance_topk.scores_3xtf32(torch.from_numpy(q),
+                                             torch.from_numpy(db), dim)
+        # top-k in the kernel's order: (score, row) ascending
+        order = np.lexsort((np.broadcast_to(np.arange(db.shape[0]),
+                                            scores.shape),
+                            scores.numpy()), axis=1)[:, :k]
+        gs = np.take_along_axis(scores.numpy(), order, axis=1)
+        tol = 0.25 * (1e-3 + 2e-5 * float(np.abs(ws).max()))
+        assert np.abs(gs - ws).max() <= tol
+        differ = order != wi
+        assert np.all(np.abs(gs[differ] - ws[differ]) <= tol)
+
+    def test_single_tf32_product_is_outside_the_limit(self):
+        rng = np.random.default_rng(1)
+        q, db = _deployment_data(rng, 32, 4096, 128)
+        exact = ((db.astype(np.float64) ** 2).sum(1)[None]
+                 - 2.0 * q.astype(np.float64) @ db.astype(np.float64).T)
+        tol = 1e-3 + 2e-5 * float(np.abs(exact).max())
+        three = distance_topk.scores_3xtf32(torch.from_numpy(q),
+                                            torch.from_numpy(db), 128)
+        assert np.abs(three.double().numpy() - exact).max() < 0.05 * tol
+        qh = distance_topk.tf32_round(torch.from_numpy(q)).double()
+        xh = distance_topk.tf32_round(torch.from_numpy(db)).double()
+        one = (db.astype(np.float64) ** 2).sum(1)[None] - 2.0 * (qh @ xh.T).numpy()
+        assert np.abs(one - exact).max() > tol
+
+    def test_tf32_round_is_cvt_rna(self):
+        x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                          -(1.0 + 2 ** -11), 3.0e-3], dtype=torch.float32)
+        r = distance_topk.tf32_round(x)
+        assert r[:4].tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                                  -(1.0 + 2 ** -10)]    # ties away from 0
+        assert ((r.view(torch.int32) & 0x1FFF) == 0).all()
+        assert abs(float(r[4]) - 3.0e-3) <= 3.0e-3 * 2 ** -11
+
+    def test_route_and_tiles(self):
+        db = torch.zeros((1000, 68))
+        q = torch.zeros((5, 68))
+        assert distance_topk.route(q, db, 64) == "wgmma"
+        assert distance_topk.route(q, db, 30) == "fma"          # dim % 4
+        assert distance_topk.route(q, db[:, 1:], 64) == "fma"   # unaligned
+        assert distance_topk.route(q, torch.zeros((10, 300)), 260) == "fma"
+        assert distance_topk.warpgroups(128) == 3
+        assert distance_topk.warpgroups(129) == 2
+        assert distance_topk.wgmma_tile(5, 64, 3)[0] == 8
+        assert distance_topk.wgmma_tile(33, 128, 3)[0] == 32
+        for nq, dim in ((1, 4), (512, 64), (32, 128), (32, 256)):
+            for wgs in (2, 3):
+                nt, st = distance_topk.wgmma_tile(nq, dim, wgs)
+                assert st >= 2
+                assert distance_topk.wgmma_smem_bytes(nt, dim, st, wgs) \
+                    <= distance_topk.SMEM_LIMIT
+        assert distance_topk.splits(8192, 16, 132) == (8, 1024)
+        assert distance_topk.splits(8192, 1, 132) == (131, 63)
+        assert distance_topk.merge_groups(32, 132, 132) == 5
+        assert distance_topk.merge_groups(512, 8, 132) == 1
+
+
 class TestGatherRescorePlain:
     @pytest.mark.parametrize("nq,n,d,c,k", [
         (4, 200, 64, 16, 5),
