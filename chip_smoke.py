@@ -11,27 +11,37 @@ in phases that each print one JSON line:
                  PyTorch versions on the card, at the serving shapes, with
                  CUDA-event timings (stage 0 also with its device time, the
                  kernel that served it and its bound both as float32 FMA
-                 and as 3xTF32); the IVF and PQ scan kernels on their
-                 edge cases (empty and fully tombstoned lists, k beyond the
+                 and as 3xTF32; the rescore kernel as each single step of
+                 the flat ladder and as the whole ladder in one launch,
+                 beside those five steps as separate launches, with its
+                 device time and its bound from each row read once to its
+                 deepest dim); the IVF and PQ scan kernels on their edge
+                 cases (empty and fully tombstoned lists, k beyond the
                  rows scanned)
   3. corpus    — synthetic corpus generated on the card from ``--seed``,
                  loaded into a ``RetrievalEngine`` (flat backend), warmed up
   4. serving   — ``engine.search`` over every query and requests from client
                  threads through ``EngineDriver``; recall@10 / top-1 against
                  an exact full-dim search, agreement with the plain path,
-                 and the kernels' launch counts during the phase; then one
+                 and the kernels' launch counts during the phase (each
+                 dispatch one stage-0 launch and one ladder launch); then one
                  more search traced with ``torch.profiler``
   5. mutations — deletes (sources of 50 queries among them) and appends,
                  then searches again: no deleted id may come back
   6. variants  — the same corpus behind each IVF / quantized backend (ivf
                  float32 / int8 / pq slabs, quantized pq / int8), one engine
                  at a time: build, ``engine.search`` over every query
-                 (launch counts read around it), agreement with the same
+                 (launch counts read around it: one stage-0 launch and one
+                 ladder launch a dispatch), agreement with the same
                  backend's plain route on the same state, each scan kernel
                  against its plain version on that state after deletes
-                 (tombstones inside lists), and no deleted id returned; the
+                 (tombstones inside lists; the flat PQ scan also with its
+                 lookup bound and its merge's device time, and the ladder
+                 at the quantized PQ dispatch shape), and no deleted id
+                 returned; the
                  float32 IVF engine also serves through ``EngineDriver``, is
-                 profiled, and absorbs 1,000 appends into spare list slots
+                 profiled (the quantized PQ engine too), and absorbs 1,000
+                 appends into spare list slots
   7. rag       — the RAG generation path at full width: Mistral-Nemo-12B
                  (40 layers x 5120, bf16, random weights from ``--seed``)
                  behind a 262,144 x 5120 flat corpus of mean-pooled
@@ -141,6 +151,10 @@ PEAK_BF16_FLOPS = 989e12
 # Dense TF32 tensor-core rate: the stage-0 kernel's 3xTF32 products take
 # three TF32 operations for each float32 one.
 PEAK_TF32_FLOPS = 495e12
+# Shared memory's bandwidth on one SM (32 banks of 4 bytes a clock) and the
+# H100 SXM's boost clock (NVIDIA data sheet): the flat PQ scan's lookup bound.
+SMEM_BYTES_PER_CLOCK = 128
+PEAK_SM_CLOCK_HZ = 1.98e9
 
 KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan",
                "flash_attention", "embedding_bag", "segment_sum")
@@ -347,11 +361,14 @@ def plain_ops():
 
 def by_kernel_counters():
     """module name -> its launches_by_kernel dict (the wrappers whose
-    calls go to one of several kernels)."""
-    from repro_torch.kernels import distance_topk, flash_attention, segment_sum
+    calls go to one of several kernels or kinds of launch)."""
+    from repro_torch.kernels import (distance_topk, flash_attention,
+                                     gather_rescore, pq_scan, segment_sum)
     return {"flash_attention": flash_attention.launches_by_kernel,
             "distance_topk": distance_topk.launches_by_kernel,
-            "segment_sum": segment_sum.launches_by_kernel}
+            "segment_sum": segment_sum.launches_by_kernel,
+            "gather_rescore": gather_rescore.launches_by_kernel,
+            "pq_scan": pq_scan.launches_by_kernel}
 
 
 def zero_counts() -> None:
@@ -363,8 +380,9 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Every launch counter, with the launches of the flash, stage-0 and
-    segment-sum wrappers also by kernel (``<module>.<kernel>``)."""
+    """Every launch counter, with the launches of the flash, stage-0,
+    segment-sum, rescore and flat PQ wrappers also by kernel or kind
+    (``<module>.<kernel>``)."""
     out = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
     for mod, counts in by_kernel_counters().items():
         out.update({f"{mod}.{kind}": n for kind, n in counts.items()})
@@ -460,7 +478,7 @@ def run(args) -> None:
               "Ncap": n_small, "k": s0.k, "empty_slots": n_empty,
               "ids_agree": agree, "max_abs_err": err})
 
-    ladder_rows = []
+    step_rows = []
     cand = out32[1]
     for j, st in enumerate(sched.stages[1:], start=1):
         sq_j = sq_all[:, j].contiguous()
@@ -496,9 +514,14 @@ def run(args) -> None:
                "plain_ms": cuda_ms(torch, plain, flush=flush),
                "matmul_topk_ms": cuda_ms(torch, yardstick, flush=flush),
                "bound_ms": b, "bound_by": by}
-        ladder_rows.append(row)
+        step_rows.append(row)
         emit({"phase": "kernels", **row})
         cand = got[1]
+    # the whole ladder of the dispatch in one launch (the serving path)
+    ladder_rows = [ladder_row(
+        torch, "flat_dispatch", q32, db, out32[1],
+        [(st.dim, st.k) for st in sched.stages[1:]], sq=sq_all,
+        cols=list(range(1, len(sched.stages))), valid=valid, flush=flush)]
     del db, sq_all, valid, sq0
     torch.cuda.empty_cache()
     scan_edge_cases(torch, dev)
@@ -566,9 +589,16 @@ def run(args) -> None:
     s_eng, i_eng = engine.search(q_host)
     search_s = time.perf_counter() - t0
     launches_search = read_counts()
+    dispatches = len(engine.policy.plan(nq))
     if min(launches_search["distance_topk.l2_topk"],
            launches_search["gather_rescore.gather_rescore_topk"]) <= 0:
         fail(f"flat search launched no kernel: {launches_search}")
+    if not (launches_search["distance_topk.l2_topk"]
+            == launches_search["gather_rescore.ladder"]
+            == launches_search["gather_rescore.gather_rescore_topk"]
+            == dispatches):
+        fail(f"flat search: {dispatches} dispatches did not each run one "
+             f"stage-0 launch and one ladder launch: {launches_search}")
 
     stats0 = engine.stats.summary()
     drv = driver_run(engine, q_host, i_eng)
@@ -581,6 +611,10 @@ def run(args) -> None:
              f"{launches_search} then {launches}")
     if launches["distance_topk.wgmma"] != launches["distance_topk.l2_topk"]:
         fail(f"a flat stage-0 call missed the tensor-core kernel: {launches}")
+    if launches["gather_rescore.ladder"] != launches["distance_topk.l2_topk"] \
+            or launches["gather_rescore.step"] != 0:
+        fail(f"a flat dispatch did not run its ladder as one launch: "
+             f"{launches}")
 
     plain_ids = plain_route_ids(torch, engine, queries)
     r_eng, top1_eng = recall(i_eng, truth)
@@ -602,7 +636,7 @@ def run(args) -> None:
           "recall_at_10": r_eng, "top1": top1_eng,
           "source_top1": source_top1, "source_in_10": source_at_10,
           "plain_recall_at_10": r_plain, "plain_top1": top1_plain,
-          "ids_equal_plain": agree_plain,
+          "ids_equal_plain": agree_plain, "dispatches": dispatches,
           "launches_search": launches_search, "launches": launches,
           "batches": st["n_batches"] - stats0["n_batches"]})
     profile_search(torch, engine, q_host, search_s, "flat")
@@ -667,8 +701,9 @@ def run(args) -> None:
     counts, rows = gnn_phase(torch, dev, args.seed)
     launches.update(counts)
     seg_rows += rows
-    finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
-           flash_rows, bag_rows, seg_rows)
+    ladder_rows += [scan_rows.pop("quantized_pq_ladder")]
+    finish(torch, card, stage_rows, step_rows, ladder_rows, launches,
+           scan_rows, flash_rows, bag_rows, seg_rows)
 
 
 # (variant, backend block kwargs, scan kernel its stage 0 runs, full phase)
@@ -724,8 +759,16 @@ def serve_variant(variant, ctx, launches) -> dict:
                                                      else [])
     if min(counts[n] for n in needed) <= 0:
         fail(f"{name}: engine.search did not launch {needed}: {counts}")
+    dispatches = len(engine.policy.plan(nq))
+    if counts["gather_rescore.ladder"] != dispatches \
+            or (kernel and counts[kernel] != dispatches):
+        fail(f"{name}: {dispatches} dispatches did not each run one ladder "
+             f"launch (and one stage-0 launch): {counts}")
     for n in ("ivf_scan.ivf_scan_topk", "pq_scan.pq_scan_topk",
-              "pq_scan.pq_ivf_scan_topk"):
+              "pq_scan.pq_ivf_scan_topk", "gather_rescore.gather_rescore_topk",
+              "gather_rescore.ladder", "gather_rescore.step",
+              *(f"pq_scan.{t}" for t in ("tile_8", "tile_4", "tile_2",
+                                         "tile_1"))):
         launches[n] = launches.get(n, 0) + counts[n]
     if not (np.isfinite(s_eng).all() and s_eng.shape == (nq, FINAL_K)):
         fail(f"{name}: engine scores not finite or of the wrong shape")
@@ -747,7 +790,8 @@ def serve_variant(variant, ctx, launches) -> dict:
            "recall_at_10": r_eng, "top1": top1_eng,
            "source_top1": float((i_eng[:, 0] == src_host).mean()),
            "plain_recall_at_10": r_plain, "plain_top1": top1_plain,
-           "ids_equal_plain": agree_plain, "launches": counts,
+           "ids_equal_plain": agree_plain, "dispatches": dispatches,
+           "launches": counts,
            "gauges": {k: v for k, v in engine.backend.gauges(
                state, store.stats()).items() if k in (
                    "n_lists", "list_fill_frac", "coded_frac")},
@@ -759,7 +803,7 @@ def serve_variant(variant, ctx, launches) -> dict:
                     "latency_ms_p95": st["latency_ms_p95"],
                     "compute_ms_p50": st["compute_ms_p50"]})
     emit(row)
-    if full:
+    if full or name == "quantized_pq":
         profile_search(torch, engine, q_host, search_s, name)
 
     # deletes: no deleted id may come back; the scan kernels are then held
@@ -800,6 +844,8 @@ def serve_variant(variant, ctx, launches) -> dict:
     rows = {}
     if kernel:
         rows[name] = scan_kernel_row(name, kernel, engine, ctx)
+    if name == "quantized_pq":
+        rows["quantized_pq_ladder"] = pq_ladder_row(engine, ctx)
     del engine, store, state, plain_ids
     gc.collect()
     torch.cuda.empty_cache()
@@ -818,6 +864,29 @@ def plain_route_ids(torch, engine, queries):
             sq_prefix=store.sq_prefix, n_total=store.size, k=FINAL_K)
         out.append(ids)
     return torch.cat(out)
+
+
+def pq_ladder_row(engine, ctx) -> dict:
+    """The rescore ladder at the quantized PQ dispatch shape: the PQ scan's
+    candidates (oversampled pool of k0 x 4) of the first 32 queries on the
+    engine's own state, rescored at full precision through the remaining
+    stages, norms from the rows (the quantized backend keeps no prefix
+    norms)."""
+    from repro_torch.core.pq import _stage0_ids, pq_lut
+    from repro_torch.kernels import pq_scan
+
+    torch, store = ctx["torch"], engine.store
+    state = engine.index_state
+    idx = state.data["idx"]
+    cb, codes = idx["codebooks"], idx["codes"]
+    q32 = ctx["queries"][:32].contiguous()
+    lut = pq_lut(q32[:, :cb.shape[0] * cb.shape[2]], cb, idx["cent_sq"])
+    ids = _stage0_ids(codes, store.valid, state.data["coded_upto"])
+    k = ctx["sched"].stages[0].k * engine.backend.pq_oversample
+    cand = pq_scan.pq_scan_topk(lut, codes, ids, k=k)[1]
+    return ladder_row(torch, "quantized_pq_dispatch", q32, store.db, cand,
+                      [(st.dim, st.k) for st in ctx["sched"].stages[1:]],
+                      valid=store.valid, flush=ctx["flush"])
 
 
 def scan_kernel_row(name, kernel, engine, ctx) -> dict:
@@ -861,7 +930,8 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
             n=codes.shape[0], k=k, row_bytes=m,
             lut_bytes=4.0 * lut[0].numel())["fused_bytes"]
         n_ops = 32.0 * n_live * m
-        shape = (f"Q=32 N={codes.shape[0]} M={m} k={k}")
+        tile = pq_scan.tile_size(32, m, lut.shape[2], k)
+        shape = (f"Q=32 N={codes.shape[0]} M={m} k={k} tile={tile}")
     else:
         pack = state.data["pack"]
         lists = state.data["lists"]
@@ -938,7 +1008,8 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
     n_dead_slots = int((got[1] == -1).sum())
     b, by = bound_ms(n_bytes, n_ops)
     dev_all, dev_own = device_ms(
-        torch, kern, ("ivf_list_kernel", "pq_part_kernel", "merge_kernel"),
+        torch, kern, ("ivf_list_kernel", "pq_list_kernel", "pq_tile_kernel",
+                      "merge_kernel"),
         per_call=2)                              # the scan, the merge
     row = {"kernel": kernel, "backend": name, "shape": shape,
            "max_abs_err": err, "tol": tol, "ids_agree": agree,
@@ -951,6 +1022,100 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
            # the per-query fused byte model summed over the batch: every
            # query's probed rows read for it alone, padding slots included
            "model_bytes": model, "model_bound_ms": bound_ms(model, 0)[0]}
+    if kernel == "pq_scan.pq_scan_topk":
+        # what bounds the flat scan: its Q*N*M four-byte table reads at the
+        # shared memory's 128 B a clock on every SM, conflict-free
+        row["tile"] = tile
+        row["bound_lookup_ms"] = n_ops * 4 / (
+            torch.cuda.get_device_properties(0).multi_processor_count
+            * SMEM_BYTES_PER_CLOCK * PEAK_SM_CLOCK_HZ) * 1e3
+        row["merge_device_ms"] = device_ms(torch, kern, ("merge_kernel",),
+                                           per_call=1)[1]
+    emit({"phase": "kernels", **row})
+    return row
+
+
+def ladder_row(torch, case, q, db, cand, stages, *, sq=None, cols=None,
+               valid=None, flush=None) -> dict:
+    """The rescore ladder of one dispatch in one launch against its plain
+    version (the plain steps chained), beside the same stages as separate
+    single-step launches timed in the same run and beside the launch at
+    one CTA a query; with its device time and the bound from the bytes
+    these inputs need: each surviving row read once up to its deepest dim
+    (``bound_reread_ms``: every stage reading its rows from dim 0)."""
+    from repro_torch.kernels import gather_rescore as G
+
+    def sq_col(j):
+        return None if cols is None or cols[j] is None else sq[:, cols[j]]
+
+    kern = lambda: G.rescore_ladder_topk(q, db, cand, stages, sq_prefix=sq,
+                                         sq_cols=cols, valid=valid)
+    one = lambda: G.rescore_ladder_topk(q, db, cand, stages, sq_prefix=sq,
+                                        sq_cols=cols, valid=valid, cluster=1)
+    plain = lambda: G.rescore_ladder_topk_plain(
+        q, db, cand, stages, sq_prefix=sq, sq_cols=cols, valid=valid)
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err, agree, tol = compare(torch, got, want)
+    if agree < 1.0 or err > tol:
+        fail(f"rescore ladder {case}: max|Δ|={err} (tol {tol}), "
+             f"agree={agree}")
+    alone = one()
+    if not (torch.equal(alone[0], got[0]) and torch.equal(alone[1], got[1])):
+        fail(f"rescore ladder {case}: one CTA a query changed the result")
+    step_in, c = [], cand
+    for j, (dim, k) in enumerate(stages):
+        step_in.append(c)
+        c = G.gather_rescore_topk(q, db, c, dim=dim, k=k, sq_at_dim=sq_col(j),
+                                  valid=valid)[1]
+
+    def steps():
+        for j, (dim, k) in enumerate(stages):
+            G.gather_rescore_topk(q, db, step_in[j], dim=dim, k=k,
+                                  sq_at_dim=sq_col(j), valid=valid)
+
+    nq, k_last = q.shape[0], stages[-1][1]
+    d_max = max(dim for dim, _ in stages)
+    n_bytes = n_reread = (cand.numel() * 4 + nq * 4 * d_max + nq * k_last * 8
+                          + (int((cand >= 0).sum()) if valid is not None
+                             else 0))
+    prev = 0
+    for j, (dim, k) in enumerate(stages):
+        ok = step_in[j] >= 0
+        if valid is not None:
+            ok &= valid[step_in[j].clamp(min=0).long()]
+        n_ok = int(ok.sum())
+        lo = prev if 0 < prev < dim else 0
+        norms = 4 * n_ok if sq_col(j) is not None else 0
+        n_bytes += n_ok * 4 * (dim - lo) + norms
+        n_reread += n_ok * 4 * dim + norms
+        prev = dim
+    b, by = bound_ms(n_bytes, 0)
+    dev_all, dev_own = device_ms(torch, kern, ("rescore_ladder_kernel",),
+                                 per_call=1)
+    torch.cuda.synchronize()                  # the wrapper's host time a call
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kern()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    row = {"kernel": "gather_rescore.rescore_ladder_topk", "case": case,
+           "Q": nq, "C": cand.shape[1], "stages": [list(st) for st in stages],
+           "norm_columns": sq is not None and cols is not None,
+           "cluster": G.cluster_size(
+               nq, torch.cuda.get_device_properties(0).multi_processor_count),
+           "max_abs_err": err, "tol": tol, "ids_agree": agree,
+           "ms": cuda_ms(torch, kern, flush=flush),
+           "ms_one_cta_a_query": cuda_ms(torch, one, flush=flush),
+           "single_steps_ms": cuda_ms(torch, steps, flush=flush),
+           "plain_ms": cuda_ms(torch, plain, flush=flush),
+           "device_ms": dev_all, "kernel_device_ms": dev_own,
+           "host_us_per_call": host_us,
+           "bound_ms": b, "bound_by": by,
+           "bound_reread_ms": bound_ms(n_reread, 0)[0], "bytes": n_bytes,
+           "shape": f"Q={nq} C={cand.shape[1]} (dim,k)="
+                    + ",".join(f"({d},{kk})" for d, kk in stages)}
     emit({"phase": "kernels", **row})
     return row
 
@@ -1309,6 +1474,10 @@ def rag_phase(torch, dev, seed) -> dict:
     if min(counts["distance_topk.l2_topk"],
            counts["gather_rescore.gather_rescore_topk"]) <= 0:
         fail(f"rag: retrieval launched no search kernel: {counts}")
+    if counts["gather_rescore.ladder"] != counts["distance_topk.l2_topk"] \
+            or counts["gather_rescore.step"] != 0:
+        fail(f"rag: a retrieval dispatch did not run its ladder as one "
+             f"launch: {counts}")
     generated = torch.cat(generated)
     if generated.shape != (RAG_QUERIES, RAG_NEW_TOKENS) or bool(
             ((generated < 0) | (generated >= cfg.vocab)).any()):
@@ -1793,7 +1962,8 @@ def two_tower_run(torch, dev, seed):
             or counts["distance_topk.l2_topk"] != len(TT_BATCHES) \
             or counts["distance_topk.wgmma"] != len(TT_BATCHES) \
             or counts["gather_rescore.gather_rescore_topk"] \
-            != len(TT_BATCHES) * (len(sched.stages) - 1):
+            != len(TT_BATCHES) \
+            or counts["gather_rescore.ladder"] != len(TT_BATCHES):
         fail(f"two-tower: launches {counts}")
     with plain_ops():
         db_p, out_p, sc_p = path()
@@ -2350,16 +2520,40 @@ def _seg_entry(launches, rows) -> dict:
                             "half_in_one_64", "hub_29384_64")}}
 
 
-def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
-           flash_rows, bag_rows, seg_rows) -> None:
+def _ladder_entry(launches, step_rows, ladder_rows) -> dict:
+    """The kernels-line entry of the rescore kernel: one launch of the
+    flat dispatch's whole ladder (beside its stages as single-step
+    launches), the quantized PQ dispatch's, each step of the flat ladder
+    alone, and the launches of every serving search by kind."""
+    lad = {r["case"]: r for r in ladder_rows}
+    flat = lad["flat_dispatch"]
+    keys = ("ms", "single_steps_ms", "ms_one_cta_a_query", "plain_ms",
+            "device_ms", "kernel_device_ms", "host_us_per_call", "bound_ms",
+            "bound_by", "bound_reread_ms", "cluster", "shape")
+    return {"name": "gather_rescore.gather_rescore_topk", "route": "cuda",
+            "source": "src/repro_torch/csrc/gather_rescore.cu",
+            "replaces": "src/repro/kernels/gather_rescore.py:98",
+            "launches": launches["gather_rescore.gather_rescore_topk"],
+            "launches_by_kernel": {kind: launches[f"gather_rescore.{kind}"]
+                                   for kind in ("ladder", "step")},
+            "max_abs_err": max(r["max_abs_err"]
+                               for r in step_rows + ladder_rows),
+            "library_ms": None, **{k: flat[k] for k in keys},
+            "quantized_pq": {k: lad["quantized_pq_dispatch"][k]
+                             for k in keys},
+            "steps": [{k: r[k] for k in ("C", "dim", "k", "ms", "plain_ms",
+                                         "matmul_topk_ms", "bound_ms")}
+                      for r in step_rows]}
+
+
+def finish(torch, card, stage_rows, step_rows, ladder_rows, launches,
+           scan_rows, flash_rows, bag_rows, seg_rows) -> None:
     """Print the kernels line, the card line and the final result line."""
     s32 = [r for r in stage_rows if r["case"] == "flat_stage0_q32"][0]
     tt = [r for r in stage_rows if r["case"] == "two_tower_stage0"][0]
     s_keys = ("served_by", "ms", "plain_ms", "matmul_topk_ms", "device_ms",
               "kernel_device_ms", "bound_ms", "bound_by", "bound_f32_ms",
               "bound_3xtf32_ms", "shape")
-    lad = {key: sum(r[key] for r in ladder_rows)
-           for key in ("ms", "plain_ms", "matmul_topk_ms", "bound_ms")}
     kernels = [
         {"name": "distance_topk.l2_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cu",
@@ -2371,26 +2565,21 @@ def finish(torch, card, stage_rows, ladder_rows, launches, scan_rows,
          "library_ms": None, **{k: s32[k] for k in s_keys},
          "two_tower": {"launches": tt["launches"],
                        **{k: tt[k] for k in s_keys}}},
-        {"name": "gather_rescore.gather_rescore_topk", "route": "cuda",
-         "source": "src/repro_torch/csrc/gather_rescore.cu",
-         "replaces": "src/repro/kernels/gather_rescore.py:98",
-         "launches": launches["gather_rescore.gather_rescore_topk"],
-         "max_abs_err": max(r["max_abs_err"] for r in ladder_rows),
-         "ms": lad["ms"], "plain_ms": lad["plain_ms"],
-         "bound_ms": lad["bound_ms"],
-         "bound_by": ladder_rows[-1]["bound_by"], "library_ms": None,
-         "matmul_topk_ms": lad["matmul_topk_ms"],
-         "shape": "sum of the 5 ladder steps of one Q=32 dispatch, (C,dim,k)="
-                  + ",".join(f"({r['C']},{r['dim']},{r['k']})"
-                             for r in ladder_rows)},
+        _ladder_entry(launches, step_rows, ladder_rows),
         _scan_entry("ivf_scan.ivf_scan_topk", "src/repro_torch/csrc/ivf_scan.cu",
                     "src/repro/kernels/ivf_scan.py:275",
                     launches["ivf_scan.ivf_scan_topk"],
                     [scan_rows["ivf"], scan_rows["ivf_int8"]]),
-        _scan_entry("pq_scan.pq_scan_topk", "src/repro_torch/csrc/pq_scan.cu",
-                    "src/repro/kernels/pq_scan.py:130",
-                    launches["pq_scan.pq_scan_topk"],
-                    [scan_rows["quantized_pq"]]),
+        {**_scan_entry("pq_scan.pq_scan_topk",
+                       "src/repro_torch/csrc/pq_scan.cu",
+                       "src/repro/kernels/pq_scan.py:130",
+                       launches["pq_scan.pq_scan_topk"],
+                       [scan_rows["quantized_pq"]]),
+         "launches_by_kernel": {kind: launches[f"pq_scan.{kind}"]
+                                for kind in ("tile_8", "tile_4", "tile_2",
+                                             "tile_1")},
+         **{k: scan_rows["quantized_pq"][k]
+            for k in ("tile", "bound_lookup_ms", "merge_device_ms")}},
         _scan_entry("pq_scan.pq_ivf_scan_topk",
                     "src/repro_torch/csrc/pq_scan.cu",
                     "src/repro/kernels/pq_scan.py:224",

@@ -9,9 +9,9 @@ per row but touch almost nothing — total work collapses from O(N·D_max) to
 O(N·D_start + Σ K_s·D_s).
 
 Candidate sets are per query with fixed sizes per stage.  On CUDA tensors
-stage 0 is the fused scan kernel and every later stage the gather-rescore
-kernel (`repro_torch.kernels.ops`); on CPU tensors both are the plain
-versions.  ``progressive_search_plain`` runs the plain versions on any
+stage 0 is the fused scan kernel and all later stages one launch of the
+rescore-ladder kernel (`repro_torch.kernels.ops`); on CPU tensors both are
+the plain versions.  ``progressive_search_plain`` runs the plain versions on any
 device: it is the reference the kernels' results are checked against.
 """
 
@@ -29,20 +29,7 @@ from repro_torch.kernels import ops
 Tensor = torch.Tensor
 
 
-def _ladder(rescore: Callable, q, db, cand, stages, *, sq_prefix, index_dims,
-            valid, metric, scores):
-    for stage in stages:
-        scores, cand = rescore(
-            q, db, cand,
-            dim=stage.dim, k=stage.k,
-            db_sq_at_dim=lookup_prefix(sq_prefix, index_dims, stage.dim),
-            valid=valid,
-            metric=metric,
-        )
-    return scores, cand
-
-
-def _progressive(search: Callable, rescore: Callable, q, db, sched, *,
+def _progressive(search: Callable, impl, q, db, sched, *,
                  sq_prefix, index_dims, valid, block_n, metric, stage0_only):
     s0 = sched.stages[0]
     scores, cand = search(
@@ -54,9 +41,9 @@ def _progressive(search: Callable, rescore: Callable, q, db, sched, *,
     )
     if stage0_only:
         return scores, cand
-    return _ladder(rescore, q, db, cand, sched.stages[1:],
-                   sq_prefix=sq_prefix, index_dims=index_dims, valid=valid,
-                   metric=metric, scores=scores)
+    return impl.rescore_ladder(q, db, cand, sched.stages[1:],
+                               sq_prefix=sq_prefix, index_dims=index_dims,
+                               valid=valid, metric=metric, scores=scores)
 
 
 def rescore_ladder(
@@ -72,17 +59,18 @@ def rescore_ladder(
     scores: Optional[Tensor] = None,
     impl=ops,
 ) -> Tuple[Tensor, Tensor]:
-    """Chain ``rescore_candidates`` over ``stages`` — the refinement ladder
-    every search path shares once it has a candidate table.
+    """Rescore ``cand`` through ``stages`` — the refinement ladder every
+    search path shares once it has a candidate table.
 
     ``scores`` is returned unchanged when ``stages`` is empty (degenerate
     single-stage schedules).  ``impl`` is `repro_torch.kernels.ops` (the
-    kernels on CUDA tensors) or ``ops.plain`` (the plain versions on any
-    device, for the ``*_plain`` reference entries).
+    whole ladder in one kernel launch on CUDA tensors) or ``ops.plain``
+    (the plain step chained, on any device, for the ``*_plain`` reference
+    entries).
     """
-    return _ladder(impl.rescore_candidates, q, db, cand, stages,
-                   sq_prefix=sq_prefix, index_dims=index_dims, valid=valid,
-                   metric=metric, scores=scores)
+    return impl.rescore_ladder(q, db, cand, stages, sq_prefix=sq_prefix,
+                               index_dims=index_dims, valid=valid,
+                               metric=metric, scores=scores)
 
 
 def progressive_search(
@@ -118,7 +106,7 @@ def progressive_search(
     Returns:
       (scores, indices): ((Q, final_k) float32, (Q, final_k) int32).
     """
-    return _progressive(ops.truncated_search, ops.rescore_candidates, q, db,
+    return _progressive(ops.truncated_search, ops, q, db,
                         sched, sq_prefix=sq_prefix, index_dims=index_dims,
                         valid=valid, block_n=block_n, metric=metric,
                         stage0_only=stage0_only)
@@ -138,7 +126,7 @@ def progressive_search_plain(
     """``progressive_search`` through the plain versions on any device —
     the reference for checking the kernels; the serving path never calls
     it."""
-    return _progressive(T.truncated_search, T.rescore_candidates, q, db,
+    return _progressive(T.truncated_search, ops.plain, q, db,
                         sched, sq_prefix=sq_prefix, index_dims=index_dims,
                         valid=valid, block_n=block_n, metric=metric,
                         stage0_only=False)

@@ -6,18 +6,23 @@
 // keys order by (score, scan position) — the order lax.top_k gives over the
 // scan's candidate table — and no two keys are equal.  A block offers keys
 // from its rows; each key below the block's threshold is appended to a
-// buffer in shared memory with an atomic counter.  Before a tile whose
+// buffer in shared memory, one atomic on its counter for all the takers of
+// a warp.  Before a tile whose
 // offers could overflow the buffer, the block sorts it (bitonic, in shared
 // memory), keeps the k smallest and sets the threshold to the k-th, so
 // later rows that cannot make the top-k are dropped at once.  Only finite
 // scores are ever offered: a slot left without a key is (+inf, -1).
 //
 // Pass 1 of each scan keeps such a top-k per (query, part of the rows) and
-// writes it as keys; pass 2 (merge_kernel) streams a query's part lists
-// through the same selection and turns the final keys into (score, id).
+// writes it as keys; pass 2 (merge_kernel, four times the threads, so its
+// sorts take a quarter of the steps) streams a query's part lists through
+// the same selection and turns the final keys into (score, id).  The flat
+// PQ scan keeps a list per query of its tile instead and cuts each with
+// warp_tighten, a radix select by one warp.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -28,6 +33,7 @@ typedef unsigned long long Key;
 
 constexpr int kThreads = 256;
 constexpr int kTile = 1024;            // rows (or keys) offered per tile
+constexpr int kMergeThreads = 1024;
 constexpr Key kEmpty = ~0ull;
 
 __device__ __forceinline__ Key make_key(float s, unsigned pos) {
@@ -72,6 +78,97 @@ __device__ void block_sort(Key* buf, int n) {
   }
 }
 
+// One warp shrinks a list of n distinct keys (n > k) to the keys at or
+// below a pivot P that has at least k keys at or below it and at most
+// `limit` (limit >= k), and returns how many it kept (in buf[0, kept),
+// unordered); *thr becomes the bound a later key must stay below.  A radix
+// select by 8-bit digits from the top: each pass histograms the keys that
+// share the pivot's digits so far (`hist`: 256 ints of this warp's), takes
+// the digit holding the k-th key, and stops once the keys at or below that
+// bucket fit `limit` — usually after two passes (the score's sign, exponent
+// and 7 mantissa bits).  With limit == k it runs to the exact k-th key, the
+// keys being distinct.  No sort: a few hundred instructions a pass.
+__device__ int warp_tighten(Key* buf, int n, int k, int limit, int* hist,
+                            Key* thr) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  // the leading bytes every key shares need no pass: start at the first
+  // byte in which two keys differ
+  Key k_or = 0, k_and = ~0ull;
+  for (int i = lane; i < n; i += 32) {
+    const Key x = buf[i];
+    k_or |= x;
+    k_and &= x;
+  }
+  const unsigned or_hi = __reduce_or_sync(kAll, static_cast<unsigned>(k_or >> 32));
+  const unsigned or_lo = __reduce_or_sync(kAll, static_cast<unsigned>(k_or));
+  const unsigned and_hi = __reduce_and_sync(kAll, static_cast<unsigned>(k_and >> 32));
+  const unsigned and_lo = __reduce_and_sync(kAll, static_cast<unsigned>(k_and));
+  const Key diff = (static_cast<Key>(or_hi ^ and_hi) << 32) | (or_lo ^ and_lo);
+  const int start = diff ? ((63 - __clzll(static_cast<long long>(diff))) / 8) * 8 : 0;
+  Key hi_mask = start == 56 ? 0ull : ~((1ull << (start + 8)) - 1);
+  Key prefix = ((static_cast<Key>(and_hi) << 32) | and_lo) & hi_mask;
+  Key top = ~0ull;
+  int below = 0, need = k;          // keys below the bucket; rank inside it
+  for (int shift = start; shift >= 0; shift -= 8) {
+    for (int i = lane; i < 256; i += 32) hist[i] = 0;
+    __syncwarp();
+    for (int i = lane; i < n; i += 32) {
+      const Key key = buf[i];
+      if ((key & hi_mask) == prefix)
+        atomicAdd(&hist[static_cast<int>((key >> shift) & 255)], 1);
+    }
+    __syncwarp();
+    int h[8], sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      h[j] = hist[lane * 8 + j];
+      sum += h[j];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(kAll, incl, off);
+      if (lane >= off) incl += t;
+    }
+    const int excl = incl - sum;
+    const int src = __ffs(__ballot_sync(kAll, excl < need && need <= incl)) - 1;
+    int digit = 0, before = 0, in_bucket = 0, run = excl;
+    bool found = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!found && run + h[j] >= need) {
+        found = true;
+        digit = lane * 8 + j;
+        before = run;
+        in_bucket = h[j];
+      }
+      run += h[j];
+    }
+    digit = __shfl_sync(kAll, digit, src);
+    before = __shfl_sync(kAll, before, src);
+    in_bucket = __shfl_sync(kAll, in_bucket, src);
+    below += before;
+    need -= before;
+    prefix |= static_cast<Key>(digit) << shift;
+    hi_mask |= static_cast<Key>(255) << shift;
+    top = prefix | (shift ? (1ull << shift) - 1 : 0ull);
+    if (below + in_bucket <= limit) break;
+  }
+  int kept = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int i = base + lane;
+    const Key key = i < n ? buf[i] : ~0ull;
+    const bool keep = i < n && key <= top;
+    const unsigned m = __ballot_sync(kAll, keep);
+    if (keep) buf[kept + __popc(m & ((1u << lane) - 1u))] = key;
+    kept += __popc(m);
+  }
+  __syncwarp();
+  *thr = top == ~0ull ? top : top + 1;
+  return kept;
+}
+
 // The streaming selection of one block.  Every thread holds the same
 // threshold; the buffer and its counter live in shared memory.
 struct Selector {
@@ -89,8 +186,14 @@ struct Selector {
     if (threadIdx.x == 0) *cnt = 0;    // the caller synchronises
   }
 
+  // One atomic for all the takers of a warp that offer together.
   __device__ __forceinline__ void offer(Key key) {
-    if (key < thr) buf[atomicAdd(cnt, 1)] = key;
+    if (!(key < thr)) return;
+    cooperative_groups::coalesced_group g =
+        cooperative_groups::coalesced_threads();
+    int base = 0;
+    if (g.thread_rank() == 0) base = atomicAdd(cnt, static_cast<int>(g.size()));
+    buf[g.shfl(base, 0) + g.thread_rank()] = key;
   }
 
   // Sort the n buffered keys and keep the k smallest.
@@ -142,7 +245,7 @@ struct ListIds {
 
 // Pass 2: one block per query merges its n_in part keys into the top-k.
 template <class IdOf>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMergeThreads)
 merge_kernel(const Key* __restrict__ part, int n_in, int k, int cap,
              float* __restrict__ out_s, int* __restrict__ out_i, IdOf id_of) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -153,11 +256,16 @@ merge_kernel(const Key* __restrict__ part, int n_in, int k, int cap,
   sel.init(buf, cnt, cap, k);
   __syncthreads();
   const Key* in = part + static_cast<size_t>(qi) * n_in;
+  static_assert(kMergeThreads == kTile, "a merge thread offers one key a tile");
+  // each thread's key of the next tile is loaded before this tile's offers
+  Key next = threadIdx.x < n_in ? in[threadIdx.x] : kEmpty;
   for (int t0 = 0; t0 < n_in; t0 += kTile) {
     const int tn = min(kTile, n_in - t0);
     sel.reserve(tn);
-    for (int r = t0 + threadIdx.x; r < t0 + tn; r += blockDim.x)
-      sel.offer(in[r]);
+    const Key key = next;
+    if (t0 + kTile + static_cast<int>(threadIdx.x) < n_in)
+      next = in[t0 + kTile + threadIdx.x];
+    if (static_cast<int>(threadIdx.x) < tn) sel.offer(key);
     __syncthreads();
   }
   const int n = sel.finish();
@@ -180,17 +288,31 @@ __device__ __forceinline__ void write_part(const Key* buf, int n, Key* out,
     out[r] = r < n ? buf[r] : kEmpty;
 }
 
+// Lets `kern` take `bytes` of dynamic shared memory on the current device,
+// setting the attribute only when a launch needs more than any before
+// (`allowed`: the caller's record for this kernel, one entry a device).
+template <class Kernel>
+cudaError_t allow_smem(Kernel* kern, int bytes, int (&allowed)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || bytes <= allowed[dev & 63]) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) allowed[dev & 63] = bytes;
+  return err;
+}
+
 template <class IdOf>
 cudaError_t launch_merge(const Key* part, int nq, int n_in, int k,
                          float* out_s, int* out_i, IdOf id_of,
                          cudaStream_t st) {
   const int cap = buffer_cap(k);
   const size_t smem = sizeof(Key) * cap + 16;
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_kernel<IdOf>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static int allowed[64];
+  cudaError_t err =
+      allow_smem(merge_kernel<IdOf>, static_cast<int>(smem), allowed);
   if (err != cudaSuccess) return err;
-  merge_kernel<IdOf><<<nq, kThreads, smem, st>>>(part, n_in, k, cap, out_s,
+  merge_kernel<IdOf><<<nq, kMergeThreads, smem, st>>>(part, n_in, k, cap, out_s,
                                                  out_i, id_of);
   return cudaGetLastError();
 }

@@ -76,6 +76,52 @@ def rescore_candidates(
                                 metric=metric)
 
 
+def _ladder_args(stages, sq_prefix, index_dims):
+    """((dim, k) of each stage, the ``sq_prefix`` column holding each
+    stage's norms or None, or None when there are no norm columns)."""
+    pairs = [(st.dim, st.k) for st in stages]
+    if sq_prefix is None or index_dims is None:
+        return pairs, None
+    dims = tuple(int(x) for x in index_dims)
+    return pairs, [dims.index(d) if d in dims else None for d, _ in pairs]
+
+
+def _rescore_ladder_plain(
+    q: Tensor, db: Tensor, cand: Tensor, stages, *,
+    sq_prefix: Optional[Tensor] = None, index_dims: Optional[tuple] = None,
+    valid: Optional[Tensor] = None, metric: str = "l2",
+    scores: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    if not stages:
+        return scores, cand
+    pairs, cols = _ladder_args(stages, sq_prefix, index_dims)
+    return gather_rescore.rescore_ladder_topk_plain(
+        q, db, cand, pairs, sq_prefix=sq_prefix, sq_cols=cols, valid=valid,
+        metric=metric)
+
+
+def rescore_ladder(
+    q: Tensor, db: Tensor, cand: Tensor, stages, *,
+    sq_prefix: Optional[Tensor] = None, index_dims: Optional[tuple] = None,
+    valid: Optional[Tensor] = None, metric: str = "l2",
+    scores: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """The rescore ladder over ``stages`` (each with ``dim`` and ``k``):
+    one kernel launch on CUDA tensors, the plain step chained on CPU
+    tensors.  ``scores`` comes back unchanged when ``stages`` is empty."""
+    if not _on_cuda(q, db, cand):
+        return _rescore_ladder_plain(q, db, cand, stages, sq_prefix=sq_prefix,
+                                     index_dims=index_dims, valid=valid,
+                                     metric=metric, scores=scores)
+    if not stages:
+        return scores, cand
+    _cuda_metric(metric)
+    pairs, cols = _ladder_args(stages, sq_prefix, index_dims)
+    return gather_rescore.rescore_ladder_topk(
+        q, db, cand, pairs, sq_prefix=None if cols is None else sq_prefix,
+        sq_cols=cols, valid=valid)
+
+
 def ivf_scan_topk(q: Tensor, probe: Tensor, member_ids: Tensor, pack: Dict,
                   *, k: int) -> Tuple[Tensor, Tensor]:
     """IVF stage 0 over float32 or int8 member slabs."""
@@ -143,6 +189,7 @@ def sorted_segment_sum(data: Tensor, seg_ids: Tensor, indptr: Tensor, *,
 plain = types.SimpleNamespace(
     truncated_search=T.truncated_search,
     rescore_candidates=T.rescore_candidates,
+    rescore_ladder=_rescore_ladder_plain,
     ivf_scan_topk=ivf_scan.ivf_scan_topk_plain,
     pq_scan_topk=pq_scan.pq_scan_topk_plain,
     pq_ivf_scan_topk=pq_scan.pq_ivf_scan_topk_plain,

@@ -11,19 +11,21 @@ result reaches device memory.  One source (``csrc/pq_scan.cu``) holds both
 entry points around one scoring body, as the two Pallas calls share
 ``_pq_body``:
 
-* `pq_scan_topk` — **flat**: the whole (N, M) code block, split into row
-  ranges across blocks, then a merge per query.  Backs
+* `pq_scan_topk` — **flat**: a block holds the tables of a tile of T
+  queries (`tile_size`) in the layout ``[m][code][t]``, streams a range of
+  the (N, M) code block once for all T of them, and keeps each query's
+  survivors in a list in shared memory; then a merge per query.  Backs
   ``QuantizedProgressiveBackend(codec='pq')``.
 * `pq_ivf_scan_topk` — **list-major**: one block per (query, probed list)
   over `pack_ivf_lists(dtype='pq')` slabs, then a merge per query.  Backs
   ``IVFProgressiveBackend(stage0_dtype='pq')``.
 
-Bound on an H100 SXM at the serving shapes: the flat scan reads 16 B of
-codes and 4 B of id per row — 21 MB for 1M rows, about 6 µs at 3.35 TB/s
-when every query shares one read.  The kernel gives each query its own
-blocks, so it reads the codes once per query (from L2 after the first: the
-16 MB block fits in the 50 MB cache) and does Q·N·M table lookups in
-shared memory; that, not device memory, bounds it.
+Bound on an H100 SXM at the serving shape (Q = 32, 1M rows, M = 16): the
+codes and ids read once are 21 MB, about 6 µs at 3.35 TB/s; the Q·N·M
+table lookups (537M four-byte shared-memory reads) take at least 0.064 ms
+at 132 SMs × 128 B/clk × 1.98 GHz, and random codes conflict on the banks.
+The lookups bound the flat scan; a query tile cuts the code reads from Q
+to Q / T and lets one 16-byte load carry four queries' entries.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernels or raise.
@@ -32,6 +34,7 @@ launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -46,12 +49,24 @@ MAX_K = 2048
 #: Largest LUT (M·C entries) a block holds in shared memory.
 MAX_LUT = 32768
 
-#: Calls that launched the flat scan pair (range scan + merge) on the card.
+#: Rows of a tile of the flat scan (its row ranges are multiples of it).
+ROWS = 256
+#: Query tile sizes of the flat scan, largest first.
+TILES = (8, 4, 2, 1)
+#: Dynamic shared memory a block may take on the H100 (227 KB).
+SMEM_LIMIT = 232448
+#: Shared memory of one SM (a block also takes 1 KB of it for itself).
+SMEM_PER_SM = 233472
+
+#: Calls that launched the flat scan pair (range scan + merge) on the card,
+#: in all and by the tile size of the range scan's kernel.
 flat_launches = 0
+launches_by_kernel: Dict[str, int] = {f"tile_{t}": 0 for t in TILES}
 #: Calls that launched the list-major scan pair (list scan + merge).
 ivf_launches = 0
 
 _fn = None
+_sms: Dict[int, int] = {}
 
 
 def _kernel():
@@ -59,7 +74,7 @@ def _kernel():
     if _fn is None:
         lib = _build.library("pq_scan")
         flat = lib.pq_scan_topk_launch
-        flat.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        flat.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                          + [ctypes.c_void_p])
         flat.restype = ctypes.c_int
         ivf = lib.pq_ivf_scan_topk_launch
@@ -129,16 +144,92 @@ def _check(lut, codes, k, *others):
                          f"keep at most {MAX_K} candidates per query")
 
 
-def _n_split(nq: int, n: int, dev) -> int:
-    """Row ranges per query for the flat scan: about four blocks per SM
-    in all, and at least a thousand rows per range."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-4 * sms // max(nq, 1)))
-    return max(1, min(want, -(-n // 1024)))
+def list_cap(k: int) -> int:
+    """Slots of a query's survivor list in the flat scan: k, a tile of
+    appends before a tighten is due and a tile of room (``list_cap`` of the
+    source)."""
+    return (k + 3 * ROWS + 31) & ~31
+
+
+def tile_smem_bytes(tile: int, m: int, c: int, kp: int) -> int:
+    """Dynamic shared memory of the flat scan's pass 1 (``tile_smem_bytes``
+    of the source): tables, lists, two staging buffers, counters,
+    thresholds and radix histograms."""
+    def r16(x):
+        return (x + 15) & ~15
+    return (r16(4 * m * c * tile) + 8 * tile * list_cap(kp)
+            + 2 * (r16(ROWS * m) + 4 * ROWS) + 32 + 8 * 8 + 4 * 256 * tile)
+
+
+def tile_size(nq: int, m: int, c: int, kp: int) -> int:
+    """Queries a block of the flat scan serves: the largest of `TILES` whose
+    block fits in shared memory and that no more than one power of two
+    above the batch (a batch of 5 takes 8, of 1 takes 1)."""
+    for t in TILES:
+        if tile_smem_bytes(t, m, c, kp) <= SMEM_LIMIT \
+                and (t == 1 or t < 2 * nq):
+            return t
+    raise ValueError(f"a LUT of {m}x{c} entries at k={kp} leaves no room "
+                     f"for the flat scan's lists")
+
+
+def split_rows(nq: int, n: int, tile: int, m: int, c: int, kp: int,
+               sms: int) -> Tuple[int, int]:
+    """(row ranges, rows a range) of the flat scan: enough ranges that
+    (query tiles) x ranges fill every SM with as many blocks as its shared
+    memory holds, a range a multiple of `ROWS` and at least 1,024 rows."""
+    per_sm = max(1, min(2048 // (ROWS * max(1, tile // 4)),
+                        SMEM_PER_SM // (tile_smem_bytes(tile, m, c, kp)
+                                        + 1024)))
+    q_tiles = -(-nq // tile)
+    want = max(1, -(-per_sm * sms // q_tiles))
+    rows_per = max(4 * ROWS, -(-n // want))
+    rows_per = -(-rows_per // ROWS) * ROWS
+    return max(1, -(-n // rows_per)), rows_per
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(nq: int, n: int, m: int, c: int, k: int, sms: int,
+          tile: Optional[int]) -> Tuple[int, int, int, int]:
+    """(tile, row ranges, rows a range, kp) of a flat-scan call."""
+    if tile is None:
+        tile = tile_size(nq, m, c, k)
+    elif tile not in TILES:
+        raise ValueError(f"tile={tile} not one of {TILES}")
+    n_split, rows_per = split_rows(nq, n, tile, m, c, k, sms)
+    kp = min(k, rows_per)
+    if tile_smem_bytes(tile, m, c, kp) > SMEM_LIMIT:
+        raise ValueError(f"tile={tile} needs {tile_smem_bytes(tile, m, c, kp)}"
+                         f" bytes of shared memory, more than {SMEM_LIMIT}")
+    return tile, n_split, rows_per, kp
+
+
+def pq_scan_tile_plain(lut: Array, codes: Array, ids: Array, *, k: int,
+                       tile: int = 8) -> Tuple[Array, Array]:
+    """The flat kernel's arithmetic in plain PyTorch: the tables of each
+    tile of ``tile`` queries laid out ``[m][code][t]``, every row looked up
+    once for the whole tile (``table[m, code[m], :]``), summed over m in
+    order; the tile's padding queries score nothing.  Scores are the
+    plain version's bits; the selection is the plain version's."""
+    nq, m, c = lut.shape
+    lut = lut.to(torch.float32)
+    idx = codes.long()
+    s = []
+    for q0 in range(0, nq, tile):
+        tab = lut.new_zeros((m, c, tile))
+        real = min(tile, nq - q0)
+        tab[:, :, :real] = lut[q0:q0 + real].permute(1, 2, 0)
+        acc = tab[0][idx[:, 0]]                           # (N, tile)
+        for j in range(1, m):
+            acc = acc + tab[j][idx[:, j]]
+        s.append(acc[:, :real].T)
+    s = torch.cat(s).masked_fill(ids[None, :] < 0, float("inf"))
+    return _topk_of(s, ids[None, :].expand(nq, -1), k)
 
 
 def pq_scan_topk(
     lut: Array, codes: Array, ids: Array, *, k: int,
+    tile: Optional[int] = None,
 ) -> Tuple[Array, Array]:
     """Flat ADC scan: score every coded row, keep the best k per query.
 
@@ -149,6 +240,8 @@ def pq_scan_topk(
              -1 (tombstones, rows past the coded prefix); live rows carry
              their own index.
       k:     neighbours kept (k may exceed N).
+      tile:  queries a block serves (`tile_size` when None); the result
+             does not depend on it.
 
     Returns:
       ((Q, k) float32 ADC scores ascending, +inf at empty slots; (Q, k)
@@ -168,18 +261,21 @@ def pq_scan_topk(
     lut = lut.to(torch.float32).contiguous()
     codes = codes.contiguous()
     ids = ids.to(torch.int32).contiguous()
-    n_split = _n_split(nq, n, dev)
-    rows_per = max(1, -(-n // n_split))
-    n_split = max(1, -(-n // rows_per))
-    kp = min(k, rows_per)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    sms = _sms.get(idx)
+    if sms is None:
+        sms = _sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    tile, n_split, rows_per, kp = _plan(nq, n, m, c, k, sms, tile)
     part = torch.empty((nq, n_split, kp), dtype=torch.int64, device=dev)
     lib, flat, _ = _kernel()
     err = flat(lut.data_ptr(), codes.data_ptr(), ids.data_ptr(),
                part.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-               nq, n, m, c, n_split, rows_per, k, kp,
-               torch.cuda.current_stream(dev).cuda_stream)
+               nq, n, m, c, n_split, rows_per, k, kp, tile,
+               torch._C._cuda_getCurrentRawStream(idx))
     _build.check(lib, err, "pq_scan_topk")
     flat_launches += 1
+    launches_by_kernel[f"tile_{tile}"] += 1
     return out_s, out_i
 
 

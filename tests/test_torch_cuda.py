@@ -304,6 +304,188 @@ class TestScanKernelsOnCard:
             pq_scan.pq_scan_topk(lut, codes.to(torch.int32), ids, k=5)
 
 
+# (C, [(dim, k), ...], precomputed norms) of the serving ladders at the
+# paper's schedule (d 128 -> 3584, k0 64): flat and IVF after stage 0, the
+# quantized PQ pool (oversample 4)
+LADDER_SCHEDULES = {
+    "flat": (64, [(256, 32), (512, 16), (1024, 10), (2048, 10), (3584, 10)]),
+    "ivf": (64, [(256, 32), (512, 16), (1024, 10), (2048, 10), (3584, 10)]),
+    "quantized_pq": (256, [(256, 32), (512, 16), (1024, 10), (2048, 10),
+                           (3584, 10)]),
+}
+
+
+def _ladder_inputs(dev, nq, c, d, n=4000, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    db = torch.randn((n, d), generator=g, device=dev)
+    q = db[torch.randint(0, n, (nq,), generator=g, device=dev)] \
+        + 0.5 * torch.randn((nq, d), generator=g, device=dev)
+    cand = torch.argsort(torch.rand((nq, n), generator=g, device=dev),
+                         dim=1)[:, :c].to(torch.int32).contiguous()
+    valid = torch.rand((n,), generator=g, device=dev) > 0.1
+    return q, db, cand, valid
+
+
+@pytest.mark.cuda
+class TestRescoreLadderOnCard:
+    """The one-launch ladder against the plain steps chained on the same
+    card tensors (tolerance as the file's: another float32 summation
+    order, ids equal up to near-ties)."""
+
+    @pytest.mark.parametrize("nq", [1, 8, 32, 33, 512])
+    @pytest.mark.parametrize("schedule", sorted(LADDER_SCHEDULES))
+    @pytest.mark.parametrize("with_sq", [True, False])
+    def test_serving_schedules(self, cuda, nq, schedule, with_sq):
+        c, stages = LADDER_SCHEDULES[schedule]
+        q, db, cand, valid = _ladder_inputs(cuda, nq, c, 3584, seed=nq + c)
+        if schedule == "ivf":                  # short lists: -1 padding
+            cand[:, c // 2:] = -1
+        dims = [dim for dim, _ in stages]
+        sq = torch.stack([(db[:, :dd] ** 2).sum(1) for dd in dims], 1) \
+            if with_sq else None
+        cols = list(range(len(dims))) if with_sq else None
+        before = dict(gather_rescore.launches_by_kernel)
+        got = gather_rescore.rescore_ladder_topk(q, db, cand, stages,
+                                                 sq_prefix=sq, sq_cols=cols,
+                                                 valid=valid)
+        assert gather_rescore.launches_by_kernel["ladder"] \
+            == before["ladder"] + 1
+        want = gather_rescore.rescore_ladder_topk_plain(
+            q, db, cand, stages, sq_prefix=sq, sq_cols=cols, valid=valid)
+        torch.cuda.synchronize()
+        assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+
+    def test_scalar_loads_unaligned_stride_and_dropping_dims(self, cuda):
+        """Dims not a multiple of 4, a row stride of 257 floats and a base
+        4 bytes off 16 (scalar loads), and a stage shallower than the one
+        before (recomputed from 0)."""
+        q, db, cand, valid = _ladder_inputs(cuda, 33, 48, 257, n=3000, seed=3)
+        for qq, dd in ((q, db), (q[:, 1:], db[:, 1:])):
+            for stages in ([(30, 24), (61, 12), (127, 5)],
+                           [(128, 24), (64, 12), (256, 5)]):
+                got = gather_rescore.rescore_ladder_topk(qq, dd, cand, stages,
+                                                         valid=valid)
+                want = gather_rescore.rescore_ladder_topk_plain(
+                    qq, dd, cand, stages, valid=valid)
+                torch.cuda.synchronize()
+                assert_topk_close([x.cpu() for x in got],
+                                  [x.cpu() for x in want])
+
+    def test_invalid_padding_and_ties(self, cuda):
+        """A query of -1 candidates, one whose rows are all deleted, -1
+        slots mid-row, and duplicated rows that tie at every stage (the
+        earlier rank wins, as the chained steps give)."""
+        q, db, cand, valid = _ladder_inputs(cuda, 8, 64, 512, n=2000, seed=5)
+        db[1000:2000] = db[0:1000]
+        cand[0] = -1
+        valid[cand[1].long()] = False
+        cand[2, ::3] = -1
+        cand[3] = torch.arange(32, device=cuda, dtype=torch.int32).repeat(2)
+        cand[3, 32:] += 1000                   # rows equal to the first 32
+        stages = [(64, 32), (128, 16), (512, 8)]
+        got = gather_rescore.rescore_ladder_topk(q, db, cand, stages,
+                                                 valid=valid)
+        want = gather_rescore.rescore_ladder_topk_plain(q, db, cand, stages,
+                                                        valid=valid)
+        torch.cuda.synchronize()
+        assert (got[1][:2] == -1).all() and torch.isinf(got[0][:2]).all()
+        assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+        assert torch.equal(got[1][3], want[1][3])
+
+    def test_one_stage_is_the_step_and_bits_repeat(self, cuda):
+        """A one-stage ladder is `gather_rescore_topk` (same bits, counted
+        as a step); two launches, and every cluster size, give the same
+        bits."""
+        q, db, cand, valid = _ladder_inputs(cuda, 32, 64, 3584, seed=9)
+        sq = (db[:, :1024] ** 2).sum(1)
+        before = dict(gather_rescore.launches_by_kernel)
+        a = gather_rescore.gather_rescore_topk(q, db, cand, dim=1024, k=16,
+                                               sq_at_dim=sq, valid=valid)
+        b = gather_rescore.rescore_ladder_topk(q, db, cand, [(1024, 16)],
+                                               sq_prefix=sq[:, None],
+                                               sq_cols=[0], valid=valid)
+        assert gather_rescore.launches_by_kernel["step"] == before["step"] + 2
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        c, stages = LADDER_SCHEDULES["quantized_pq"]
+        q, db, cand, valid = _ladder_inputs(cuda, 32, c, 3584, seed=10)
+        outs = [gather_rescore.rescore_ladder_topk(q, db, cand, stages,
+                                                   valid=valid, cluster=r)
+                for r in (None, None, 1, 2, 3, 8)]
+        for s, i in outs[1:]:
+            assert torch.equal(s, outs[0][0]) and torch.equal(i, outs[0][1])
+
+    def test_large_candidate_step(self, cuda):
+        """A single step at MAX_C candidates over a dim of two chunks (the
+        partial buffer then runs in waves)."""
+        q, db, cand, valid = _ladder_inputs(
+            cuda, 4, gather_rescore.MAX_C, 1024, n=20_000, seed=12)
+        got = gather_rescore.gather_rescore_topk(q, db, cand, dim=1000, k=300,
+                                                 valid=valid)
+        want = gather_rescore.gather_rescore_topk_plain(q, db, cand, dim=1000,
+                                                        k=300, valid=valid)
+        torch.cuda.synchronize()
+        assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+        with pytest.raises(ValueError):
+            gather_rescore.rescore_ladder_topk(q, db, cand,
+                                               [(64, 10), (128, 11)])
+
+
+def _pq_case(dev, nq, n, m, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lut = torch.randn((nq, m, 256), generator=g, device=dev)
+    codes = torch.randint(0, 256, (n, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    ids = torch.arange(n, device=dev, dtype=torch.int32)
+    ids[torch.rand((n,), generator=g, device=dev) < 0.2] = -1
+    return lut, codes, ids
+
+
+@pytest.mark.cuda
+class TestPqTileScanOnCard:
+    """The query-tiled flat PQ scan: scores bitwise equal to the plain
+    version (each query's sum in m order) and therefore ids equal too
+    (ties by row)."""
+
+    @pytest.mark.parametrize("nq", [1, 5, 8, 32, 33, 64])
+    @pytest.mark.parametrize("m", [3, 4, 16, 32, 64])
+    def test_bitwise_equal_to_plain(self, cuda, nq, m):
+        lut, codes, ids = _pq_case(cuda, nq, 20_000, m, seed=nq * 100 + m)
+        for k in (1, 64, 256, 2048):
+            got = pq_scan.pq_scan_topk(lut, codes, ids, k=k)
+            want = pq_scan.pq_scan_topk_plain(lut, codes, ids, k=k)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]), (k, pq_scan.tile_size(
+                nq, m, 256, k))
+            assert torch.equal(got[1], want[1])
+
+    def test_tiles_edges_and_plan(self, cuda):
+        """Every tile size gives the same bits; N < k; all ids -1; a code
+        block 1 byte off 16 (byte staging); the plan's shared memory is the
+        source's."""
+        lut, codes, ids = _pq_case(cuda, 13, 9000, 16, seed=4)
+        want = pq_scan.pq_scan_topk_plain(lut, codes, ids, k=256)
+        for tile in pq_scan.TILES:
+            got = pq_scan.pq_scan_topk(lut, codes, ids, k=256, tile=tile)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        small = pq_scan.pq_scan_topk(lut, codes[:100], ids[:100], k=150)
+        want = pq_scan.pq_scan_topk_plain(lut, codes[:100], ids[:100], k=150)
+        assert torch.equal(small[0], want[0]) and torch.equal(small[1], want[1])
+        s, i = pq_scan.pq_scan_topk(lut, codes, torch.full_like(ids, -1), k=64)
+        assert (i == -1).all() and torch.isinf(s).all()
+        raw = torch.empty(9000 * 3 + 1, dtype=torch.uint8, device=cuda)
+        odd = raw[1:].view(9000, 3)
+        odd.copy_(codes[:, :3])
+        got = pq_scan.pq_scan_topk(lut[:, :3].contiguous(), odd, ids, k=64)
+        want = pq_scan.pq_scan_topk_plain(lut[:, :3], codes[:, :3], ids, k=64)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        lib = pq_scan._kernel()[0]
+        fn = lib.pq_tile_smem_bytes
+        import ctypes
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+        for t, m, kp in ((8, 16, 256), (4, 32, 2048), (1, 3, 1), (2, 64, 64)):
+            assert fn(t, m, 256, kp) == pq_scan.tile_smem_bytes(t, m, 256, kp)
+
+
 @pytest.mark.cuda
 class TestEngineOnCard:
     def test_engine_matches_plain_path(self, cuda):
@@ -316,10 +498,14 @@ class TestEngineOnCard:
         gone = np.arange(0, 3000, 7)
         eng.delete_docs(gone)
         q = docs[:20] + 0.1 * torch.randn((20, 64), generator=g, device=cuda)
-        before = (distance_topk.launches, gather_rescore.launches)
+        before = (distance_topk.launches, gather_rescore.launches,
+                  gather_rescore.launches_by_kernel["ladder"])
         s, i = eng.search(q.cpu().numpy())
         assert distance_topk.launches > before[0]
         assert gather_rescore.launches > before[1]
+        # one ladder launch per dispatch, as one stage-0 launch
+        assert gather_rescore.launches_by_kernel["ladder"] - before[2] \
+            == distance_topk.launches - before[0]
         st = eng.store
         ws, wi = progressive_search_plain(q, st.db, eng.sched,
                                           sq_prefix=st.sq_prefix,

@@ -286,3 +286,137 @@ class TestOpsDispatch:
         _, cand = ops.truncated_search(q, db, dim=4, k=4)
         ops.rescore_candidates(q, db, cand, dim=8, k=2)
         assert (distance_topk.launches, gather_rescore.launches) == before
+
+
+def _ladder_chain_jax(q, db, cand, stages, *, sq=None, sq_cols=None,
+                      valid=None):
+    """The ladder as ``repro``'s Pallas ``gather_rescore`` (interpret mode)
+    chained stage by stage through numpy: each stage scores the previous
+    stage's ids in rank order at its dim; a precomputed norm column
+    replaces the row norm (s - |x|^2 + sq), invalid rows score +inf,
+    equal scores keep the lower position (``lax.top_k``'s order)."""
+    for j, (dim, k) in enumerate(stages):
+        s = np.asarray(pallas_gather_rescore(
+            jnp.asarray(q[:, :dim]), jnp.asarray(db[:, :dim]),
+            jnp.asarray(cand), block_c=8, interpret=True)).astype(np.float64)
+        safe = np.clip(cand, 0, None)
+        col = None if sq_cols is None else sq_cols[j]
+        if col is not None:
+            rows = db[safe, :dim].astype(np.float64)
+            s = s - (rows * rows).sum(-1) + sq[safe, col]
+        ok = cand >= 0
+        if valid is not None:
+            ok &= valid[safe]
+        s = np.where(ok, s, np.inf)
+        order = np.argsort(s, axis=1, kind="stable")[:, :k]
+        s = np.take_along_axis(s, order, 1)
+        cand = np.where(np.isfinite(s), np.take_along_axis(cand, order, 1),
+                        -1).astype(np.int32)
+    return s.astype(np.float32), cand
+
+
+def _ladder_case(seed, nq=4, n=300, d=256, c=64):
+    rng = np.random.default_rng(seed)
+    q, db = _data(rng, nq, n, d)
+    cand = np.stack([rng.permutation(n)[:c] for _ in range(nq)]).astype(np.int32)
+    cand[:, -3:] = -1                                  # padding slots
+    return rng, q, db, cand
+
+
+# (dim, k) ladders: doubling dims down to 10 (carried dot), a dim that
+# drops (recomputed from 0), one deeper than a chunk (two partial sums)
+LADDERS = {
+    "doubling": [(32, 32), (64, 16), (128, 12), (256, 10)],
+    "drop": [(64, 20), (32, 12), (128, 10)],
+    "chunks": [(256, 24), (700, 10)],
+}
+
+
+class TestRescoreLadderMirror:
+    """`gather_rescore.rescore_ladder_mirror` — the CUDA ladder's
+    arithmetic (rank-order chaining, carried dot products and norms in
+    512-dim chunks, -1 propagation) — against ``repro``'s Pallas kernel
+    chained stage by stage.  Tolerance ``rtol=1e-5, atol=1e-4``: the
+    carried sums add the same products in another order than one
+    reduction over the prefix."""
+
+    @pytest.mark.parametrize("ladder", sorted(LADDERS))
+    @pytest.mark.parametrize("with_sq", [False, True])
+    def test_matches_chained_pallas(self, ladder, with_sq):
+        stages = LADDERS[ladder]
+        rng, q, db, cand = _ladder_case(len(ladder) + with_sq, d=704)
+        valid = rng.random(300) > 0.15
+        valid[cand[1]] = False           # a query whose candidates all fail
+        dims = sorted({dim for dim, _ in stages})
+        sq = np.stack([(db[:, :dd].astype(np.float64) ** 2).sum(1)
+                       for dd in dims], 1)
+        sq += rng.uniform(0, 5, size=sq.shape)   # so that the column matters
+        sq = sq.astype(np.float32)
+        cols = [dims.index(dim) if with_sq and i % 2 == 0 else None
+                for i, (dim, _) in enumerate(stages)]
+        got = gather_rescore.rescore_ladder_mirror(
+            torch.from_numpy(q), torch.from_numpy(db), torch.from_numpy(cand),
+            stages, sq_prefix=torch.from_numpy(sq), sq_cols=cols,
+            valid=torch.from_numpy(valid))
+        want = _ladder_chain_jax(q, db, cand, stages, sq=sq, sq_cols=cols,
+                                 valid=valid)
+        assert_topk_close(got, want)
+        assert (got[1][1] == -1).all() and torch.isinf(got[0][1]).all()
+        plain = gather_rescore.rescore_ladder_topk_plain(
+            torch.from_numpy(q), torch.from_numpy(db), torch.from_numpy(cand),
+            stages, sq_prefix=torch.from_numpy(sq), sq_cols=cols,
+            valid=torch.from_numpy(valid))
+        assert_topk_close(got, plain)
+
+    def test_equal_scores_keep_the_previous_rank(self):
+        """Rows that tie at every stage keep the order of the stage
+        before, as the chained steps give."""
+        rng, q, db, cand = _ladder_case(5, nq=3, n=40, d=64, c=24)
+        db[20:40] = db[0:20]             # row r + 20 equals row r
+        cand = np.stack([rng.permutation(40)[:24] for _ in range(3)]).astype(np.int32)
+        stages = [(16, 16), (32, 12), (64, 8)]
+        got = gather_rescore.rescore_ladder_mirror(
+            torch.from_numpy(q), torch.from_numpy(db), torch.from_numpy(cand),
+            stages)
+        want = _ladder_chain_jax(q, db, cand, stages)
+        np.testing.assert_array_equal(got[1].numpy(), want[1])
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=RTOL,
+                                   atol=ATOL)
+
+    def test_ops_ladder_on_cpu_is_the_chained_step(self):
+        from repro_torch.core import make_schedule
+        from repro_torch.core.index import build_index, lookup_prefix
+
+        rng, q, db, cand = _ladder_case(8, nq=5, n=200, d=128, c=32)
+        sched = make_schedule(16, 128, 32, final_k=4)
+        qt, dbt = torch.from_numpy(q), torch.from_numpy(db)
+        idx = build_index(dbt, tuple(s.dim for s in sched.stages))
+        valid = torch.from_numpy(rng.random(200) > 0.1)
+        before = (gather_rescore.launches,
+                  dict(gather_rescore.launches_by_kernel))
+        got = ops.rescore_ladder(qt, dbt, torch.from_numpy(cand),
+                                 sched.stages[1:], sq_prefix=idx["sq_prefix"],
+                                 index_dims=idx["dims"], valid=valid)
+        s, c = None, torch.from_numpy(cand)
+        for st in sched.stages[1:]:
+            s, c = T.rescore_candidates(
+                qt, dbt, c, dim=st.dim, k=st.k, valid=valid,
+                db_sq_at_dim=lookup_prefix(idx["sq_prefix"], idx["dims"],
+                                           st.dim))
+        assert torch.equal(got[0], s) and torch.equal(got[1], c)
+        assert (gather_rescore.launches,
+                gather_rescore.launches_by_kernel) == before
+        assert ops.rescore_ladder(qt, dbt, c, (), scores=s) == (s, c)
+        plain = ops.plain.rescore_ladder(
+            qt, dbt, torch.from_numpy(cand), sched.stages[1:],
+            sq_prefix=idx["sq_prefix"], index_dims=idx["dims"], valid=valid)
+        assert torch.equal(plain[0], s) and torch.equal(plain[1], c)
+
+    def test_plan_and_cluster_size(self):
+        stages = [(256, 32), (512, 16), (1024, 10), (2048, 10), (3584, 10)]
+        b_cap, p_cap = gather_rescore.plan(64, tuple(stages))
+        assert b_cap == 32 and p_cap == 64       # 64 rows x 1 chunk at stage 1
+        assert gather_rescore.plan(4096, ((3584, 10),)) == (0, 4096)
+        assert gather_rescore.plan(10, ((64, 10), (2048, 5))) == (10, 40)
+        assert [gather_rescore.cluster_size(nq, 132)
+                for nq in (1, 8, 32, 33, 512)] == [8, 8, 4, 4, 1]

@@ -289,6 +289,50 @@ class TestPqScanPlain:
                                       np.asarray(jp2["rows"]))
 
 
+class TestPqTileMirror:
+    """`pq_scan.pq_scan_tile_plain` — the flat CUDA scan's arithmetic: the
+    tables of a tile of queries laid out ``[m][code][t]``, one lookup of a
+    code for the whole tile, each query's sum in m order.  Its scores are
+    bitwise equal to the plain version's (the same additions in the same
+    order), and it agrees with ``repro``'s Pallas kernel in interpret mode
+    within this file's tolerance (the one-hot product sums in another
+    order)."""
+
+    @pytest.mark.parametrize("tile", [1, 2, 4, 8])
+    @pytest.mark.parametrize("nq", [1, 5, 6])
+    def test_bitwise_plain_and_close_to_pallas(self, data, tile, nq):
+        x, cb = data["db"][:, :16], data["cb"]
+        codes = np.asarray(JP.pq_encode(jnp.asarray(x), jnp.asarray(cb)))
+        q = np.concatenate([data["q"]] * 2)[:nq, :16]
+        lut = np.asarray(JP.pq_lut(jnp.asarray(q), jnp.asarray(cb)))
+        ids = np.where(data["valid"], np.arange(300), -1).astype(np.int32)
+        got = PPQ.pq_scan_tile_plain(_t(lut), _t(codes), _t(ids), k=40,
+                                     tile=tile)
+        plain = PPQ.pq_scan_topk_plain(_t(lut), _t(codes), _t(ids), k=40)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+        want = JPQ.pq_scan_topk(jnp.asarray(lut), jnp.asarray(codes),
+                                jnp.asarray(ids), k=40, block_m=64,
+                                interpret=True)
+        assert_topk_close(got, want)
+
+    def test_tile_plan(self):
+        """The tile the wrapper picks at the serving shape (Q 32, M 16,
+        C 256, k 256) is 8 in 215,136 bytes, and every tile it picks fits
+        the 227 KB a block may take."""
+        assert PPQ.tile_size(32, 16, 256, 256) == 8
+        assert PPQ.tile_smem_bytes(8, 16, 256, 256) == 215_136
+        assert PPQ.tile_size(1, 16, 256, 256) == 1
+        assert PPQ.tile_size(5, 16, 256, 256) == 8
+        assert PPQ.tile_size(32, 16, 256, 2048) == 4
+        for m in (3, 4, 16, 32, 64):
+            for k in (1, 64, 256, 2048):
+                t = PPQ.tile_size(64, m, 256, k)
+                assert PPQ.tile_smem_bytes(t, m, 256, k) <= PPQ.SMEM_LIMIT
+        n_split, rows_per = PPQ.split_rows(32, 1_048_576, 8, 16, 256, 256, 132)
+        assert rows_per % PPQ.ROWS == 0 and n_split * rows_per >= 1_048_576
+        assert 4 * n_split >= 132
+
+
 class TestPqSearch:
     @pytest.mark.parametrize("route", ["plain", "kernel"])
     def test_search_matches_on_jax_index(self, data, route):
