@@ -16,8 +16,10 @@ in phases that each print one JSON line:
                  beside those five steps as separate launches, with its
                  device time and its bound from each row read once to its
                  deepest dim); the IVF and PQ scan kernels on their edge
-                 cases (empty and fully tombstoned lists, k beyond the
-                 rows scanned)
+                 cases (empty and fully tombstoned lists, a query probing
+                 dead lists only, k beyond the rows scanned; the list-major
+                 scans given the raw lists and the validity bits, and the
+                 pre-masked table, which must give the same bits)
   3. corpus    — synthetic corpus generated on the card from ``--seed``,
                  loaded into a ``RetrievalEngine`` (flat backend), warmed up
   4. serving   — ``engine.search`` over every query and requests from client
@@ -35,13 +37,18 @@ in phases that each print one JSON line:
                  ladder launch a dispatch), agreement with the same
                  backend's plain route on the same state, each scan kernel
                  against its plain version on that state after deletes
-                 (tombstones inside lists; the flat PQ scan also with its
-                 lookup bound and its merge's device time, and the ladder
-                 at the quantized PQ dispatch shape), and no deleted id
-                 returned; the
-                 float32 IVF engine also serves through ``EngineDriver``, is
-                 profiled (the quantized PQ engine too), and absorbs 1,000
-                 appends into spare list slots
+                 (tombstones inside lists; the list-major scans as the
+                 dispatch calls them, the raw member table and the store's
+                 validity bits, with the pre-masked route's bits, one
+                 ``list_scan_kernel`` launch a call in the profile, the
+                 wrapper's host time and the bounds from the distinct
+                 probed lists and from each query's own rows; the flat PQ
+                 scan also with its lookup bound and its merge's device
+                 time, and the ladder at the quantized PQ dispatch shape),
+                 and no deleted id returned; the float32 IVF engine also
+                 serves through ``EngineDriver``, is profiled (the int8 and
+                 PQ IVF engines and the quantized PQ engine too), and
+                 absorbs 1,000 appends into spare list slots
   7. rag       — the RAG generation path at full width: Mistral-Nemo-12B
                  (40 layers x 5120, bf16, random weights from ``--seed``)
                  behind a 262,144 x 5120 flat corpus of mean-pooled
@@ -363,11 +370,13 @@ def by_kernel_counters():
     """module name -> its launches_by_kernel dict (the wrappers whose
     calls go to one of several kernels or kinds of launch)."""
     from repro_torch.kernels import (distance_topk, flash_attention,
-                                     gather_rescore, pq_scan, segment_sum)
+                                     gather_rescore, ivf_scan, pq_scan,
+                                     segment_sum)
     return {"flash_attention": flash_attention.launches_by_kernel,
             "distance_topk": distance_topk.launches_by_kernel,
             "segment_sum": segment_sum.launches_by_kernel,
             "gather_rescore": gather_rescore.launches_by_kernel,
+            "ivf_scan": ivf_scan.launches_by_kernel,
             "pq_scan": pq_scan.launches_by_kernel}
 
 
@@ -767,6 +776,7 @@ def serve_variant(variant, ctx, launches) -> dict:
     for n in ("ivf_scan.ivf_scan_topk", "pq_scan.pq_scan_topk",
               "pq_scan.pq_ivf_scan_topk", "gather_rescore.gather_rescore_topk",
               "gather_rescore.ladder", "gather_rescore.step",
+              "ivf_scan.float32", "ivf_scan.int8", "pq_scan.list",
               *(f"pq_scan.{t}" for t in ("tile_8", "tile_4", "tile_2",
                                          "tile_1"))):
         launches[n] = launches.get(n, 0) + counts[n]
@@ -803,7 +813,7 @@ def serve_variant(variant, ctx, launches) -> dict:
                     "latency_ms_p95": st["latency_ms_p95"],
                     "compute_ms_p50": st["compute_ms_p50"]})
     emit(row)
-    if full or name == "quantized_pq":
+    if full or name in ("quantized_pq", "ivf_int8", "ivf_pq"):
         profile_search(torch, engine, q_host, search_s, name)
 
     # deletes: no deleted id may come back; the scan kernels are then held
@@ -907,6 +917,7 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
     q32 = ctx["queries"][:32].contiguous()
     valid = store.valid
     k0 = ctx["sched"].stages[0].k
+    extra = {}
     if kernel == "pq_scan.pq_scan_topk":
         idx = state.data["idx"]
         cb, codes = idx["codebooks"], idx["codes"]
@@ -937,8 +948,7 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
         lists = state.data["lists"]
         probe = _probe(q32, state.data["centroids"], be.n_probe, "l2",
                        state.data["cent_sq"])
-        member = torch.where((lists >= 0) & valid[lists.clamp(min=0).long()],
-                             lists, torch.full_like(lists, -1))
+        member = ivf_scan.mask_members(lists, valid)
         max_len, d0 = pack["max_len"], pack["dim"]
         pl = probe.long()
         slab = (pl[:, :, None] * max_len
@@ -947,12 +957,18 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
         distinct = torch.unique(pl)
         live_d = int((member[distinct] >= 0).sum())    # members to read once
         n_slots = distinct.numel() * max_len
+        extra["distinct_list_share"] = distinct.numel() / pl.numel()
+        extra["live_slot_share"] = live_q / (pl.numel() * max_len)
         if kernel == "ivf_scan.ivf_scan_topk":
             k = k0
-            kern = lambda: ivf_scan.ivf_scan_topk(q32, probe, member, pack,
-                                                  k=k)
-            plain = lambda: ivf_scan.ivf_scan_topk_plain(q32, probe, member,
-                                                         pack, k=k)
+            # as the dispatch calls it: the raw member table and the
+            # store's validity bits (the plain version masks first)
+            kern = lambda: ivf_scan.ivf_scan_topk(q32, probe, lists, pack,
+                                                  k=k, valid=valid)
+            premasked = lambda: ivf_scan.ivf_scan_topk(q32, probe, member,
+                                                       pack, k=k)
+            plain = lambda: ivf_scan.ivf_scan_topk_plain(
+                q32, probe, lists, pack, k=k, valid=valid)
             qd = ivf_scan._query(q32, pack)
 
             def yardstick():
@@ -966,6 +982,9 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
             row_b = pack["rows"].element_size() * d0
             n_bytes = (4 * n_slots + (row_b + 4) * live_d + 32 * d0 * 4
                        + probe.numel() * 4 + 32 * k * 8)
+            # every query's live rows read for it alone (this design)
+            per_query = (4 * pl.numel() * max_len + (row_b + 4 + 1) * live_q
+                         + 32 * d0 * 4 + probe.numel() * 4 + 32 * k * 8)
             model = 32 * ivf_scan.stage0_bytes_model(
                 n_lists=lists.shape[0], max_len=max_len, n_probe=be.n_probe,
                 d0=d0, k=k, member_bytes=pack["rows"].element_size(),
@@ -976,10 +995,12 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
         else:
             k = k0 * be.pq_oversample
             lut = pq_lut(q32[:, :d0], pack["codebooks"], pack["cent_sq"])
-            kern = lambda: pq_scan.pq_ivf_scan_topk(q32, probe, member, pack,
-                                                    k=k, lut=lut)
-            plain = lambda: pq_scan.pq_ivf_scan_topk_plain(
+            kern = lambda: pq_scan.pq_ivf_scan_topk(q32, probe, lists, pack,
+                                                    k=k, lut=lut, valid=valid)
+            premasked = lambda: pq_scan.pq_ivf_scan_topk(
                 q32, probe, member, pack, k=k, lut=lut)
+            plain = lambda: pq_scan.pq_ivf_scan_topk_plain(
+                q32, probe, lists, pack, k=k, lut=lut, valid=valid)
             m = pack["rows"].shape[1]
 
             def yardstick():
@@ -991,6 +1012,8 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
 
             n_bytes = (4 * n_slots + m * live_d + lut.numel() * 4
                        + probe.numel() * 4 + 32 * k * 8)
+            per_query = (4 * pl.numel() * max_len + (m + 1) * live_q
+                         + lut.numel() * 4 + probe.numel() * 4 + 32 * k * 8)
             model = 32 * ivf_scan.stage0_bytes_model(
                 n_lists=lists.shape[0], max_len=max_len, n_probe=be.n_probe,
                 d0=d0, k=k, row_bytes=m, lut_bytes=4.0 * lut[0].numel(),
@@ -1007,10 +1030,32 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
              f"agree={agree}")
     n_dead_slots = int((got[1] == -1).sum())
     b, by = bound_ms(n_bytes, n_ops)
-    dev_all, dev_own = device_ms(
-        torch, kern, ("ivf_list_kernel", "pq_list_kernel", "pq_tile_kernel",
-                      "merge_kernel"),
-        per_call=2)                              # the scan, the merge
+    if kernel == "pq_scan.pq_scan_topk":         # the scan, the merge
+        dev_all, dev_own = device_ms(
+            torch, kern, ("pq_tile_kernel", "merge_kernel"), per_call=2)
+    else:
+        # one launch a call, the valid route's bits the pre-masked route's
+        pre = premasked()
+        torch.cuda.synchronize()
+        if not (torch.equal(pre[0], got[0]) and torch.equal(pre[1], got[1])):
+            fail(f"{kernel} on the {name} state: the valid route and the "
+                 f"pre-masked route differ")
+        dev_all, dev_own = device_ms(torch, kern, ("list_scan_kernel",),
+                                     per_call=1)
+        if dev_own is None:
+            fail(f"{kernel}: the trace of {name} did not hold one "
+                 f"list_scan_kernel launch a call")
+        torch.cuda.synchronize()               # the wrapper's host time
+        t0 = time.perf_counter()
+        for _ in range(200):
+            kern()
+        extra["host_us_per_call"] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        extra["launches_per_call"] = 1
+        extra["cluster"] = ivf_scan.last_cluster(
+            pq_scan._kernel()[0] if "pq_" in kernel else None)
+        extra["premasked_ms"] = cuda_ms(torch, premasked, flush=flush)
+        extra["bound_per_query_ms"] = bound_ms(per_query, n_ops)[0]
     row = {"kernel": kernel, "backend": name, "shape": shape,
            "max_abs_err": err, "tol": tol, "ids_agree": agree,
            "empty_slots": n_dead_slots,
@@ -1021,7 +1066,8 @@ def scan_kernel_row(name, kernel, engine, ctx) -> dict:
            "bound_ms": b, "bound_by": by, "bytes": n_bytes, "ops": n_ops,
            # the per-query fused byte model summed over the batch: every
            # query's probed rows read for it alone, padding slots included
-           "model_bytes": model, "model_bound_ms": bound_ms(model, 0)[0]}
+           "model_bytes": model, "model_bound_ms": bound_ms(model, 0)[0],
+           **extra}
     if kernel == "pq_scan.pq_scan_topk":
         # what bounds the flat scan: its Q*N*M four-byte table reads at the
         # shared memory's 128 B a clock on every SM, conflict-free
@@ -1174,8 +1220,11 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None):
 
 def scan_edge_cases(torch, dev) -> None:
     """The IVF and PQ scans against their plain versions on small cases:
-    an empty list, a fully tombstoned list, tombstones inside lists, every
-    member masked, and k beyond the rows scanned."""
+    an empty list, a fully tombstoned list, tombstones inside lists (the
+    list-major scans given the raw lists and the validity bits, as a
+    dispatch calls them, and given the pre-masked table: the same bits), a
+    query whose every probed list is dead, every member masked, and k
+    beyond the rows scanned."""
     from repro_torch.kernels import ivf_scan, pq_scan
 
     g = torch.Generator(device=dev)
@@ -1189,14 +1238,14 @@ def scan_edge_cases(torch, dev) -> None:
     lists = torch.where(slot < fill[:, None], lists, -1).to(torch.int32)
     lists[0] = -1                                      # an empty list
     valid = torch.rand((n,), generator=g, device=dev) > 0.2
-    valid[lists[1].clamp(min=0).long()] = False        # fully tombstoned
-    member = torch.where((lists >= 0) & valid[lists.clamp(min=0).long()],
-                         lists, torch.full_like(lists, -1))
+    valid[lists[1:4].clamp(min=0).long()] = False      # fully tombstoned
+    member = ivf_scan.mask_members(lists, valid)
     none = torch.full_like(lists, -1)
     q = torch.randn((8, dim), generator=g, device=dev)
     probe = torch.stack([torch.randperm(n_lists, generator=g, device=dev)[:4]
                          for _ in range(8)]).to(torch.int32)
     probe[0, :2] = torch.tensor([0, 1], device=dev)
+    probe[1] = torch.tensor([3, 0, 2, 1], device=dev)  # every list dead
     cb = torch.randn((16, 256, dim // 16), generator=g, device=dev)
     packs = {dt: ivf_scan.pack_ivf_lists(db, lists, dim=dim, dtype=dt,
                                          pq_codebooks=cb)
@@ -1206,8 +1255,10 @@ def scan_edge_cases(torch, dev) -> None:
                           dtype=torch.uint8)
     ids = torch.where(valid, torch.arange(n, device=dev, dtype=torch.int32),
                       torch.full((n,), -1, dtype=torch.int32, device=dev))
-    cases = []                  # (name, case, k, kernel, plain, args)
-    for case, mem in (("tombstones", member), ("all_masked", none)):
+    cases = []                  # (name, case, k, kernel, plain, args, kw)
+    for case, mem, kw in (("tombstones", lists, {"valid": valid}),
+                          ("premasked", member, {}),
+                          ("all_masked", none, {})):
         for k in (64, 300):                   # 300 > 4 lists x 64 slots
             for dt in ("float32", "int8", "pq"):
                 kern, plain = ((ivf_scan.ivf_scan_topk,
@@ -1216,15 +1267,16 @@ def scan_edge_cases(torch, dev) -> None:
                                      pq_scan.pq_ivf_scan_topk_plain))
                 cases.append((f"ivf_scan[{dt}]" if dt != "pq"
                               else "pq_ivf_scan", case, k, kern, plain,
-                              (q, probe, mem, packs[dt])))
+                              (q, probe, mem, packs[dt]), kw))
     for case, idv, k in (("tombstones", ids, 256),
                          ("all_masked", torch.full_like(ids, -1), 64),
                          ("k_beyond_rows", ids[:200], 256)):
         cases.append(("pq_scan", case, k, pq_scan.pq_scan_topk,
                       pq_scan.pq_scan_topk_plain,
-                      (lut, codes[:idv.numel()], idv)))
-    for kern_name, case, k, kern, plain, a in cases:
-        got, want = kern(*a, k=k), plain(*a, k=k)
+                      (lut, codes[:idv.numel()], idv), {}))
+    routes = {}
+    for kern_name, case, k, kern, plain, a, kw in cases:
+        got, want = kern(*a, k=k, **kw), plain(*a, k=k, **kw)
         torch.cuda.synchronize()
         err, agree, tol = compare(torch, got, want)
         n_empty = int((got[1] == -1).sum())
@@ -1232,8 +1284,17 @@ def scan_edge_cases(torch, dev) -> None:
             fail(f"{kern_name} {case} k={k}: agree={agree} err={err}")
         if case == "all_masked" and n_empty != got[1].numel():
             fail(f"{kern_name} all masked returned an id")
+        if kern_name != "pq_scan" and case != "all_masked":
+            if not (bool((got[1][1] == -1).all())
+                    and bool(torch.isinf(got[0][1]).all())):
+                fail(f"{kern_name} {case}: a query probing dead lists only "
+                     f"got an id")
+            routes.setdefault((kern_name, k), []).append(got)
         emit({"phase": "kernels", "kernel": kern_name, "case": case, "k": k,
               "empty_slots": n_empty, "ids_agree": agree, "max_abs_err": err})
+    for key, (a, b) in routes.items():
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            fail(f"{key}: the valid route and the pre-masked route differ")
 
 
 # (case, b, hq, hkv, sq, skv, dh, causal, window): the JAX package's
@@ -2439,11 +2500,17 @@ def _scan_entry(name, source, replaces, launches, rows) -> dict:
            "library_ms": None,
            "gather_matmul_topk_ms": first["gather_matmul_topk_ms"],
            "shape": first["shape"]}
-    out["kernel_device_ms"] = first["kernel_device_ms"]
+    # the list-major scans: one launch a call, host time, the per-query
+    # bound, the share of distinct lists among the probes
+    keys = ("kernel_device_ms", "premasked_ms", "host_us_per_call",
+            "launches_per_call", "cluster", "bound_per_query_ms",
+            "model_bound_ms",
+            "distinct_list_share", "live_slot_share")
+    out.update({key: first[key] for key in keys if key in first})
     for r in rows[1:]:                 # the int8 slabs of the same kernel
         out[r["backend"]] = {key: r[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "gather_matmul_topk_ms",
-            "kernel_device_ms", "shape")}
+            "shape", *keys) if key in r}
     return out
 
 

@@ -280,25 +280,20 @@ def _kernel_search(q, db, centroids, lists, sched, *, n_probe, valid,
     s0 = sched.stages[0]
     probe = _probe(q, centroids, n_probe, metric, cent_sq)
 
-    # mask every unreturnable slot to -1 BEFORE the scan: list padding is
-    # already -1, tombstoned rows come from the live validity bits (the
-    # packed member vectors are a build-time snapshot)
-    member_ids = lists
-    if valid is not None:
-        member_ids = torch.where(
-            (lists >= 0) & valid[torch.clamp(lists, min=0).long()], lists,
-            torch.full_like(lists, -1))
-
+    # the raw member table and the live bits: the scan skips list padding
+    # (-1) and tombstoned ids (the packed member vectors are a build-time
+    # snapshot); the plain versions mask the table first, the kernels read
+    # ``valid`` per slot
     if pack["dtype"] == "pq":
         # oversampled survivor pool: the classic PQ remedy for ADC ranking
         # noise — the full-precision rescore ladder cuts it back
         k0_eff = s0.k * pq_oversample
-        scores, cand = impl.pq_ivf_scan_topk(q, probe, member_ids, pack,
-                                             k=k0_eff)
+        scores, cand = impl.pq_ivf_scan_topk(q, probe, lists, pack, k=k0_eff,
+                                             valid=valid)
     else:
         k0_eff = s0.k
-        scores, cand = impl.ivf_scan_topk(q, probe, member_ids, pack,
-                                          k=k0_eff)
+        scores, cand = impl.ivf_scan_topk(q, probe, lists, pack, k=k0_eff,
+                                          valid=valid)
 
     if extra_cand is not None:
         # the un-indexed tail window competes in stage 0 exactly as the

@@ -36,94 +36,20 @@
 // Where the time goes (PERF.md): the selection, the lookups' bank
 // conflicts, and the per-tile barriers, in about equal parts.
 
-// List-major scan (pq_list_kernel).  One block per (probed list, query):
-// the block copies its query's table into shared memory, each thread
-// scores one slot at a time from a 16-byte (or 4-byte) load of its codes,
-// and the block keeps the list's top-k with the streaming selection of
-// scan_topk.cuh; then the merge per query.
+// List-major scan: the kernel body of list_scan.cuh (one launch a call, a
+// cluster of CTAs a query, tombstones read from `valid`, only live rows
+// scored), each CTA holding its query's table once in shared memory and
+// scoring a row's codes in m order.
 //
 // Keys order by (score, scan position): the row index of the flat scan,
 // probe rank * max_len + slot of the list-major one.
 
+#include "list_scan.cuh"
 #include "scan_topk.cuh"
 
 namespace {
 
 using scan_topk::Key;
-using scan_topk::kThreads;
-using scan_topk::kTile;
-
-// sum_m lut_s[m * c + code[m]], in m order.  vec is 16, 4 or 1: the width
-// of the loads of a row's codes (alignment and m permitting).
-__device__ __forceinline__ float adc(const float* lut_s,
-                                     const uint8_t* __restrict__ code, int m,
-                                     int c, int vec) {
-  float s = 0.f;
-  if (vec == 16) {
-    const uint4* w = reinterpret_cast<const uint4*>(code);
-    for (int g = 0; g < m / 16; ++g) {
-      const uint4 v = __ldg(w + g);
-      const unsigned word[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int h = 0; h < 4; ++h)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          s += lut_s[(g * 16 + h * 4 + b) * c + ((word[h] >> (8 * b)) & 0xff)];
-    }
-  } else if (vec == 4) {
-    const unsigned* w = reinterpret_cast<const unsigned*>(code);
-    for (int g = 0; g < m / 4; ++g) {
-      const unsigned v = __ldg(w + g);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        s += lut_s[(g * 4 + b) * c + ((v >> (8 * b)) & 0xff)];
-    }
-  } else {
-    for (int j = 0; j < m; ++j) s += lut_s[j * c + __ldg(code + j)];
-  }
-  return s;
-}
-
-// One block per (probed list pi, query qi): the rows of slab
-// probe[qi, pi], scan positions pi * max_len + slot.  ids: the id of every
-// slot, -1 = skip.
-__global__ void __launch_bounds__(kThreads)
-pq_list_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
-               const int* __restrict__ ids, const int* __restrict__ probe,
-               Key* __restrict__ part, int max_len, int n_probe, int m, int c,
-               int k, int kp, int cap, int vec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  Key* buf = reinterpret_cast<Key*>(smem);
-  float* lut_s = reinterpret_cast<float*>(buf + cap);
-  int* cnt = reinterpret_cast<int*>(lut_s + m * c);
-  const int pi = blockIdx.x;
-  const int qi = blockIdx.y;
-
-  const float* lq = lut + static_cast<size_t>(qi) * m * c;
-  for (int i = threadIdx.x; i < m * c; i += blockDim.x) lut_s[i] = lq[i];
-  scan_topk::Selector sel;
-  sel.init(buf, cnt, cap, k);
-  __syncthreads();
-
-  const size_t row0 =
-      static_cast<size_t>(probe[static_cast<size_t>(qi) * n_probe + pi]) *
-      max_len;
-  const unsigned pos0 = static_cast<unsigned>(pi) * max_len;
-  for (int t0 = 0; t0 < max_len; t0 += kTile) {
-    const int tn = min(kTile, max_len - t0);
-    sel.reserve(tn);
-    for (int r = t0 + threadIdx.x; r < t0 + tn; r += blockDim.x) {
-      if (ids[row0 + r] < 0) continue;
-      const float s = adc(lut_s, codes + (row0 + r) * m, m, c, vec);
-      if (isfinite(s)) sel.offer(scan_topk::make_key(s, pos0 + r));
-    }
-    __syncthreads();
-  }
-  const int n = sel.finish();
-  scan_topk::write_part(buf, n,
-                        part + (static_cast<size_t>(qi) * n_probe + pi) * kp,
-                        kp);
-}
 
 // -- the flat scan: a tile of T queries a block --------------------------
 
@@ -463,35 +389,19 @@ int pq_tile_smem_bytes(int tile, int m, int c, int kp) {
   return static_cast<int>(tile_smem_bytes(tile, m, c, kp));
 }
 
-// List-major scan.  lut (nq, m, c) float32; codes (n_lists * max_len, m)
-// uint8 list-major slabs; member_ids (n_lists, max_len) int32, -1 =
-// unreturnable; probe (nq, n_probe) int32 distinct list indices; part (nq,
-// n_probe, kp) 64-bit scratch, kp = min(k, max_len); out (nq, k).
-int pq_ivf_scan_topk_launch(const float* lut, const uint8_t* codes,
-                            const int* member_ids, const int* probe,
-                            unsigned long long* part, float* out_s,
-                            int* out_i, int nq, int n_probe, int max_len,
-                            int m, int c, int k, int kp, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int cap = scan_topk::buffer_cap(k);
-  const size_t smem = sizeof(Key) * cap + sizeof(float) * m * c + 16;
-  const uintptr_t base = reinterpret_cast<uintptr_t>(codes);
-  const int vec = (m % 16 == 0 && base % 16 == 0)  ? 16
-                  : (m % 4 == 0 && base % 4 == 0) ? 4
-                                                  : 1;
-  cudaError_t err = cudaFuncSetAttribute(
-      pq_list_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pq_list_kernel<<<dim3(n_probe, nq), kThreads, smem, st>>>(
-      lut, codes, member_ids, probe, part, max_len, n_probe, m, c, k, kp, cap,
-      vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(scan_topk::launch_merge(
-      part, nq, n_probe * kp, k, out_s, out_i,
-      scan_topk::ListIds{probe, member_ids, n_probe, max_len}, st));
+// List-major scan: one call described by the ListScanArgs block at `args`
+// (kind 2).  Returns the launch's CUDA error.
+int pq_ivf_scan_topk_launch(const void* args) {
+  const ListScanArgs& a = *static_cast<const ListScanArgs*>(args);
+  if (a.kind != list_scan::kPq) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(list_scan::launch<list_scan::kPq>(a));
 }
+
+// Size of ListScanArgs, for the wrapper to check its packing against.
+int list_scan_args_size() { return static_cast<int>(sizeof(ListScanArgs)); }
+
+// CTAs a query of the last launch.
+int list_scan_last_cluster() { return list_scan::last_cluster(); }
 
 // Human-readable name of a CUDA error code returned by the launchers.
 const char* cuda_error_string(int err) {

@@ -1,24 +1,20 @@
-// Block-wide streaming top-k selection shared by the IVF and PQ scan
-// kernels (ivf_scan.cu, pq_scan.cu).
+// Top-k selection shared by the PQ and IVF scan kernels (pq_scan.cu,
+// list_scan.cuh).
 //
 // A candidate is one 64-bit key: the score mapped to an order-preserving
 // 32-bit integer in the high half, its scan position in the low half.  So
 // keys order by (score, scan position) — the order lax.top_k gives over the
-// scan's candidate table — and no two keys are equal.  A block offers keys
-// from its rows; each key below the block's threshold is appended to a
-// buffer in shared memory, one atomic on its counter for all the takers of
-// a warp.  Before a tile whose
-// offers could overflow the buffer, the block sorts it (bitonic, in shared
-// memory), keeps the k smallest and sets the threshold to the k-th, so
-// later rows that cannot make the top-k are dropped at once.  Only finite
-// scores are ever offered: a slot left without a key is (+inf, -1).
+// scan's candidate table — and no two keys are equal.  Only finite scores
+// are ever offered: a slot left without a key is (+inf, -1).
 //
-// Pass 1 of each scan keeps such a top-k per (query, part of the rows) and
-// writes it as keys; pass 2 (merge_kernel, four times the threads, so its
-// sorts take a quarter of the steps) streams a query's part lists through
-// the same selection and turns the final keys into (score, id).  The flat
-// PQ scan keeps a list per query of its tile instead and cuts each with
-// warp_tighten, a radix select by one warp.
+// The flat PQ scan keeps a list per query of its tile and cuts each with
+// warp_tighten, a radix select by one warp; it writes each range's top-k
+// as keys, and merge_kernel (pass 2, 1,024 threads) streams a query's part
+// lists through the block's streaming selection (`Selector`: keys below
+// the threshold appended to a shared-memory buffer, one atomic a warp; a
+// bitonic sort keeps the k smallest when the buffer could overflow) and
+// turns the final keys into (score, id).  The list-major scans
+// (list_scan.cuh) select with a block-wide radix select instead.
 
 #pragma once
 
@@ -31,7 +27,6 @@ namespace scan_topk {
 
 typedef unsigned long long Key;
 
-constexpr int kThreads = 256;
 constexpr int kTile = 1024;            // rows (or keys) offered per tile
 constexpr int kMergeThreads = 1024;
 constexpr Key kEmpty = ~0ull;
@@ -229,20 +224,6 @@ struct FlatIds {
   __device__ int operator()(int, unsigned pos) const { return ids[pos]; }
 };
 
-// Result id of a list-major scan: position p * max_len + slot of query qi
-// is slot `slot` of its p-th probed list.
-struct ListIds {
-  const int* probe;
-  const int* member_ids;
-  int n_probe, max_len;
-  __device__ int operator()(int qi, unsigned pos) const {
-    const int p = static_cast<int>(pos / max_len);
-    const int slot = static_cast<int>(pos % max_len);
-    const int lst = probe[static_cast<size_t>(qi) * n_probe + p];
-    return member_ids[static_cast<size_t>(lst) * max_len + slot];
-  }
-};
-
 // Pass 2: one block per query merges its n_in part keys into the top-k.
 template <class IdOf>
 __global__ void __launch_bounds__(kMergeThreads)
@@ -279,13 +260,6 @@ merge_kernel(const Key* __restrict__ part, int n_in, int k, int cap,
       out_i[o] = -1;
     }
   }
-}
-
-// Write a part's selected keys (padded with kEmpty to kp).
-__device__ __forceinline__ void write_part(const Key* buf, int n, Key* out,
-                                           int kp) {
-  for (int r = threadIdx.x; r < kp; r += blockDim.x)
-    out[r] = r < n ? buf[r] : kEmpty;
 }
 
 // Lets `kern` take `bytes` of dynamic shared memory on the current device,

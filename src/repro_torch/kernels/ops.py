@@ -123,11 +123,15 @@ def rescore_ladder(
 
 
 def ivf_scan_topk(q: Tensor, probe: Tensor, member_ids: Tensor, pack: Dict,
-                  *, k: int) -> Tuple[Tensor, Tensor]:
-    """IVF stage 0 over float32 or int8 member slabs."""
+                  *, k: int, valid: Optional[Tensor] = None
+                  ) -> Tuple[Tensor, Tensor]:
+    """IVF stage 0 over float32 or int8 member slabs; ``valid`` marks the
+    live ids (read in the kernel on CUDA, masked first on the CPU)."""
     if _on_cuda(q):
-        return ivf_scan.ivf_scan_topk(q, probe, member_ids, pack, k=k)
-    return ivf_scan.ivf_scan_topk_plain(q, probe, member_ids, pack, k=k)
+        return ivf_scan.ivf_scan_topk(q, probe, member_ids, pack, k=k,
+                                      valid=valid)
+    return ivf_scan.ivf_scan_topk_plain(q, probe, member_ids, pack, k=k,
+                                        valid=valid)
 
 
 def pq_scan_topk(lut: Tensor, codes: Tensor, ids: Tensor,
@@ -139,11 +143,15 @@ def pq_scan_topk(lut: Tensor, codes: Tensor, ids: Tensor,
 
 
 def pq_ivf_scan_topk(q: Tensor, probe: Tensor, member_ids: Tensor,
-                     pack: Dict, *, k: int) -> Tuple[Tensor, Tensor]:
-    """IVF-PQ ADC stage 0 over list-major code slabs."""
+                     pack: Dict, *, k: int, valid: Optional[Tensor] = None
+                     ) -> Tuple[Tensor, Tensor]:
+    """IVF-PQ ADC stage 0 over list-major code slabs; ``valid`` as in
+    `ivf_scan_topk`."""
     if _on_cuda(q):
-        return pq_scan.pq_ivf_scan_topk(q, probe, member_ids, pack, k=k)
-    return pq_scan.pq_ivf_scan_topk_plain(q, probe, member_ids, pack, k=k)
+        return pq_scan.pq_ivf_scan_topk(q, probe, member_ids, pack, k=k,
+                                        valid=valid)
+    return pq_scan.pq_ivf_scan_topk_plain(q, probe, member_ids, pack, k=k,
+                                          valid=valid)
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,

@@ -16,8 +16,13 @@ entry points around one scoring body, as the two Pallas calls share
   the (N, M) code block once for all T of them, and keeps each query's
   survivors in a list in shared memory; then a merge per query.  Backs
   ``QuantizedProgressiveBackend(codec='pq')``.
-* `pq_ivf_scan_topk` — **list-major**: one block per (query, probed list)
-  over `pack_ivf_lists(dtype='pq')` slabs, then a merge per query.  Backs
+* `pq_ivf_scan_topk` — **list-major**: one launch a call over
+  `pack_ivf_lists(dtype='pq')` slabs (the kernel body of
+  ``csrc/list_scan.cuh``, shared with the float32 / int8 IVF scan): a
+  cluster of CTAs a query, each holding the query's table once, the
+  tombstones read from the store's ``valid`` bits, only live rows scored,
+  each row's lookups summed in m order (the plain version's additions in
+  its order, so the scores are its bits).  Backs
   ``IVFProgressiveBackend(stage0_dtype='pq')``.
 
 Bound on an H100 SXM at the serving shape (Q = 32, 1M rows, M = 16): the
@@ -40,7 +45,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ivf_scan import _pad_members, _topk_of
+from repro_torch.kernels import ivf_scan as _ivf
+from repro_torch.kernels.ivf_scan import _topk_of
 
 Array = torch.Tensor
 
@@ -59,11 +65,12 @@ SMEM_LIMIT = 232448
 SMEM_PER_SM = 233472
 
 #: Calls that launched the flat scan pair (range scan + merge) on the card,
-#: in all and by the tile size of the range scan's kernel.
+#: in all and by the tile size of the range scan's kernel; the list-major
+#: scan's calls (one launch each) in all and as ``list``.
 flat_launches = 0
-launches_by_kernel: Dict[str, int] = {f"tile_{t}": 0 for t in TILES}
-#: Calls that launched the list-major scan pair (list scan + merge).
 ivf_launches = 0
+launches_by_kernel: Dict[str, int] = {**{f"tile_{t}": 0 for t in TILES},
+                                      "list": 0}
 
 _fn = None
 _sms: Dict[int, int] = {}
@@ -77,11 +84,7 @@ def _kernel():
         flat.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                          + [ctypes.c_void_p])
         flat.restype = ctypes.c_int
-        ivf = lib.pq_ivf_scan_topk_launch
-        ivf.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                        + [ctypes.c_void_p])
-        ivf.restype = ctypes.c_int
-        _fn = (lib, flat, ivf)
+        _fn = (lib, flat, _ivf.bind(lib, "pq_ivf_scan_topk_launch"))
     return _fn
 
 
@@ -97,21 +100,18 @@ def pq_scan_topk_plain(
 
 def pq_ivf_scan_topk_plain(
     q: Array, probe: Array, member_ids: Array, pack: Dict, *, k: int,
-    lut: Optional[Array] = None,
+    lut: Optional[Array] = None, valid: Optional[Array] = None,
 ) -> Tuple[Array, Array]:
-    """The list-major kernel's function in plain PyTorch (any device)."""
+    """The list-major kernel's function in plain PyTorch (any device): the
+    member table masked by ``valid`` (when given), then the ADC scan."""
     lut = _lut(q, pack, lut)
     nq = lut.shape[0]
-    max_len = pack["max_len"]
-    member_ids = _pad_members(member_ids, max_len)
-    pl = probe.long()
-    slab = (pl[:, :, None] * max_len
-            + torch.arange(max_len, device=pl.device)).reshape(nq, -1)
+    slab, cand = _ivf._probed(probe, _ivf.mask_members(member_ids, valid),
+                              pack)
     idx = pack["rows"].long()[slab]                       # (Q, C, M)
     s = torch.gather(lut[:, 0, :], 1, idx[:, :, 0])
     for j in range(1, idx.shape[2]):
         s = s + torch.gather(lut[:, j, :], 1, idx[:, :, j])
-    cand = member_ids[pl].reshape(nq, -1)
     s = s.masked_fill(cand < 0, float("inf"))
     return _topk_of(s, cand, k)
 
@@ -281,7 +281,8 @@ def pq_scan_topk(
 
 def pq_ivf_scan_topk(
     q: Array, probe: Array, member_ids: Array, pack: Dict, *, k: int,
-    lut: Optional[Array] = None,
+    lut: Optional[Array] = None, valid: Optional[Array] = None,
+    cluster: Optional[int] = None,
 ) -> Tuple[Array, Array]:
     """IVF-PQ stage 0: the ADC scan over each query's probed list slabs.
 
@@ -289,11 +290,16 @@ def pq_ivf_scan_topk(
       q:          (Q, D) queries (only ``[:, :pack['dim']]`` feeds the LUT;
                   ignored when ``lut`` is given).
       probe:      (Q, n_probe) int32 probed list indices (distinct per row).
-      member_ids: (n_lists, max_len) int32 global ids, every unreturnable
-                  slot pre-masked to -1 (padding AND tombstones).
+      member_ids: (n_lists, width <= max_len) int32 global ids, -1 at list
+                  padding; with ``valid=None`` every tombstoned slot must
+                  already be -1 too.
       pack:       `pack_ivf_lists(..., dtype='pq')` output.
       k:          neighbours kept (k may exceed the rows scanned).
       lut:        optional precomputed (Q, M, C) ADC tables.
+      valid:      optional (N,) bool row-liveness bits over the ids, read
+                  by the kernel (the plain version masks the table first).
+      cluster:    CTAs a query (1..8; the launcher's choice when None); the
+                  result does not depend on it.
 
     Returns:
       ((Q, k) float32 ADC scores ascending, +inf empties; (Q, k) int32
@@ -302,36 +308,17 @@ def pq_ivf_scan_topk(
     """
     if q.device.type == "cpu":
         return pq_ivf_scan_topk_plain(q, probe, member_ids, pack, k=k,
-                                      lut=lut)
+                                      lut=lut, valid=valid)
     global ivf_launches
-    lut = _lut(q, pack, lut).contiguous()
-    max_len = pack["max_len"]
-    member_ids = _pad_members(member_ids, max_len).to(torch.int32).contiguous()
-    codes = pack["rows"]
-    _check(lut, codes, k, probe, member_ids)
-    nq, m, c = lut.shape
-    n_probe = probe.shape[1]
-    if probe.shape[0] != nq or codes.shape[0] != member_ids.numel():
-        raise ValueError(f"probe {tuple(probe.shape)}, codes "
-                         f"{tuple(codes.shape)} and member_ids "
-                         f"{tuple(member_ids.shape)} do not match")
-    dev = lut.device
-    out_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    if nq == 0:
-        return out_s, out_i
-    probe = probe.to(torch.int32).contiguous()
-    kp = min(k, max_len)
-    part = torch.empty((nq, n_probe, kp), dtype=torch.int64, device=dev)
-    lib, _, ivf = _kernel()
-    err = ivf(lut.data_ptr(), codes.contiguous().data_ptr(),
-              member_ids.data_ptr(), probe.data_ptr(), part.data_ptr(),
-              out_s.data_ptr(), out_i.data_ptr(),
-              nq, n_probe, max_len, m, c, k, kp,
-              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "pq_ivf_scan_topk")
-    ivf_launches += 1
-    return out_s, out_i
+    lut = _lut(q, pack, lut)
+    lib, _, fn = _kernel()
+    out = _ivf.list_scan(lib, fn, "pq", q=None, lut=lut, probe=probe,
+                         lists=member_ids, pack=pack, valid=valid, k=k,
+                         cluster=cluster, what="pq_ivf_scan_topk")
+    if out[0].shape[0]:
+        ivf_launches += 1
+        launches_by_kernel["list"] += 1
+    return out
 
 
 def flat_stage0_bytes_model(

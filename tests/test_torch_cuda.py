@@ -304,6 +304,198 @@ class TestScanKernelsOnCard:
             pq_scan.pq_scan_topk(lut, codes.to(torch.int32), ids, k=5)
 
 
+def _list_state(dev, nq, n_lists, max_len, dim, n_probe, dtype, seed, *,
+                shared=False, n_dead=2):
+    """A list-major scan's inputs: the raw member table (padding, an empty
+    list, ``n_dead`` - 1 fully tombstoned lists, scattered tombstones), the
+    store's validity bits, the masked table and the pack; probes drawn
+    from ``n_probe`` + 2 lists when ``shared`` (every list probed by
+    several queries); query 1 probes only dead lists when n_probe <=
+    n_dead."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = n_lists * max_len
+    db = torch.randn((n, dim), generator=g, device=dev)
+    fill = torch.randint(max_len // 2, max_len + 1, (n_lists,), generator=g,
+                         device=dev)
+    slot = torch.arange(max_len, device=dev)
+    lists = (torch.arange(n_lists, device=dev)[:, None] * max_len + slot)
+    lists = torch.where(slot < fill[:, None], lists, -1).to(torch.int32)
+    lists[0] = -1                                     # an empty list
+    valid = torch.rand((n,), generator=g, device=dev) > 0.1
+    for j in range(1, n_dead):                        # all tombstoned
+        valid[lists[j].clamp(min=0).long()] = False
+    cb = None
+    if dtype == "pq":
+        m = 8 if dim % 8 == 0 else 1
+        cb = torch.randn((m, 256, dim // m), generator=g, device=dev)
+    pack = ivf_scan.pack_ivf_lists(db, lists, dim=dim, dtype=dtype,
+                                   block_m=min(128, max_len),
+                                   pq_codebooks=cb)
+    q = torch.randn((nq, dim + 3), generator=g, device=dev)
+    pool = min(n_lists, n_probe + 2) if shared else n_lists
+    probe = torch.stack([torch.randperm(pool, generator=g, device=dev)
+                         [:n_probe] for _ in range(nq)]).to(torch.int32)
+    if nq > 1 and n_probe <= n_dead:
+        probe[1] = torch.randperm(n_dead, generator=g, device=dev)[:n_probe]
+    return dict(q=q, probe=probe, lists=lists, valid=valid, pack=pack,
+                masked=ivf_scan.mask_members(lists, valid))
+
+
+def _list_scan(st, k, **kw):
+    if st["pack"]["dtype"] == "pq":
+        return pq_scan.pq_ivf_scan_topk(st["q"], st["probe"], st["lists"],
+                                        st["pack"], k=k, **kw)
+    return ivf_scan.ivf_scan_topk(st["q"], st["probe"], st["lists"],
+                                  st["pack"], k=k, **kw)
+
+
+def _list_plain(st, k, *, mirror=False):
+    if st["pack"]["dtype"] == "pq":
+        return pq_scan.pq_ivf_scan_topk_plain(
+            st["q"], st["probe"], st["lists"], st["pack"], k=k,
+            valid=st["valid"])
+    fn = ivf_scan.ivf_scan_mirror if mirror else ivf_scan.ivf_scan_topk_plain
+    return fn(st["q"], st["probe"], st["lists"], st["pack"], k=k,
+              valid=st["valid"])
+
+
+def _kernel_names(fn, calls=3):
+    """name -> launches of every CUDA kernel ``calls`` calls of ``fn`` run,
+    from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if "CUDA" in str(getattr(ev, "device_type", "")) \
+                and "Memset" not in ev.key and "Memcpy" not in ev.key:
+            out[ev.key] = out.get(ev.key, 0) + ev.count
+    return out
+
+
+@pytest.mark.cuda
+class TestListScanOnCard:
+    """The one-launch list-major scans (float32 / int8 slabs and PQ codes)
+    with tombstones read from ``valid``: held against the plain versions
+    (which mask the table first) over Q 1-512, n_probe 1-16 and n_lists,
+    k 1-2048 (beyond the rows scanned), lists shared by several queries and
+    dead lists.  The PQ kernel's scores are the plain version's bits (the
+    same additions in m order); the float32 / int8 scores are
+    `ivf_scan_mirror`'s (one FMA chain a row in dim order) within one part
+    in 1e6 (the mirror's emulated FMA may round twice) and the plain
+    version's within the file's tolerance.  The ``valid`` route gives the
+    same bits as the pre-masked route; every call is one launch."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "int8", "pq"])
+    @pytest.mark.parametrize("nq,n_lists,max_len,dim,n_probe,k,shared", [
+        (1, 16, 64, 32, 1, 1, False),         # n_probe 1, k 1
+        (1, 16, 64, 32, 16, 2048, False),     # n_probe = n_lists, k > rows
+        (7, 24, 100, 40, 2, 64, True),        # shared lists, a dead query
+        (32, 64, 512, 128, 12, 64, False),    # the serving shape
+        (33, 48, 256, 64, 16, 300, True),
+        (129, 32, 128, 128, 5, 17, False),
+        (512, 64, 128, 32, 3, 256, True),
+    ])
+    def test_matches_plain(self, cuda, dtype, nq, n_lists, max_len, dim,
+                           n_probe, k, shared):
+        st = _list_state(cuda, nq, n_lists, max_len, dim, n_probe, dtype,
+                         seed=nq * 31 + k, shared=shared)
+        mod = pq_scan if dtype == "pq" else ivf_scan
+        before = (mod.launches_by_kernel["list" if dtype == "pq" else dtype],
+                  pq_scan.ivf_launches if dtype == "pq" else ivf_scan.launches)
+        got = _list_scan(st, k, valid=st["valid"])
+        pre = (pq_scan.pq_ivf_scan_topk if dtype == "pq" else
+               ivf_scan.ivf_scan_topk)(st["q"], st["probe"], st["masked"],
+                                       st["pack"], k=k)
+        want = _list_plain(st, k)
+        torch.cuda.synchronize()
+        after = (mod.launches_by_kernel["list" if dtype == "pq" else dtype],
+                 pq_scan.ivf_launches if dtype == "pq" else ivf_scan.launches)
+        assert after == (before[0] + 2, before[1] + 2)
+        assert torch.equal(got[0], pre[0]) and torch.equal(got[1], pre[1])
+        assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+        if dtype == "pq":
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        else:
+            mir = _list_plain(st, k, mirror=True)
+            fin = torch.isfinite(mir[0])
+            assert torch.equal(torch.isfinite(got[0]), fin)
+            scale = float(mir[0][fin].abs().max()) if fin.any() else 0.0
+            assert float((got[0][fin] - mir[0][fin]).abs().max()
+                         if fin.any() else 0.0) <= 1e-6 * max(scale, 1.0)
+        ids = got[1]
+        live = set(st["masked"][st["masked"] >= 0].tolist())
+        assert set(ids[ids >= 0].tolist()) <= live     # no tombstone back
+        if nq > 1 and n_probe <= 2:                     # query 1: dead lists
+            assert (ids[1] == -1).all() and torch.isinf(got[0][1]).all()
+        n_live = (st["masked"][st["probe"].long()] >= 0).sum(dim=(1, 2))
+        assert torch.equal((ids == -1).sum(1), (k - n_live).clamp(min=0))
+
+    @pytest.mark.parametrize("dtype", ["float32", "int8", "pq"])
+    def test_cluster_sizes_give_the_same_bits(self, cuda, dtype):
+        st = _list_state(cuda, 9, 40, 300, 64, 13, dtype, seed=5, shared=True)
+        want = _list_scan(st, 100, valid=st["valid"])
+        for r in (1, 2, 3, 4, 8):
+            got = _list_scan(st, 100, valid=st["valid"], cluster=r)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    def test_int8_fold_is_fold_int8_query(self, cuda):
+        """One list whose row d is the one-hot code at dim d, its norms 0:
+        row d scores -2 * (the kernel's folded query at d), so the kernel's
+        fold is read back exactly and held equal to
+        `core.quant.fold_int8_query` (halfway quotients included)."""
+        from repro_torch.core import quant
+        dim = 64
+        g = torch.Generator(device=cuda).manual_seed(11)
+        scale = torch.rand((dim,), generator=g, device=cuda) * 0.05 + 1e-3
+        q = torch.randn((4, dim), generator=g, device=cuda) * 2.0
+        q[0, :16] = (torch.arange(16, device=cuda) - 7.5) * scale[:16]
+        q[1, :8] = 300.0 * scale[:8]                  # clamped to +-127
+        pack = {"rows": torch.eye(dim, dtype=torch.int8, device=cuda),
+                "sq": torch.zeros((1, dim), device=cuda), "scale": scale,
+                "dim": dim, "max_len": dim, "block_m": dim, "dtype": "int8",
+                "codebooks": None, "cent_sq": None}
+        lists = torch.arange(dim, dtype=torch.int32, device=cuda)[None]
+        probe = torch.zeros((4, 1), dtype=torch.int32, device=cuda)
+        s, i = ivf_scan.ivf_scan_topk(q, probe, lists, pack, k=dim)
+        folded = torch.empty_like(q)
+        folded.scatter_(1, i.long(), -s / 2)
+        want = quant.fold_int8_query(q, scale)
+        assert torch.equal(folded, want)
+
+    def test_one_launch_a_call(self, cuda):
+        st = _list_state(cuda, 32, 64, 512, 128, 12, "float32", seed=2)
+        for dtype in ("float32", "int8", "pq"):
+            if dtype != "float32":
+                st = _list_state(cuda, 32, 64, 512, 128, 12, dtype, seed=2)
+            lut = None
+            if dtype == "pq":
+                lut = pq_scan._lut(st["q"], st["pack"], None)
+                fn = lambda: pq_scan.pq_ivf_scan_topk(
+                    st["q"], st["probe"], st["lists"], st["pack"], k=256,
+                    lut=lut, valid=st["valid"])
+            else:
+                fn = lambda: _list_scan(st, 64, valid=st["valid"])
+            names = _kernel_names(fn)
+            assert len(names) == 1 and "list_scan_kernel" in next(iter(names))
+            assert next(iter(names.values())) == 3
+
+    def test_rejections(self, cuda):
+        st = _list_state(cuda, 2, 8, 32, 16, 3, "float32", seed=1)
+        with pytest.raises(ValueError):
+            _list_scan(st, ivf_scan.MAX_K + 1)
+        with pytest.raises(ValueError):
+            _list_scan(st, 5, cluster=ivf_scan.MAX_CLUSTER + 1)
+        with pytest.raises(ValueError):
+            _list_scan(st, 5, valid=st["valid"].to(torch.uint8))
+        with pytest.raises(ValueError):
+            _list_scan(st, 5, valid=st["valid"].cpu())
+
+
 # (C, [(dim, k), ...], precomputed norms) of the serving ladders at the
 # paper's schedule (d 128 -> 3584, k0 64): flat and IVF after stage 0, the
 # quantized PQ pool (oversample 4)
@@ -538,6 +730,8 @@ class TestEngineOnCard:
         before = getattr(mod, attr)
         s, i = eng.search(q.cpu().numpy())
         assert getattr(mod, attr) > before
+        if isinstance(block, IVFConfig):       # one stage-0 launch a dispatch
+            assert getattr(mod, attr) - before == len(eng.policy.plan(20))
         assert not np.isin(i, gone).any()
         st = eng.store
         ws, wi = eng.backend.search_plain(

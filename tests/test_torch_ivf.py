@@ -188,6 +188,162 @@ class TestIvfScanPlain:
                                    rtol=RTOL, atol=ATOL)
 
 
+class TestIvfScanValidRoute:
+    """The scan given the raw member table and the store's validity bits
+    (as a dispatch calls it; the CUDA kernel reads ``valid`` per slot, the
+    plain version masks the table first) against ``repro``'s mask-then-scan
+    (the Pallas kernel in interpret mode on the masked table)."""
+
+    @pytest.mark.parametrize("dtype,k", [("float32", 10), ("int8", 10),
+                                         ("float32", 150), ("int8", 150)])
+    def test_valid_route_is_mask_then_scan(self, slabs, dtype, k):
+        s = slabs
+        jp = JK.pack_ivf_lists(jnp.asarray(s["db"]), jnp.asarray(s["lists"]),
+                               dim=s["d0"], dtype=dtype, block_m=16)
+        pp = PK.pack_ivf_lists(_t(s["db"]), _t(s["lists"]), dim=s["d0"],
+                               dtype=dtype, block_m=16)
+        got = ops.ivf_scan_topk(_t(s["q"]), _t(s["probe"]), _t(s["lists"]),
+                                pp, k=k, valid=_t(s["valid"]))
+        pre = ops.ivf_scan_topk(_t(s["q"]), _t(s["probe"]), _t(s["masked"]),
+                                pp, k=k)
+        assert torch.equal(got[0], pre[0]) and torch.equal(got[1], pre[1])
+        want = JK.ivf_scan_topk(jnp.asarray(s["q"]), jnp.asarray(s["probe"]),
+                                jnp.asarray(s["masked"]), jp, k=k,
+                                interpret=True)
+        assert_topk_close(got, want)
+        ids = got[1].numpy()
+        assert s["valid"][ids[ids >= 0]].all()
+
+    @pytest.mark.parametrize("dtype", ["float32", "int8"])
+    def test_dead_lists_n_probe_one_and_k_above_live(self, slabs, dtype):
+        """Query 0 probes only dead lists (one empty, one whose members are
+        all tombstoned): all (+inf, -1); n_probe 1; k above the live rows
+        of every query."""
+        s = slabs
+        valid = s["valid"].copy()
+        valid[s["lists"][5][s["lists"][5] >= 0]] = False
+        masked = np.where((s["lists"] >= 0) & valid[np.maximum(s["lists"], 0)],
+                          s["lists"], -1).astype(np.int32)
+        jp = JK.pack_ivf_lists(jnp.asarray(s["db"]), jnp.asarray(s["lists"]),
+                               dim=s["d0"], dtype=dtype, block_m=16)
+        pp = PK.pack_ivf_lists(_t(s["db"]), _t(s["lists"]), dim=s["d0"],
+                               dtype=dtype, block_m=16)
+        for probe in (s["probe"][:, :1].copy(), s["probe"][:, :2].copy()):
+            probe[0] = [3, 5][:probe.shape[1]]
+            k = 2 * 24 + 5                               # above any live count
+            got = ops.ivf_scan_topk(_t(s["q"]), _t(probe), _t(s["lists"]),
+                                    pp, k=k, valid=_t(valid))
+            want = JK.ivf_scan_topk(jnp.asarray(s["q"]), jnp.asarray(probe),
+                                    jnp.asarray(masked), jp, k=k,
+                                    interpret=True)
+            assert_topk_close(got, want)
+            assert (got[1][0] == -1).all() and torch.isinf(got[0][0]).all()
+            n_live = (masked[probe] >= 0).sum(axis=(1, 2))
+            np.testing.assert_array_equal((got[1].numpy() == -1).sum(1),
+                                          k - n_live)
+
+    @pytest.mark.parametrize("dtype", ["float32", "int8"])
+    def test_ties_by_probe_rank_then_slot(self, dtype):
+        # duplicate rows score equal: the earlier probe rank, then the
+        # earlier slot wins; id 3 is tombstoned through ``valid``
+        db = np.zeros((6, 4), np.float32)
+        db[:, 0] = [1, 1, 2, 1, 1, 0]
+        lists = np.array([[0, 1, -1], [2, 3, 4], [5, -1, -1]], np.int32)
+        valid = np.array([1, 1, 1, 0, 1, 1], bool)
+        masked = np.where((lists >= 0) & valid[np.maximum(lists, 0)], lists,
+                          -1).astype(np.int32)
+        pp = PK.pack_ivf_lists(_t(db), _t(lists), dim=4, block_m=3,
+                               dtype=dtype)
+        jp = JK.pack_ivf_lists(jnp.asarray(db), jnp.asarray(lists), dim=4,
+                               block_m=3, dtype=dtype)
+        q = np.zeros((1, 4), np.float32)
+        probe = np.array([[1, 0, 2]], np.int32)
+        got = ops.ivf_scan_topk(_t(q), _t(probe), _t(lists), pp, k=6,
+                                valid=_t(valid))
+        want = JK.ivf_scan_topk(jnp.asarray(q), jnp.asarray(probe),
+                                jnp.asarray(masked), jp, k=6, interpret=True)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        assert got[1].numpy().tolist() == [[5, 4, 0, 1, 2, -1]]
+
+    def test_dispatch_passes_raw_lists_and_valid(self, slabs):
+        """``_kernel_search`` hands the scan the raw member table and the
+        validity bits: it builds no masked table of its own."""
+        import types
+        s = slabs
+        pp = PK.pack_ivf_lists(_t(s["db"]), _t(s["lists"]), dim=s["d0"],
+                               block_m=16)
+        seen = []
+
+        def scan(q, probe, member_ids, pack, *, k, valid=None):
+            seen.append((member_ids, valid))
+            return PK.ivf_scan_topk_plain(q, probe, member_ids, pack, k=k,
+                                          valid=valid)
+
+        impl = types.SimpleNamespace(**vars(ops.plain))
+        impl.ivf_scan_topk = scan
+        lists, valid = _t(s["lists"]), _t(s["valid"])
+        cents = torch.randn((s["n_lists"], s["d0"]),
+                            generator=torch.Generator().manual_seed(0))
+        sched = make_schedule(s["d0"], D, 8)
+        sc, ids = PI._kernel_search(
+            _t(s["q"]), _t(s["db"]), cents, lists, sched, n_probe=4,
+            valid=valid, sq_prefix=None, index_dims=None, extra_cand=None,
+            metric="l2", cent_sq=None, pack=pp, pq_oversample=1,
+            stage0_only=True, impl=impl)
+        assert len(seen) == 1
+        assert seen[0][0] is lists and seen[0][1] is valid
+        assert sc.shape == (6, 8)
+        out = ids.numpy()
+        assert s["valid"][out[out >= 0]].all()
+
+
+class TestIvfScanMirror:
+    """`ivf_scan.ivf_scan_mirror` — the CUDA kernel's arithmetic on the CPU:
+    the query folded as the kernel's prologue folds it, each row's dot
+    product one FMA chain in dim order from its first product
+    (`fma_chain_dots`), ``sq − 2·dot``.  Held against ``repro``'s Pallas
+    kernel in interpret mode and the plain version within this file's
+    tolerance (both sum in another order)."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "int8"])
+    @pytest.mark.parametrize("k", [10, 150])
+    def test_close_to_pallas_and_plain(self, slabs, dtype, k):
+        s = slabs
+        jp = JK.pack_ivf_lists(jnp.asarray(s["db"]), jnp.asarray(s["lists"]),
+                               dim=s["d0"], dtype=dtype, block_m=16)
+        pp = PK.pack_ivf_lists(_t(s["db"]), _t(s["lists"]), dim=s["d0"],
+                               dtype=dtype, block_m=16)
+        got = PK.ivf_scan_mirror(_t(s["q"]), _t(s["probe"]), _t(s["lists"]),
+                                 pp, k=k, valid=_t(s["valid"]))
+        want = JK.ivf_scan_topk(jnp.asarray(s["q"]), jnp.asarray(s["probe"]),
+                                jnp.asarray(s["masked"]), jp, k=k,
+                                interpret=True)
+        assert_topk_close(got, want)
+        plain = PK.ivf_scan_topk_plain(_t(s["q"]), _t(s["probe"]),
+                                       _t(s["lists"]), pp, k=k,
+                                       valid=_t(s["valid"]))
+        assert_topk_close(got, plain)
+
+    def test_fma_chain_is_the_chain(self):
+        """The chain's first term is the rounded first product and each
+        step one rounding of acc + x·q (a float64 sum of a product exact in
+        float64); against a float64 dot it differs by float32 rounding
+        only."""
+        rng = np.random.default_rng(3)
+        qd = rng.normal(size=(3, 7)).astype(np.float32)
+        rows = rng.normal(size=(3, 5, 7)).astype(np.float32)
+        got = PK.fma_chain_dots(_t(qd), _t(rows)).numpy()
+        acc = (rows[..., 0].astype(np.float64)
+               * qd[:, None, 0].astype(np.float64)).astype(np.float32)
+        for d in range(1, 7):
+            acc = (acc.astype(np.float64) + rows[..., d].astype(np.float64)
+                   * qd[:, None, d].astype(np.float64)).astype(np.float32)
+        np.testing.assert_array_equal(got, acc)
+        exact = np.einsum("qd,qcd->qc", qd.astype(np.float64),
+                          rows.astype(np.float64))
+        np.testing.assert_allclose(got, exact, rtol=1e-5, atol=1e-5)
+
+
 class TestHostPacking:
     def test_balanced_assign_and_pack_lists_identical(self):
         rng = np.random.default_rng(9)

@@ -289,6 +289,97 @@ class TestPqScanPlain:
                                       np.asarray(jp2["rows"]))
 
 
+def _pq_lists(data):
+    """(db, lists, probe, packs) of a list-major PQ case: 12 lists of 24
+    slots, list 3 empty, 6 queries x 5 probes."""
+    rng = np.random.default_rng(5)
+    n, n_lists, max_len, d0 = 240, 12, 24, 16
+    db = data["db"][:n]
+    ids = rng.permutation(n)[:216]
+    lists = np.full((n_lists, max_len), -1, np.int32)
+    for j, chunk in enumerate(np.array_split(ids, n_lists)):
+        lists[j, :len(chunk)] = chunk
+    lists[3] = -1
+    probe = np.stack([rng.choice(n_lists, 5, replace=False)
+                      for _ in range(6)]).astype(np.int32)
+    cb = data["cb"]
+    jp = JK.pack_ivf_lists(jnp.asarray(db), jnp.asarray(lists), dim=d0,
+                           dtype="pq", block_m=16, pq_codebooks=jnp.asarray(cb))
+    pp = PK.pack_ivf_lists(_t(db), _t(lists), dim=d0, dtype="pq",
+                           block_m=16, pq_codebooks=_t(cb))
+    return db, lists, probe, jp, pp
+
+
+def _masked(lists, valid):
+    return np.where((lists >= 0) & valid[np.maximum(lists, 0)], lists,
+                    -1).astype(np.int32)
+
+
+class TestPqListValidRoute:
+    """The list-major PQ scan given the raw member table and the validity
+    bits (as a dispatch calls it) against ``repro``'s mask-then-scan (the
+    Pallas kernel in interpret mode on the masked table)."""
+
+    @pytest.mark.parametrize("k", [12, 130])
+    def test_valid_route_is_mask_then_scan(self, data, k):
+        db, lists, probe, jp, pp = _pq_lists(data)
+        valid = data["valid"][:240]
+        masked = _masked(lists, valid)
+        got = ops.pq_ivf_scan_topk(_t(data["q"]), _t(probe), _t(lists), pp,
+                                   k=k, valid=_t(valid))
+        pre = ops.pq_ivf_scan_topk(_t(data["q"]), _t(probe), _t(masked), pp,
+                                   k=k)
+        assert torch.equal(got[0], pre[0]) and torch.equal(got[1], pre[1])
+        want = JPQ.pq_ivf_scan_topk(jnp.asarray(data["q"]), jnp.asarray(probe),
+                                    jnp.asarray(masked), jp, k=k,
+                                    interpret=True)
+        assert_topk_close(got, want)
+        out = got[1].numpy()
+        assert valid[out[out >= 0]].all()
+
+    def test_dead_lists_n_probe_one_and_k_above_live(self, data):
+        db, lists, probe, jp, pp = _pq_lists(data)
+        valid = data["valid"][:240].copy()
+        valid[lists[5][lists[5] >= 0]] = False           # all tombstoned
+        masked = _masked(lists, valid)
+        for p in (probe[:, :1].copy(), probe[:, :2].copy()):
+            p[0] = [3, 5][:p.shape[1]]
+            k = 2 * 24 + 5
+            got = ops.pq_ivf_scan_topk(_t(data["q"]), _t(p), _t(lists), pp,
+                                       k=k, valid=_t(valid))
+            want = JPQ.pq_ivf_scan_topk(jnp.asarray(data["q"]), jnp.asarray(p),
+                                        jnp.asarray(masked), jp, k=k,
+                                        interpret=True)
+            assert_topk_close(got, want)
+            assert (got[1][0] == -1).all() and torch.isinf(got[0][0]).all()
+            n_live = (masked[p] >= 0).sum(axis=(1, 2))
+            np.testing.assert_array_equal((got[1].numpy() == -1).sum(1),
+                                          k - n_live)
+
+    def test_ties_by_probe_rank_then_slot(self):
+        # every code 0 and a zero table: every live row scores 0, so the
+        # earlier probe rank, then the earlier slot wins; id 3 tombstoned
+        pack = {"rows": torch.zeros((9, 2), dtype=torch.uint8), "sq": None,
+                "scale": None, "codebooks": None, "cent_sq": None, "dim": 4,
+                "max_len": 3, "block_m": 3, "dtype": "pq"}
+        lists = torch.tensor([[0, 1, -1], [2, 3, 4], [5, -1, -1]],
+                             dtype=torch.int32)
+        valid = torch.tensor([1, 1, 1, 0, 1, 1], dtype=torch.bool)
+        lut = torch.zeros((1, 2, 4))
+        probe = torch.tensor([[1, 0, 2]], dtype=torch.int32)
+        _, i = PPQ.pq_ivf_scan_topk(torch.zeros((1, 4)), probe, lists, pack,
+                                    k=7, lut=lut, valid=valid)
+        assert i.tolist() == [[2, 4, 0, 1, 5, -1, -1]]
+        masked = _masked(lists.numpy(), valid.numpy())
+        jpack = {**{key: pack[key] for key in ("dim", "max_len", "block_m",
+                                                "dtype")},
+                 "rows": jnp.zeros((9, 2), jnp.uint8)}
+        want = JPQ.pq_ivf_scan_topk(jnp.zeros((1, 4)), jnp.asarray(probe),
+                                    jnp.asarray(masked), jpack, k=7,
+                                    lut=jnp.zeros((1, 2, 4)), interpret=True)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(want[1]))
+
+
 class TestPqTileMirror:
     """`pq_scan.pq_scan_tile_plain` — the flat CUDA scan's arithmetic: the
     tables of a tile of queries laid out ``[m][code][t]``, one lookup of a
