@@ -83,9 +83,10 @@ in phases that each print one JSON line:
                  512 and 262,144 rows; DIN and AutoInt one 512-row batch
                  each.  Every
                  embedding-bag lookup goes through the CUDA kernel (launches
-                 counted); each model is held against its plain path (the
-                 same code with every ``ops`` entry given its plain version)
-                 on the same weights and inputs; recall@10 of retrieval
+                 counted, all on its ``vec16`` route); each model is held
+                 against its plain path (the same code with every ``ops``
+                 entry given its plain version) on the same weights and
+                 inputs; recall@10 of retrieval
                  against an exact search is recorded
   9. gnn       — EGNN at CONFIG width (4 layers x 64, 47 classes) on the
                  ogbn-products shape (2,449,029 nodes, 61,859,140 power-law
@@ -101,7 +102,9 @@ in phases that each print one JSON line:
 
 Phase 2 also holds the embedding-bag and segment-sum kernels against their
 plain versions on their edge cases (bags of 8 and 100 ids with padding, sum
-and mean, all-padding bags, an id beyond the vocabulary, bf16 tables; empty
+and mean, all-padding bags, an id beyond the vocabulary, bf16 tables, a row
+of -0.0, the scalar route; every embedding-bag case ``torch.equal`` to the
+plain version, in one launch a call on the route ``route`` names; empty
 segments, no rows, one segment holding half the rows, one holding
 ogbn-products' largest in-degree); phases 8 and 9 time
 them at the path's shapes beside ``F.embedding_bag`` and
@@ -193,9 +196,9 @@ NEAR_TIE = LOGIT_TOL
 # serve_p99 and serve_bulk (configs/shapes.py).
 TT_ITEMS, TT_BATCHES, TT_CANDIDATES = 1_000_000, (8, 512), 4096
 P99_BATCH, BULK_BATCH = 512, 262_144
-# Tolerances.  Embedding bag vs its plain version: float32 rtol 1e-5 / atol
-# 1e-6 (both sum each bag in id order); bf16 tables one bf16 step (rtol
-# 2**-7) of the float32-accumulated plain value.  Segment sum: 1e-5 of each
+# Tolerances.  Embedding bag vs its plain version: none, torch.equal (both
+# add each bag's rows in id order to a float32 sum from +0.0, float32 and
+# bf16 tables alike).  Segment sum: 1e-5 of each
 # segment's sum of |x| plus 1e-6 (the kernel's float32 order against the
 # plain version's float64 sum).  DLRM logits 1e-4 relative to the largest.
 # EGNN: logits within EGNN_LOGIT_TOL node-wise (max |Δ| of a node's row over
@@ -207,7 +210,6 @@ P99_BATCH, BULK_BATCH = 512, 262_144
 # 1.4e-6 node-wise, coordinates 3.5e-12 globally) and the shifted-pointer
 # control (0.27 and 5.8e-4): about 70x and 3e5x the former, far below the
 # latter.
-EB_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (2 ** -7, 1e-6)}
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-6
 # The largest in-degree of the ogbn-products graph made from seed 0 (the
 # phase-9 row's max_segment_rows): one segment-sum case has a hub this long.
@@ -254,7 +256,8 @@ def cuda_ms(torch, fn, *, runs: int = 20, warmup: int = 3, flush=None) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, own, *, per_call: int, runs: int = 10):
+def device_ms(torch, fn, own, *, per_call: int, runs: int = 10,
+              at_most: bool = False):
     """Device time per call of ``fn`` from ``torch.profiler``: (every CUDA
     kernel and copy it launches, only those whose name contains one of
     ``own`` — the hand-written kernels, ``per_call`` launches a call).  The
@@ -265,7 +268,9 @@ def device_ms(torch, fn, own, *, per_call: int, runs: int = 10):
     of ten segment-sum calls held 19 of their 30 kernels; one of a single
     call none), so the trace warms up on a first step of calls that the
     schedule discards, and is not measured (None, None) unless it holds
-    all ``runs * per_call`` own launches."""
+    all ``runs * per_call`` own launches.  With ``at_most``, a trace that
+    holds more own launches than that fails the run (a trace loses
+    records, it does not invent them)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
@@ -291,6 +296,9 @@ def device_ms(torch, fn, own, *, per_call: int, runs: int = 10):
         if any(name in ev.key for name in own):
             mine += us
             launches += ev.count
+    if at_most and launches > runs * per_call:
+        fail(f"{list(own)}: {launches} launches traced in {runs} calls, "
+             f"more than {per_call} a call")
     if launches != runs * per_call:
         emit({"phase": "trace", "own": list(own), "runs": runs,
               "own_launches_expected": runs * per_call,
@@ -369,10 +377,11 @@ def plain_ops():
 def by_kernel_counters():
     """module name -> its launches_by_kernel dict (the wrappers whose
     calls go to one of several kernels or kinds of launch)."""
-    from repro_torch.kernels import (distance_topk, flash_attention,
-                                     gather_rescore, ivf_scan, pq_scan,
-                                     segment_sum)
+    from repro_torch.kernels import (distance_topk, embedding_bag,
+                                     flash_attention, gather_rescore,
+                                     ivf_scan, pq_scan, segment_sum)
     return {"flash_attention": flash_attention.launches_by_kernel,
+            "embedding_bag": embedding_bag.launches_by_kernel,
             "distance_topk": distance_topk.launches_by_kernel,
             "segment_sum": segment_sum.launches_by_kernel,
             "gather_rescore": gather_rescore.launches_by_kernel,
@@ -390,8 +399,8 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     """Every launch counter, with the launches of the flash, stage-0,
-    segment-sum, rescore and flat PQ wrappers also by kernel or kind
-    (``<module>.<kernel>``)."""
+    segment-sum, rescore, IVF, PQ and embedding-bag wrappers also by
+    kernel, kind or route (``<module>.<kernel>``)."""
     out = {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
     for mod, counts in by_kernel_counters().items():
         out.update({f"{mod}.{kind}": n for kind, n in counts.items()})
@@ -1747,38 +1756,54 @@ def profile_generate(torch, pipe, queries, retrieved, wall_ms) -> None:
 
 def bag_row(torch, case, tables, ids, mode="sum", *, flush=None,
             library=False, runs=20) -> dict:
-    """The embedding-bag kernel against its plain version on one input,
+    """The embedding-bag kernel against its plain version on one input
+    (``torch.equal``: both add each bag's rows in id order from +0.0),
     timed beside it (and beside ``F.embedding_bag``, the yardstick, where
-    ``library``), with its bound from the bytes these ids need."""
+    ``library``), with its bound from the bytes these ids need, the route
+    `embedding_bag.route` names (checked taken, in one launch a call, by
+    the counters and the profiler) and the wrapper's host time a call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import embedding_bag as eb
 
     kern = lambda: eb.embedding_bag(tables, ids, mode=mode)
     plain = lambda: eb.embedding_bag_plain(tables, ids, mode=mode)
+    kind = eb.route(tables, ids)
+    before = dict(eb.launches_by_kernel)
     got, want = kern(), plain()
     torch.cuda.synchronize()
+    after = eb.launches_by_kernel
+    if after[kind] != before[kind] + 1 \
+            or sum(after.values()) != sum(before.values()) + 1:
+        fail(f"embedding_bag {case}: launches by route {before} -> {after}, "
+             f"not one on {kind}")
     dtype = str(tables.dtype).replace("torch.", "")
-    rtol, atol = EB_TOL[dtype]
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    if not bool(torch.isfinite(got).all()) or bool(
-            ((got - want).abs() > rtol * want.abs() + atol).any()):
-        fail(f"embedding_bag {case}: max|Δ|={err} beyond rtol {rtol} / "
-             f"atol {atol}")
+    if not torch.equal(got, want):
+        fail(f"embedding_bag {case}: differs from the plain version "
+             f"(max|Δ|={err})")
+    del got, want
     b, f, bag_len = ids.shape
     n_bytes = eb.bound_bytes(tables, ids)
     bnd, by = bound_ms(n_bytes, float(int((ids >= 0).sum())) * tables.shape[-1])
-    dev_all, dev_own = device_ms(torch, kern, ("embedding_bag_kernel",),
-                                 per_call=1)
+    dev_all, dev_own = device_ms(
+        torch, kern, ("embedding_bag_vec16", "embedding_bag_scalar"),
+        per_call=1, at_most=True)
+    torch.cuda.synchronize()                  # the wrapper's host time a call
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kern()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
     row = {"kernel": "embedding_bag.embedding_bag", "case": case,
            "shape": f"tables {tuple(tables.shape)} {dtype}, ids "
                     f"{tuple(ids.shape)}, {mode}",
-           "max_abs_err": err, "rtol": rtol, "atol": atol,
+           "served_by": kind, "equal_plain": True, "max_abs_err": err,
            "ms": cuda_ms(torch, kern, flush=flush, runs=runs),
            "plain_ms": cuda_ms(torch, plain, flush=flush, runs=runs),
            "library_ms": None, "device_ms": dev_all,
-           "kernel_device_ms": dev_own, "bound_ms": bnd, "bound_by": by,
-           "bytes": n_bytes}
+           "kernel_device_ms": dev_own, "host_us_per_call": host_us,
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
     if library:
         # one (F * V, D) table, ids offset by field: the same sums (the
         # path's bags hold no padding; ids >= V clamped as the kernel does)
@@ -1797,7 +1822,9 @@ def bag_row(torch, case, tables, ids, mode="sum", *, flush=None,
 def bag_edge_cases(torch, dev, flush) -> list:
     """The embedding-bag kernel on its edge cases (phase 2): bags of 8 and
     100 ids with -1 padding in sum and mean, all-padding bags, ids beyond
-    the vocabulary, bf16 tables."""
+    the vocabulary, bf16 tables, a row of -0.0 (its one-id bags give
+    +0.0), and both routes (a table whose rows are not whole 16-byte words
+    takes the scalar one)."""
     from repro_torch.kernels import embedding_bag as eb
 
     g = torch.Generator(device=dev)
@@ -1810,6 +1837,8 @@ def bag_edge_cases(torch, dev, flush) -> list:
         for bag_len in (8, 100):
             ids = torch.randint(0, v, (b, f, bag_len), generator=g,
                                 device=dev, dtype=torch.int32)
+            if bag_len == 8:
+                ids8 = ids
             ids[torch.rand((b, f, bag_len), generator=g, device=dev) < 0.3] = -1
             ids[:64] = -1                                  # all padding
             ids[64:80, :, 0] = v + torch.arange(16, device=dev,
@@ -1829,7 +1858,25 @@ def bag_edge_cases(torch, dev, flush) -> list:
                                eb.embedding_bag(tabs, fixed, mode="sum")):
                 fail("embedding_bag: an id beyond the vocabulary did not "
                      "read row V - 1")
-        del tabs
+        # a row of -0.0 read by one-id bags, on both routes
+        tabs[0, 5] = -0.0
+        one = torch.full((b, f, 1), 5, dtype=torch.int32, device=dev)
+        odd = torch.empty((f, v, d + 1), dtype=dtype, device=dev)[:, :, :d]
+        odd.copy_(tabs)
+        for t, kind in ((tabs, "vec16"), (odd, "scalar")):
+            if eb.route(t, one) != kind:
+                fail(f"embedding_bag: route {eb.route(t, one)}, not {kind}")
+            got = eb.embedding_bag(t, one)
+            if bool(got[:, 0].any()) or bool(torch.signbit(got[:, 0]).any()):
+                fail(f"embedding_bag ({kind}): a row of -0.0 did not give "
+                     f"+0.0")
+            if not torch.equal(got, eb.embedding_bag_plain(t, one)):
+                fail(f"embedding_bag ({kind}): one-id bags differ from the "
+                     f"plain version")
+        rows.append(bag_row(torch, f"L8_padded_sum_{dtype}_scalar_route"
+                            .replace("torch.", ""), odd, ids8, "sum",
+                            flush=flush, runs=10))
+        del tabs, odd
     torch.cuda.empty_cache()
     return rows
 
@@ -1959,7 +2006,9 @@ def recsys_phase(torch, dev, seed):
         counts += ctr_run(torch, dev, seed, arch)
     del flush
     torch.cuda.empty_cache()
-    return {"embedding_bag.embedding_bag": counts}, rows, stage_row
+    # every table of the path is contiguous float32 with whole 16-byte rows
+    return {"embedding_bag.embedding_bag": counts, "embedding_bag.vec16":
+            counts, "embedding_bag.scalar": 0}, rows, stage_row
 
 
 def _batch(torch, dev, cfg, batch, seed):
@@ -2020,6 +2069,7 @@ def two_tower_run(torch, dev, seed):
     counts = read_counts()
     want_bags = 1 + len(TT_BATCHES) + 2
     if counts["embedding_bag.embedding_bag"] != want_bags \
+            or counts["embedding_bag.vec16"] != want_bags \
             or counts["distance_topk.l2_topk"] != len(TT_BATCHES) \
             or counts["distance_topk.wgmma"] != len(TT_BATCHES) \
             or counts["gather_rescore.gather_rescore_topk"] \
@@ -2110,7 +2160,8 @@ def dlrm_run(torch, dev, seed, flush):
     logits = run()
     torch.cuda.synchronize()
     counts = read_counts()
-    if counts["embedding_bag.embedding_bag"] != len(batches):
+    if counts["embedding_bag.embedding_bag"] != len(batches) \
+            or counts["embedding_bag.vec16"] != len(batches):
         fail(f"dlrm: launches {counts}")
     with plain_ops():
         plain = run()
@@ -2157,7 +2208,8 @@ def ctr_run(torch, dev, seed, arch) -> int:
     torch.cuda.synchronize()
     counts = read_counts()
     want = 1 if cfg.family == "autoint" else 0      # DIN's pooling is weighted
-    if counts["embedding_bag.embedding_bag"] != want:
+    if counts["embedding_bag.embedding_bag"] != want \
+            or counts["embedding_bag.vec16"] != want:
         fail(f"{arch}: launches {counts}")
     with plain_ops():
         plain = R.recsys_forward(params, batch, cfg)
@@ -2549,19 +2601,27 @@ def _flash_entry(launches, rows) -> dict:
 
 def _bag_entry(launches, rows) -> dict:
     """The kernels-line entry: the two-tower item build first, the DLRM
-    shapes beside it, every case's largest error."""
+    shapes and the padded bags beside it, every case's largest error, the
+    main path's launches in all and by route."""
     by = {r["case"]: r for r in rows}
-    keys = ("ms", "plain_ms", "library_ms", "device_ms", "kernel_device_ms",
-            "bound_ms", "bound_by", "shape")
+    keys = ("served_by", "ms", "plain_ms", "library_ms", "device_ms",
+            "kernel_device_ms", "host_us_per_call", "bound_ms", "bound_by",
+            "shape")
     first = by["two_tower_item_build"]
     return {"name": "embedding_bag.embedding_bag", "route": "cuda",
             "source": "src/repro_torch/csrc/embedding_bag.cu",
             "replaces": "src/repro/kernels/embedding_bag.py:79",
-            "launches": launches,
+            "launches": launches["embedding_bag.embedding_bag"],
+            "launches_by_kernel": {kind: launches[f"embedding_bag.{kind}"]
+                                   for kind in ("vec16", "scalar")},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "equal_plain": all(r["equal_plain"] for r in rows),
             **{k: first[k] for k in keys},
-            "dlrm_bulk": {k: by["dlrm_bulk"][k] for k in keys},
-            "dlrm_p99": {k: by["dlrm_p99"][k] for k in keys}}
+            **{case: {k: by[case][k] for k in keys}
+               for case in ("dlrm_bulk", "dlrm_p99",
+                            "L100_padded_sum_float32",
+                            "L100_padded_sum_bfloat16",
+                            "L8_padded_sum_float32_scalar_route")}}
 
 
 def _seg_entry(launches, rows) -> dict:
@@ -2653,7 +2713,7 @@ def finish(torch, card, stage_rows, step_rows, ladder_rows, launches,
                     launches["pq_scan.pq_ivf_scan_topk"],
                     [scan_rows["ivf_pq"]]),
         _flash_entry(launches, flash_rows),
-        _bag_entry(launches["embedding_bag.embedding_bag"], bag_rows),
+        _bag_entry(launches, bag_rows),
         _seg_entry(launches, seg_rows),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,10 +17,10 @@ split-kv decode, the FMA kernel for the rest) are held against their plain
 version at ``2e-4`` in float32 (the JAX package's own tolerance) and
 ``2e-2`` in bfloat16 (a small multiple of the one bf16 step, 7.8e-3,
 measured), each case also checking which kernel served it; and the LM's ``decode_step`` on the card against
-``device="cpu"`` at the smoke config.  The embedding-bag kernel is held
-against its plain version at ``rtol=1e-5, atol=1e-6`` for float32 tables
-(both sum in id order) and within one bf16 step (``rtol=2**-7``) for
-bfloat16 tables; the segment-sum kernel within ``1e-5`` of each segment's
+``device="cpu"`` at the smoke config.  The embedding-bag kernel equals
+its plain version (``torch.equal``: both add the rows in id order to a
+float32 sum from +0.0), float32 and bfloat16 tables alike, on both
+routes; the segment-sum kernel within ``1e-5`` of each segment's
 sum of |x| plus ``1e-6`` (another summation order; the plain version sums
 in float64).  The recsys models and EGNN at their smoke configs run on the
 card (kernel path) against the same weights on the CPU (plain path).
@@ -972,6 +972,18 @@ def _bag_case(dev, f, v, d, b, l, dtype, seed):
     return tabs, ids
 
 
+def _bag_grid_size(f_max, bag_len, d):
+    """(F, B) of the grid's large case: 26 fields where the plain version's
+    gathered (B, F, L, D) float32 rows stay under 256 MB, else 2; B at most
+    65,536."""
+    budget = 1 << 26
+    for f in (f_max, 2):
+        b = min(65_536, budget // (f * max(bag_len, 1) * d))
+        if b >= 512 or f == 2:
+            return f, b
+    raise AssertionError
+
+
 @pytest.mark.cuda
 class TestEmbeddingBagOnCard:
     @pytest.mark.parametrize("f,v,d,b,l", [
@@ -991,22 +1003,134 @@ class TestEmbeddingBagOnCard:
         want = embedding_bag.embedding_bag_plain(tabs, ids, mode=mode)
         torch.cuda.synchronize()
         assert got.shape == (b, f, d) and got.dtype == torch.float32
-        rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (2 ** -7, 1e-6)
-        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+        assert torch.equal(got, want)
         assert not got[0, 0].any()
+
+    @pytest.mark.parametrize("mode", ["sum", "mean"])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [8, 16, 18, 64, 256])
+    @pytest.mark.parametrize("l", [1, 2, 3, 8, 100])
+    def test_grid_equals_plain(self, cuda, l, d, dtype, mode):
+        """torch.equal to the plain version (both add the rows in id order
+        from +0.0) at F 1-26 and B 1-65,536: one bag, a few ragged tiles,
+        and enough tiles that each CTA of the persistent grid walks
+        several; 30% padding, all-padding bags, ids past V.  The call takes
+        the route `route` names, in one launch."""
+        es = torch.tensor([], dtype=dtype).element_size()
+        kind = "vec16" if d * es % 16 == 0 else "scalar"
+        v = 1000
+        g = torch.Generator(device=cuda).manual_seed(l * 1000 + d)
+        for f, b in ((1, 1), (3, 257), _bag_grid_size(26, l, d)):
+            tabs = torch.randn((f, v, d), generator=g, device=cuda).to(dtype)
+            ids = torch.randint(0, v, (b, f, l), generator=g, device=cuda,
+                                dtype=torch.int32)
+            ids[torch.rand((b, f, l), generator=g, device=cuda) < 0.3] = -1
+            ids[-1, -1, 0] = v + 5                           # row V - 1
+            ids[b // 2, 0] = -1                              # all padding
+            assert embedding_bag.route(tabs, ids) == kind
+            before = dict(embedding_bag.launches_by_kernel)
+            got = embedding_bag.embedding_bag(tabs, ids, mode=mode)
+            after = embedding_bag.launches_by_kernel
+            assert after[kind] == before[kind] + 1 and sum(after.values()) \
+                == sum(before.values()) + 1
+            want = embedding_bag.embedding_bag_plain(tabs, ids, mode=mode)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (f, b)
+            assert not got[b // 2, 0].any()
+            del tabs, ids, got, want
+        torch.cuda.empty_cache()
+
+    @pytest.mark.parametrize("l", [1, 3, 100])
+    @pytest.mark.parametrize("f,d", [(26, 64), (4, 256), (3, 8)])
+    def test_every_walk_equals_plain(self, cuda, monkeypatch, f, d, l):
+        """The vec16 grid takes the fields in passes (`tile_plan`'s
+        ``fields_per_pass``: 1 is field by field, F memory order, a pass
+        count that does not divide F leaves a short last pass); every
+        choice gives the plain version's bits."""
+        tabs, ids = _bag_case(cuda, f, 500, d, 700, l, torch.float32, f + d)
+        want = embedding_bag.embedding_bag_plain(tabs, ids, mode="mean")
+        planned = embedding_bag._plan
+        for fp in sorted({1, 2, 4, 5, f}):
+            fp = min(fp, f)
+            monkeypatch.setattr(embedding_bag, "_plan", lambda *a, fp=fp: {
+                **planned(*a), "fields_per_pass": fp})
+            got = embedding_bag.embedding_bag(tabs, ids, mode="mean")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), fp
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_negative_zero_rows_give_positive_zero(self, cuda, dtype):
+        tabs, ids = _bag_case(cuda, 3, 50, 64, 40, 1, dtype, 9)
+        tabs[1, 7] = -0.0
+        tabs[2, 3, ::2] = -0.0
+        ids[:, 1, 0] = 7
+        ids[:, 2, 0] = 3
+        strided = torch.empty((3 * 50 * 65,), dtype=dtype, device=cuda)\
+            .as_strided(tabs.shape, (50 * 65, 65, 1))
+        strided.copy_(tabs)
+        three = torch.cat([ids, ids, torch.full_like(ids, -1)], dim=2)
+        for kind, t in (("vec16", tabs), ("scalar", strided)):
+            assert embedding_bag.route(t, ids) == kind
+            for bag_ids in (ids, three):
+                got = embedding_bag.embedding_bag(t, bag_ids)
+                want = embedding_bag.embedding_bag_plain(t, bag_ids)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+                zero = got[:, 1:] == 0
+                assert bool(zero[:, 0].all())
+                assert not bool(torch.signbit(got[:, 1:][zero]).any())
 
     def test_two_d_table_and_strided_rows(self, cuda):
         tabs, ids = _bag_case(cuda, 1, 300, 64, 40, 4, torch.float32, 1)
         got = ops.embedding_bag(tabs[0], ids[:, 0], mode="mean")
         want = embedding_bag.embedding_bag_plain(tabs[0], ids[:, 0],
                                                  mode="mean")
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        assert torch.equal(got, want)
         wide = torch.randn((2, 300, 70), device=cuda)
         view = wide[:, :, 3:67]                  # row stride 70: no 16-byte loads
         ids2 = ids.expand(40, 2, 4).contiguous()
-        torch.testing.assert_close(
-            ops.embedding_bag(view, ids2),
-            embedding_bag.embedding_bag_plain(view, ids2), rtol=1e-5, atol=1e-6)
+        assert embedding_bag.route(view, ids2) == "scalar"
+        assert torch.equal(ops.embedding_bag(view, ids2),
+                           embedding_bag.embedding_bag_plain(view, ids2))
+        padded = torch.randn((2, 300, 72), device=cuda)[:, :, :64]
+        assert embedding_bag.route(padded, ids2) == "vec16"   # 288-byte rows
+        assert torch.equal(ops.embedding_bag(padded, ids2, mode="mean"),
+                           embedding_bag.embedding_bag_plain(padded, ids2,
+                                                             mode="mean"))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_unaligned_base_and_field_stride(self, cuda, dtype):
+        f, v, d = 3, 200, 64
+        flat = torch.randn((f * v * d + 64,), device=cuda).to(dtype)
+        shifted = flat[1:1 + f * v * d].view(f, v, d)      # base off 16 bytes
+        fields = flat.as_strided((f, v, d), (v * d + 1, d, 1))
+        _, ids = _bag_case(cuda, f, v, d, 300, 3, dtype, 4)
+        for t in (shifted, fields):
+            assert embedding_bag.route(t, ids) == "scalar"
+            before = embedding_bag.launches_by_kernel["scalar"]
+            got = embedding_bag.embedding_bag(t, ids, mode="mean")
+            assert embedding_bag.launches_by_kernel["scalar"] == before + 1
+            assert torch.equal(got, embedding_bag.embedding_bag_plain(
+                t, ids, mode="mean"))
+
+    def test_ids_past_v_and_empty_bags(self, cuda):
+        tabs, ids = _bag_case(cuda, 4, 100, 64, 600, 1, torch.float32, 5)
+        ids[:50] = -1
+        ids[50:60, :, 0] = 100 + torch.arange(10, device=cuda,
+                                              dtype=torch.int32)[:, None]
+        for mode in ("sum", "mean"):
+            got = ops.embedding_bag(tabs, ids, mode=mode)
+            assert not got[:50].any()
+            fixed = ids.clone()
+            fixed[50:60] = 99
+            assert torch.equal(got[50:60], tabs[:, 99][None].expand(10, 4, 64))
+            assert torch.equal(got, ops.embedding_bag(tabs, fixed, mode=mode))
+        for l in (0, 5):                       # no ids, or all padding
+            empty = torch.full((70, 4, l), -1, dtype=torch.int32, device=cuda)
+            before = embedding_bag.launches
+            got = ops.embedding_bag(tabs, empty, mode="mean")
+            assert embedding_bag.launches == before + 1
+            assert got.shape == (70, 4, 64) and not got.any()
 
     def test_rejections(self, cuda):
         tabs, ids = _bag_case(cuda, 2, 50, 8, 4, 2, torch.float32, 2)

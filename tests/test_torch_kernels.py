@@ -24,7 +24,7 @@ from repro.kernels.gather_rescore import gather_rescore as pallas_gather_rescore
 from repro.kernels.gather_rescore import gather_rescore_topk as pallas_gather_topk
 
 from repro_torch.core import truncated as T
-from repro_torch.kernels import distance_topk, gather_rescore, ops
+from repro_torch.kernels import distance_topk, embedding_bag, gather_rescore, ops
 from repro_torch.kernels import ref as tref
 
 RTOL, ATOL = 1e-5, 1e-4
@@ -420,3 +420,234 @@ class TestRescoreLadderMirror:
         assert gather_rescore.plan(10, ((64, 10), (2048, 5))) == (10, 40)
         assert [gather_rescore.cluster_size(nq, 132)
                 for nq in (1, 8, 32, 33, 512)] == [8, 8, 4, 4, 1]
+
+
+def _c_struct(path, name):
+    """[(field, C type)] of ``struct name`` in a CUDA source, in order."""
+    import re
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, path.read_text(),
+                     re.S).group(1)
+    fields = []
+    for line in body.splitlines():
+        m = re.match(r"\s*((?:const )?[a-z ]+?\*?)\s*(\w+);", line)
+        if m:
+            fields.append((m.group(2), m.group(1).strip()))
+    return fields
+
+
+def _vec16_walk(plan, n_bags, bag_len, n_fields):
+    """The (bag, id index) pairs the ``vec16`` kernel's CTAs visit, in each
+    bag's order: its stage loop (tile = cta + (s // chunks) * ctas, chunk =
+    s % chunks), its per-stage loop (bag slot i = u * groups + g, ids l
+    + k of the chunk) and its walk order (``walk_at``: bag-major, or
+    passes of ``fields_per_pass`` fields, every batch row's bags of a
+    pass's fields before the next pass's) written out.  Also checks that
+    the field the kernel reads is the bag's."""
+    rows, fp = n_bags // n_fields, plan["fields_per_pass"]
+
+    def walk_at(j):
+        if fp == n_fields:
+            return j, j % n_fields
+        p = j // (rows * fp)
+        r = j - p * rows * fp
+        w = min(fp, n_fields - p * fp)
+        b = r // w
+        f = p * fp + r - b * w
+        return b * n_fields + f, f
+
+    groups = embedding_bag.THREADS // plan["group"]
+    per_tile, lc_max = plan["bags_per_tile"], plan["ids_chunk"]
+    u_n, k_n = plan["bags_per_group"], plan["ids_per_step"]
+    chunks = -(-bag_len // lc_max) if bag_len > lc_max else 1
+    n_tiles = -(-n_bags // per_tile)
+    seen = {}
+    for cta in range(plan["ctas"]):
+        my_tiles = (n_tiles - 1 - cta) // plan["ctas"] + 1 if cta < n_tiles else 0
+        for s in range(my_tiles * chunks):
+            tile, chunk = cta + (s // chunks) * plan["ctas"], s % chunks
+            bag0 = tile * per_tile
+            nb = min(per_tile, n_bags - bag0)
+            lc = min(lc_max, bag_len - chunk * lc_max)
+            for g in range(groups):
+                for l in range(0, lc, k_n):
+                    for u in range(u_n):
+                        i = u * groups + g
+                        for k in range(k_n):
+                            if i < nb and l + k < lc:
+                                bag, f = walk_at(bag0 + i)
+                                assert f == bag % n_fields
+                                seen.setdefault(bag, []).append(
+                                    chunk * lc_max + l + k)
+                for u in range(u_n):                 # every bag is stored
+                    if u * groups + g < nb:
+                        seen.setdefault(walk_at(bag0 + u * groups + g)[0], [])
+    return seen
+
+
+class TestEmbeddingBagPlan:
+    """The embedding-bag wrapper's route, tile plan and argument block, as
+    plain functions (the kernel itself runs on the card only)."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("d", [8, 16, 18, 64, 256])
+    def test_route(self, d, dtype):
+        es = torch.tensor([], dtype=dtype).element_size()
+        ids = torch.zeros((4, 3, 2), dtype=torch.int32)
+        whole = d * es % 16 == 0
+        aligned = torch.zeros((3, 50, d), dtype=dtype)
+        assert embedding_bag.route(aligned, ids) == \
+            ("vec16" if whole else "scalar")
+        # a row stride of whole 16-byte words, wider than the row
+        padded = torch.zeros((3, 50, d + 16 // es), dtype=dtype)[:, :, :d]
+        assert embedding_bag.route(padded, ids) == \
+            ("vec16" if whole else "scalar")
+        # row stride d + 1 elements: never whole words
+        strided = torch.zeros((3, 50, d + 1), dtype=dtype)[:, :, :d]
+        assert embedding_bag.route(strided, ids) == "scalar"
+        # a field stride off the 16-byte grid
+        flat = torch.zeros(3 * 50 * d + 8, dtype=dtype)
+        field = flat.as_strided((3, 50, d), (50 * d + 1, d, 1))
+        assert embedding_bag.route(field, ids) == "scalar"
+        # an unaligned base: the same table one element on
+        shifted = flat[1:1 + 3 * 50 * d].view(3, 50, d)
+        assert shifted.data_ptr() % 16 != 0
+        assert embedding_bag.route(shifted, ids) == "scalar"
+        assert embedding_bag.route(aligned[0], ids[:, 0]) == \
+            ("vec16" if whole else "scalar")
+
+    def test_route_rows_wider_than_a_cta(self):
+        ids = torch.zeros((2, 1, 1), dtype=torch.int32)
+        assert embedding_bag.route(torch.zeros((1, 4, 1024)), ids) == "vec16"
+        assert embedding_bag.route(torch.zeros((1, 4, 1028)), ids) == "scalar"
+        assert embedding_bag.route(
+            torch.zeros((1, 4, 2048), dtype=torch.bfloat16), ids) == "vec16"
+
+    @pytest.mark.parametrize("es", [4, 2])
+    @pytest.mark.parametrize("d", [8, 16, 18, 64, 256])
+    @pytest.mark.parametrize("bag_len", [0, 1, 3, 100])
+    @pytest.mark.parametrize("n_bags,sms", [(1, 132), (13 * 512, 132),
+                                            (5000, 3), (6_815_744, 132)])
+    def test_tile_plan(self, es, d, bag_len, n_bags, sms):
+        n_fields = 26 if n_bags % 26 == 0 else 1
+        if d * es % 16:                  # the scalar route: a lane an element
+            p = embedding_bag.tile_plan("scalar", d, es, bag_len, n_bags,
+                                        n_fields, sms)
+            assert p["group"] == 32 and p["ids_chunk"] == bag_len
+            assert p["fields_per_pass"] == n_fields
+            assert p["ctas"] * embedding_bag.THREADS >= n_bags * 32 \
+                > (p["ctas"] - 1) * embedding_bag.THREADS
+            return
+        p = embedding_bag.tile_plan("vec16", d, es, bag_len, n_bags, n_fields,
+                                    sms)
+        assert p["fields_per_pass"] == min(
+            n_fields, -(-2048 // (4 * d + d * es * bag_len)))
+        words = d * es // 16
+        g = p["group"]
+        assert g & (g - 1) == 0 and words <= g < max(2 * words, 2)
+        u, k = p["bags_per_group"], p["ids_per_step"]
+        assert u * k <= 8 and (k == 1) == (bag_len == 1)
+        assert (u, k) in ((8, 1), (4, 1), (2, 2), (1, 4), (1, 8))
+        assert p["bags_per_tile"] <= embedding_bag.SLOTS_CAP
+        assert u <= 2 or k == 1          # at most two bags' sums in registers
+        assert p["bags_per_tile"] == embedding_bag.THREADS // g * u
+        assert 1 <= p["ids_chunk"] <= max(bag_len, 1)
+        assert p["bags_per_tile"] * p["ids_chunk"] <= embedding_bag.IDS_CAP
+        assert (p["tiles"] - 1) * p["bags_per_tile"] < n_bags \
+            <= p["tiles"] * p["bags_per_tile"]
+        assert p["ctas"] == min(p["tiles"], sms * embedding_bag.CTAS_PER_SM)
+
+    def test_tile_plan_at_the_path_shapes(self):
+        plan = embedding_bag.tile_plan
+        dlrm = plan("vec16", 64, 4, 1, 26 * 262_144, 26, 132)
+        assert (dlrm["group"], dlrm["bags_per_tile"], dlrm["ctas"],
+                dlrm["fields_per_pass"]) == (16, 128, 528, 4)
+        item = plan("vec16", 256, 4, 1, 4 * 1_000_000, 4, 132)
+        assert (item["group"], item["bags_per_tile"], item["tiles"]) == \
+            (64, 32, 125_000)
+        l100 = plan("vec16", 64, 4, 100, 4 * 4096, 4, 132)
+        assert (l100["bags_per_tile"], l100["ids_chunk"], l100["ctas"],
+                l100["fields_per_pass"]) == (16, 100, 528, 1)
+        l100_bf16 = plan("vec16", 64, 2, 100, 4 * 4096, 4, 132)
+        assert (l100_bf16["bags_per_tile"], l100_bf16["ids_chunk"],
+                l100_bf16["ctas"]) == (32, 64, 512)
+        p99 = plan("vec16", 64, 4, 1, 26 * 512, 26, 132)
+        assert (p99["tiles"], p99["ctas"]) == (104, 104)
+        assert item["fields_per_pass"] == 1          # 1 KiB output rows
+        autoint = plan("vec16", 16, 4, 1, 39 * 512, 39, 132)
+        assert autoint["fields_per_pass"] == 16      # 64-byte output rows
+        assert plan("vec16", 64, 4, 1, 300, 1, 132)["fields_per_pass"] == 1
+        sc = plan("scalar", 18, 4, 3, 55, 5, 132)
+        assert (sc["group"], sc["ctas"], sc["fields_per_pass"]) == (32, 7, 5)
+        with pytest.raises(ValueError, match="route"):
+            plan("tma", 64, 4, 1, 10, 1, 132)
+
+    @pytest.mark.parametrize("d,es,bag_len,n_bags,n_fields,sms", [
+        (64, 4, 1, 1040, 26, 2),      # passes of 4 fields, the last of 2
+        (256, 4, 1, 1040, 26, 2),     # field by field, tiles across fields
+        (64, 4, 1, 1000, 1, 2),       # one field, a ragged last tile
+        (16, 4, 1, 1014, 39, 1),      # passes of 16 fields, the last of 7
+        (8, 4, 1, 1014, 3, 1),        # memory order: 32-byte output rows
+        (64, 4, 100, 77, 7, 1),       # one bag's ids in one chunk
+        (8, 4, 100, 300, 3, 2),       # ids in chunks of 16
+        (64, 2, 100, 70, 2, 1),       # bf16: chunks of 64 and 36
+        (16, 4, 3, 1500, 3, 1),
+        (8, 2, 2, 600, 4, 3),
+        (64, 4, 0, 40, 4, 1),         # empty bags: stored, no id read
+    ])
+    def test_vec16_walk_visits_every_id_once_in_order(self, d, es, bag_len,
+                                                      n_bags, n_fields, sms):
+        p = embedding_bag.tile_plan("vec16", d, es, bag_len, n_bags, n_fields,
+                                    sms)
+        seen = _vec16_walk(p, n_bags, bag_len, n_fields)
+        assert sorted(seen) == list(range(n_bags))
+        assert all(ls == list(range(bag_len)) for ls in seen.values())
+
+    @pytest.mark.parametrize("fp", [1, 2, 3, 5, 7])
+    def test_vec16_walk_any_pass_size(self, fp):
+        """Passes of any size, a short last pass included (7 fields)."""
+        p = {**embedding_bag.tile_plan("vec16", 64, 4, 2, 7 * 150, 7, 2),
+             "fields_per_pass": fp}
+        seen = _vec16_walk(p, 7 * 150, 2, 7)
+        assert sorted(seen) == list(range(7 * 150))
+        assert all(ls == [0, 1] for ls in seen.values())
+
+    def test_timing_script_patches_match_the_kernel(self):
+        """The patched copies `launch/embedding_bag_time.py` builds still
+        find the text they replace in ``csrc/embedding_bag.cu``."""
+        from repro_torch.kernels import _build
+        from repro_torch.launch.embedding_bag_time import VARIANTS
+
+        src = (_build.CSRC / "embedding_bag.cu").read_text()
+        assert "createpolicy" in src
+        for name, (flags, patches) in VARIANTS.items():
+            assert flags or patches, name
+            for old, _ in patches:
+                assert src.count(old) == 1, name
+
+    def test_argument_block_matches_the_cuda_struct(self):
+        """Field by field: the wrapper's `pack_args` parameters name the
+        fields of ``EmbeddingBagArgs`` in ``csrc/embedding_bag.cu`` in its
+        order, and each packed value lands at that field's C offset."""
+        import inspect
+        import struct
+
+        from repro_torch.kernels import _build
+
+        fields = _c_struct(_build.CSRC / "embedding_bag.cu", "EmbeddingBagArgs")
+        names = list(inspect.signature(embedding_bag.pack_args).parameters)[1:]
+        assert names == [n for n, _ in fields]
+        ctype = {"const void*": "Q", "const int*": "Q", "float*": "Q",
+                 "void*": "Q", "long long": "q", "int": "i"}
+        offsets, off = {}, 0
+        for name, ty in fields:
+            code = ctype[ty]
+            size = struct.calcsize(code)
+            off = -(-off // size) * size               # C alignment
+            offsets[name] = (off, code)
+            off += size
+        assert embedding_bag.ARGS.size == -(-off // 8) * 8
+        values = {n: 1000 + 7 * j for j, n in enumerate(names)}
+        buf = bytearray(embedding_bag.ARGS.size)
+        embedding_bag.pack_args(buf, **values)
+        for name, (o, code) in offsets.items():
+            assert struct.unpack_from("@" + code, buf, o)[0] == values[name]

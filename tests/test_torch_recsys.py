@@ -163,6 +163,77 @@ class TestEmbeddingBag:
         # rows (0,1), (1,1), (1,9) once each; 6 ids; one (1, 2, 4) output
         assert teb.bound_bytes(tabs, ids) == 3 * 16 + 6 * 4 + 2 * 16
 
+    def test_dlrm_shape_matches_pallas_and_ref(self):
+        """26 fields of one id a bag (DLRM-RM2's layout, its batch stream's
+        ids): each bag is 0 + its row, so the plain version equals the
+        Pallas kernel (interpret mode) and the oracle exactly, field by
+        field (tolerance 0)."""
+        f, v, d, b = 26, 60, 64, 6
+        rng = np.random.default_rng(26)
+        tabs = rng.normal(size=(f, v, d)).astype(np.float32)
+        ids = next(JS.recsys_batch_stream(
+            rng, "dlrm", b, n_sparse=f, multi_hot=1, vocab=v, n_dense=13,
+            seq_len=4))["ids"]
+        assert ids.shape == (b, f, 1)
+        got = ops.embedding_bag(t(tabs), t(ids)).numpy()
+        assert got.shape == (b, f, d) and got.dtype == np.float32
+        for i in range(f):
+            want = pallas_embedding_bag(jnp.asarray(tabs[i]),
+                                        jnp.asarray(ids[:, i]), block_b=8,
+                                        interpret=True)
+            np.testing.assert_array_equal(got[:, i], np.asarray(want))
+            np.testing.assert_array_equal(got[:, i], np.asarray(
+                JREF.embedding_bag_ref(jnp.asarray(tabs[i]),
+                                       jnp.asarray(ids[:, i]))))
+        np.testing.assert_array_equal(got, tabs[np.arange(f)[None, :],
+                                                ids[..., 0]])
+
+    @pytest.mark.parametrize("mode", ["sum", "mean"])
+    def test_bf16_stacked_tables_per_field(self, mode):
+        """bfloat16 stacked tables, bags of 3 ids with padding: each field
+        against the Pallas kernel (interpret mode) and the oracle on the
+        table widened to float32.  The port and the Pallas kernel both add
+        the rows in id order to a float32 sum from 0: ``rtol=atol=1e-6``;
+        the oracle sums in XLA's order: ``TOL``."""
+        f, v, d, b, l = 3, 50, 16, 9, 3
+        rng = np.random.default_rng(16)
+        tabs = torch.from_numpy(rng.normal(size=(f, v, d)).astype(
+            np.float32)).to(torch.bfloat16)
+        ids = rng.integers(-1, v, size=(b, f, l)).astype(np.int32)
+        ids[0, 1] = -1                               # an all-padding bag
+        got = ops.embedding_bag(tabs, t(ids), mode=mode).numpy()
+        wide = tabs.to(torch.float32).numpy()        # exact
+        for i in range(f):
+            want = pallas_embedding_bag(jnp.asarray(wide[i]),
+                                        jnp.asarray(ids[:, i]), mode=mode,
+                                        block_b=4, interpret=True)
+            close(got[:, i], want, tol=1e-6)
+            close(got[:, i], JREF.embedding_bag_ref(
+                jnp.asarray(wide[i]), jnp.asarray(ids[:, i]), mode=mode))
+        assert not got[0, 1].any()
+
+    def test_negative_zero_row(self):
+        """A row of -0.0: a bag of that one id is 0 + (-0.0) = +0.0 in the
+        port (and on the card, where the kernel adds as the plain version
+        does).  XLA folds ``0 + x`` to ``x``, so the Pallas kernel
+        (interpret mode) and the oracle keep -0.0: the values compare equal
+        (tolerance 0), the signs differ by design."""
+        table = np.random.default_rng(0).normal(size=(5, 8)).astype(np.float32)
+        table[2] = -0.0
+        table[3, ::2] = -0.0
+        ids = np.array([[2], [3], [-1], [2]], np.int32)
+        got = ops.embedding_bag(t(table), t(ids)).numpy()
+        assert not np.signbit(got[got == 0]).any()
+        want = np.asarray(pallas_embedding_bag(
+            jnp.asarray(table), jnp.asarray(ids), block_b=2, interpret=True))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, np.asarray(JREF.embedding_bag_ref(
+            jnp.asarray(table), jnp.asarray(ids))))
+        assert np.signbit(want[0]).all()
+        two = ops.embedding_bag(t(table), t(np.array([[2, 2], [-1, 2]],
+                                                      np.int32))).numpy()
+        assert not np.signbit(two[two == 0]).any()  # +0 + (-0) + (-0)
+
 
 class TestModels:
     def test_init_raises_without_a_gpu_and_runs_on_cpu(self):
