@@ -19,7 +19,11 @@ in phases that each print one JSON line:
                  cases (empty and fully tombstoned lists, a query probing
                  dead lists only, k beyond the rows scanned; the list-major
                  scans given the raw lists and the validity bits, and the
-                 pre-masked table, which must give the same bits)
+                 pre-masked table, which must give the same bits); the
+                 stage-0 kernel at k = 512 and 1,024 on both its pass-1
+                 kernels (dim 128 on ``wgmma``, 512 on ``fma``) at the
+                 serving batch and at the paper sweep's 2,470 queries, with
+                 tombstones, and on stores with fewer live rows than k
   3. corpus    — synthetic corpus generated on the card from ``--seed``,
                  loaded into a ``RetrievalEngine`` (flat backend), warmed up
   4. serving   — ``engine.search`` over every query and requests from client
@@ -98,7 +102,21 @@ in phases that each print one JSON line:
                  plain version on its own inputs, and a control (one call's
                  row pointer shifted by one edge) that must fail that check;
                  one forward traced with ``torch.profiler``
- 10. kernels line, card line, and the final ``{"ok": true, ...}`` line.
+ 10. paper     — the paper's experiments at its own scale through
+                 ``launch/paper_tables.py``: ``make_corpus(1,000,000,
+                 3,584, 2,470)`` (twins and near-twins included) made on
+                 the host from ``--seed`` and moved to the card; Table II
+                 (truncated top-1 by dim, to 3,584), the five Table III
+                 configurations against truncated at their d_max (and
+                 ``matmul`` + ``topk``), the reference benchmark's check
+                 (the closest row within 2 points), one Fig. 3 cell at
+                 k0 = 1,024 on each stage-0 kernel, Table 2b (PCA by power
+                 iteration against truncation) and the pooled search
+                 against the per-query one at (128, 3,584, 64); every
+                 search held against the plain path on the same inputs,
+                 and every per-query search one stage-0 and one ladder
+                 launch
+ 11. kernels line, card line, and the final ``{"ok": true, ...}`` line.
 
 Phase 2 also holds the embedding-bag and segment-sum kernels against their
 plain versions on their edge cases (bags of 8 and 100 ids with padding, sum
@@ -165,6 +183,15 @@ PEAK_TF32_FLOPS = 495e12
 # H100 SXM's boost clock (NVIDIA data sheet): the flat PQ scan's lookup bound.
 SMEM_BYTES_PER_CLOCK = 128
 PEAK_SM_CLOCK_HZ = 1.98e9
+
+# Queries a block of the stage-0 yardstick (matmul + topk) scores at once:
+# the (512, 1M) score block is 2 GB.
+YARD_QUERIES = 512
+# Traces taken before a device time is given up as not measured (a trace
+# can lose kernel records; `device_ms`).
+TRACE_ATTEMPTS = 3
+# The stage-0 kernel's large-k cases (phase 2): the paper sweeps k0 to 1,024.
+LARGE_K = (512, 1024)
 
 KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan",
                "flash_attention", "embedding_bag", "segment_sum")
@@ -264,47 +291,52 @@ def device_ms(torch, fn, own, *, per_call: int, runs: int = 10,
     CUDA-event time of a call also counts the device's idle gaps while the
     host enqueues its small ops.
 
-    After the RAG phase's large traces, a trace loses kernel records (one
-    of ten segment-sum calls held 19 of their 30 kernels; one of a single
-    call none), so the trace warms up on a first step of calls that the
-    schedule discards, and is not measured (None, None) unless it holds
-    all ``runs * per_call`` own launches.  With ``at_most``, a trace that
-    holds more own launches than that fails the run (a trace loses
-    records, it does not invent them)."""
+    A trace can lose kernel records (after the RAG phase's large traces
+    one of ten segment-sum calls held 19 of their 30 kernels, one of a
+    single call none; earlier traces lose some now and then), so the trace
+    warms up on a first step of calls that the schedule discards, is taken
+    again (up to `TRACE_ATTEMPTS` traces) while it holds fewer than
+    ``runs * per_call`` own launches, and is not measured (None, None)
+    when none of them holds all.  With ``at_most``, a trace that holds
+    more own launches than that fails the run (a trace loses records, it
+    does not invent them)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        for _ in range(2):                       # the warm-up step
-            fn()
-        torch.cuda.synchronize()
-        prof.step()
-        for _ in range(runs):                    # the measured step, kept
-            fn()                                 # by leaving inside it
-        torch.cuda.synchronize()
-    total = mine = 0.0
-    launches = 0
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")) \
-                or ev.key.startswith("ProfilerStep"):
-            continue
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        total += us
-        if any(name in ev.key for name in own):
-            mine += us
-            launches += ev.count
-    if at_most and launches > runs * per_call:
-        fail(f"{list(own)}: {launches} launches traced in {runs} calls, "
-             f"more than {per_call} a call")
-    if launches != runs * per_call:
+    for attempt in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for _ in range(2):                   # the warm-up step
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(runs):                # the measured step, kept
+                fn()                             # by leaving inside it
+            torch.cuda.synchronize()
+        total = mine = 0.0
+        launches = 0
+        for ev in prof.key_averages():
+            if "CUDA" not in str(getattr(ev, "device_type", "")) \
+                    or ev.key.startswith("ProfilerStep"):
+                continue
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            total += us
+            if any(name in ev.key for name in own):
+                mine += us
+                launches += ev.count
+        if at_most and launches > runs * per_call:
+            fail(f"{list(own)}: {launches} launches traced in {runs} calls, "
+                 f"more than {per_call} a call")
+        if launches == runs * per_call:
+            return total / runs / 1e3, mine / runs / 1e3
         emit({"phase": "trace", "own": list(own), "runs": runs,
               "own_launches_expected": runs * per_call,
-              "own_launches_traced": launches, "measured": False})
-        return None, None
-    return total / runs / 1e3, mine / runs / 1e3
+              "own_launches_traced": launches, "attempt": attempt,
+              "measured": False})
+    return None, None
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = PEAK_F32_FLOPS):
@@ -495,6 +527,9 @@ def run(args) -> None:
               "case": "all_invalid" if all_invalid else "ncap_below_k",
               "Ncap": n_small, "k": s0.k, "empty_slots": n_empty,
               "ids_agree": agree, "max_abs_err": err})
+
+    large_rows = large_k_rows(torch, dev, gen, db, scales, q32, sq_all,
+                              [st.dim for st in sched.stages], valid)
 
     step_rows = []
     cand = out32[1]
@@ -720,8 +755,131 @@ def run(args) -> None:
     launches.update(counts)
     seg_rows += rows
     ladder_rows += [scan_rows.pop("quantized_pq_ladder")]
-    finish(torch, card, stage_rows, step_rows, ladder_rows, launches,
-           scan_rows, flash_rows, bag_rows, seg_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10. the paper's experiments ------------------------------------------
+    paper_counts = paper_phase(torch, dev, args.seed)
+    finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
+           launches, paper_counts, scan_rows, flash_rows, bag_rows, seg_rows)
+
+
+# -- 10. the paper's experiments ---------------------------------------------
+
+# Timed runs of each search in the paper phase (after one warm-up call), and
+# queries a block of the plain path's checks (a per-query search's results
+# do not depend on the other queries).
+PAPER_RUNS = 3
+PLAIN_QUERIES = 512
+# The Fig. 3 cells the phase runs: one at k0 = 1,024 on each pass-1 kernel
+# of stage 0 (d_start 128 on ``wgmma``, 512 on ``fma``), d_max 3,584; and the
+# configuration of the pooled-against-per-query row.
+PAPER_SWEEP_CELLS = ((128, 3584, 1024), (512, 3584, 1024))
+PAPER_POOLED = (128, 3584, 64)
+
+
+def paper_check(torch, kind, inputs, out) -> dict:
+    """One search of the paper phase against the plain path on the same
+    inputs (per-query searches in blocks of `PLAIN_QUERIES` queries, the
+    pooled one whole), and a per-query progressive search run once more
+    with the counters at 0: one stage-0 launch and one ladder launch."""
+    from repro_torch.core import (progressive_search,
+                                  progressive_search_plain,
+                                  progressive_search_pooled_plain, stage_dims)
+    from repro_torch.core import truncated as T
+
+    q = inputs["q"]
+    if kind == "truncated":
+        plain = lambda qq: T.truncated_search(qq, inputs["db"],
+                                              dim=inputs["dim"], k=inputs["k"])
+        what = f"truncated dim={inputs['dim']}"
+    else:
+        sched, idx = inputs["sched"], inputs["index"]
+        kw = dict(sq_prefix=idx["sq_prefix"], index_dims=stage_dims(sched))
+        plain = lambda qq: progressive_search_plain(qq, idx["db"], sched, **kw)
+        what = f"{kind} {sched.d_start};{sched.d_max};{sched.k0}"
+    if kind == "pooled":
+        want = progressive_search_pooled_plain(q, idx["db"], sched, **kw)
+    else:
+        parts = [plain(q[a:a + PLAIN_QUERIES])
+                 for a in range(0, q.shape[0], PLAIN_QUERIES)]
+        want = tuple(torch.cat([p[j] for p in parts]) for j in range(2))
+    err, agree, tol = compare(torch, out, want)
+    if agree < 1.0 or err > tol:
+        fail(f"paper {what}: ids agree {agree}, max|Δ| {err} (tol {tol})")
+    if kind == "progressive":
+        zero_counts()
+        progressive_search(q, idx["db"], sched, **kw)
+        c = read_counts()
+        if not (c["distance_topk.l2_topk"] == c["gather_rescore.ladder"]
+                == c["gather_rescore.gather_rescore_topk"] == 1):
+            fail(f"paper {what}: one search launched {c}")
+    return {"search": what, "ids_agree": agree, "max_abs_err": err,
+            "tol": tol}
+
+
+def paper_phase(torch, dev, seed) -> dict:
+    """The paper's experiments at the paper's scale (phase 10): the
+    corpus of ``make_corpus(1,000,000, 3,584, 2,470)`` made on the host
+    and moved to the card, then ``launch/paper_tables.py``'s Table II, the
+    five Table III configurations, the Fig. 3 cells of
+    `PAPER_SWEEP_CELLS`, Table 2b and the pooled row, with the launch
+    counters at 0 before and read after.  Every search is then held
+    against the plain path (`paper_check`).  Returns the phase's
+    counters."""
+    from repro_torch.configs.paper_rag import CONFIG
+    from repro_torch.launch import paper_tables as P
+    from repro_torch.rag import make_corpus, to_device
+
+    t0 = time.perf_counter()
+    host = make_corpus(CONFIG.n_docs, CONFIG.dim_gte, CONFIG.n_queries,
+                       seed=seed)
+    make_s = time.perf_counter() - t0
+    corpus = to_device(host, dev)
+    del host
+    gc.collect()
+    torch.cuda.synchronize()
+    emit({"phase": "paper_corpus", "n_docs": CONFIG.n_docs,
+          "dim": CONFIG.dim_gte, "queries": CONFIG.n_queries,
+          "make_corpus_s": make_s,
+          "to_device_s": time.perf_counter() - t0 - make_s})
+    keep = []
+    pt = P.PaperTables(corpus.db, corpus.queries, corpus.ground_truth,
+                       runs=PAPER_RUNS, keep=keep)
+    d_emb = CONFIG.dim_gte
+    zero_counts()
+    t0 = time.perf_counter()
+    rows = P.table2(pt, [d for d in CONFIG.trunc_dims if d < d_emb]
+                    + [d_emb])
+    trunc = {r["dim"]: r for r in rows}
+    rows += P.table3(pt, CONFIG.table3_configs, trunc)
+    rows += P.fig3(pt, PAPER_SWEEP_CELLS, trunc)
+    rows += P.table2b(pt, seed=seed)
+    rows.append(P.pooled_vs_per_query(pt, PAPER_POOLED))
+    counts = read_counts()
+    run_s = time.perf_counter() - t0
+    for r in rows:
+        emit({"phase": "paper", **r})
+    check = [r for r in rows if r.get("check")][0]
+    if not check["ok"]:
+        fail(f"Table III: no configuration within {P.MATCH_POINTS} points "
+             f"of truncated at d_max: {check}")
+    for r in rows:
+        for key in ("acc", "prog_acc", "trunc_acc", "pca_acc"):
+            if key in r and not 0.0 <= r[key] <= 100.0:
+                fail(f"paper row {r}: {key} out of range")
+    if min(counts["distance_topk.wgmma"], counts["distance_topk.fma"],
+           counts["gather_rescore.ladder"]) <= 0:
+        fail(f"the paper phase missed a kernel: {counts}")
+    checks = [paper_check(torch, *k) for k in keep]
+    emit({"phase": "paper_checks", "searches": len(checks),
+          "min_ids_agree": min(c["ids_agree"] for c in checks),
+          "max_abs_err": max(c["max_abs_err"] for c in checks),
+          "run_s": run_s, "launches": counts})
+    del pt, keep, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # (variant, backend block kwargs, scan kernel its stage 0 runs, full phase)
@@ -1175,11 +1333,15 @@ def ladder_row(torch, case, q, db, cand, stages, *, sq=None, cols=None,
     return row
 
 
-def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None):
+def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None,
+           plain_runs=20):
     """The stage-0 kernel on one input against its plain version, timed
-    beside it and beside ``torch.matmul`` + ``torch.topk`` (the yardstick),
-    with its device time and both bounds: operations at the float32 FMA
-    rate and as 3xTF32 on the tensor cores.  Returns (row, kernel output)."""
+    beside it and beside ``torch.matmul`` + ``torch.topk`` (the yardstick,
+    in blocks of at most `YARD_QUERIES` queries), with its device time and
+    both bounds: operations at the float32 FMA rate and as 3xTF32 on the
+    tensor cores.  ``plain_runs`` runs time the plain version and the
+    yardstick (fewer where one call takes seconds).  Returns (row, kernel
+    output)."""
     from repro_torch.core import truncated as T
     from repro_torch.kernels import distance_topk
 
@@ -1191,10 +1353,13 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None):
     def yardstick():
         x = db[:, :dim]
         norms = (x * x).sum(1) if sq is None else sq
-        s = norms - 2.0 * torch.matmul(q[:, :dim], x.T)
-        if valid is not None:
-            s = s.masked_fill(~valid, float("inf"))
-        return torch.topk(s, k, dim=1, largest=False)
+        out = []
+        for a in range(0, q.shape[0], YARD_QUERIES):
+            s = norms - 2.0 * torch.matmul(q[a:a + YARD_QUERIES, :dim], x.T)
+            if valid is not None:
+                s = s.masked_fill(~valid, float("inf"))
+            out.append(torch.topk(s, k, dim=1, largest=False))
+        return out
 
     got = kern()
     want = plain()
@@ -1213,11 +1378,12 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None):
     n_groups = distance_topk.plan(q, db, dim, k)[-1]
     dev_all, dev_own = device_ms(torch, kern, ("l2_scan", "l2_merge"),
                                  per_call=2 if n_groups == 1 else 3)
+    slow = dict(runs=plain_runs, warmup=min(3, plain_runs))
     row = {"kernel": "distance_topk.l2_topk", "case": case, "Q": nq,
            "Ncap": n, "dim": dim, "k": k, "served_by": served,
            "max_abs_err": err, "tol": tol, "ids_agree": agree,
-           "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
-           "matmul_topk_ms": cuda_ms(torch, yardstick),
+           "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain, **slow),
+           "matmul_topk_ms": cuda_ms(torch, yardstick, **slow),
            "device_ms": dev_all, "kernel_device_ms": dev_own,
            "bound_ms": btf if served == "wgmma" else b32,
            "bound_by": bytf if served == "wgmma" else by32,
@@ -1225,6 +1391,61 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None):
            "shape": f"Q={nq} Ncap={n} dim={dim} k={k}"}
     emit({"phase": "kernels", **row})
     return row, got
+
+
+def large_k_rows(torch, dev, gen, db, scales, q32, sq_all, dims,
+                 valid) -> list:
+    """The stage-0 kernel above k = 256 (phase 2): k = 512 and 1,024 on
+    both pass-1 kernels at the serving batch (dim 128 on ``wgmma``, dim
+    512 on ``fma``, 1% tombstones), the paper sweep's 2,470-query batch at
+    dim 128 and k 1,024, and stores with fewer live rows than k; each held
+    against the plain version.  Returns the timed rows."""
+    from repro_torch.core import truncated as T
+    from repro_torch.kernels import distance_topk
+
+    rows = []
+    sq = {d: sq_all[:, dims.index(d)].contiguous() for d in (128, 512)}
+    route = {128: "wgmma", 512: "fma"}
+    for k in LARGE_K:
+        for dim in (128, 512):
+            row, _ = l2_row(torch, f"q32_dim{dim}_k{k}", q32, db, dim, k,
+                            sq=sq[dim], valid=valid)
+            rows.append(row)
+    src = torch.randint(0, db.shape[0], (N_QUERIES,), generator=gen,
+                        device=dev)
+    q_sweep = db[src] + torch.randn((N_QUERIES, db.shape[1]), generator=gen,
+                                    device=dev) * scales
+    row, _ = l2_row(torch, "sweep_q2470_dim128_k1024", q_sweep, db, 128,
+                    1024, sq=sq[128], valid=valid, plain_runs=3)
+    rows.append(row)
+    for r in rows:
+        if r["served_by"] != route[r["dim"]]:
+            fail(f"l2_topk {r['case']} served by {r['served_by']}, not "
+                 f"{route[r['dim']]}")
+    n_small = 4000
+    few = torch.rand((n_small,), generator=gen, device=dev) < 0.1
+    live = int(few.sum())
+    for k in LARGE_K:
+        for dim in (128, 512):
+            got = distance_topk.l2_topk(q32, db[:n_small], dim=dim, k=k,
+                                        sq_at_dim=sq[dim][:n_small],
+                                        valid=few)
+            want = T.truncated_search(q32, db[:n_small], dim=dim, k=k,
+                                      db_sq_at_dim=sq[dim][:n_small],
+                                      valid=few)
+            err, agree, tol = compare(torch, got, want)
+            n_empty = int((got[1] == -1).sum())
+            if agree < 1.0 or err > tol or n_empty != 32 * (k - live) \
+                    or not bool((got[1][:, live:] == -1).all()):
+                fail(f"l2_topk k={k} dim={dim} with {live} live rows: "
+                     f"agree={agree} err={err} empty={n_empty}")
+            emit({"phase": "kernels", "kernel": "distance_topk.l2_topk",
+                  "case": f"fewer_live_than_k_dim{dim}_k{k}",
+                  "served_by": distance_topk.route(q32, db[:n_small], dim, k),
+                  "Ncap": n_small, "live": live, "k": k,
+                  "empty_slots": n_empty, "ids_agree": agree,
+                  "max_abs_err": err})
+    return rows
 
 
 def scan_edge_cases(torch, dev) -> None:
@@ -2673,8 +2894,9 @@ def _ladder_entry(launches, step_rows, ladder_rows) -> dict:
                       for r in step_rows]}
 
 
-def finish(torch, card, stage_rows, step_rows, ladder_rows, launches,
-           scan_rows, flash_rows, bag_rows, seg_rows) -> None:
+def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
+           launches, paper_counts, scan_rows, flash_rows, bag_rows,
+           seg_rows) -> None:
     """Print the kernels line, the card line and the final result line."""
     s32 = [r for r in stage_rows if r["case"] == "flat_stage0_q32"][0]
     tt = [r for r in stage_rows if r["case"] == "two_tower_stage0"][0]
@@ -2688,10 +2910,15 @@ def finish(torch, card, stage_rows, step_rows, ladder_rows, launches,
          "launches": launches["distance_topk.l2_topk"],
          "launches_by_kernel": {kind: launches[f"distance_topk.{kind}"]
                                 for kind in ("wgmma", "fma")},
-         "max_abs_err": max(r["max_abs_err"] for r in stage_rows),
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in stage_rows + large_rows),
          "library_ms": None, **{k: s32[k] for k in s_keys},
          "two_tower": {"launches": tt["launches"],
-                       **{k: tt[k] for k in s_keys}}},
+                       **{k: tt[k] for k in s_keys}},
+         "large_k": {r["case"]: {k: r[k] for k in s_keys}
+                     for r in large_rows},
+         "paper_launches": {kind: paper_counts[f"distance_topk.{kind}"]
+                            for kind in ("l2_topk", "wgmma", "fma")}},
         _ladder_entry(launches, step_rows, ladder_rows),
         _scan_entry("ivf_scan.ivf_scan_topk", "src/repro_torch/csrc/ivf_scan.cu",
                     "src/repro/kernels/ivf_scan.py:275",
@@ -2716,6 +2943,7 @@ def finish(torch, card, stage_rows, step_rows, ladder_rows, launches,
         _bag_entry(launches, bag_rows),
         _seg_entry(launches, seg_rows),
     ]
+    kernels[1]["paper_launches"] = paper_counts["gather_rescore.ladder"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

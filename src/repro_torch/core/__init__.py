@@ -7,7 +7,9 @@ Public API:
                                           on the card, plain on the CPU)
   progressive_search_plain              — the same through the plain
                                           versions on any device
-  build_index                           — prefix-norm index build
+  progressive_search_pooled             — the paper's pooled variant
+                                          (§III.D), stage 0 on the kernel
+  build_index / index_for_schedule      — prefix-norm index build
   top1_accuracy / recall_at_k           — metrics (§III.E)
 """
 
@@ -19,6 +21,7 @@ from repro_torch.core.schedule import (
 )
 from repro_torch.core.index import (
     build_index,
+    index_for_schedule,
     prefix_norm_column,
     prefix_squared_norms,
     stage_dims,
@@ -33,16 +36,19 @@ from repro_torch.core.truncated import (
 from repro_torch.core.progressive import (
     progressive_search,
     progressive_search_plain,
+    progressive_search_pooled,
+    progressive_search_pooled_plain,
     rescore_ladder,
 )
 from repro_torch.core.metrics import overlap_at_k, recall_at_k, top1_accuracy
 
 __all__ = [
     "ProgressiveSchedule", "Stage", "make_schedule", "validate_schedule",
-    "build_index", "prefix_norm_column",
+    "build_index", "index_for_schedule", "prefix_norm_column",
     "prefix_squared_norms", "stage_dims",
     "l2_scores", "cosine_scores", "truncated_search", "rescore_candidates",
     "inject_candidates", "rescore_ladder",
     "progressive_search", "progressive_search_plain",
+    "progressive_search_pooled", "progressive_search_pooled_plain",
     "top1_accuracy", "recall_at_k", "overlap_at_k",
 ]

@@ -92,6 +92,12 @@ def build_index(
     }
 
 
+def index_for_schedule(db, sched: ProgressiveSchedule,
+                       **kw) -> Dict[str, torch.Tensor]:
+    """`build_index` at every stage dim of ``sched`` (``kw`` as there)."""
+    return build_index(db, stage_dims(sched), **kw)
+
+
 def prefix_norm_column(index: Dict[str, torch.Tensor], dim: int,
                        dims: Sequence[int]) -> torch.Tensor:
     """Return the (N,) prefix squared-norm column for ``dim``.

@@ -60,6 +60,16 @@
 //     of one block per query.  A warp per list reads it from the front and
 //     stops at the first entry that cannot beat the current k-th best (the
 //     lists are sorted), so most lists cost one 32-entry read.
+//   Large k (256 < k <= 1024, the paper's k0 sweep): the same two pass-1
+//     kernels with lists of `list_slots(k)` = 2 * next_pow2(k) slots (1,024
+//     or 2,048) in shared memory, so a block holds fewer queries (the
+//     wrapper picks the tile); such a list is too long for the register
+//     networks, so it is tightened by the same radix select run over shared
+//     memory (`tighten_big`) and sorted there by a warp's bitonic network
+//     (`sort_list_big`).  Pass 2 folds fewer lists a round (`merge_warps`:
+//     32 up to k = 256, 16 at 512, 8 at 1,024), so its running list plus
+//     1.5 rounds of lists stays at 16,384 slots.  Calls at k <= 256 compile
+//     and run exactly as before (BIG = false, lists of kSlots).
 // Ties order by (score, row index); slots with no finite score return -1.
 // The result does not depend on the number of splits or groups.
 
@@ -171,18 +181,32 @@ __host__ __device__ inline int next_pow2(int x) {
   return p;
 }
 
+// Lists a pass-2 round folds (one a warp): all 32 warps up to kp = 256,
+// fewer above, so that a round's lists fit beside the running list.
+__host__ __device__ inline int merge_warps(int kp) {
+  return kp <= 256 ? kMergeWarps : kMergeWarps * 256 / kp;
+}
+
 // Slots of the pass-2 list: the running top-kp plus room for 1.5 rounds
-// of kMergeWarps lists of up to kp entries each.
-__host__ __device__ inline int merge_slots(int kp) {
-  return next_pow2(kp + kMergeWarps * kp + kMergeWarps * kp / 2);
+// of w lists of up to kp entries each (16,384 for kp >= 256 at
+// w = merge_warps(kp)).
+__host__ __device__ inline int merge_slots(int kp, int w) {
+  return next_pow2(kp + w * kp + w * kp / 2);
+}
+
+// Slots of a pass-1 list at k: kSlots up to k = 256, else twice the next
+// power of two above k, so a tightened list has room for many tiles.
+__host__ __device__ inline int list_slots(int k) {
+  return k <= 256 ? kSlots : 2 * next_pow2(k);
 }
 
 // Pass-1 shared memory: two ring stages of rows, the query chunk (one copy
-// when dim fits one chunk, else one per stage) and QT lists of kSlots.
-__host__ __device__ inline size_t scan_smem_bytes(int qt, int dim) {
+// when dim fits one chunk, else one per stage) and QT lists of `slots`.
+__host__ __device__ inline size_t scan_smem_bytes(int qt, int dim,
+                                                  int slots) {
   const int q_copies = dim <= kChunkD ? 1 : 2;
   return sizeof(float) * (2 * (size_t)kStage + (size_t)q_copies * qt * kChunkD)
-       + (sizeof(float) + sizeof(int)) * (size_t)qt * kSlots;
+       + (sizeof(float) + sizeof(int)) * (size_t)qt * slots;
 }
 
 // Float offset of 16-byte piece `p` of tile row `row`: pieces are XOR-
@@ -463,18 +487,138 @@ __device__ __noinline__ void emit_sorted(float* s, int* id, int cnt, int k,
   }
 }
 
+// The large-k lists (list_slots(k) > kSlots): the same operations on lists
+// too long for registers, run by the owning warp over shared memory.
+
+// Sorts a list's cnt entries in place over the next power of two (at least
+// 32) slots, padded with (+inf, pad); a warp's bitonic network.
+__device__ __noinline__ void sort_list_big(float* s, int* id, int cnt) {
+  const int lane = threadIdx.x & 31;
+  int n2 = 32;
+  while (n2 < cnt) n2 <<= 1;
+  for (int t = cnt + lane; t < n2; t += 32) {
+    s[t] = CUDART_INF_F;
+    id[t] = kPadId;
+  }
+  __syncwarp();
+  for (int size = 2; size <= n2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = lane; t < n2 / 2; t += 32) {
+        const int lo = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
+        const int hi = lo + stride;
+        const float s_lo = s[lo], s_hi = s[hi];
+        const int i_lo = id[lo], i_hi = id[hi];
+        const bool swap = (lo & size) == 0 ? cand_less(s_hi, i_hi, s_lo, i_lo)
+                                           : cand_less(s_lo, i_lo, s_hi, i_hi);
+        if (swap) {
+          s[lo] = s_hi; s[hi] = s_lo;
+          id[lo] = i_hi; id[hi] = i_lo;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// `tighten` for a list of `sp` slots in shared memory: the scores become
+// order keys in place, the radix select counts over shared memory, and the
+// kept entries are compacted to the front (as scores again).
+__device__ __noinline__ Tight tighten_big(float* s, int* id, int cnt, int k,
+                                          int room, int sp) {
+  const int lane = threadIdx.x & 31;
+  unsigned* key = reinterpret_cast<unsigned*>(s);
+  for (int e = lane; e < cnt; e += 32) key[e] = order_key(s[e]);
+  __syncwarp();
+  unsigned prefix = 0;
+  int remaining = k;
+  unsigned top = 0xffffffffu;                  // keys <= top are kept
+  for (int bit = 31; bit >= 0; --bit) {
+    const unsigned hi = bit == 31 ? 0u : (0xffffffffu << (bit + 1));
+    int c = 0;
+    for (int e = lane; e < cnt; e += 32) {
+      const unsigned kk = key[e];
+      c += (kk & hi) == prefix && ((kk >> bit) & 1u) == 0;
+    }
+    c = __reduce_add_sync(kFull, c);
+    if (c < remaining) {
+      prefix |= 1u << bit;
+      remaining -= c;
+    }
+    top = prefix | ((1u << bit) - 1u);
+    if (bit == 16) {                           // is the 16-bit bucket enough?
+      int n = 0;
+      for (int e = lane; e < cnt; e += 32) n += key[e] <= top;
+      if (__reduce_add_sync(kFull, n) <= sp - room) break;
+    }
+  }
+  // compact in place: an entry moves only to a slot at or before its own,
+  // and a chunk is read into registers (the ballot waits for every lane's
+  // read) before any lane writes into it
+  int kept = 0;
+  for (int e0 = 0; e0 < cnt; e0 += 32) {
+    const int e = e0 + lane;
+    const unsigned kk = e < cnt ? key[e] : 0xffffffffu;
+    const int ii = e < cnt ? id[e] : kPadId;
+    const bool keep = e < cnt && kk <= top;
+    const unsigned m = __ballot_sync(kFull, keep);
+    if (keep) {
+      const int pos = kept + __popc(m & ((1u << lane) - 1u));
+      s[pos] = key_float(kk);
+      id[pos] = ii;
+    }
+    kept += __popc(m);
+    __syncwarp();
+  }
+  if (kept <= sp - room) return Tight{kept, Cand{key_float(top), kPadId}};
+  // a flood of exact ties at T: keep exactly the top-k, in order
+  sort_list_big(s, id, kept);
+  return Tight{k, Cand{s[k - 1], id[k - 1]}};
+}
+
+// `emit_sorted` for a large-k list: sorted in shared memory, the first k
+// written, (+inf, -1) past cnt.
+__device__ __noinline__ void emit_sorted_big(float* s, int* id, int cnt,
+                                             int k, float* out_s,
+                                             int* out_i) {
+  const int lane = threadIdx.x & 31;
+  sort_list_big(s, id, cnt);
+  for (int e = lane; e < k; e += 32) {
+    const float v = e < cnt ? s[e] : CUDART_INF_F;
+    out_s[e] = v;
+    out_i[e] = v < CUDART_INF_F ? id[e] : -1;
+  }
+  __syncwarp();
+}
+
+// A list's tighten and emit, by list size: the register versions for
+// lists of kSlots, the shared-memory versions above.
+template <bool BIG>
+__device__ __forceinline__ Tight tighten_list(float* s, int* id, int cnt,
+                                              int k, int room, int sp) {
+  if constexpr (BIG) return tighten_big(s, id, cnt, k, room, sp);
+  else return tighten(s, id, cnt, k, room);
+}
+
+template <bool BIG>
+__device__ __forceinline__ void emit_list(float* s, int* id, int cnt, int k,
+                                          float* out_s, int* out_i) {
+  if constexpr (BIG) emit_sorted_big(s, id, cnt, k, out_s, out_i);
+  else emit_sorted(s, id, cnt, k, out_s, out_i);
+}
+
 // Pass 1.  grid = (n_split, ceil(nq / QT)), block = kThreads, one block per
-// SM.  Warp w owns queries w*RQ .. w*RQ+RQ-1 of the tile and their lists.
-template <int RQ, bool VEC, bool HAS_SQ>
+// SM.  Warp w owns queries w*RQ .. w*RQ+RQ-1 of the tile and their lists
+// (of kSlots, or of `slots` when BIG).
+template <int RQ, bool VEC, bool HAS_SQ, bool BIG>
 __global__ void __launch_bounds__(kThreads, 1)
 l2_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
                const float* __restrict__ sq, const uint8_t* __restrict__ valid,
                float* __restrict__ part_s, int* __restrict__ part_i,
                int nq, int n, int ld_q, int ld_db, int dim, int k,
-               int tiles_per_split) {
+               int tiles_per_split, int slots) {
   constexpr int QT = 8 * RQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int sp = kSlots;
+  const int sp = BIG ? slots : kSlots;
   const int n_dchunks = (dim + kChunkD - 1) / kChunkD;
   const bool q_once = n_dchunks == 1;
   float* ring = reinterpret_cast<float*>(smem_raw);        // [2][kStage]
@@ -621,8 +765,9 @@ l2_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
 #pragma unroll
       for (int r = 0; r < RQ; ++r) {
         if (r < n_live && cnt[r] > k) {
-          const Tight t = tighten(ls + (warp * RQ + r) * sp,
-                                  li + (warp * RQ + r) * sp, cnt[r], k, kTileN);
+          const Tight t = tighten_list<BIG>(ls + (warp * RQ + r) * sp,
+                                            li + (warp * RQ + r) * sp, cnt[r],
+                                            k, kTileN, sp);
           cnt[r] = t.cnt;
           thr_s[r] = t.thr.s;
           thr_i[r] = t.thr.i;
@@ -638,9 +783,10 @@ l2_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
     if (r >= n_live) continue;
     float* s_l = ls + (warp * RQ + r) * sp;
     int* i_l = li + (warp * RQ + r) * sp;
-    if (cnt[r] > k) cnt[r] = tighten(s_l, i_l, cnt[r], k, kTileN).cnt;
+    if (cnt[r] > k)
+      cnt[r] = tighten_list<BIG>(s_l, i_l, cnt[r], k, kTileN, sp).cnt;
     const size_t o = ((size_t)(q0 + warp * RQ + r) * n_split + split) * k;
-    emit_sorted(s_l, i_l, cnt[r], k, part_s + o, part_i + o);
+    emit_list<BIG>(s_l, i_l, cnt[r], k, part_s + o, part_i + o);
   }
 }
 
@@ -657,13 +803,14 @@ __host__ __device__ constexpr int threads(int wgs) { return 128 * wgs + 32; }
 }  // namespace wg
 
 // Dynamic shared memory of a tensor-core block of `wgs` consumer
-// warpgroups: the row ring, the query hi and lo tiles, NT lists of kSlots,
+// warpgroups: the row ring, the query hi and lo tiles, NT lists of `slots`,
 // their counts and thresholds, barriers.
 __host__ __device__ inline size_t wgmma_smem_bytes(int nt, int dim,
-                                                   int stages, int wgs) {
+                                                   int stages, int wgs,
+                                                   int slots) {
   const size_t nbox = (dim + wg::kBox - 1) / wg::kBox;
   return 1024 + (size_t)stages * wg::rows(wgs) * 128 + 2 * nbox * nt * 128 +
-         (size_t)nt * kSlots * 8 + (size_t)nt * 12 + 8 + (size_t)stages * 16;
+         (size_t)nt * slots * 8 + (size_t)nt * 12 + 8 + (size_t)stages * 16;
 }
 
 // Byte offset of element (row, k) of a tile of 128-byte rows under the
@@ -681,15 +828,16 @@ __device__ __forceinline__ int logical_k(int kp) {
   return 8 * ((kp & 7) >> 1) + (kp >> 3) + 4 * (kp & 1);
 }
 
-template <int NT, int WGS, bool HAS_SQ>
+template <int NT, int WGS, bool HAS_SQ, bool BIG>
 __global__ void __launch_bounds__(wg::threads(WGS), 1)
 l2_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
                      const float* __restrict__ q, const float* __restrict__ sq,
                      const uint8_t* __restrict__ valid,
                      float* __restrict__ part_s, int* __restrict__ part_i,
                      int nq, int n, long long ld_q, int dim, int k,
-                     int tiles_per_split, int stages) {
+                     int tiles_per_split, int stages, int slots) {
   using namespace sm90;
+  const int sp = BIG ? slots : kSlots;
   constexpr int kRows = wg::rows(WGS);
   constexpr int kStage = kRows * wg::kBox * 4;      // bytes of a ring stage
   constexpr int kConsumers = 128 * WGS, kThreadsB = kConsumers + 32;
@@ -704,8 +852,8 @@ l2_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
   const uint32_t s_qhi = s_ring + stages * kStage;
   const uint32_t s_qlo = s_qhi + qbytes;
   float* ls = reinterpret_cast<float*>(gbase + (s_qlo + qbytes - base));
-  int* li = reinterpret_cast<int*>(ls + NT * kSlots);
-  int* cnt = li + NT * kSlots;
+  int* li = reinterpret_cast<int*>(ls + NT * sp);
+  int* cnt = li + NT * sp;
   float* thr_s = reinterpret_cast<float*>(cnt + NT);
   int* thr_i = reinterpret_cast<int*>(thr_s + NT);
   const uint32_t s_bar = (smem_u32(thr_i + NT) + 7u) & ~7u;
@@ -903,16 +1051,16 @@ l2_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
         const int qq = 8 * (c >> 1) + 2 * t4 + (c & 1);
         const int b = __shfl_sync(kFull, base[c], any ? __ffs(any) - 1 : lane);
         const int n0 = __popc(m[0][c]);
-        need |= b + n0 + __popc(m[1][c]) > kSlots - kRows;
+        need |= b + n0 + __popc(m[1][c]) > sp - kRows;
         if (take[0][c]) {
           const int pos = b + __popc(m[0][c] & below);
-          ls[qq * kSlots + pos] = sc[0][c];
-          li[qq * kSlots + pos] = row0;
+          ls[qq * sp + pos] = sc[0][c];
+          li[qq * sp + pos] = row0;
         }
         if (take[1][c]) {
           const int pos = b + n0 + __popc(m[1][c] & below);
-          ls[qq * kSlots + pos] = sc[1][c];
-          li[qq * kSlots + pos] = row0 + 8;
+          ls[qq * sp + pos] = sc[1][c];
+          li[qq * sp + pos] = row0 + 8;
         }
       }
     }
@@ -924,7 +1072,8 @@ l2_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
       for (int qq = warp; qq < n_live; qq += kWarps) {
         const int c = cnt[qq];
         if (c > k) {
-          const Tight tt = tighten(ls + qq * kSlots, li + qq * kSlots, c, k, kRows);
+          const Tight tt = tighten_list<BIG>(ls + qq * sp, li + qq * sp, c, k,
+                                             kRows, sp);
           if (lane == 0) {
             cnt[qq] = tt.cnt;
             thr_s[qq] = tt.thr.s;
@@ -937,27 +1086,29 @@ l2_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tm_db,
     }
   }
   for (int qq = warp; qq < n_live; qq += kWarps) {
-    float* s_l = ls + qq * kSlots;
-    int* i_l = li + qq * kSlots;
+    float* s_l = ls + qq * sp;
+    int* i_l = li + qq * sp;
     int c = cnt[qq];
-    if (c > k) c = tighten(s_l, i_l, c, k, kRows).cnt;
+    if (c > k) c = tighten_list<BIG>(s_l, i_l, c, k, kRows, sp).cnt;
     const size_t o = ((size_t)(q0 + qq) * n_split + split) * k;
-    emit_sorted(s_l, i_l, c, k, part_s + o, part_i + o);
+    emit_list<BIG>(s_l, i_l, c, k, part_s + o, part_i + o);
   }
 }
 
 // Pass 2.  grid = nq * n_groups, block = kMergeThreads: block (query,
 // group) folds that query's sorted lists [group * per_group, ...) of the
-// n_in it has into one sorted list of k.  Each round, warp w reads list
-// (round * kMergeWarps + w) 32 entries at a time and stops at the first
-// entry that does not beat the current k-th best: the list ascends, so
-// nothing after it can.
+// n_in it has into one sorted list of k.  Each round, warp w < W (W =
+// merge_warps(kp)) reads list (round * W + w) 32 entries at a time and
+// stops at the first entry that does not beat the current k-th best: the
+// list ascends, so nothing after it can.
+template <bool BIG>
 __global__ void __launch_bounds__(kMergeThreads)
 l2_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i,
                 float* __restrict__ out_s, int* __restrict__ out_i,
                 int n_in, int per_group, int k, int kp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int sp = merge_slots(kp);
+  const int w = BIG ? merge_warps(kp) : kMergeWarps;
+  const int sp = merge_slots(kp, w);
   float* ls = reinterpret_cast<float*>(smem_raw);
   int* li = reinterpret_cast<int*>(ls + sp);
   int* cnt = li + sp;
@@ -971,9 +1122,9 @@ l2_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i
   const int cap = sp - kp;
 
   init_lists(ls, li, cnt, thr_s, thr_i, 1, sp);
-  for (int base = l0; base < l1; base += kMergeWarps) {
+  for (int base = l0; base < l1; base += w) {
     const int split = base + warp;
-    if (split < l1) {
+    if (warp < w && split < l1) {
       const size_t off = ((size_t)gq * n_in + split) * k;
       for (int j0 = 0; j0 < k; j0 += 32) {
         const int j = j0 + lane;
@@ -996,7 +1147,7 @@ l2_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_i
       }
     }
     __syncthreads();
-    if (__syncthreads_or(threadIdx.x == 0 && cnt[0] > cap - kMergeWarps * k))
+    if (__syncthreads_or(threadIdx.x == 0 && cnt[0] > cap - w * k))
       merge_pending(ls, li, cnt, thr_s, thr_i, sp, kp, k);
   }
   merge_pending(ls, li, cnt, thr_s, thr_i, sp, kp, k);
@@ -1033,42 +1184,44 @@ struct L2Args {
   int wgs;                  // wgmma: consumer warpgroups (64 rows each)
 };
 
-template <int RQ, bool VEC, bool HAS_SQ>
+template <int RQ, bool VEC, bool HAS_SQ, bool BIG>
 cudaError_t launch_scan(const L2Args& a, cudaStream_t stream) {
   constexpr int QT = 8 * RQ;
-  const size_t smem = scan_smem_bytes(QT, a.dim);
-  auto kern = l2_scan_kernel<RQ, VEC, HAS_SQ>;
+  const int slots = list_slots(a.k);
+  const size_t smem = scan_smem_bytes(QT, a.dim, slots);
+  auto kern = l2_scan_kernel<RQ, VEC, HAS_SQ, BIG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.n_split, (a.nq + QT - 1) / QT);
   kern<<<grid, kThreads, smem, stream>>>(
       a.q, a.db, a.sq, a.valid, a.part_s, a.part_i, a.nq, a.n, (int)a.ld_q,
-      (int)a.ld_db, a.dim, a.k, a.tiles_per_split);
+      (int)a.ld_db, a.dim, a.k, a.tiles_per_split, slots);
   return cudaGetLastError();
 }
 
-template <int RQ>
+template <int RQ, bool BIG>
 cudaError_t dispatch_scan(const L2Args& a, cudaStream_t st) {
   const bool has_sq = a.sq != nullptr;
-  if (a.vec && has_sq) return launch_scan<RQ, true, true>(a, st);
-  if (a.vec) return launch_scan<RQ, true, false>(a, st);
-  if (has_sq) return launch_scan<RQ, false, true>(a, st);
-  return launch_scan<RQ, false, false>(a, st);
+  if (a.vec && has_sq) return launch_scan<RQ, true, true, BIG>(a, st);
+  if (a.vec) return launch_scan<RQ, true, false, BIG>(a, st);
+  if (has_sq) return launch_scan<RQ, false, true, BIG>(a, st);
+  return launch_scan<RQ, false, false, BIG>(a, st);
 }
 
-template <int NT, int WGS, bool HAS_SQ>
+template <int NT, int WGS, bool HAS_SQ, bool BIG>
 cudaError_t launch_wgmma_nt(const L2Args& a, const CUtensorMap& tm,
                             cudaStream_t st) {
-  const size_t smem = wgmma_smem_bytes(NT, a.dim, a.stages, WGS);
-  auto kern = l2_scan_wgmma_kernel<NT, WGS, HAS_SQ>;
+  const int slots = list_slots(a.k);
+  const size_t smem = wgmma_smem_bytes(NT, a.dim, a.stages, WGS, slots);
+  auto kern = l2_scan_wgmma_kernel<NT, WGS, HAS_SQ, BIG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.nq + NT - 1) / NT, a.n_split);
   kern<<<grid, wg::threads(WGS), smem, st>>>(
       tm, a.q, a.sq, a.valid, a.part_s, a.part_i, a.nq, a.n, a.ld_q, a.dim,
-      a.k, a.tiles_per_split, a.stages);
+      a.k, a.tiles_per_split, a.stages, slots);
   return cudaGetLastError();
 }
 
@@ -1091,12 +1244,15 @@ cudaError_t launch_wgmma(const L2Args& a, cudaStream_t st) {
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   const bool has_sq = a.sq != nullptr;
-#define L2_WGMMA(NT, WGS)                                                  \
-  if (a.tile_q == NT && a.wgs == WGS)                                      \
-    return has_sq ? launch_wgmma_nt<NT, WGS, true>(a, tm, st)              \
-                  : launch_wgmma_nt<NT, WGS, false>(a, tm, st);
-  L2_WGMMA(8, 2) L2_WGMMA(16, 2) L2_WGMMA(32, 2)
-  L2_WGMMA(8, 3) L2_WGMMA(16, 3) L2_WGMMA(32, 3)
+  const bool big = list_slots(a.k) > kSlots;
+#define L2_WGMMA(NT, WGS, BIG)                                             \
+  if (a.tile_q == NT && a.wgs == WGS && big == BIG)                        \
+    return has_sq ? launch_wgmma_nt<NT, WGS, true, BIG>(a, tm, st)         \
+                  : launch_wgmma_nt<NT, WGS, false, BIG>(a, tm, st);
+  L2_WGMMA(8, 2, false) L2_WGMMA(16, 2, false) L2_WGMMA(32, 2, false)
+  L2_WGMMA(8, 3, false) L2_WGMMA(16, 3, false) L2_WGMMA(32, 3, false)
+  // large k: lists of 1,024 or 2,048 slots leave room for 16 or 8 queries
+  L2_WGMMA(8, 2, true) L2_WGMMA(16, 2, true)
 #undef L2_WGMMA
   return cudaErrorInvalidValue;
 }
@@ -1105,14 +1261,16 @@ cudaError_t launch_merge(const float* in_s, const int* in_i, float* out_s,
                          int* out_i, int nq, int n_in, int per_group, int k,
                          cudaStream_t st) {
   const int kp = next_pow2(k);
-  const int sp = merge_slots(kp);
+  const bool big = kp > 256;
+  const int sp = merge_slots(kp, merge_warps(kp));
   const size_t smem = (sizeof(float) + sizeof(int)) * sp
                     + 2 * sizeof(int) + sizeof(float);
+  auto kern = big ? l2_merge_kernel<true> : l2_merge_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      l2_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_groups = (n_in + per_group - 1) / per_group;
-  l2_merge_kernel<<<nq * n_groups, kMergeThreads, smem, st>>>(
+  kern<<<nq * n_groups, kMergeThreads, smem, st>>>(
       in_s, in_i, out_s, out_i, n_in, per_group, k, kp);
   return cudaGetLastError();
 }
@@ -1124,13 +1282,16 @@ extern "C" {
 // Dynamic shared memory of one pass-1 block of the FMA kernel (rq =
 // queries per warp: 1, 2 or 4) and of the tensor-core kernel (nt queries,
 // `stages` ring stages), for the wrapper's choice of tiles.
-size_t l2_topk_scan_smem(int rq, int dim) {
-  return scan_smem_bytes(8 * rq, dim);
+size_t l2_topk_scan_smem(int rq, int dim, int slots) {
+  return scan_smem_bytes(8 * rq, dim, slots);
 }
 
-size_t l2_topk_wgmma_smem(int nt, int dim, int stages, int wgs) {
-  return wgmma_smem_bytes(nt, dim, stages, wgs);
+size_t l2_topk_wgmma_smem(int nt, int dim, int stages, int wgs, int slots) {
+  return wgmma_smem_bytes(nt, dim, stages, wgs, slots);
 }
+
+// Slots of a pass-1 list at k, for the wrapper's check of its own copy.
+int l2_topk_list_slots(int k) { return list_slots(k); }
 
 int l2_topk_args_size() { return (int)sizeof(L2Args); }
 
@@ -1141,14 +1302,19 @@ int l2_topk_launch(const void* args) {
   const L2Args& a = *static_cast<const L2Args*>(args);
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
   cudaError_t err;
-  if (a.kind == 1)
+  const bool big = list_slots(a.k) > kSlots;
+  if (a.k < 1 || a.k > 1024)
+    err = cudaErrorInvalidValue;
+  else if (a.kind == 1)
     err = launch_wgmma(a, st);
-  else if (a.tile_q == 4)
-    err = dispatch_scan<4>(a, st);
+  else if (a.tile_q == 4 && !big)
+    err = dispatch_scan<4, false>(a, st);
   else if (a.tile_q == 2)
-    err = dispatch_scan<2>(a, st);
+    err = big ? dispatch_scan<2, true>(a, st) : dispatch_scan<2, false>(a, st);
+  else if (a.tile_q == 1)
+    err = big ? dispatch_scan<1, true>(a, st) : dispatch_scan<1, false>(a, st);
   else
-    err = dispatch_scan<1>(a, st);
+    err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   if (a.n_groups > 1) {
     const int per_group = (a.n_split + a.n_groups - 1) / a.n_groups;

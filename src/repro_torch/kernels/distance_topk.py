@@ -27,8 +27,12 @@ Two pass-1 kernels, chosen from the shapes and strides alone (`route`):
 Both split the doc axis over enough blocks to fill every SM (a Hopper grid
 cannot carry a top-k the way the TPU's sequential grid does) and merge the
 per-block lists in pass 2, over groups of lists first when the batch is
-too small to fill the card.  `scores_3xtf32` spells out the tensor-core
-kernel's arithmetic in plain PyTorch for the tests.
+too small to fill the card.  Above k = 256 (up to `MAX_K`, the paper's
+k0 sweep) each query's list has `list_slots` (1,024 or 2,048) slots in
+shared memory, so a block holds at most 16 queries at k <= 512 and 8
+above; those lists are tightened and sorted in shared memory rather than
+registers, and pass 2 folds fewer lists a round.  `scores_3xtf32` spells
+out the tensor-core kernel's arithmetic in plain PyTorch for the tests.
 
 On a CPU tensor the wrapper runs the plain version (`l2_topk_plain`); on a
 CUDA tensor it launches the kernels or raises.
@@ -50,7 +54,9 @@ Tensor = torch.Tensor
 
 #: Largest k the kernel keeps per query (its per-query lists live in shared
 #: memory); larger k raises ValueError.
-MAX_K = 256
+MAX_K = 1024
+#: Slots of a per-query pass-1 list up to k = 256 (`list_slots` above).
+LIST_SLOTS = 512
 TILE_ROWS = 128          # rows per pass-1 tile of the FMA kernel
 #: Consumer warpgroups of the tensor-core kernel (64 rows of a tile each),
 #: by k (`warpgroups`): three hide more of the selection's latency; above
@@ -93,14 +99,20 @@ def _kernel():
         fn = lib.l2_topk_launch
         fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
         smem = lib.l2_topk_scan_smem
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.argtypes = [ctypes.c_int] * 3
         smem.restype = ctypes.c_size_t
         wg_smem = lib.l2_topk_wgmma_smem
-        wg_smem.argtypes = [ctypes.c_int] * 4
+        wg_smem.argtypes = [ctypes.c_int] * 5
         wg_smem.restype = ctypes.c_size_t
-        if wg_smem(32, 100, 3, 3) != wgmma_smem_bytes(32, 100, 3, 3):
-            raise RuntimeError("l2_topk: the library's shared-memory layout "
-                               "differs from wgmma_smem_bytes")
+        slots = lib.l2_topk_list_slots
+        slots.argtypes, slots.restype = [ctypes.c_int], ctypes.c_int
+        for k in (1, 256, 257, 512, 513, MAX_K):
+            if slots(k) != list_slots(k) or wg_smem(
+                    32, 100, 3, 3, slots(k)) != wgmma_smem_bytes(
+                    32, 100, 3, 3, list_slots(k)):
+                raise RuntimeError("l2_topk: the library's list slots or "
+                                   "shared-memory layout differ from "
+                                   "list_slots / wgmma_smem_bytes")
         _fn = (lib, fn, smem)
     return _fn
 
@@ -110,28 +122,38 @@ def warpgroups(k: int) -> int:
     return WGMMA_WARPGROUPS[0] if k <= 128 else WGMMA_WARPGROUPS[1]
 
 
-def wgmma_smem_bytes(nt: int, dim: int, stages: int, wgs: int) -> int:
+def list_slots(k: int) -> int:
+    """Slots of a per-query pass-1 list at ``k``, as ``list_slots`` in the
+    source: `LIST_SLOTS` up to k = 256, else twice the next power of two
+    above k (room for many tiles of candidates above a tightened list)."""
+    return LIST_SLOTS if k <= 256 else 2 * (1 << (k - 1).bit_length())
+
+
+def wgmma_smem_bytes(nt: int, dim: int, stages: int, wgs: int,
+                     slots: int = LIST_SLOTS) -> int:
     """Shared memory of a tensor-core block, as ``wgmma_smem_bytes`` in the
     source: the row ring (a stage is 64 * wgs rows of 128 bytes), the query
-    hi / lo tiles, nt lists of 512 (score, id) slots, their counts and
+    hi / lo tiles, nt lists of ``slots`` (score, id) slots, their counts and
     thresholds, the barriers."""
     nbox = -(-dim // 32)
     return (1024 + stages * 64 * wgs * 128 + 2 * nbox * nt * 128
-            + nt * 512 * 8 + nt * 12 + 8 + stages * 16)
+            + nt * slots * 8 + nt * 12 + 8 + stages * 16)
 
 
-def wgmma_tile(nq: int, dim: int, wgs: int) -> Tuple[int, int]:
+def wgmma_tile(nq: int, dim: int, wgs: int,
+               slots: int = LIST_SLOTS) -> Tuple[int, int]:
     """(queries a tile, ring stages) of the tensor-core kernel for a batch
-    of nq at ``dim``: the smallest tile that holds the batch (at most 32),
-    then as many stages as shared memory holds (at most 8); (0, 0) when
-    not even two stages fit."""
+    of nq at ``dim`` with lists of ``slots``: the smallest tile that holds
+    the batch (at most 32), halved until at least two stages fit, then as
+    many stages as shared memory holds (at most 8); (0, 0) when not even
+    two stages fit at 8 queries."""
     for nt in WGMMA_TILES:
         if nt >= nq or nt == WGMMA_TILES[-1]:
             break
     while True:
         stages = WGMMA_MAX_STAGES
-        while stages >= 2 and wgmma_smem_bytes(nt, dim, stages,
-                                               wgs) > SMEM_LIMIT:
+        while stages >= 2 and wgmma_smem_bytes(nt, dim, stages, wgs,
+                                               slots) > SMEM_LIMIT:
             stages -= 1
         if stages >= 2:
             return nt, stages
@@ -145,7 +167,8 @@ def route(q: Tensor, db: Tensor, dim: int, k: int = MAX_K) -> str:
     aligned = (db.data_ptr() % 16 == 0 and db.stride(0) % 4 == 0
                and dim % 4 == 0)
     if aligned and db.shape[0] > 0 and dim <= WGMMA_MAX_DIM \
-            and wgmma_tile(q.shape[0], dim, warpgroups(k))[0]:
+            and wgmma_tile(q.shape[0], dim, warpgroups(k),
+                           list_slots(k))[0]:
         return "wgmma"
     return "fma"
 
@@ -295,8 +318,9 @@ def plan(q: Tensor, db: Tensor, dim: int, k: int
     kind = route(q, db, dim, k)
     stages = 0
     wgs = warpgroups(k)
+    slots = list_slots(k)
     if kind == "wgmma":
-        tile_q, stages = wgmma_tile(nq, dim, wgs)
+        tile_q, stages = wgmma_tile(nq, dim, wgs, slots)
         q_tiles = -(-nq // tile_q)
         n_tiles = max(-(-n // (64 * wgs)), 1)
     else:
@@ -305,7 +329,7 @@ def plan(q: Tensor, db: Tensor, dim: int, k: int
         # memory)
         smem_fn = _kernel()[2]
         tile_q = 1 if nq <= 8 else 2 if nq <= 16 else 4
-        while tile_q > 1 and smem_fn(tile_q, dim) > SMEM_LIMIT:
+        while tile_q > 1 and smem_fn(tile_q, dim, slots) > SMEM_LIMIT:
             tile_q //= 2
         q_tiles = -(-nq // (8 * tile_q))
         n_tiles = max(-(-n // TILE_ROWS), 1)

@@ -10,7 +10,9 @@ Each CUDA kernel is held against its plain PyTorch version on the same
 inputs, at shapes that reach every code path (16-byte and scalar loads,
 precomputed and in-kernel norms, several query tiles, k > N, padding and
 invalid candidates; for the IVF and PQ scans float32 and int8 slabs, empty
-and fully tombstoned lists, k beyond the rows scanned).  Tolerance: scores
+and fully tombstoned lists, k beyond the rows scanned; stage 0 at k 257 to
+1,024 on both of its kernels).  The pooled search and PCA run on the card
+against the CPU port (the same tolerance; PCA variances 1e-4 relative).  Tolerance: scores
 ``rtol=1e-5, atol=1e-4`` (another float32 summation order); ids equal up to
 near-ties.  The flash-attention kernels (the tensor-core bf16 prefill, the
 split-kv decode, the FMA kernel for the rest) are held against their plain
@@ -192,6 +194,152 @@ class TestKernelsOnCard:
             gather_rescore.gather_rescore_topk(q, db, cand.long(), dim=8, k=4)
         with pytest.raises(NotImplementedError):
             ops.truncated_search(q, db, dim=8, k=4, metric="cosine")
+
+
+@pytest.mark.cuda
+class TestLargeKOnCard:
+    """The stage-0 kernel above k = 256 (lists of 1,024 / 2,048 slots in
+    shared memory, tightened and sorted there; pass 2 folding fewer lists a
+    round), on both pass-1 kernels, against the plain version."""
+
+    @pytest.mark.parametrize("k", [257, 512, 1000, 1024])
+    @pytest.mark.parametrize("nq,dim,d,kind", [
+        (13, 64, 68, "wgmma"),       # Q below one tile
+        (37, 128, 128, "wgmma"),     # Q not a multiple of the tile
+        (9, 30, 34, "fma"),          # odd dim: scalar loads
+        (21, 512, 512, "fma"),       # wider than the tensor-core kernel
+    ])
+    def test_matches_plain(self, cuda, nq, dim, d, kind, k):
+        g = torch.Generator(device=cuda).manual_seed(nq * 31 + k)
+        n = 30_000
+        db = torch.randn((n, d), generator=g, device=cuda)
+        q = torch.randn((nq, d), generator=g, device=cuda)
+        valid = torch.rand((n,), generator=g, device=cuda) > 0.1
+        sq = (db[:, :dim] ** 2).sum(1)
+        assert distance_topk.route(q, db, dim, k) == kind
+        for sq_at, ok in ((sq, valid), (None, None)):
+            before = distance_topk.launches_by_kernel[kind]
+            got = distance_topk.l2_topk(q, db, dim=dim, k=k, sq_at_dim=sq_at,
+                                        valid=ok)
+            assert distance_topk.launches_by_kernel[kind] == before + 1
+            want = distance_topk.l2_topk_plain(q, db, dim=dim, k=k,
+                                               sq_at_dim=sq_at, valid=ok)
+            torch.cuda.synchronize()
+            assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+
+    @pytest.mark.parametrize("k", [512, 1024])
+    @pytest.mark.parametrize("dim,d", [(64, 64), (30, 32)])
+    def test_fewer_live_rows_than_k(self, cuda, dim, d, k):
+        """Tombstones leave fewer live rows than k: the tail of every row
+        is (+inf, -1), the rest equals the plain version."""
+        g = torch.Generator(device=cuda).manual_seed(k + dim)
+        n = 3000
+        db = torch.randn((n, d), generator=g, device=cuda)
+        q = torch.randn((19, d), generator=g, device=cuda)
+        valid = torch.rand((n,), generator=g, device=cuda) < 0.1
+        live = int(valid.sum())
+        assert live < k
+        s, i = distance_topk.l2_topk(q, db, dim=dim, k=k, valid=valid)
+        torch.cuda.synchronize()
+        assert (i[:, live:] == -1).all() and torch.isinf(s[:, live:]).all()
+        assert valid[i[:, :live].long()].all()
+        assert_topk_close([s.cpu(), i.cpu()],
+                          [x.cpu() for x in distance_topk.l2_topk_plain(
+                              q, db, dim=dim, k=k, valid=valid)])
+        few = db[:700]                                    # Ncap < k
+        assert_topk_close(
+            [x.cpu() for x in distance_topk.l2_topk(q, few, dim=dim, k=k)],
+            [x.cpu() for x in distance_topk.l2_topk_plain(q, few, dim=dim,
+                                                          k=k)])
+
+    @pytest.mark.parametrize("nq,dim,k", [(32, 128, 1024), (40, 512, 512),
+                                          (5, 30, 700)])
+    def test_split_count_does_not_matter(self, cuda, nq, dim, k,
+                                         monkeypatch):
+        g = torch.Generator(device=cuda).manual_seed(nq + dim + k)
+        db = torch.randn((40_000, dim), generator=g, device=cuda)
+        q = torch.randn((nq, dim), generator=g, device=cuda)
+        outs = []
+        for n_sm in (1, 7, 132):
+            monkeypatch.setitem(distance_topk._n_sm, cuda.index or 0, n_sm)
+            outs.append(distance_topk.l2_topk(q, db, dim=dim, k=k))
+        for s, i in outs[1:]:
+            assert torch.equal(s, outs[0][0]) and torch.equal(i, outs[0][1])
+
+    def test_small_k_keeps_its_plan(self, cuda):
+        """Calls at k <= 256 keep the route and tiles they had before the
+        large-k lists: the serving stage 0, the two-tower's and the FMA
+        kernel's."""
+        q = torch.zeros((32, 3584), device=cuda)
+        db = torch.zeros((4096, 3584), device=cuda)
+        assert distance_topk.plan(q, db, 128, 64)[:4] == ("wgmma", 32, 2, 3)
+        q512 = torch.zeros((512, 64), device=cuda)
+        assert distance_topk.plan(q512, db[:, :64].contiguous(), 64,
+                                  128)[:4] == ("wgmma", 32, 3, 3)
+        assert distance_topk.plan(q, db, 512, 256)[:4] == ("fma", 4, 0, 2)
+        assert distance_topk.plan(q, db, 256, 256)[:4] == ("wgmma", 32, 2, 2)
+
+    def test_rejects_k_above_1024(self, cuda):
+        q = torch.randn((2, 16), device=cuda)
+        db = torch.randn((2000, 16), device=cuda)
+        with pytest.raises(ValueError):
+            distance_topk.l2_topk(q, db, dim=16, k=1025)
+        s, i = distance_topk.l2_topk(q, db, dim=16, k=1024)
+        assert s.shape == (2, 1024)
+
+
+@pytest.mark.cuda
+class TestPaperPathOnCard:
+    """The pooled search and PCA on the card against the CPU port."""
+
+    def test_pooled_matches_cpu(self, cuda):
+        from repro_torch.core import (index_for_schedule, make_schedule,
+                                      progressive_search_pooled)
+        from repro_torch.rag import make_corpus
+        c = make_corpus(20_000, 256, 64, seed=3)
+        sched = make_schedule(32, 256, 512, final_k=4)
+        valid = np.random.default_rng(0).random(20_000) > 0.05
+        out = {}
+        for dev in ("cpu", cuda):
+            idx = index_for_schedule(c.db, sched, valid=valid, device=dev)
+            before = distance_topk.launches
+            out[str(dev)] = progressive_search_pooled(
+                torch.from_numpy(c.queries).to(dev), idx["db"], sched,
+                sq_prefix=idx["sq_prefix"],
+                index_dims=tuple(s.dim for s in sched.stages),
+                valid=idx["valid"])
+            if dev != "cpu":
+                assert distance_topk.launches == before + 1
+        torch.cuda.synchronize()
+        got = [x.cpu() for x in out["cuda"]]
+        assert_topk_close(got, out["cpu"])
+        with pytest.raises(NotImplementedError):
+            progressive_search_pooled(
+                torch.from_numpy(c.queries).to(cuda), idx["db"], sched,
+                metric="cosine")
+
+    def test_pca_matches_cpu(self, cuda):
+        from repro_torch.core import pca
+        rng = np.random.default_rng(5)
+        x = (rng.standard_normal((4000, 96))
+             * np.linspace(3.0, 0.1, 96)).astype(np.float32)
+        cpu = pca.fit_pca(torch.from_numpy(x), 16)
+        gpu = pca.fit_pca(torch.from_numpy(x).to(cuda), 16)
+        np.testing.assert_allclose(gpu.explained_var.cpu(), cpu.explained_var,
+                                   rtol=1e-4)
+        dots = (gpu.components.cpu() * cpu.components).sum(0).abs()
+        np.testing.assert_allclose(dots, 1.0, atol=1e-4)
+        start = torch.from_numpy(rng.standard_normal((96, 24))
+                                 .astype(np.float32))
+        cpu = pca.fit_pca_power(torch.from_numpy(x), 16, n_iter=6,
+                                start=start)
+        gpu = pca.fit_pca_power(torch.from_numpy(x).to(cuda), 16, n_iter=6,
+                                start=start)
+        np.testing.assert_allclose(gpu.explained_var.cpu(), cpu.explained_var,
+                                   rtol=1e-4)
+        proj = lambda c: c @ c.T
+        np.testing.assert_allclose(proj(gpu.components.cpu()),
+                                   proj(cpu.components), atol=1e-4)
 
 
 def _ivf_case(dev, nq, n_lists, max_len, dim, n_probe, dtype, seed):
