@@ -34,6 +34,23 @@ in phases that each print one JSON line:
                  more search traced with ``torch.profiler``
   5. mutations — deletes (sources of 50 queries among them) and appends,
                  then searches again: no deleted id may come back
+     durability — around phase 5: first the flat engine turns on its
+                 mutation WAL and snapshots its store (step 0, 14.3 GB
+                 through ``repro_torch.checkpoint``), so phase 5's deletes
+                 and appends are logged; after it a fresh engine
+                 ``recover``s the state directory (the snapshot and two
+                 records) and must hold the live ``db`` bit for bit, serve
+                 the live engine's ids with one stage-0 and one ladder
+                 launch a dispatch, and return no deleted id;
+                 ``profile_stages`` runs there on 32 queries (one stage-0
+                 launch, then one rescore step a stage); then a
+                 ``ReplicaApplier`` on a third engine bootstraps from the
+                 directory and catches up with 100 deletes and 1,000
+                 appends of the live engine, and serves its ids.  Prints
+                 free disk and MemAvailable, snapshot bytes, seconds and
+                 GB/s, WAL bytes, ``recover``'s seconds split into read +
+                 CRC, host to device, prefix norms and replay, and the
+                 follower's bootstrap and catch-up seconds
   6. variants  — the same corpus behind each IVF / quantized backend (ivf
                  float32 / int8 / pq slabs, quantized pq / int8), one engine
                  at a time: build, ``engine.search`` over every query
@@ -52,7 +69,10 @@ in phases that each print one JSON line:
                  and no deleted id returned; the float32 IVF engine also
                  serves through ``EngineDriver``, is profiled (the int8 and
                  PQ IVF engines and the quantized PQ engine too), and
-                 absorbs 1,000 appends into spare list slots
+                 absorbs 1,000 appends into spare list slots; its built
+                 index is saved (``save_index``) and a second engine over
+                 the same corpus loads it (``load_index``): no rebuild, the
+                 first engine's ids, build seconds against load seconds
   7. rag       — the RAG generation path at full width: Mistral-Nemo-12B
                  (40 layers x 5120, bf16, random weights from ``--seed``)
                  behind a 262,144 x 5120 flat corpus of mean-pooled
@@ -150,9 +170,11 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -189,7 +211,7 @@ PEAK_SM_CLOCK_HZ = 1.98e9
 YARD_QUERIES = 512
 # Traces taken before a device time is given up as not measured (a trace
 # can lose kernel records; `device_ms`).
-TRACE_ATTEMPTS = 3
+TRACE_ATTEMPTS = 10
 # The stage-0 kernel's large-k cases (phase 2): the paper sweeps k0 to 1,024.
 LARGE_K = (512, 1024)
 
@@ -291,35 +313,29 @@ def device_ms(torch, fn, own, *, per_call: int, runs: int = 10,
     CUDA-event time of a call also counts the device's idle gaps while the
     host enqueues its small ops.
 
-    A trace can lose kernel records (after the RAG phase's large traces
-    one of ten segment-sum calls held 19 of their 30 kernels, one of a
-    single call none; earlier traces lose some now and then), so the trace
-    warms up on a first step of calls that the schedule discards, is taken
-    again (up to `TRACE_ATTEMPTS` traces) while it holds fewer than
-    ``runs * per_call`` own launches, and is not measured (None, None)
-    when none of them holds all.  With ``at_most``, a trace that holds
-    more own launches than that fails the run (a trace loses records, it
-    does not invent them)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+    A trace can lose kernel records.  Late in the script's run a trace of
+    the same calls, taken again and again, alternates between holding all
+    of them and holding only a few or none (a fresh process did not);
+    traces that also record host ops, or that warm up in a schedule step,
+    lose more often.  So the trace records the device alone, after one
+    untraced call, and is taken again (up to `TRACE_ATTEMPTS` traces) while
+    it holds fewer than ``runs * per_call`` own launches; the row is not
+    measured (None, None) when none of them holds all.  With ``at_most``,
+    a trace that holds more own launches than that fails the run (a trace
+    loses records, it does not invent them)."""
+    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(TRACE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            for _ in range(2):                   # the warm-up step
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
                 fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(runs):                # the measured step, kept
-                fn()                             # by leaving inside it
             torch.cuda.synchronize()
         total = mine = 0.0
         launches = 0
         for ev in prof.key_averages():
-            if "CUDA" not in str(getattr(ev, "device_type", "")) \
-                    or ev.key.startswith("ProfilerStep"):
+            if "CUDA" not in str(getattr(ev, "device_type", "")):
                 continue
             us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
@@ -694,39 +710,52 @@ def run(args) -> None:
           "batches": st["n_batches"] - stats0["n_batches"]})
     profile_search(torch, engine, q_host, search_s, "flat")
 
-    # -- 5. mutations --------------------------------------------------------
-    extra = torch.randperm(N_DOCS, generator=gen, device=dev)[:N_DELETE - 50]
-    del_ids = torch.unique(torch.cat([src_rows[:50], extra])).cpu().numpy()
-    deleted = set(int(x) for x in del_ids)
-    zero_counts()
-    n_gone = engine.delete_docs(del_ids)
-    _, i_after = engine.search(q_host)
-    back = sorted(set(int(x) for x in i_after.ravel()) & deleted)
-    if back:
-        fail(f"deleted ids returned: {back[:10]}")
-    new_rows = torch.randn((N_APPEND, d_emb), generator=gen, device=dev) * scales
-    new_ids = engine.add_docs(new_rows)
-    if store.capacity != cap:
-        fail("appending within capacity grew the store")
-    _, i_new = engine.search(new_rows[:1000].cpu().numpy())
-    self_hit = float((i_new[:, 0] == new_ids[:1000]).mean())
-    _, i_again = engine.search(q_host)
-    back = sorted(set(int(x) for x in i_again.ravel()) & deleted)
-    if back:
-        fail(f"deleted ids returned after the append: {back[:10]}")
-    if self_hit < 0.99:
-        fail(f"appended rows found themselves top-1 for only {self_hit}")
-    mut_counts = read_counts()
-    truth2 = exact_top(queries, final_k)
-    r_after, top1_after = recall(i_again, truth2)
-    emit({"phase": "mutations", "backend": "flat", "deleted": int(n_gone),
-          "deleted_sources": 50, "deleted_returned": 0,
-          "appended": N_APPEND, "appended_self_top1": self_hit,
-          "recall_at_10": r_after, "top1": top1_after,
-          "launches": mut_counts})
-    if min(mut_counts["distance_topk.l2_topk"],
-           mut_counts["gather_rescore.gather_rescore_topk"]) <= 0:
-        fail("mutation phase searched without launching the kernels")
+    # -- 5. mutations, logged (phase durability recovers them) ---------------
+    state_dir = tempfile.mkdtemp(prefix="chip_smoke_state_")
+    try:
+        durability_start(torch, engine, state_dir)
+        extra = torch.randperm(N_DOCS, generator=gen,
+                               device=dev)[:N_DELETE - 50]
+        del_ids = torch.unique(torch.cat([src_rows[:50],
+                                          extra])).cpu().numpy()
+        deleted = set(int(x) for x in del_ids)
+        zero_counts()
+        n_gone = engine.delete_docs(del_ids)
+        _, i_after = engine.search(q_host)
+        back = sorted(set(int(x) for x in i_after.ravel()) & deleted)
+        if back:
+            fail(f"deleted ids returned: {back[:10]}")
+        new_rows = torch.randn((N_APPEND, d_emb), generator=gen,
+                               device=dev) * scales
+        new_ids = engine.add_docs(new_rows)
+        if store.capacity != cap:
+            fail("appending within capacity grew the store")
+        _, i_new = engine.search(new_rows[:1000].cpu().numpy())
+        self_hit = float((i_new[:, 0] == new_ids[:1000]).mean())
+        s_again, i_again = engine.search(q_host)
+        back = sorted(set(int(x) for x in i_again.ravel()) & deleted)
+        if back:
+            fail(f"deleted ids returned after the append: {back[:10]}")
+        if self_hit < 0.99:
+            fail(f"appended rows found themselves top-1 for only {self_hit}")
+        mut_counts = read_counts()
+        truth2 = exact_top(queries, final_k)
+        r_after, top1_after = recall(i_again, truth2)
+        emit({"phase": "mutations", "backend": "flat", "deleted": int(n_gone),
+              "deleted_sources": 50, "deleted_returned": 0,
+              "appended": N_APPEND, "appended_self_top1": self_hit,
+              "recall_at_10": r_after, "top1": top1_after,
+              "launches": mut_counts})
+        if min(mut_counts["distance_topk.l2_topk"],
+               mut_counts["gather_rescore.gather_rescore_topk"]) <= 0:
+            fail("mutation phase searched without launching the kernels")
+        dur_counts = durability_phase(torch, engine, state_dir, q_host,
+                                      (s_again, i_again), deleted, gen,
+                                      scales)
+    finally:
+        if engine.wal is not None:
+            engine.wal.close()
+        shutil.rmtree(state_dir, ignore_errors=True)
     del engine, store, new_rows, truth2
     gc.collect()
     torch.cuda.empty_cache()
@@ -761,7 +790,8 @@ def run(args) -> None:
     # -- 10. the paper's experiments ------------------------------------------
     paper_counts = paper_phase(torch, dev, args.seed)
     finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
-           launches, paper_counts, scan_rows, flash_rows, bag_rows, seg_rows)
+           launches, paper_counts, dur_counts, scan_rows, flash_rows,
+           bag_rows, seg_rows)
 
 
 # -- 10. the paper's experiments ---------------------------------------------
@@ -882,6 +912,282 @@ def paper_phase(torch, dev, seed) -> dict:
     return counts
 
 
+# -- durability: snapshot, WAL, recovery and a follower (phases 5 and 6) -----
+
+# Runs of each stage in the recovered engine's ``profile_stages`` (after its
+# warm-up run), and the mutations the live engine makes while a follower
+# tails its log.
+PROFILE_RUNS = 3
+FOLLOW_DELETES = 100
+FOLLOW_APPENDS = 1000
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def mem_available_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+@contextlib.contextmanager
+def timed_calls(torch, targets):
+    """Time every call of each ``(owner, attribute, label)`` while the
+    block runs, the device synchronised at both ends of a call: yields
+    {label: seconds}, a call made inside another timed call counted under
+    ``"label@outer"``."""
+    totals, active, saved = {}, [], []
+    for owner, attr, label in targets:
+        fn = getattr(owner, attr)
+
+        def wrapper(*a, _fn=fn, _label=label, **kw):
+            key = _label if not active else f"{_label}@{active[-1]}"
+            active.append(_label)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                totals[key] = totals.get(key, 0.0) + time.perf_counter() - t0
+                active.pop()
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrapper)
+    try:
+        yield totals
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def restore_targets():
+    """What a snapshot restore spends its time in: reading the npz (and
+    within it the CRC32 checks), the store's restore (host-to-device
+    copies, and within it the prefix norms), and the WAL records
+    replayed."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.engine import RetrievalEngine
+    from repro_torch.engine import store as store_mod
+
+    return [(ckpt, "_read_step", "read"), (ckpt, "_array_crc", "crc"),
+            (store_mod.DocStore, "restore_state", "restore"),
+            (store_mod, "prefix_squared_norms", "norms"),
+            (RetrievalEngine, "_apply_record", "replay")]
+
+
+def restore_split(t: dict, total_s: float) -> dict:
+    read, restore = t.get("read", 0.0), t.get("restore", 0.0)
+    norms = t.get("norms@restore", 0.0)
+    replay = t.get("replay", 0.0)
+    return {"read_crc_s": read, "crc_s": t.get("crc@read", 0.0),
+            "host_to_device_s": restore - norms, "prefix_norms_s": norms,
+            "replay_s": replay,
+            "other_s": total_s - read - restore - replay}
+
+
+def durability_start(torch, engine, state_dir) -> None:
+    """Phase durability, before phase 5's mutations: turn on the live
+    engine's WAL and snapshot its 1M x 3,584 store (step 0)."""
+    need = engine.store.size * engine.store.d_emb * 4
+    free = shutil.disk_usage(state_dir).free
+    mem = mem_available_gb()
+    if free < 1.2 * need:
+        fail(f"the state directory {state_dir} has {free / 1e9:.1f} GB free; "
+             f"the snapshot needs {need / 1e9:.1f} GB")
+    engine.enable_durability(state_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = engine.save_snapshot()
+    save_s = time.perf_counter() - t0
+    if os.path.basename(path) != "step_00000000":
+        fail(f"the first snapshot is {path}, not step 0")
+    n_bytes = dir_bytes(path)
+    emit({"phase": "durability_snapshot", "n_docs": engine.store.size,
+          "d_emb": engine.store.d_emb, "disk_free_gb": free / 1e9,
+          "mem_available_gib": mem, "snapshot_bytes": n_bytes,
+          "save_snapshot_s": save_s, "snapshot_gb_per_s": n_bytes / save_s / 1e9})
+
+
+def durability_phase(torch, engine, state_dir, q_host, again, deleted, gen,
+                     scales) -> dict:
+    """Phase durability, after phase 5: a fresh engine recovers the state
+    directory (snapshot 0 + phase 5's two WAL records) and must hold the
+    live engine's store bit for bit and serve its ids through the stage-0
+    and ladder kernels; ``profile_stages`` runs there stage by stage; then
+    a follower on a third engine bootstraps from the directory and tails
+    the live engine's next mutations.  Returns the launch counts."""
+    from repro_torch.engine import MutationWAL, ReplicaApplier, RetrievalEngine
+
+    nq = q_host.shape[0]
+    live = engine.store
+    wal_bytes = dir_bytes(os.path.join(state_dir, "wal"))
+    rec = RetrievalEngine(config=engine.config, device="cuda")
+    with timed_calls(torch, restore_targets()) as t:
+        t0 = time.perf_counter()
+        report = rec.recover(state_dir)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+    if (report["snapshot_step"], report["replayed"], report["fallbacks"]) \
+            != (0, 2, 0) or not isinstance(rec.wal, MutationWAL):
+        fail(f"recovery report {report}: expected snapshot 0, 2 records "
+             f"replayed, no fallback, and the WAL open")
+    got, n = rec.store, live.size
+    if (got.size, got.n_active, got.capacity) \
+            != (n, live.n_active, live.capacity):
+        fail(f"recovered store holds {got.size} rows ({got.n_active} live, "
+             f"capacity {got.capacity}); the live one {n} "
+             f"({live.n_active}, {live.capacity})")
+    if not torch.equal(got.db[:n], live.db[:n]):
+        fail("the recovered db differs from the live one")
+    if not torch.equal(got.valid, live.valid):
+        fail("the recovered validity bits differ from the live ones")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    s_rec, i_rec = rec.search(q_host)
+    search_s = time.perf_counter() - t0
+    counts = read_counts()
+    dispatches = len(rec.policy.plan(nq))
+    if not (counts["distance_topk.l2_topk"] == counts["gather_rescore.ladder"]
+            == dispatches) or counts["gather_rescore.step"] != 0:
+        fail(f"the recovered engine's {dispatches} dispatches did not each "
+             f"run one stage-0 and one ladder launch: {counts}")
+    err, agree, tol = compare(
+        torch, (torch.as_tensor(s_rec), torch.as_tensor(i_rec)),
+        tuple(torch.as_tensor(x) for x in again))
+    if agree < 1.0 or err > tol:
+        fail(f"recovered engine's ids agree with the live engine's on "
+             f"{agree} of slots (max |Δscore| {err}, tol {tol})")
+    back = sorted(set(int(x) for x in i_rec.ravel()) & deleted)
+    if back:
+        fail(f"the recovered engine returned deleted ids: {back[:10]}")
+    emit({"phase": "durability", "wal_bytes": wal_bytes,
+          "recover_s": recover_s, **restore_split(t, recover_s),
+          "report": report, "db_equal": True, "valid_equal": True,
+          "size": n, "n_active": got.n_active, "search_s": search_s,
+          "queries": nq, "dispatches": dispatches, "ids_agree": agree,
+          "max_abs_err": err, "tol": tol, "deleted_returned": 0,
+          "launches": counts})
+
+    zero_counts()
+    prof = rec.profile_stages(q_host[:32], runs=PROFILE_RUNS)
+    p_counts = read_counts()
+    n_st = len(rec.sched.stages)
+    calls = PROFILE_RUNS + 1                     # the warm-up run and the runs
+    if [r["stage"] for r in prof] != list(range(n_st)) \
+            or p_counts["distance_topk.l2_topk"] != calls \
+            or p_counts["gather_rescore.step"] != (n_st - 1) * calls \
+            or p_counts["gather_rescore.ladder"] != 0:
+        fail(f"profile_stages: {len(prof)} rows for {n_st} stages, "
+             f"launches {p_counts}")
+    emit({"phase": "durability_profile", "queries": 32, "runs": PROFILE_RUNS,
+          "stages": prof, "launches": p_counts})
+    rec.wal.close()
+    del rec, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    foll = RetrievalEngine(config=engine.config, device="cuda")
+    applier = ReplicaApplier(foll, state_dir)
+    with timed_calls(torch, restore_targets()) as t:
+        t0 = time.perf_counter()
+        boot = applier.bootstrap()
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+    if boot["snapshot_step"] != 0 or foll.wal is not None:
+        fail(f"follower bootstrap {boot}")
+    # the live engine deletes the top-1 rows of the first queries (so the
+    # follower's results depend on applying them) and appends new rows
+    del2 = np.unique(again[1][:FOLLOW_DELETES, 0])
+    engine.delete_docs(del2)
+    engine.add_docs(torch.randn((FOLLOW_APPENDS, live.d_emb), generator=gen,
+                                device=live.db.device) * scales)
+    t0 = time.perf_counter()
+    applied = applier.catch_up()
+    torch.cuda.synchronize()
+    catch_s = time.perf_counter() - t0
+    if applier.applied_seq != engine.wal.last_seq or applied != 4:
+        fail(f"follower applied {applied} records to seq "
+             f"{applier.applied_seq}; the live WAL is at {engine.wal.last_seq}")
+    s_live, i_live = engine.search(q_host)
+    zero_counts()
+    s_f, i_f = foll.search(q_host)
+    f_counts = read_counts()
+    err_f, agree_f, tol_f = compare(
+        torch, (torch.as_tensor(s_f), torch.as_tensor(i_f)),
+        (torch.as_tensor(s_live), torch.as_tensor(i_live)))
+    if agree_f < 1.0 or err_f > tol_f:
+        fail(f"follower ids agree with the live engine's on {agree_f} of "
+             f"slots (max |Δscore| {err_f}, tol {tol_f})")
+    gone = deleted | set(int(x) for x in del2)
+    back = sorted(set(int(x) for x in i_f.ravel()) & gone)
+    if back:
+        fail(f"the follower returned deleted ids: {back[:10]}")
+    if f_counts["distance_topk.l2_topk"] != dispatches \
+            or f_counts["gather_rescore.ladder"] != dispatches:
+        fail(f"the follower's search missed the kernels: {f_counts}")
+    emit({"phase": "durability_follower", "bootstrap_s": boot_s,
+          **{f"bootstrap_{k}": v for k, v in restore_split(t, boot_s).items()},
+          "deleted": len(del2), "appended": FOLLOW_APPENDS,
+          "records_applied": applied, "catch_up_s": catch_s,
+          "applied_seq": applier.applied_seq, "lag": applier.lag(),
+          "ids_agree": agree_f, "max_abs_err": err_f, "tol": tol_f,
+          "deleted_returned": 0, "launches": f_counts})
+    del foll, applier
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"search": counts, "profile": p_counts, "follower": f_counts}
+
+
+def index_reload(engine, ctx, i_eng, build_s) -> None:
+    """``save_index`` of a built IVF engine, then a second engine over the
+    same corpus ``load_index``es it: no rebuild, the first engine's ids."""
+    torch = ctx["torch"]
+    from repro_torch.engine import RetrievalEngine
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_index_")
+    try:
+        t0 = time.perf_counter()
+        engine.save_index(ckpt_dir)
+        save_s = time.perf_counter() - t0
+        n_bytes = dir_bytes(ckpt_dir)
+        twin = RetrievalEngine(config=engine.config, device="cuda")
+        t0 = time.perf_counter()
+        ctx["load_corpus"](twin)
+        torch.cuda.synchronize()
+        corpus_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if not twin.load_index(ckpt_dir):
+            fail(f"load_index found no checkpoint in {ckpt_dir}")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    zero_counts()
+    _, i_twin = twin.search(ctx["q_host"])
+    counts = read_counts()
+    if twin.stats.n_rebuilds != 0:
+        fail(f"the loaded IVF engine rebuilt {twin.stats.n_rebuilds} times")
+    if not np.array_equal(i_twin, i_eng):
+        fail(f"the loaded IVF engine's ids equal the first engine's on "
+             f"{float((i_twin == i_eng).mean())} of slots")
+    if counts["ivf_scan.ivf_scan_topk"] <= 0:
+        fail(f"the loaded IVF engine searched without its scan: {counts}")
+    emit({"phase": "index_reload", "backend": "ivf", "build_s": build_s,
+          "save_index_s": save_s, "index_bytes": n_bytes,
+          "load_corpus_s": corpus_s, "load_index_s": load_s,
+          "n_rebuilds": 0, "ids_equal": 1.0, "launches": counts})
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # (variant, backend block kwargs, scan kernel its stage 0 runs, full phase)
 VARIANTS = (
     ("ivf", ("ivf", {}), "ivf_scan.ivf_scan_topk", True),
@@ -949,6 +1255,8 @@ def serve_variant(variant, ctx, launches) -> dict:
         launches[n] = launches.get(n, 0) + counts[n]
     if not (np.isfinite(s_eng).all() and s_eng.shape == (nq, FINAL_K)):
         fail(f"{name}: engine scores not finite or of the wrong shape")
+    if name == "ivf":
+        index_reload(engine, ctx, i_eng, build_s)
 
     state = engine.index_state
     plain_ids = plain_route_ids(torch, engine, queries)
@@ -2026,16 +2334,32 @@ def bag_row(torch, case, tables, ids, mode="sum", *, flush=None,
            "kernel_device_ms": dev_own, "host_us_per_call": host_us,
            "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
     if library:
-        # one (F * V, D) table, ids offset by field: the same sums (the
-        # path's bags hold no padding; ids >= V clamped as the kernel does)
+        # one (F * V, D) table, ids offset by field: the same sums (ids >= V
+        # clamped as the kernel does).  Padded bags read a zero row appended
+        # to a copy of the table as ``padding_idx``, which F.embedding_bag
+        # leaves out of the sum and of a mean's count, as the kernel does
         v, d = tables.shape[1], tables.shape[2]
         flat = tables.reshape(-1, d)
         off = (ids.long().clamp(max=v - 1)
                + v * torch.arange(f, device=ids.device)[None, :, None]
                ).reshape(b * f, bag_len)
-        row["library_ms"] = cuda_ms(
-            torch, lambda: F.embedding_bag(off, flat, mode=mode), flush=flush,
-            runs=runs)
+        pad = {}
+        if bool((ids < 0).any()):
+            pad = {"padding_idx": f * v}
+            flat = torch.cat([flat, flat.new_zeros((1, d))])
+            off = off.masked_fill(ids.reshape(b * f, bag_len) < 0, f * v)
+        lib = lambda: F.embedding_bag(off, flat, mode=mode, **pad)
+        got_lib = lib().view(b, f, d).float()
+        want = eb.embedding_bag_plain(tables, ids, mode=mode).float()
+        lib_err = float((got_lib - want).abs().max()) if want.numel() else 0.0
+        # float32 sums in another order; a bf16 result one rounding apart
+        rtol = 1e-5 if tables.dtype == torch.float32 else 1e-2
+        row["library_max_abs_err"] = lib_err
+        if torch.allclose(got_lib, want, rtol=rtol, atol=1e-6):
+            row["library_ms"] = cuda_ms(torch, lib, flush=flush, runs=runs)
+        else:
+            row["library_note"] = "F.embedding_bag differs from the plain version"
+        del got_lib, want, flat, off
     emit({"phase": "kernels", **row})
     return row
 
@@ -2067,7 +2391,7 @@ def bag_edge_cases(torch, dev, flush) -> list:
             for mode in ("sum", "mean"):
                 rows.append(bag_row(torch, f"L{bag_len}_padded_{mode}_{dtype}"
                                     .replace("torch.", ""), tabs, ids, mode,
-                                    flush=flush, runs=10))
+                                    flush=flush, library=True, runs=10))
             got = eb.embedding_bag(tabs, ids, mode="sum")
             if bool(got[:64].any()):
                 fail("embedding_bag: an all-padding bag is not 0")
@@ -2096,7 +2420,7 @@ def bag_edge_cases(torch, dev, flush) -> list:
                      f"plain version")
         rows.append(bag_row(torch, f"L8_padded_sum_{dtype}_scalar_route"
                             .replace("torch.", ""), odd, ids8, "sum",
-                            flush=flush, runs=10))
+                            flush=flush, library=True, runs=10))
         del tabs, odd
     torch.cuda.empty_cache()
     return rows
@@ -2895,8 +3219,8 @@ def _ladder_entry(launches, step_rows, ladder_rows) -> dict:
 
 
 def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
-           launches, paper_counts, scan_rows, flash_rows, bag_rows,
-           seg_rows) -> None:
+           launches, paper_counts, dur_counts, scan_rows, flash_rows,
+           bag_rows, seg_rows) -> None:
     """Print the kernels line, the card line and the final result line."""
     s32 = [r for r in stage_rows if r["case"] == "flat_stage0_q32"][0]
     tt = [r for r in stage_rows if r["case"] == "two_tower_stage0"][0]
@@ -2944,6 +3268,14 @@ def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
         _seg_entry(launches, seg_rows),
     ]
     kernels[1]["paper_launches"] = paper_counts["gather_rescore.ladder"]
+    # the recovered engine's and the follower's searches, and the recovered
+    # engine's profile_stages (stage by stage: one rescore step a stage)
+    for path, counts in dur_counts.items():
+        kernels[0].setdefault("durability_launches", {})[path] = \
+            counts["distance_topk.l2_topk"]
+        kernels[1].setdefault("durability_launches", {})[path] = {
+            kind: counts[f"gather_rescore.{kind}"] for kind in ("ladder",
+                                                                "step")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

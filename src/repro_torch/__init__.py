@@ -9,7 +9,11 @@ observability layers are the same host code.
   repro_torch.core            — schedules, prefix-norm index, plain search
   repro_torch.kernels         — CUDA kernels + device dispatch (``ops``)
   repro_torch.index_backends  — flat, IVF and quantized backends
-  repro_torch.engine          — DocStore, RetrievalEngine, EngineDriver
+  repro_torch.engine          — DocStore, RetrievalEngine, EngineDriver,
+                                the mutation WAL, recovery, supervision
+                                and WAL-shipped replication
+  repro_torch.checkpoint      — checkpoints in the JAX package's format
+                                (npz + msgpack manifest, own codec)
   repro_torch.obs             — metrics registry and request traces
   repro_torch.configs         — LM configurations (Mistral-Nemo-12B)
   repro_torch.layers          — norms, FFN, RoPE, GQA attention

@@ -1,6 +1,8 @@
 """Retrieval serving engine: request queueing, shape-bucketed batching, an
 async deadline-batching driver, and a mutable (add/delete) corpus on top of
-the flat index backend, with the corpus in device memory.
+pluggable index backends, with the corpus in device memory; durability
+(mutation WAL, snapshots, recovery) and WAL-shipped replication in the JAX
+package's file formats.
 
 Public API:
   RetrievalEngine                — submit/poll/step serving loop + batch search
@@ -9,8 +11,9 @@ Public API:
                                    ``engine.lock``
   SearchRequest                  — typed per-request options (k, tenant,
                                    metadata filter, deadline)
-  EngineConfig + FlatConfig      — eager-validating, serializable engine and
-                                   backend configuration
+  EngineConfig + FlatConfig/IVFConfig/QuantizedConfig
+                                 — eager-validating, serializable engine and
+                                   per-backend configuration
   EngineDriver                   — background thread owning batch formation:
                                    deadline-based flushes, futures,
                                    backpressure, drain/abort shutdown
@@ -32,9 +35,27 @@ Public API:
   AdaptivePolicy, SearchOverrides
                                  — load-adaptive degradation
   QueryCache                     — exact + near-duplicate query-result cache
+  MutationWAL, WALError          — fsync'd mutation write-ahead log behind
+                                   ``enable_durability``/``recover``
+  WALCursor, WALGap              — seq-keyed tailing reader over a WAL
+                                   directory (replication shipping:
+                                   rotate/prune-safe, gap detection)
+  ReplicaApplier,
+  PrimaryReplication             — WAL-shipped replication: follower
+                                   snapshot bootstrap + tail catch-up,
+                                   replica_lag, min_seq waits
+  ReplicationConfig              — role/poll/lag-bound knobs on
+                                   ``EngineConfig.replication``
+  FaultToleranceConfig           — WAL/supervision/injection knobs on
+                                   ``EngineConfig.fault``
   FaultPlan, InjectedFault,
   InjectedCrash, PoisonError     — deterministic fault-injection harness
+  Supervisor, SupervisorGaveUp   — driver watchdog: heartbeat detection,
+                                   capped-backoff restarts
   RequestFailed                  — request isolated by poison-batch bisection
+  IndexMismatch                  — loaded index incompatible with live config
+  CorruptCheckpoint              — checksum/parse failure in a saved step
+                                   (``recover`` falls back a step)
 """
 
 from repro_torch.engine.adaptive import AdaptivePolicy, SearchOverrides
@@ -53,6 +74,9 @@ from repro_torch.engine.config import (
     EngineConfig,
     FaultToleranceConfig,
     FlatConfig,
+    IVFConfig,
+    QuantizedConfig,
+    ReplicationConfig,
     backend_config,
 )
 from repro_torch.engine.driver import (
@@ -66,6 +90,7 @@ from repro_torch.engine.driver import (
 )
 from repro_torch.engine.engine import (
     EngineStats,
+    IndexMismatch,
     RequestStats,
     ResultEvicted,
     RetrievalEngine,
@@ -78,6 +103,10 @@ from repro_torch.engine.faults import (
     InjectedFault,
     PoisonError,
 )
+from repro_torch.engine.replication import PrimaryReplication, ReplicaApplier
+from repro_torch.engine.supervise import Supervisor, SupervisorGaveUp
+from repro_torch.engine.wal import MutationWAL, WALCursor, WALError, WALGap
+from repro_torch.checkpoint import CorruptCheckpoint
 from repro_torch.engine.qcache import QueryCache
 from repro_torch.engine.request import FilterError, SearchRequest, canonical_filter
 from repro_torch.engine.store import DocStore
@@ -88,11 +117,16 @@ __all__ = [
     "BatchDecision", "BucketPolicy", "DeadlineBatcher", "PendingRequest",
     "RequestQueue", "pad_batch",
     "AdaptiveConfig", "BackendConfig", "CacheConfig", "EngineConfig",
-    "FaultToleranceConfig", "FlatConfig", "backend_config",
+    "FaultToleranceConfig", "FlatConfig", "IVFConfig", "QuantizedConfig",
+    "backend_config",
     "DeadlineExceeded", "DriverQueueFull", "DriverStats", "DriverStopped",
     "EngineDriver", "RequestFailed", "RetrievalFuture",
-    "DocStore", "EngineStats", "FilterError", "RequestStats",
+    "DocStore", "EngineStats", "FilterError", "IndexMismatch",
+    "RequestStats",
     "ResultEvicted", "RetrievalEngine", "RetrievalResult", "SearchRequest",
     "StoreStats", "UnknownRequest", "canonical_filter",
-    "FaultPlan", "InjectedCrash", "InjectedFault", "PoisonError",
+    "CorruptCheckpoint", "FaultPlan", "InjectedCrash", "InjectedFault",
+    "MutationWAL", "PoisonError", "PrimaryReplication", "ReplicaApplier",
+    "ReplicationConfig", "Supervisor", "SupervisorGaveUp",
+    "WALCursor", "WALError", "WALGap",
 ]

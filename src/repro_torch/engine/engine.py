@@ -26,8 +26,18 @@ surveys in PAPERS.md):
   as tombstone compaction: past ``compact_dead_frac`` dead rows the store's
   buffers are rebuilt without tombstones (live doc ids are REMAPPED —
   ``on_remap`` callbacks let id-holding callers follow).
+* **Durability** — ``enable_durability`` / ``recover`` open a mutation
+  write-ahead log (`repro_torch.engine.wal`): every ``add_docs`` /
+  ``delete_docs`` / compaction is logged (fsync'd) before it is applied or
+  acknowledged; ``save_snapshot`` writes the store and index state through
+  `repro_torch.checkpoint`, and ``recover`` restores the newest valid
+  snapshot and replays the log's tail.  Snapshots and logs are the JAX
+  package's files, so either package recovers what the other wrote;
+  ``save_index`` / ``load_index`` persist a built index alone, and
+  ``apply_replicated`` feeds a follower (`repro_torch.engine.replication`).
 * **Observability** — per-request latency (queue + compute split), per-batch
-  padding waste, and rebuild/compaction counts.
+  padding waste, rebuild/compaction counts, and a stage-by-stage timing
+  profile (``profile_stages``).
 * **Device** — the store's buffers live on the engine's ``device``
   (``"cuda"`` unless the caller passes ``device="cpu"``); on CUDA every
   dispatch runs the hand-written kernels: the flat stage-0 scan, the IVF
@@ -41,14 +51,12 @@ batches.  Every public mutating/serving method is guarded by ``engine.lock``
 / ``submit`` / ``poll`` against the driver thread's dispatches — the lock is
 coarse on purpose: one device, one in-flight batch, and stats counters that
 must reconcile exactly under concurrency.
-
-Durability (mutation WAL, snapshots, recovery), index checkpoints and
-replication are not part of this package yet: ``engine.wal`` stays None.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from collections import deque
@@ -64,7 +72,9 @@ from repro_torch.engine.config import EngineConfig, legacy_config
 from repro_torch.engine.faults import FaultPlan
 from repro_torch.engine.request import SearchRequest
 from repro_torch.engine.store import DocStore
+from repro_torch.engine.wal import MutationWAL, WALError
 from repro_torch.index_backends import IndexBackend, IndexState, make_backend
+from repro_torch.kernels import ops
 from repro_torch.obs import (
     NULL_INSTRUMENT,
     MetricsRegistry,
@@ -78,6 +88,12 @@ Array = torch.Tensor
 
 class UnknownRequest(KeyError):
     """``poll`` was handed a request id the engine never issued."""
+
+
+class IndexMismatch(ValueError):
+    """A `load_index` / `recover` checkpoint disagrees with the live
+    engine configuration (backend kind, embedding dim, metric, capacity) —
+    raised eagerly instead of a downstream shape failure mid-search."""
 
 
 class ResultEvicted(KeyError):
@@ -159,6 +175,11 @@ _ENGINE_COUNTERS = {
     "n_rebuild_failures": ("repro_engine_rebuild_failures_total",
                            "Background index builds that raised (retried "
                            "at the next safe point)"),
+    "n_recoveries": ("repro_engine_recoveries_total",
+                     "Successful recover() runs (snapshot restore + WAL "
+                     "replay)"),
+    "n_replayed": ("repro_engine_wal_replayed_total",
+                   "WAL records replayed across all recoveries"),
 }
 
 
@@ -282,6 +303,8 @@ class EngineStats:
             "n_rebuilds": self.n_rebuilds,
             "n_compactions": self.n_compactions,
             "n_rebuild_failures": self.n_rebuild_failures,
+            "n_recoveries": self.n_recoveries,
+            "n_replayed": self.n_replayed,
             "latency_ms_p50": self._pct(self.latency_ms, 50),
             "latency_ms_p95": self._pct(self.latency_ms, 95),
             "queue_ms_p50": self._pct(self.queue_ms, 50),
@@ -337,6 +360,14 @@ class _BackgroundBuild:
             raise err
         out, self._out = self._out, None
         return out
+
+
+def _host_float32(vectors) -> np.ndarray:
+    """``vectors`` as a float32 host array (one copy off the device for a
+    tensor) — the form the WAL logs a batch of rows in."""
+    if isinstance(vectors, torch.Tensor):
+        return vectors.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(vectors, np.float32)
 
 
 class RetrievalEngine:
@@ -535,12 +566,19 @@ class RetrievalEngine:
         # any state older than this store generation must never be adopted
         self._min_state_generation = 0
 
-        # -- fault tolerance: the injection plan (inert unless configured);
-        # no mutation WAL in this package, so ``wal`` stays None
+        # -- fault tolerance: injection plan (inert unless configured), the
+        # mutation WAL (None until enable_durability/recover), and the last
+        # recovery report
         fcfg = config.fault
         self.faults = FaultPlan.parse(fcfg.inject, seed=fcfg.inject_seed)
-        self.wal = None
+        self.wal: Optional[MutationWAL] = None
+        self.ckpt_dir: Optional[str] = None
+        self.last_recovery: Optional[Dict] = None
         self._rebuild_fail_streak = 0
+        self._g_wal = self.metrics.gauge(
+            "repro_wal_state",
+            "Mutation-WAL state (last_seq / lag_records / n_segments)",
+            labels=("key",))
 
     # -- corpus mutation -----------------------------------------------------
     def add_docs(self, vectors, *, tenant: Optional[str] = None,
@@ -552,15 +590,52 @@ class RetrievalEngine:
         ``tenant`` namespaces the rows (searches with ``tenant=`` see only
         their own namespace); ``metadata`` — one dict or a per-row sequence
         of dicts — feeds the per-request filter masks.
+
+        With durability enabled the mutation is WAL-logged (fsync'd) BEFORE
+        it is applied or acknowledged: a crash after return can never lose
+        it, and a crash before the append means the caller never saw an ack.
+        The log holds the rows as float32 C-order bytes (a tensor is copied
+        to the host once for it).
         """
         with self.lock:
+            if self.wal is not None:
+                vec = _host_float32(vectors)
+                if vec.ndim == 1:
+                    vec = vec[None, :]
+                if vec.ndim != 2 or vec.shape[1] != self.store.d_emb:
+                    raise ValueError(
+                        f"expected (B, {self.store.d_emb}) vectors, got "
+                        f"shape {vec.shape}")
+                # validate metadata BEFORE logging: a record that would be
+                # rejected by the store must never enter the log (replay
+                # would diverge on it)
+                meta_rows = DocStore._check_metadata(metadata, vec.shape[0])
+                self.faults.check("wal_write")
+                self.wal.append("add", {
+                    "start": self.store.size,
+                    "v": vec.tobytes(),
+                    "shape": list(vec.shape),
+                    "tenant": tenant,
+                    "metadata": meta_rows,
+                })
             ids = self.store.add(vectors, tenant=tenant, metadata=metadata)
             self.stats.n_docs_added += len(ids)
             return ids
 
     def delete_docs(self, ids) -> int:
-        """Tombstone docs by id; they become unreturnable immediately."""
+        """Tombstone docs by id; they become unreturnable immediately.
+
+        WAL-logged before application, like ``add_docs``."""
         with self.lock:
+            if self.wal is not None:
+                id_arr = np.unique(np.atleast_1d(np.asarray(ids, np.int64)))
+                if id_arr.size and (id_arr.min() < 0
+                                    or id_arr.max() >= self.store.size):
+                    raise IndexError(
+                        f"doc ids must be in [0, {self.store.size}), got "
+                        f"[{id_arr.min()}, {id_arr.max()}]")
+                self.faults.check("wal_write")
+                self.wal.append("delete", {"ids": id_arr.tolist()})
             n = self.store.delete(ids)
             self.stats.n_docs_deleted += n
             return n
@@ -590,6 +665,11 @@ class RetrievalEngine:
 
     def _compact(self) -> None:
         """Compact the store and remap every id the engine still holds."""
+        if self.wal is not None:
+            # compaction is deterministic given the buffers, so the record
+            # carries no payload: replay just re-runs store.compact() at
+            # the same point in the mutation sequence
+            self.wal.append("compact", {})
         t0 = time.perf_counter()
         id_map = self.store.compact()
         self.stats.h_compact.observe((time.perf_counter() - t0) * 1e3)
@@ -724,6 +804,283 @@ class RetrievalEngine:
     def index_state(self) -> Optional[IndexState]:
         """The live index state (None until the first build)."""
         return self._index_state
+
+    # -- index persistence ---------------------------------------------------
+    def save_index(self, ckpt_dir: str, *, keep: int = 3) -> str:
+        """Persist the live index state through `repro_torch.checkpoint`.
+
+        Writes the backend's ``state_dict`` (centroids, packed member
+        slabs, int8 scales, PQ codebooks — whatever the backend built)
+        with the atomic tmp-dir + fsynced-manifest protocol, so a serving
+        restart can `load_index` instead of re-running k-means / codebook
+        builds.  Builds the index first if none is live yet.
+        """
+        from repro_torch.checkpoint import save_arrays
+
+        with self.lock:
+            state = self._ensure_index()
+            payload = self.backend.state_dict(state)
+            extra = dict(payload["meta"])
+            extra["engine_meta"] = self._index_meta()
+            return save_arrays(
+                ckpt_dir, state.generation, payload["arrays"],
+                extra=extra, keep=keep)
+
+    def _index_meta(self) -> Dict:
+        """The engine-identity fingerprint recorded next to persisted index
+        state, so a restart with a different configuration fails loudly."""
+        return {
+            "backend": self.backend.name,
+            "d_emb": self.store.d_emb,
+            "capacity": self.store.capacity,
+            "metric": self.metric,
+        }
+
+    def _check_index_meta(self, saved: Optional[Dict], where: str,
+                          keys: Tuple[str, ...] = ("backend", "d_emb",
+                                                   "metric"),
+                          ) -> None:
+        """Raise ``IndexMismatch`` when ``saved`` (an ``engine_meta`` dict)
+        disagrees with the live engine.  Only identity keys are compared —
+        ``capacity`` rides along in the meta for diagnostics but is a
+        dynamic buffer size (it doubles with corpus growth; restore adopts
+        the snapshot's), not identity.  Pre-``engine_meta`` checkpoints
+        (saved is None) skip the check for back-compat."""
+        if not saved:
+            return
+        live = self._index_meta()
+        diffs = [
+            f"{key}: checkpoint has {saved[key]!r}, engine has "
+            f"{live[key]!r}"
+            for key in keys
+            if key in saved and saved[key] != live[key]
+        ]
+        if diffs:
+            raise IndexMismatch(
+                f"{where} does not match the live EngineConfig — "
+                + "; ".join(diffs))
+
+    def load_index(self, ckpt_dir: str, *, step: Optional[int] = None) -> bool:
+        """Adopt a `save_index` checkpoint as the live index state.
+
+        Contract: the store must already hold the same rows
+        ``[0, built_size)`` the checkpoint was built over (the usual
+        serving restart re-adds the identical corpus before loading).
+        Rows added beyond that ride the tail window exactly like rows
+        appended after a build; staleness counters restart clean.  Returns
+        False when ``ckpt_dir`` holds no checkpoint; raises
+        ``IndexMismatch`` when the checkpoint was saved under a different
+        backend kind / embedding dim / capacity / metric, and
+        ``CorruptCheckpoint`` when the newest step fails verification.
+        """
+        from repro_torch.checkpoint import load_arrays
+
+        arrays, meta, _ = load_arrays(ckpt_dir, step=step)
+        if arrays is None:
+            return False
+        with self.lock:
+            self._check_index_meta(meta.get("engine_meta"),
+                                   f"index checkpoint in {ckpt_dir}")
+            store = self.store
+            state = self.backend.load_state(
+                {"meta": meta, "arrays": arrays},
+                db=store.db, valid=store.valid, sq_prefix=store.sq_prefix,
+                stats=store.stats(),
+            )
+            self._index_state = state
+            return True
+
+    # -- durability: WAL + snapshots + crash recovery ------------------------
+    def enable_durability(self, ckpt_dir: str) -> None:
+        """Open (or create) the mutation WAL under ``ckpt_dir/wal``.
+
+        From this point every ``add_docs`` / ``delete_docs`` / compaction
+        is logged-then-applied, so ``recover(ckpt_dir)`` in a fresh process
+        reconstructs the acknowledged corpus exactly.  ``recover`` calls
+        this implicitly; call it directly on a brand-new deployment.
+        """
+        with self.lock:
+            if self.wal is not None:
+                return
+            os.makedirs(ckpt_dir, exist_ok=True)
+            self.ckpt_dir = ckpt_dir
+            self.wal = MutationWAL(
+                os.path.join(ckpt_dir, "wal"),
+                fsync=self.config.fault.wal_fsync)
+
+    def save_snapshot(self, *, keep: Optional[int] = None) -> str:
+        """Durably snapshot store + index state; rotate and prune the WAL.
+
+        The snapshot captures the corpus at WAL seq S (its step number IS
+        S + 1, so steps are unique and monotonic across restarts); recovery
+        restores the newest valid snapshot and replays records with
+        ``seq > S``.  Old WAL segments are pruned only past the *oldest
+        retained* snapshot, so a torn-newest fallback still replays.
+        """
+        from repro_torch.checkpoint import all_steps, save_arrays
+
+        with self.lock:
+            if self.wal is None or self.ckpt_dir is None:
+                raise RuntimeError(
+                    "durability is not enabled — call "
+                    "enable_durability(ckpt_dir) or recover(ckpt_dir) first")
+            self.faults.check("ckpt_save")
+            keep = self.config.fault.snapshot_keep if keep is None else keep
+            wal_seq = self.wal.last_seq
+            store_arrays, store_meta = self.store.snapshot_state()
+            arrays = {f"store/{k}": v for k, v in store_arrays.items()}
+            extra: Dict = {
+                "wal_seq": wal_seq,
+                "store_meta": store_meta,
+                "engine_meta": self._index_meta(),
+            }
+            state = self._index_state
+            if state is not None:
+                payload = self.backend.state_dict(state)
+                arrays.update(
+                    {f"index/{k}": v for k, v in payload["arrays"].items()})
+                extra["index_meta"] = payload["meta"]
+            # step number = wal seq + 1 so the empty-log snapshot (seq -1)
+            # still gets a valid step 0
+            path = save_arrays(self.ckpt_dir, wal_seq + 1, arrays,
+                               extra=extra, keep=keep)
+            self.wal.rotate()
+            steps = all_steps(self.ckpt_dir)
+            if steps:
+                self.wal.prune(min(steps) - 1)
+            return path
+
+    def recover(self, ckpt_dir: str) -> Dict:
+        """Restore state from ``ckpt_dir``: newest valid snapshot + WAL tail.
+
+        Walks snapshots newest-to-oldest, skipping any that fail checksum
+        verification (``CorruptCheckpoint``); restores the store and index
+        from the first valid one; then replays every WAL record past that
+        snapshot's sequence number.  A torn WAL tail (crash mid-append)
+        truncates cleanly — the lost suffix was never acknowledged.  Leaves
+        durability enabled and returns a report dict (also kept as
+        ``engine.last_recovery``).  The directory may have been written by
+        either package.
+        """
+        t0 = time.perf_counter()
+        with self.lock:
+            self.faults.check("ckpt_load")
+            report: Dict = {
+                "status": "ok", "snapshot_step": None, "fallbacks": 0,
+                "replayed": 0, "wal_truncated": False, "duration_ms": 0.0,
+            }
+            wal_seq = self._restore_newest_snapshot(ckpt_dir, report)
+            # open the WAL (truncating any torn tail) and replay the rest
+            os.makedirs(ckpt_dir, exist_ok=True)
+            self.ckpt_dir = ckpt_dir
+            self.wal = MutationWAL(
+                os.path.join(ckpt_dir, "wal"),
+                fsync=self.config.fault.wal_fsync)
+            for rec in self.wal.replay(after_seq=wal_seq):
+                self._apply_record(rec)
+                report["replayed"] += 1
+            report["wal_truncated"] = self.wal.torn_tail
+            report["duration_ms"] = (time.perf_counter() - t0) * 1e3
+            self.stats.n_recoveries += 1
+            self.stats.n_replayed += report["replayed"]
+            self.last_recovery = report
+            return report
+
+    def _restore_newest_snapshot(self, ckpt_dir: str, report: Dict) -> int:
+        """Restore store + index from the newest checksum-valid snapshot
+        under ``ckpt_dir`` (corrupt snapshots fall back a step).
+
+        Shared by ``recover`` (primary restart) and the replication
+        follower bootstrap — the follower restores read-only and must NOT
+        open the WAL, so this helper deliberately touches neither
+        ``self.wal`` nor ``self.ckpt_dir``.  Mutates ``report``
+        (``snapshot_step`` / ``fallbacks``) and returns the snapshot's WAL
+        seq, -1 when no usable snapshot exists.  Caller holds the lock.
+        """
+        from repro_torch.checkpoint import (CorruptCheckpoint, all_steps,
+                                            load_arrays)
+
+        loaded = None
+        for step in sorted(all_steps(ckpt_dir), reverse=True):
+            try:
+                arrays, extra, _ = load_arrays(ckpt_dir, step=step)
+            except CorruptCheckpoint:
+                report["fallbacks"] += 1
+                continue
+            loaded = (step, arrays, extra)
+            break
+        if loaded is None:
+            return -1
+        step, arrays, extra = loaded
+        # capacity is NOT checked here: restore_state adopts the
+        # snapshot's buffer capacity, so only identity keys matter
+        self._check_index_meta(extra.get("engine_meta"),
+                               f"snapshot step {step} in {ckpt_dir}",
+                               keys=("backend", "d_emb", "metric"))
+        store_arrays = {
+            k[len("store/"):]: v for k, v in arrays.items()
+            if k.startswith("store/")}
+        self.store.restore_state(store_arrays, extra["store_meta"])
+        self._index_state = None
+        self._min_state_generation = 0
+        index_arrays = {
+            k[len("index/"):]: v for k, v in arrays.items()
+            if k.startswith("index/")}
+        if index_arrays and "index_meta" in extra:
+            self._index_state = self.backend.load_state(
+                {"meta": extra["index_meta"],
+                 "arrays": index_arrays},
+                db=self.store.db, valid=self.store.valid,
+                sq_prefix=self.store.sq_prefix,
+                stats=self.store.stats(),
+            )
+        report["snapshot_step"] = step
+        return int(extra["wal_seq"])
+
+    def apply_replicated(self, rec) -> None:
+        """Apply one WAL record shipped from a primary (follower path).
+
+        Goes through the exact same ``_apply_record`` used by crash
+        recovery — tail injection, capacity doubling, and rebuild
+        scheduling all behave as if the mutation happened locally — but is
+        never re-logged: a follower must not own a WAL over the primary's
+        log directory (it would truncate or extend the live segment).
+        """
+        with self.lock:
+            if self.wal is not None:
+                raise WALError(
+                    "apply_replicated on an engine with its own WAL open — "
+                    "followers replicate, they do not log")
+            self._apply_record(rec)
+
+    def _apply_record(self, rec) -> None:
+        """Re-apply one WAL record during recovery (never re-logged)."""
+        store = self.store
+        if rec.kind == "add":
+            p = rec.payload
+            if int(p["start"]) != store.size:
+                raise WALError(
+                    f"WAL replay divergence at seq {rec.seq}: record "
+                    f"expects start id {p['start']}, store is at "
+                    f"{store.size}")
+            # a writable copy (torch warns on a read-only numpy buffer)
+            vec = np.frombuffer(p["v"], np.float32).reshape(p["shape"]).copy()
+            meta_rows = p.get("metadata")
+            store.add(vec, tenant=p.get("tenant"), metadata=meta_rows)
+            self.stats.n_docs_added += int(p["shape"][0])
+        elif rec.kind == "delete":
+            n = store.delete(np.asarray(rec.payload["ids"], np.int64))
+            self.stats.n_docs_deleted += n
+        elif rec.kind == "compact":
+            # a replayed compaction invalidates any snapshot-loaded index
+            # state (its ids predate the remap); the next dispatch rebuilds
+            store.compact()
+            self.stats.n_compactions += 1
+            self._index_state = None
+            self._min_state_generation = store.generation
+        else:
+            raise WALError(
+                f"unknown WAL record kind {rec.kind!r} at seq {rec.seq}")
 
     # -- request path --------------------------------------------------------
     def check_query(self, query) -> np.ndarray:
@@ -1184,6 +1541,64 @@ class RetrievalEngine:
                 for key, val in self.backend.gauges(state, st).items():
                     self._g_backend.set(
                         float(val), backend=self.backend.name, key=key)
+            if self.wal is not None:
+                w = self.wal.summary()
+                for key in ("last_seq", "lag_records", "n_segments"):
+                    self._g_wal.set(float(w[key]), key=key)
+
+    def profile_stages(self, queries, *, runs: int = 3) -> List[Dict]:
+        """Per-stage wall time for a representative batch (post-warmup).
+
+        Runs the schedule stage by stage (stage-0 full scan, then each
+        rescore) so the cost split across dims is visible — the one-launch
+        ladder hides it.  Always profiles the flat schedule path regardless
+        of the configured backend: it answers "where does the schedule
+        spend", not "what does this backend cost".  Each stage goes through
+        `repro_torch.kernels.ops`, so on CUDA stage 0 is one stage-0 kernel
+        launch and every later stage one ``gather_rescore_topk`` step; each
+        run is timed between two device synchronisations.
+        """
+        q = self._to_device(np.atleast_2d(np.asarray(queries, np.float32)))
+        store = self.store
+        block_n = min(self.block_n, store.capacity)
+        dims_t = self.dims
+        out = []
+        cand = None
+        for si, stage in enumerate(self.sched.stages):
+            col = dims_t.index(stage.dim)
+
+            if si == 0:
+                def fn(c=None, _s=stage):
+                    return ops.truncated_search(
+                        q, store.db, dim=_s.dim, k=_s.k,
+                        db_sq_at_dim=store.sq_prefix[:, col],
+                        valid=store.valid, block_n=block_n,
+                        metric=self.metric,
+                    )
+            else:
+                def fn(c=cand, _s=stage):
+                    return ops.rescore_candidates(
+                        q, store.db, c, dim=_s.dim, k=_s.k,
+                        db_sq_at_dim=store.sq_prefix[:, col],
+                        valid=store.valid, metric=self.metric,
+                    )
+            res = fn()                          # warm-up
+            self._sync()
+            ts = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                res = fn()
+                self._sync()
+                ts.append(time.perf_counter() - t0)
+            cand = res[1]
+            out.append({
+                "stage": si,
+                "dim": stage.dim,
+                "k": stage.k,
+                "pool": stage.pool,
+                "ms": float(np.median(ts) * 1e3),
+            })
+        return out
 
     def describe(self) -> str:
         return (
