@@ -51,6 +51,23 @@ in phases that each print one JSON line:
                  GB/s, WAL bytes, ``recover``'s seconds split into read +
                  CRC, host to device, prefix norms and replay, and the
                  follower's bootstrap and catch-up seconds
+     http      — then the live engine (the primary, WAL on) and the
+                 caught-up follower are each served by
+                 ``RetrievalHTTPServer`` over an ``EngineDriver``, behind a
+                 ``ReplicaRouter`` and ``RouterHTTPServer``: 512 queries
+                 from 8 client threads through the router, all 200, ids
+                 equal to ``engine.search``, no deleted id, both replicas
+                 serving, one stage-0 and one ladder launch a dispatch of
+                 either engine; 32 of them against the plain path; 64 rows
+                 added through the router found top-1 with their
+                 ``min_seq`` token, then deleted and gone; a 403 from the
+                 follower for a write; deep health and ``/metrics``; then
+                 the follower's server stops and 64 searches still answer.
+                 Prints qps, round-trip p50 / p95, the ``spans`` medians
+                 and the primary's p50 beside phase 4's driver p50.
+                 ``http_cli``: the launcher's ``--serve-http`` and
+                 ``--connect`` modes as subprocesses on the card; SIGTERM
+                 ends the server with exit code 0
   6. variants  — the same corpus behind each IVF / quantized backend (ivf
                  float32 / int8 / pq slabs, quantized pq / int8), one engine
                  at a time: build, ``engine.search`` over every query
@@ -751,7 +768,7 @@ def run(args) -> None:
             fail("mutation phase searched without launching the kernels")
         dur_counts = durability_phase(torch, engine, state_dir, q_host,
                                       (s_again, i_again), deleted, gen,
-                                      scales)
+                                      scales, drv["driver_latency_ms_p50"])
     finally:
         if engine.wal is not None:
             engine.wal.close()
@@ -1015,13 +1032,15 @@ def durability_start(torch, engine, state_dir) -> None:
 
 
 def durability_phase(torch, engine, state_dir, q_host, again, deleted, gen,
-                     scales) -> dict:
+                     scales, serving_p50) -> dict:
     """Phase durability, after phase 5: a fresh engine recovers the state
     directory (snapshot 0 + phase 5's two WAL records) and must hold the
     live engine's store bit for bit and serve its ids through the stage-0
     and ladder kernels; ``profile_stages`` runs there stage by stage; then
     a follower on a third engine bootstraps from the directory and tails
-    the live engine's next mutations.  Returns the launch counts."""
+    the live engine's next mutations; then phase ``http`` serves the live
+    engine and the follower over HTTP behind the router.  Returns the
+    launch counts."""
     from repro_torch.engine import MutationWAL, ReplicaApplier, RetrievalEngine
 
     nq = q_host.shape[0]
@@ -1139,10 +1158,333 @@ def durability_phase(torch, engine, state_dir, q_host, again, deleted, gen,
           "applied_seq": applier.applied_seq, "lag": applier.lag(),
           "ids_agree": agree_f, "max_abs_err": err_f, "tol": tol_f,
           "deleted_returned": 0, "launches": f_counts})
+    h_counts = http_phase(torch, engine, foll, applier, q_host, gone, gen,
+                          scales, serving_p50)
     del foll, applier
     gc.collect()
     torch.cuda.empty_cache()
-    return {"search": counts, "profile": p_counts, "follower": f_counts}
+    http_cli_phase()
+    return {"search": counts, "profile": p_counts, "follower": f_counts,
+            "http": h_counts}
+
+
+# -- the serving surface: HTTP front end and router over both engines ---------
+
+# Searches sent through the router (of the 2,470 paper queries) and client
+# threads; rows added in one POST and searched back with ``min_seq``
+# (a POST stays far below the 64 MiB body limit: 64 x 3,584 floats are
+# about 4.6 MB of JSON); searches sent after the follower is stopped; the
+# plain-path queries; seconds a launcher subprocess may take.
+HTTP_QUERIES, HTTP_CLIENTS = 512, 8
+HTTP_NEW_DOCS, HTTP_FAILOVER, HTTP_PLAIN = 64, 64, 32
+CLI_TIMEOUT = 120
+
+
+def http_fan_out(url, bodies, n_threads):
+    """POST every body to ``url``/v1/search from ``n_threads`` threads:
+    per body (status, payload, round-trip ms), and the wall seconds."""
+    from repro_torch.serve import http_call
+
+    out = [None] * len(bodies)
+
+    def client(c):
+        for i in range(c, len(bodies), n_threads):
+            t0 = time.perf_counter()
+            status, payload = http_call(url, "/v1/search", bodies[i],
+                                        timeout=60)
+            out[i] = (status, payload, (time.perf_counter() - t0) * 1e3)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or any(o is None for o in out):
+        fail("an HTTP client thread did not finish")
+    return out, wall
+
+
+def http_ok(name, results):
+    bad = [(st, pl.get("error")) for st, pl, _ in results if st != 200]
+    if bad:
+        fail(f"{name}: {len(bad)} of {len(results)} requests failed: "
+             f"{bad[:3]}")
+
+
+def http_phase(torch, engine, foll, applier, q_host, gone, gen, scales,
+               serving_p50) -> dict:
+    """Phase http: the live engine (primary, WAL on) and its caught-up
+    follower each behind ``RetrievalHTTPServer`` with an ``EngineDriver``,
+    a ``ReplicaRouter`` in front of both behind ``RouterHTTPServer``:
+    searches from client threads, against ``engine.search`` and the plain
+    path, read-your-writes through ``min_seq``, the follower's 403, deep
+    health and ``/metrics``, then failover.  Returns the launch counts of
+    the router searches."""
+    import urllib.request
+
+    from repro_torch.engine import EngineDriver, PrimaryReplication
+    from repro_torch.engine import wal as wal_mod
+    from repro_torch.obs import parse_prometheus
+    from repro_torch.serve import (ReplicaRouter, RouterHTTPServer,
+                                   http_call, run_server_in_thread,
+                                   serve_in_thread)
+
+    t_phase = time.perf_counter()
+    # one parse of the newest WAL segment from its start: what each of a
+    # deep health probe's four lag reads cost before the cursor parsed
+    # only the bytes added since its last read
+    newest = wal_mod._list_segments(applier.wal_dir)[-1][1]
+    t0 = time.perf_counter()
+    wal_mod._scan_segment(newest)
+    full_parse_ms = (time.perf_counter() - t0) * 1e3
+    qs = q_host[:HTTP_QUERIES]
+    k = engine.config.final_k
+    s_want, i_want = engine.search(qs)
+    drivers = [EngineDriver(engine, max_wait_ms=2.0).start(),
+               EngineDriver(foll, max_wait_ms=2.0).start()]
+    handles, router = [], None
+    try:
+        ph = serve_in_thread(engine, drivers[0], require_tenant=False,
+                             replication=PrimaryReplication(engine))
+        handles.append(ph)
+        applier.start()
+        fh = serve_in_thread(foll, drivers[1], require_tenant=False,
+                             read_only=True, replication=applier)
+        handles.append(fh)
+        router = ReplicaRouter([ph.url, fh.url], hedge_ms=None).start()
+        if not router.wait_ready(2, timeout=60):
+            fail(f"replicas not ready behind the router: {router.status()}")
+        rh = run_server_in_thread(RouterHTTPServer(router),
+                                  thread_name="router-http")
+        handles.append(rh)
+        t0 = time.perf_counter()
+        status, _ = http_call(fh.url, "/healthz?deep=1", timeout=60)
+        deep_ms = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            fail(f"the follower's deep health answered {status}")
+
+        # 1. searches through the router, against engine.search
+        batches0 = [e.stats.n_batches for e in (engine, foll)]
+        zero_counts()
+        bodies = [{"query": q.tolist(), "k": k} for q in qs]
+        res, wall = http_fan_out(rh.url, bodies, HTTP_CLIENTS)
+        counts = read_counts()
+        dispatches = sum(e.stats.n_batches - b
+                         for e, b in zip((engine, foll), batches0))
+        http_ok("router searches", res)
+        if any(len(pl["ids"]) != k for _, pl, _ in res):
+            fail("a router search returned fewer than k ids")
+        got = (torch.tensor([pl["scores"] for _, pl, _ in res],
+                            dtype=torch.float32),
+               torch.tensor([pl["ids"] for _, pl, _ in res],
+                            dtype=torch.int32))
+        err, agree, tol = compare(
+            torch, got, (torch.as_tensor(s_want), torch.as_tensor(i_want)))
+        if agree < 1.0 or err > tol:
+            fail(f"router searches agree with engine.search on {agree} of "
+                 f"slots (max |Δscore| {err}, tol {tol})")
+        back = sorted(set(int(x) for x in got[1].ravel().tolist()) & gone)
+        if back:
+            fail(f"the router returned deleted ids: {back[:10]}")
+        by = {url: sum(1 for _, pl, _ in res if pl["served_by"] == url)
+              for url in (ph.url, fh.url)}
+        if min(by.values()) == 0:
+            fail(f"one replica served no search: {by}")
+        if not (counts["distance_topk.l2_topk"]
+                == counts["gather_rescore.ladder"] == dispatches) \
+                or counts["gather_rescore.step"] != 0:
+            fail(f"{dispatches} HTTP dispatches did not each run one "
+                 f"stage-0 and one ladder launch: {counts}")
+        lat = [ms for _, _, ms in res]
+        prim_lat = [ms for _, pl, ms in res if pl["served_by"] == ph.url]
+
+        # 2. against the plain path
+        with plain_ops():
+            s_plain, i_plain = engine.search(qs[:HTTP_PLAIN])
+        err_p, agree_p, tol_p = compare(
+            torch, (got[0][:HTTP_PLAIN], got[1][:HTTP_PLAIN]),
+            (torch.as_tensor(s_plain), torch.as_tensor(i_plain)))
+        if agree_p < 1.0 or err_p > tol_p:
+            fail(f"HTTP answers agree with the plain path on {agree_p} of "
+                 f"slots (max |Δscore| {err_p}, tol {tol_p})")
+
+        # 3. read your writes: add through the router, search with min_seq
+        new = (torch.randn((HTTP_NEW_DOCS, engine.store.d_emb),
+                           generator=gen, device=scales.device)
+               * scales).cpu().numpy()
+        status, added = http_call(rh.url, "/v1/docs",
+                                  {"vectors": new.tolist()}, timeout=120)
+        if status != 200 or added.get("served_by") != ph.url \
+                or len(added.get("ids", ())) != HTTP_NEW_DOCS:
+            fail(f"add through the router: {status} {added.get('error')} "
+                 f"served by {added.get('served_by')}")
+        new_ids, seq = added["ids"], added["seq"]
+        if seq != engine.wal.last_seq:
+            fail(f"the add returned seq {seq}; the WAL is at "
+                 f"{engine.wal.last_seq}")
+        ryw, _ = http_fan_out(rh.url, [
+            {"query": v.tolist(), "k": k, "min_seq": seq} for v in new],
+            HTTP_CLIENTS)
+        http_ok("read-your-writes searches", ryw)
+        ryw_top1 = sum(1 for (_, pl, _), i in zip(ryw, new_ids)
+                       if pl["ids"][0] == i)
+        ryw_by = {url: sum(1 for _, pl, _ in ryw if pl["served_by"] == url)
+                  for url in (ph.url, fh.url)}
+        if ryw_top1 != HTTP_NEW_DOCS:
+            fail(f"only {ryw_top1} of {HTTP_NEW_DOCS} added rows came back "
+                 f"top-1 with min_seq {seq}")
+        status, deleted = http_call(rh.url, "/v1/docs/delete",
+                                    {"ids": new_ids}, timeout=120)
+        if status != 200 or deleted["n_deleted"] != HTTP_NEW_DOCS:
+            fail(f"delete through the router: {status} {deleted}")
+        gone_ryw, _ = http_fan_out(rh.url, [
+            {"query": v.tolist(), "k": k, "min_seq": deleted["seq"]}
+            for v in new], HTTP_CLIENTS)
+        http_ok("searches after the delete", gone_ryw)
+        back = set(i for _, pl, _ in gone_ryw for i in pl["ids"]) \
+            & set(new_ids)
+        if back:
+            fail(f"deleted rows came back after min_seq {deleted['seq']}: "
+                 f"{sorted(back)[:10]}")
+
+        # 4. the follower is read-only
+        status, _ = http_call(fh.url, "/v1/docs",
+                              {"vectors": new[:1].tolist()}, timeout=60)
+        if status != 403:
+            fail(f"a POST /v1/docs to the follower got {status}, not 403")
+
+        # 5. deep health and /metrics
+        status, health = http_call(ph.url, "/healthz?deep=1", timeout=60)
+        deep = health.get("deep", {})
+        if status != 200 or deep.get("driver", {}).get("state") != "running" \
+                or deep.get("wal", {}).get("last_seq") != engine.wal.last_seq:
+            fail(f"deep health of the primary: {status} {deep}")
+        key = (("route", "/v1/search"), ("status", "200"))
+        n_200 = 0
+        for h in handles[:2]:
+            with urllib.request.urlopen(h.url + "/metrics",
+                                        timeout=60) as r:
+                fams = parse_prometheus(r.read().decode())
+            n_200 += fams.get("repro_http_requests_total", {}).get(key, 0)
+        if n_200 < HTTP_QUERIES + 2 * HTTP_NEW_DOCS:
+            fail(f"/metrics counts {n_200} /v1/search 200s; "
+                 f"{HTTP_QUERIES + 2 * HTTP_NEW_DOCS} were sent")
+
+        # 6. failover: stop the follower's server, search on
+        fh.stop()
+        fo, _ = http_fan_out(rh.url, bodies[:HTTP_FAILOVER], HTTP_CLIENTS)
+        n_fo = sum(1 for st, _, _ in fo if st == 200)
+        if n_fo != HTTP_FAILOVER:
+            errs = [pl for st, pl, _ in fo if st != 200]
+            fail(f"{n_fo} of {HTTP_FAILOVER} searches answered after the "
+                 f"follower stopped: {errs[:3]}")
+        down, t_end = False, time.perf_counter() + 30
+        while not down and time.perf_counter() < t_end:
+            _, reps = http_call(rh.url, "/v1/replicas", timeout=60)
+            down = any(r["url"] == fh.url and not r["alive"]
+                       for r in reps.get("replicas", ()))
+            time.sleep(0.05)
+        if not down:
+            fail(f"the router's /v1/replicas still shows the follower up: "
+                 f"{reps}")
+    finally:
+        for h in reversed(handles):
+            h.stop()
+        if router is not None:
+            router.stop()
+        for d in drivers:
+            d.stop()
+        applier.stop()
+    spans = {name: statistics.median(pl["spans"][name] for _, pl, _ in res)
+             for name in ("queue_ms", "compute_ms")}
+    emit({"phase": "http", "requests": HTTP_QUERIES,
+          "clients": HTTP_CLIENTS, "http_s": wall,
+          "qps": HTTP_QUERIES / wall,
+          "http_ms_p50": float(np.percentile(lat, 50)),
+          "http_ms_p95": float(np.percentile(lat, 95)),
+          "served_by": {"primary": by[ph.url], "follower": by[fh.url]},
+          "spans_ms_p50": spans,
+          "primary_http_ms_p50": float(np.percentile(prim_lat, 50)),
+          "serving_driver_ms_p50": serving_p50,
+          "ids_agree": agree, "max_abs_err": err, "tol": tol,
+          "deleted_returned": 0, "dispatches": dispatches,
+          "launches": counts,
+          "plain": {"queries": HTTP_PLAIN, "ids_agree": agree_p,
+                    "max_abs_err": err_p, "tol": tol_p},
+          "read_your_writes": {"added": HTTP_NEW_DOCS, "seq": seq,
+                               "top1": ryw_top1,
+                               "served_by": {"primary": ryw_by[ph.url],
+                                             "follower": ryw_by[fh.url]},
+                               "delete_seq": deleted["seq"],
+                               "returned_after_delete": 0},
+          "follower_add_status": 403, "metrics_search_200": n_200,
+          "deep_wal_last_seq": deep["wal"]["last_seq"],
+          "follower_deep_health_ms": deep_ms,
+          "wal_segment_bytes": os.path.getsize(newest),
+          "wal_segment_full_parse_ms": full_parse_ms,
+          "failover": {"requests": HTTP_FAILOVER, "ok": n_fo,
+                       "follower_down": down},
+          "phase_s": time.perf_counter() - t_phase})
+    return counts
+
+
+def http_cli_phase() -> None:
+    """Sub-phase http_cli: the launcher's server and client modes as
+    subprocesses on the card; SIGTERM ends the server with exit code 0."""
+    import queue
+    import signal
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    launch = [sys.executable, "-u", "-m", "repro_torch.launch.serve"]
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        launch + ["--serve-http", "--port", "0", "--allow-anonymous",
+                  "--d-emb", "128", "--docs", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=HERE)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in server.stdout],
+                     daemon=True).start()
+    seen = []
+    try:
+        url = None
+        while url is None:
+            try:
+                line = lines.get(timeout=max(0.0, t0 + CLI_TIMEOUT
+                                             - time.perf_counter()))
+            except queue.Empty:
+                fail(f"the launcher printed no URL in {CLI_TIMEOUT} s: "
+                     f"{seen[-5:]}")
+            seen.append(line.rstrip())
+            if line.startswith("[http]   serving on "):
+                url = line.split()[3]
+        boot_s = time.perf_counter() - t0
+        client = subprocess.run(
+            launch + ["--connect", url, "--docs", "2048", "--requests",
+                      "256", "--clients", "8"],
+            capture_output=True, text=True, timeout=CLI_TIMEOUT, env=env,
+            cwd=HERE)
+        if client.returncode != 0:
+            fail(f"the launcher's client exited {client.returncode}: "
+                 f"{client.stdout[-2000:]} {client.stderr[-2000:]}")
+        server.send_signal(signal.SIGTERM)
+        rc = server.wait(timeout=CLI_TIMEOUT)
+        if rc != 0:
+            fail(f"the launcher's server exited {rc} after SIGTERM: "
+                 f"{seen[-5:]}")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait(timeout=CLI_TIMEOUT)
+    emit({"phase": "http_cli", "server_boot_s": boot_s,
+          "client": [ln for ln in client.stdout.splitlines()
+                     if ln.startswith(("[seed]", "[client]"))],
+          "server_lines": seen[:4], "server_rc": rc,
+          "client_rc": client.returncode,
+          "total_s": time.perf_counter() - t0})
 
 
 def index_reload(engine, ctx, i_eng, build_s) -> None:

@@ -12,6 +12,9 @@ observability layers are the same host code.
   repro_torch.engine          — DocStore, RetrievalEngine, EngineDriver,
                                 the mutation WAL, recovery, supervision
                                 and WAL-shipped replication
+  repro_torch.serve           — HTTP front end, tenant quotas and the
+                                replica router (the JAX package's wire
+                                protocol)
   repro_torch.checkpoint      — checkpoints in the JAX package's format
                                 (npz + msgpack manifest, own codec)
   repro_torch.obs             — metrics registry and request traces
@@ -19,7 +22,9 @@ observability layers are the same host code.
   repro_torch.layers          — norms, FFN, RoPE, GQA attention
   repro_torch.models          — the dense GQA LM (prefill, decode)
   repro_torch.rag             — RAGPipeline: retrieve, assemble, generate
-  repro_torch.launch          — the closed-loop serving demo
+  repro_torch.launch          — the serving launcher (closed-loop demo,
+                                HTTP server, router and client modes) and
+                                the paper's experiment driver
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``.

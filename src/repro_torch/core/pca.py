@@ -21,6 +21,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.layers.common import resolve_device
+
 Tensor = torch.Tensor
 
 #: Rows centred at once: bounds the float32 temporary to this many rows.
@@ -34,9 +36,11 @@ class PCAState(NamedTuple):
 
 
 def pca_state_from_numpy(mean, components, explained_var,
-                         device="cpu") -> PCAState:
+                         device="cuda") -> PCAState:
     """A fitted state given as arrays (for example one the JAX package
-    fitted, as numpy) as float32 tensors on ``device``."""
+    fitted, as numpy) as float32 tensors on ``device`` (raises without a
+    CUDA device unless ``device="cpu"``)."""
+    device = resolve_device(device)
     as_t = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(
         device)
     return PCAState(as_t(mean), as_t(components), as_t(explained_var))

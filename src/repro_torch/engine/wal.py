@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import os
 import struct
+import threading
 import zlib
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -313,6 +314,11 @@ class WALCursor:
         self.wal_dir = wal_dir
         self.next_seq = int(after_seq) + 1
         self._offsets: Dict[str, int] = {}     # path -> bytes fully parsed
+        # last_available_seq's place in the newest segment: ((path, inode),
+        # bytes parsed, last intact seq there), under its own lock
+        self._tail_seen: Tuple[Optional[Tuple[str, int]], int, int] = (
+            None, 0, -1)
+        self._tail_lock = threading.Lock()
 
     @property
     def applied_seq(self) -> int:
@@ -381,18 +387,31 @@ class WALCursor:
 
     def last_available_seq(self) -> int:
         """Highest intact seq currently durable in the directory (-1 when
-        empty) — the target the cursor is chasing."""
+        empty) — the target the cursor is chasing.
+
+        The newest segment is parsed on from where the previous call
+        stopped, not from its start: health probes and readiness checks
+        call this several times a second, and one logged ``add`` of a
+        million-row corpus is a record of hundreds of MB.  A segment that
+        was replaced or shrank is parsed again from its start."""
         segs = _list_segments(self.wal_dir)
         if not segs:
             return -1
         first, path = segs[-1]
-        try:
-            recs, _clean, _torn = _scan_segment(path)
-        except FileNotFoundError:
-            return self.applied_seq
-        if recs:
-            return recs[-1].seq
-        return first - 1
+        with self._tail_lock:
+            try:
+                st = os.stat(path)
+                key = (path, st.st_ino)
+                seen, offset, last = self._tail_seen
+                if seen != key or st.st_size < offset:
+                    offset, last = 0, first - 1
+                recs, clean, _torn = _scan_tail(path, offset)
+            except FileNotFoundError:
+                return self.applied_seq
+            if recs:
+                last = recs[-1].seq
+            self._tail_seen = (key, clean, last)
+            return last
 
     def lag(self) -> int:
         """How many durable records the cursor has not yet handed out."""

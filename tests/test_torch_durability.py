@@ -887,6 +887,72 @@ class TestWALCursor:
         assert cur.lag() == 0
 
 
+class TestLastAvailableSeqTail:
+    """The port's cursor parses the newest segment on from where its last
+    ``last_available_seq`` stopped (a deep health probe calls it four
+    times, and one logged add can be hundreds of MB); the value is always
+    the full scan's."""
+
+    @staticmethod
+    def full_scan(wal_dir):
+        from repro_torch.engine import wal as W
+
+        first, path = W._list_segments(wal_dir)[-1]
+        recs, _clean, _torn = W._scan_segment(path)
+        return recs[-1].seq if recs else first - 1
+
+    def test_equals_full_scan_through_appends_rotation_and_tears(
+            self, tmp_path):
+        from repro_torch.engine import wal as W
+
+        d = str(tmp_path)
+        cur = WALCursor(d)
+        assert cur.last_available_seq() == -1
+        wal = MutationWAL(d, fsync=False)
+        assert cur.last_available_seq() == self.full_scan(d) == -1
+        for i in range(3):
+            wal.append("add", {"i": i})
+            assert cur.last_available_seq() == self.full_scan(d) == i
+        wal.rotate()
+        assert cur.last_available_seq() == self.full_scan(d) == 2
+        wal.append("add", {"i": 3})
+        assert cur.last_available_seq() == self.full_scan(d) == 3
+        wal.close()
+        path = W._list_segments(d)[-1][1]
+        with open(path, "ab") as f:
+            f.write(b"\x07" * 11)                  # a writer mid-append
+        assert cur.last_available_seq() == self.full_scan(d) == 3
+        wal = MutationWAL(d, fsync=False)         # truncates the tear
+        wal.append("add", {"i": 4})
+        assert cur.last_available_seq() == self.full_scan(d) == 4
+        wal.close()
+        os.truncate(path, os.path.getsize(path) - 3)   # shrank: from 0
+        assert cur.last_available_seq() == self.full_scan(d) == 3
+
+    def test_a_second_call_parses_only_new_bytes(self, tmp_path,
+                                                monkeypatch):
+        from repro_torch.engine import wal as W
+
+        d = str(tmp_path)
+        wal = MutationWAL(d, fsync=False)
+        wal.append("add", {"blob": b"\0" * 100_000})
+        cur = WALCursor(d)
+        assert cur.last_available_seq() == 0
+        offsets = []
+        real = W._scan_tail
+
+        def counting(path, offset):
+            offsets.append(offset)
+            return real(path, offset)
+
+        monkeypatch.setattr(W, "_scan_tail", counting)
+        assert cur.last_available_seq() == 0
+        wal.append("add", {"i": 1})
+        assert cur.last_available_seq() == 1
+        wal.close()
+        assert len(offsets) == 2 and min(offsets) > 100_000
+
+
 class TestRecoverCorners:
     def test_primary_empty_state_dir(self, tmp_path):
         eng = fresh_engine()

@@ -210,6 +210,7 @@ class TestPackageRules:
             "names = [m.name for m in pkgutil.walk_packages(\n"
             "    repro_torch.__path__, 'repro_torch.')]\n"
             "assert len(names) > 20, names\n"
+            "assert 'repro_torch.serve.http' in names, names\n"
             "for name in names:\n"
             "    for mod in [m for m in sys.modules if m.startswith('repro_torch')]:\n"
             "        del sys.modules[mod]\n"
@@ -239,6 +240,18 @@ class TestPackageRules:
             RetrievalEngine(8, d_start=4, k0=2, capacity=4)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DocStore(8, (4, 8))
+
+    def test_pca_state_from_numpy_defaults_to_cuda(self):
+        from repro_torch.core.pca import pca_state_from_numpy
+
+        args = (np.zeros(4), np.eye(4)[:, :2], np.ones(2))
+        if torch.cuda.is_available():
+            assert pca_state_from_numpy(*args).components.is_cuda
+            return
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            pca_state_from_numpy(*args)
+        assert pca_state_from_numpy(*args, device="cpu").mean.device.type \
+            == "cpu"
 
     def test_unported_backends_raise(self):
         # every backend of the JAX package is served; a name neither

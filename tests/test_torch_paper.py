@@ -220,7 +220,7 @@ class TestPCA:
         want_state = jpca.fit_pca(jnp.asarray(x), 12)
         state = tpca.pca_state_from_numpy(
             np.asarray(want_state.mean), np.asarray(want_state.components),
-            np.asarray(want_state.explained_var))
+            np.asarray(want_state.explained_var), device="cpu")
         assert state.components.dtype == torch.float32
         np.testing.assert_allclose(
             tpca.pca_transform(state, torch.from_numpy(x)).numpy(),
