@@ -111,6 +111,29 @@ in phases that each print one JSON line:
                  layer's causal mask shifted by one key) must fail the
                  call-by-call check; one ``generate`` is traced with
                  ``torch.profiler``
+ 7b. lm_families — the other LM families of the registry, one model on
+                 the card at a time, each behind a flat corpus of 16,384
+                 mean-pooled documents: 16 queries that copy documents
+                 (top-1 must be the source), ``RAGPipeline.generate`` in
+                 batches of 8, 32 greedy tokens.  StarCoder2-3B (30 layers,
+                 prompts of 512) and Gemma3-4B (34 layers, 5 local : 1
+                 global, prompts of 2,048, so the 1,024-key window cuts in
+                 prefill and decode wraps the ring caches) whole;
+                 Qwen3-MoE-235B-A22B (8 of 94 layers) and DeepSeek-V2-236B
+                 (the dense layer and 5 MoE layers of 60; MLA) at full width,
+                 cut in depth to fit the card.  Flash launches are counted
+                 by kernel and checked exactly (prefill on
+                 ``prefill_wgmma`` / ``fma``, decode on ``decode_splitkv``,
+                 none for MLA's absorbed decode); each family is
+                 teacher-forced against its plain path as phase 7 is, with
+                 the shifted-mask controls (and, for Gemma3, a local
+                 layer's window widened by one key) failing the
+                 call-by-call check; in the MoE families the logits whose
+                 token reached other experts on the two paths are counted
+                 and held apart.  First, the flash kernel at the families'
+                 new attention shapes (Gemma3's head dim 256 with and
+                 without its window, its ring decode, MLA's prefill padded
+                 to 256) against its plain version, with SDPA and bounds
   8. recsys    — the recsys serving path at CONFIG width, random weights
                  from ``--seed``, one model at a time: two-tower retrieval
                  (4 + 4 fields of 1M x 256 rows, towers 1024-1024-512-256)
@@ -242,6 +265,20 @@ RAG_DOCS, RAG_DOC_LEN, RAG_QUERIES = 262_144, 256, 64
 RAG_BATCH, RAG_NEW_TOKENS = 8, 32
 # The compute-bound flash case: one 4,096-token prompt at Mistral's heads.
 LONG_PROMPT = 4096
+# The LM-families phase: each other LM family at full width from its config
+# module, behind a flat corpus of FAM_DOCS mean-pooled documents; FAM_QUERIES
+# queries that copy documents, LM batches of RAG_BATCH, RAG_NEW_TOKENS greedy
+# tokens.  (arch, layers kept — None: the published depth —, document
+# tokens — a prompt is twice that —, the flash kernel of its prefill and of
+# its decode steps — None: MLA's absorbed decode, no attention kernel.)
+# Qwen3-MoE and DeepSeek-V2 are cut in depth to fit the card's 80 GB: 8
+# layers of 4.8 GB of bf16 experts; the dense layer and 5 MoE layers of 7.9.
+FAMILIES = (("starcoder2-3b", None, 256, "prefill_wgmma", "decode_splitkv"),
+            ("gemma3-4b", None, 1024, "fma", "decode_splitkv"),
+            ("qwen3-moe-235b-a22b", 8, 256, "prefill_wgmma",
+             "decode_splitkv"),
+            ("deepseek-v2-236b", 6, 256, "fma", None))
+FAM_DOCS, FAM_QUERIES = 16_384, 16
 # Tolerances.  Flash kernel vs its plain version: float32 2e-4 (the JAX
 # package's own); bfloat16 2e-2, a small multiple of the 7.8e-3 (one bf16
 # step between 1 and 2) measured over every case — also the limit for each
@@ -254,8 +291,30 @@ LONG_PROMPT = 4096
 # allowed only where the plain path's top-2 margin is below LOGIT_TOL (a
 # near-tie); the logit check alone would allow margins up to twice that.
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# The LM families' attention outputs reach |x| of 4 to 8, where one bf16
+# step is 0.03125 (StarCoder2-3B on the H100: 0.03125 in prefill and
+# decode calls, one rounding of the output): their call-by-call check
+# holds each element within FLASH_TOL + FAMILY_CALL_RTOL * |plain|, the
+# rtol = atol = 2e-2 of the card tests (tests/test_torch_cuda.py).
+FAMILY_CALL_RTOL = FLASH_TOL["bfloat16"]
 LOGIT_TOL = 0.25
 NEAR_TIE = LOGIT_TOL
+# Both are in units of the RMS of the plain path's logits, at least 1.  A
+# fan-in head gives logits of RMS about 1 (Mistral-Nemo 0.987, StarCoder2
+# 0.987); Gemma3-4B's head is its embedding, rows of unit variance, so its
+# logits have RMS 49.9.  On the H100 the sound runs' gaps were 0.062-0.145
+# RMS (the largest Gemma3's 7.26), the first layer's shifted-mask control
+# 0.73-2.35 RMS: the limit lies between, and the check must reject that
+# control.  Shifts in later layers move the logits no more than the sound
+# run's bf16 noise, and only the call-by-call check sees them: the plain
+# path with every attention output moved one bf16 step moved them as far
+# as the kernel path did (Mistral-Nemo 0.139 against 0.132, Gemma3 7.22
+# against 7.26; its head alone, on the last hidden state so moved, 1.62).
+# A MoE family's logits are held only where their token reached the same
+# experts on both paths; at least MOE_HELD_FLOOR of them must be (0.61 and
+# 0.79 on the H100 for Qwen3-MoE and DeepSeek-V2 at random weights, where
+# one bf16 step on the plain path routes 51% and 30% of tokens apart).
+MOE_HELD_FLOOR = 0.5
 
 # The recsys phase: a 1M-item DB from the item tower, user batches of 8
 # (one request) and 512 (serve_p99), 512 users x 4,096 candidates; DLRM at
@@ -792,6 +851,9 @@ def run(args) -> None:
     # -- 7. the RAG generation path ------------------------------------------
     launches.update(rag_phase(torch, dev, args.seed))
 
+    # -- 7b. the other LM families -------------------------------------------
+    families = lm_families_phase(torch, dev, args.seed)
+
     # -- 8. the recsys serving path, 9. EGNN inference -------------------------
     counts, rows, tt_stage_row = recsys_phase(torch, dev, args.seed)
     launches.update(counts)
@@ -808,7 +870,7 @@ def run(args) -> None:
     paper_counts = paper_phase(torch, dev, args.seed)
     finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
            launches, paper_counts, dur_counts, scan_rows, flash_rows,
-           bag_rows, seg_rows)
+           bag_rows, seg_rows, families)
 
 
 # -- 10. the paper's experiments ---------------------------------------------
@@ -2204,21 +2266,104 @@ def flash_keep(torch, sq, skv, causal, window, dev):
     return keep
 
 
+def flash_row(torch, case, q, k, v, *, causal, window, flush, scale=None,
+              host_time=False, sdpa_inputs=None, n_bytes=None,
+              n_ops=None) -> dict:
+    """One flash-attention case against its plain version on the card:
+    the kernel that served it (the one ``route`` names), its largest error
+    within ``FLASH_TOL``, rows with nothing to attend 0, CUDA-event times
+    of the kernel, the plain version and ``F.scaled_dot_product_attention``
+    (on ``sdpa_inputs`` when given: the same function on other tensors),
+    the device time, and the bound from the bytes (q, k, v read once, the
+    output written once) and the operations (two products of 2 * dh for
+    every (query, key) pair the mask keeps), unless ``n_bytes`` / ``n_ops``
+    are given.
+    Emits and returns the row; ``host_time`` adds the wrapper's host time
+    over 1,000 calls without a synchronise."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = str(q.dtype).split(".")[-1]
+    tol = FLASH_TOL[dtype]
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    keep = flash_keep(torch, sq, skv, causal, window, q.device)
+    if bool(keep.all()):
+        sdpa_kw = {}
+    elif causal and window is None and sq == skv:
+        sdpa_kw = {"is_causal": True}     # top-left = end-aligned here
+    else:
+        sdpa_kw = {"attn_mask": keep}     # end-aligned, explicit
+    if scale is not None:
+        sdpa_kw["scale"] = scale
+    sq_, sk_, sv_ = sdpa_inputs or (q, k, v)
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+    plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window, scale=scale)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        sq_, sk_, sv_, enable_gqa=True, **sdpa_kw)
+    before = dict(fa.launches_by_kernel)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    served = [kind for kind, n in fa.launches_by_kernel.items()
+              if n != before[kind]]
+    if served != [fa.route(q.dtype, dh, sq, hq // hkv, skv)]:
+        fail(f"flash_attention {case} {dtype}: served by {served}")
+    err = float((got.float() - want.float()).abs().max())
+    if err > tol or not bool(torch.isfinite(got).all()):
+        fail(f"flash_attention {case} {dtype}: max|Δ|={err} (tol {tol})")
+    empty_rows = int((~keep.any(dim=1)).sum())
+    if empty_rows and bool(got[:, :, ~keep.any(dim=1)].any()):
+        fail(f"flash_attention {case} {dtype}: a row with nothing to "
+             f"attend is not 0")
+    del got, want
+    if n_bytes is None:
+        n_bytes = q.element_size() * dh * (2 * b * hq * sq
+                                           + 2 * b * hkv * skv)
+    if n_ops is None:
+        n_ops = 4.0 * dh * b * hq * int(keep.sum())
+    bnd, by = bound_ms(n_bytes, n_ops, peak)
+    dev_all, dev_own = device_ms(torch, kern, ("flash_attention_kernel",),
+                                 per_call=1)
+    row = {"kernel": "flash_attention.flash_attention", "case": case,
+           "dtype": dtype, "served_by": served[0],
+           "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} "
+                    f"causal={causal} window={window}",
+           "strides": [list(t.stride()) for t in (q, k, v)],
+           "max_abs_err": err, "tol": tol, "empty_rows": empty_rows,
+           "ms": cuda_ms(torch, kern, flush=flush),
+           "plain_ms": cuda_ms(torch, plain, flush=flush),
+           "library_ms": cuda_ms(torch, sdpa, flush=flush),
+           "device_ms": dev_all, "kernel_device_ms": dev_own,
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes, "ops": n_ops}
+    if scale is not None:
+        row["scale"] = scale
+    if host_time:
+        # the wrapper's host time: enqueue only, no synchronise
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            kern()
+        row["host_us_per_call"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    row["launches_by_kernel"] = dict(fa.launches_by_kernel)
+    emit({"phase": "kernels", **row})
+    return row
+
+
 def flash_kernel_phase(torch, dev, flush) -> list:
     """The flash-attention kernel against its plain version (phase 2), in
     bfloat16 and float32: the serving shapes of the RAG phase (prefill over
     the 512-token prompt; decode at the last step's position over a prefix
     of the (8, 8, 544, 128) cache), the edge cases, and decode steps over
     strided cache prefixes (positions 0, 64, 543); q, k and v of the
-    serving shapes have the layouts the LM path gives them.  Every case is timed beside its plain version
-    and ``F.scaled_dot_product_attention`` (the yardstick, which the port
-    never calls), with its bound from the bytes (q, k, v read once, the
-    output written once) and the operations (two products of 2 * dh for
-    every (query, key) pair the mask keeps) these inputs need.  Returns the
-    measured rows."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import flash_attention as fa
+    serving shapes have the layouts the LM path gives them.  Every case is
+    a `flash_row`: timed beside its plain version and
+    ``F.scaled_dot_product_attention`` (the yardstick, which the port never
+    calls), with its bound.  Returns the measured rows."""
     from repro_torch.layers.rope import apply_rope
 
     g = torch.Generator(device=dev)
@@ -2229,8 +2374,6 @@ def flash_kernel_phase(torch, dev, flush) -> list:
     rows = []
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
-        tol = FLASH_TOL[dtype]
-        peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS
 
         def rnd(*shape):
             return torch.randn(shape, generator=g, device=dev).to(dt)
@@ -2267,66 +2410,9 @@ def flash_kernel_phase(torch, dev, flush) -> list:
                           rnd(1, LONG_PROMPT, 8, 128).transpose(1, 2), True,
                           None))
         for case, q, k, v, causal, window in cases:
-            b, hq, sq, dh = q.shape
-            hkv, skv = k.shape[1], k.shape[2]
-            keep = flash_keep(torch, sq, skv, causal, window, dev)
-            if bool(keep.all()):
-                sdpa_kw = {}
-            elif causal and window is None and sq == skv:
-                sdpa_kw = {"is_causal": True}     # top-left = end-aligned here
-            else:
-                sdpa_kw = {"attn_mask": keep}     # end-aligned, explicit
-            kern = lambda: fa.flash_attention(q, k, v, causal=causal,
-                                              window=window)
-            plain = lambda: fa.flash_attention_plain(q, k, v, causal=causal,
-                                                     window=window)
-            sdpa = lambda: F.scaled_dot_product_attention(
-                q, k, v, enable_gqa=True, **sdpa_kw)
-            before = dict(fa.launches_by_kernel)
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            served = [kind for kind, n in fa.launches_by_kernel.items()
-                      if n != before[kind]]
-            if served != [fa.route(q.dtype, dh, sq, hq // hkv, skv)]:
-                fail(f"flash_attention {case} {dtype}: served by {served}")
-            err = float((got.float() - want.float()).abs().max())
-            if err > tol or not bool(torch.isfinite(got).all()):
-                fail(f"flash_attention {case} {dtype}: max|Δ|={err} "
-                     f"(tol {tol})")
-            empty_rows = int((~keep.any(dim=1)).sum())
-            if empty_rows and bool(got[:, :, ~keep.any(dim=1)].any()):
-                fail(f"flash_attention {case} {dtype}: a row with nothing "
-                     f"to attend is not 0")
-            n_bytes = q.element_size() * dh * (2 * b * hq * sq
-                                               + 2 * b * hkv * skv)
-            n_ops = 4.0 * dh * b * hq * int(keep.sum())
-            bnd, by = bound_ms(n_bytes, n_ops, peak)
-            dev_all, dev_own = device_ms(torch, kern,
-                                         ("flash_attention_kernel",),
-                                         per_call=1)
-            row = {"kernel": "flash_attention.flash_attention", "case": case,
-                   "dtype": dtype, "served_by": served[0],
-                   "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} "
-                            f"causal={causal} window={window}",
-                   "strides": [list(t.stride()) for t in (q, k, v)],
-                   "max_abs_err": err, "tol": tol, "empty_rows": empty_rows,
-                   "ms": cuda_ms(torch, kern, flush=flush),
-                   "plain_ms": cuda_ms(torch, plain, flush=flush),
-                   "library_ms": cuda_ms(torch, sdpa, flush=flush),
-                   "device_ms": dev_all, "kernel_device_ms": dev_own,
-                   "bound_ms": bnd, "bound_by": by, "bytes": n_bytes,
-                   "ops": n_ops}
-            if case == "decode":
-                # the wrapper's host time: enqueue only, no synchronise
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(1000):
-                    kern()
-                row["host_us_per_call"] = (time.perf_counter() - t0) * 1e3
-                torch.cuda.synchronize()
-            row["launches_by_kernel"] = dict(fa.launches_by_kernel)
-            rows.append(row)
-            emit({"phase": "kernels", **row})
+            rows.append(flash_row(torch, case, q, k, v, causal=causal,
+                                  window=window, flush=flush,
+                                  host_time=case == "decode"))
         del cases, kc, vc, kc2, vc2
     torch.cuda.empty_cache()
     return rows
@@ -2446,159 +2532,612 @@ def rag_phase(torch, dev, seed) -> dict:
             if name.startswith("flash_attention.")}
 
 
-def teacher_forced_check(torch, pipe, queries, retrieved, generated) -> None:
+# ---------------------------------------------------------------------------
+# the other LM families (phase 7b)
+# ---------------------------------------------------------------------------
+
+def family_flash_rows(torch, dev) -> list:
+    """The flash kernel at the attention shapes the families bring to the
+    card, bf16, batch 8, each a `flash_row` (kernel against its plain
+    version, CUDA-event and device ms, bound, SDPA): StarCoder2's and
+    Qwen3's 512-token prefill (groups of 12 and 16), Gemma3's 2,048-token
+    prefill at head dim 256 with and without its 1,024-key window, its ring
+    decode (a full ring of 1,024 slots, after the wrap) and a global layer's
+    decode over the 2,079-position prefix; and DeepSeek-V2's MLA prefill,
+    q / k of 192 and v of 128 zero-padded to 256, its bound reckoned from
+    the unpadded tensors and products, SDPA run on the unpadded ones, and
+    the kernel's output held to the plain version on the unpadded inputs
+    too."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.layers.mla import padded_head_dim
+    from repro_torch.layers.rope import apply_rope
+
+    prompt = {arch: 2 * doc_len for arch, _, doc_len, _, _ in FAMILIES}
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    b = RAG_BATCH
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def projected(s, h, dh, theta, pos0=0):
+        """(B, H, S, Dh): a (B, S, H, Dh) projection, transposed, rotated."""
+        pos = torch.arange(pos0, pos0 + s, device=dev)
+        return apply_rope(rnd(b, s, h, dh).transpose(1, 2), pos, theta)
+
+    rows = []
+    for arch, case in (("starcoder2-3b", "starcoder2_prefill"),
+                       ("qwen3-moe-235b-a22b", "qwen3_prefill")):
+        c = get_arch(arch).CONFIG
+        s = prompt[arch]
+        rows.append(flash_row(
+            torch, case, projected(s, c.n_heads, c.d_head, c.rope_theta),
+            projected(s, c.n_kv_heads, c.d_head, c.rope_theta),
+            rnd(b, s, c.n_kv_heads, c.d_head).transpose(1, 2), causal=True,
+            window=None, flush=flush))
+    gm = get_arch("gemma3-4b").CONFIG
+    s = prompt["gemma3-4b"]
+    for case, window, theta in (("gemma3_global_prefill", None,
+                                 gm.rope_theta),
+                                ("gemma3_window_prefill", gm.window,
+                                 gm.rope_theta_local)):
+        rows.append(flash_row(
+            torch, case, projected(s, gm.n_heads, gm.d_head, theta),
+            projected(s, gm.n_kv_heads, gm.d_head, theta),
+            rnd(b, s, gm.n_kv_heads, gm.d_head).transpose(1, 2),
+            causal=True, window=window, flush=flush))
+    pos = s + RAG_NEW_TOKENS - 2                     # the last decode step
+    ring = rnd(b, gm.n_kv_heads, gm.window, gm.d_head)
+    ring_v = rnd(b, gm.n_kv_heads, gm.window, gm.d_head)
+    rows.append(flash_row(
+        torch, "gemma3_ring_decode",
+        projected(1, gm.n_heads, gm.d_head, gm.rope_theta_local, pos), ring,
+        ring_v, causal=True, window=None, flush=flush))
+    kc = rnd(b, gm.n_kv_heads, s + RAG_NEW_TOKENS, gm.d_head)
+    vc = rnd(b, gm.n_kv_heads, s + RAG_NEW_TOKENS, gm.d_head)
+    rows.append(flash_row(
+        torch, "gemma3_global_decode",
+        projected(1, gm.n_heads, gm.d_head, gm.rope_theta, pos),
+        kc[:, :, :pos + 1], vc[:, :, :pos + 1], causal=True, window=None,
+        flush=flush, host_time=True))
+    del ring, ring_v, kc, vc
+
+    m = get_arch("deepseek-v2-236b").CONFIG
+    dqk, dv, h = m.mla.d_nope + m.mla.d_rope, m.mla.d_v, m.n_heads
+    s, dh = prompt["deepseek-v2-236b"], padded_head_dim(m.mla)
+    q, k, v = rnd(b, h, s, dqk), rnd(b, h, s, dqk), rnd(b, h, s, dv)
+    qp, kp, vp = (F.pad(q, (0, dh - dqk)), F.pad(k, (0, dh - dqk)),
+                  F.pad(v, (0, dh - dv)))
+    kept = s * (s + 1) // 2
+    n_ops = 2.0 * (dqk + dv) * b * h * kept
+    row = flash_row(torch, "mla_prefill_padded", qp, kp, vp, causal=True,
+                    window=None, scale=dqk ** -0.5, flush=flush,
+                    sdpa_inputs=(q, k, v), n_ops=n_ops,
+                    n_bytes=q.element_size() * b * h * s * (2 * dqk + 2 * dv))
+    got = fa.flash_attention(qp, kp, vp, causal=True,
+                             scale=dqk ** -0.5)[..., :dv]
+    want = fa.flash_attention_plain(q, k, v, causal=True, scale=dqk ** -0.5)
+    err = float((got.float() - want.float()).abs().max())
+    if err > FLASH_TOL["bfloat16"]:
+        fail(f"flash_attention mla_prefill_padded: the padded call differs "
+             f"from the unpadded plain version by {err}")
+    row.update({"unpadded_max_abs_err": err, "unpadded_ops": n_ops,
+                "padded_ops": 4.0 * dh * b * h * kept,
+                "padded_bytes": qp.element_size() * b * h * s * 4 * dh})
+    emit({"phase": "kernels", "case": "mla_prefill_padded",
+          "unpadded_max_abs_err": err, "unpadded_ops": n_ops,
+          "padded_ops": row["padded_ops"]})
+    del q, k, v, qp, kp, vp, got, want, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def family_run(torch, dev, seed, arch, n_layers, doc_len, prefill_kind,
+               decode_kind) -> dict:
+    """One LM family through ``RAGPipeline`` at full width (depth cut to
+    ``n_layers`` when given): retrieval of copies of documents (top-1 must
+    be the source), then ``generate`` a batch at a time, every flash call
+    counted and its kernel checked; one ``generate`` traced; then the
+    teacher-forced check against the plain path.  Emits the family's rows
+    and returns its flash launches by kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm as LM
+    from repro_torch.rag import RAGPipeline, mean_pool_embedder
+
+    t_run = time.perf_counter()
+    gc.collect()                  # what an earlier phase left for the collector
+    torch.cuda.empty_cache()
+    full = get_arch(arch).CONFIG
+    cfg = (full if n_layers is None
+           else dataclasses.replace(full, n_layers=n_layers))
+    reduced = ([] if n_layers is None else
+               [f"n_layers {full.n_layers} -> {n_layers} (the weights fit "
+                f"the card's 80 GB)"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM.init_lm(cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 3)
+    doc_tokens = torch.randint(1, cfg.vocab, (FAM_DOCS, doc_len),
+                               generator=g, device=dev, dtype=torch.int32)
+    t0 = time.perf_counter()
+    embed = mean_pool_embedder(lm)
+    db = embed(doc_tokens)
+    pipe = RAGPipeline(lm, db, doc_tokens, d_start=D_START, k0=K0,
+                       buckets=BUCKETS, device=dev)
+    del db
+    pipe.engine.warmup()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    src = torch.randperm(FAM_DOCS, generator=g, device=dev)[:FAM_QUERIES]
+    queries = doc_tokens[src].cpu().numpy()      # copies of documents
+    src = src.cpu().numpy()
+    del doc_tokens
+
+    # -- the main path: retrieval, then generation ----------------------------
+    setup_s = time.perf_counter() - t_run
+    zero_counts()
+    _, retrieved = pipe.retrieve(queries)
+    hit = float((retrieved[:, 0] == src).mean())
+    if hit < 1.0:
+        fail(f"{arch}: top-1 is the source document for only {hit} of "
+             f"queries")
+    gen_ms, generated = [], []
+    for i in range(0, FAM_QUERIES, RAG_BATCH):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipe.generate(queries[i:i + RAG_BATCH],
+                            retrieved[i:i + RAG_BATCH],
+                            max_new_tokens=RAG_NEW_TOKENS)
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+        generated.append(out)
+    counts = read_counts()
+    n_batches = FAM_QUERIES // RAG_BATCH
+    want = {"prefill_wgmma": 0, "decode_splitkv": 0, "fma": 0}
+    want[prefill_kind] += n_batches * cfg.n_layers
+    if decode_kind is not None:
+        want[decode_kind] += n_batches * cfg.n_layers * (RAG_NEW_TOKENS - 1)
+    by_kernel = {kind: counts[f"flash_attention.{kind}"] for kind in want}
+    if by_kernel != want \
+            or counts["flash_attention.flash_attention"] != sum(want.values()):
+        fail(f"{arch}: flash_attention launched "
+             f"{counts['flash_attention.flash_attention']} times "
+             f"({by_kernel}), expected {want}")
+    if counts["distance_topk.l2_topk"] <= 0 \
+            or counts["gather_rescore.ladder"] != counts["distance_topk.l2_topk"]:
+        fail(f"{arch}: retrieval did not run one stage-0 and one ladder "
+             f"launch a dispatch: {counts}")
+    generated = torch.cat(generated)
+    if generated.shape != (FAM_QUERIES, RAG_NEW_TOKENS) or bool(
+            ((generated < 0) | (generated >= cfg.vocab)).any()):
+        fail(f"{arch}: generated tokens of shape {tuple(generated.shape)} "
+             f"out of range")
+    t0 = time.perf_counter()
+    profile_generate(torch, pipe, queries[:RAG_BATCH], retrieved[:RAG_BATCH],
+                     gen_ms[0], path=f"{arch} generate")
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # -- kernel path vs plain path, teacher-forced ---------------------------
+    local = [l for l in range(cfg.n_layers) if cfg.layer_window(l) > 0]
+    check = teacher_forced_check(
+        torch, pipe, queries, retrieved, generated, phase="lm_families_check",
+        window_layer=local[0] if cfg.local_global_period > 0 else None,
+        call_rtol=FAMILY_CALL_RTOL)
+    check_s = time.perf_counter() - t0
+    emit({"phase": "lm_families", "arch": arch, "model": cfg.name,
+          "layers": cfg.n_layers, "published_layers": full.n_layers,
+          "reduced": reduced, "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+          "params": n_params, "published_params": full.param_count(),
+          "active_params": cfg.active_param_count(), "init_s": init_s,
+          "docs": FAM_DOCS, "doc_len": doc_len, "prompt_len": 2 * doc_len,
+          "queries": FAM_QUERIES, "batch": RAG_BATCH,
+          "new_tokens": RAG_NEW_TOKENS, "engine_load_s": load_s,
+          "top1_hit_rate": hit, "generate_ms": gen_ms,
+          "prefill_ms_per_batch": check["prefill_ms_per_batch"],
+          "prefill_ms": check["prefill_ms"],
+          "decode_ms_per_token": check["decode_ms_per_token"],
+          "launches_by_kernel": by_kernel, "launches": counts,
+          "call_max_abs_err": check["call_max_abs_err"],
+          "logit_max_abs_diff": check["logit_max_abs_diff"],
+          "logit_tol": check["logit_tol"],
+          "gpu_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "setup_s": setup_s, "profile_s": profile_s, "check_s": check_s,
+          "run_s": time.perf_counter() - t_run})
+    del pipe, lm, embed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_kernel
+
+
+def lm_families_phase(torch, dev, seed):
+    """Phase 7b: the flash rows at the families' shapes, then each family in
+    turn (one model on the card at a time).  Returns ({arch: flash launches
+    by kernel}, the rows)."""
+    rows = family_flash_rows(torch, dev)
+    launches = {}
+    for arch, n_layers, doc_len, prefill_kind, decode_kind in FAMILIES:
+        launches[arch] = family_run(torch, dev, seed, arch, n_layers,
+                                    doc_len, prefill_kind, decode_kind)
+    return launches, rows
+
+
+@contextlib.contextmanager
+def moe_routes(torch, record):
+    """Append, for every MoE dispatch while the block runs, each token's
+    kept experts — its top-k expert ids, -1 where the capacity dropped the
+    pair, sorted — as a (T, k) tensor to ``record``."""
+    from repro_torch.layers import moe
+
+    dispatch = moe._dispatch_local
+
+    def recorded(x2, logits, cfg):
+        buf, info, frac_t, frac_p = dispatch(x2, logits, cfg)
+        experts, order, _, _, keep, _, _ = info
+        kept = torch.empty_like(keep)
+        kept[order] = keep
+        ids = torch.where(kept, experts.reshape(-1),
+                          torch.full_like(experts.reshape(-1), -1))
+        record.append(ids.reshape(experts.shape).sort(dim=-1).values)
+        return buf, info, frac_t, frac_p
+
+    moe._dispatch_local = recorded
+    try:
+        yield
+    finally:
+        moe._dispatch_local = dispatch
+
+
+def route_flips(torch, kern_routes, plain_routes, n_moe, b, s, n_logits):
+    """(B, n_logits) bool: the logits whose own token reached another set of
+    experts on the two paths in some MoE layer (the prefill's last prompt
+    token for the prefill logits, the step's token for a decode step's),
+    and the count of tokens, prompt tokens included, whose sets differ."""
+    if len(kern_routes) != len(plain_routes):
+        fail(f"{len(kern_routes)} MoE dispatches on the kernel path, "
+             f"{len(plain_routes)} on the plain path")
+    flipped = torch.zeros((b, n_logits), dtype=torch.bool,
+                          device=kern_routes[0].device)
+    tokens = torch.zeros((b, s + n_logits - 1), dtype=torch.bool,
+                         device=flipped.device)
+    for c, (a, p) in enumerate(zip(kern_routes, plain_routes)):
+        differ = (a != p).any(dim=-1)
+        step = c // n_moe
+        if step == 0:
+            differ = differ.reshape(b, s)
+            tokens[:, :s] |= differ
+            flipped[:, 0] |= differ[:, -1]
+        else:
+            tokens[:, s + step - 1] |= differ
+            flipped[:, step] |= differ
+    return flipped, int(tokens.sum())
+
+
+def one_step(torch, x, gen):
+    """bf16 ``x`` with every element moved one bf16 step, up or down in
+    magnitude at random (zeros up): the smallest change a rounding can
+    make."""
+    bits = x.contiguous().view(torch.int16)
+    mag = bits & 0x7FFF
+    step = torch.randint(0, 2, x.shape, generator=gen, device=x.device,
+                         dtype=torch.int16) * 2 - 1
+    step = torch.where(mag == 0, torch.ones_like(step), step)
+    return ((bits & -0x8000) | (mag + step)).view(torch.bfloat16)
+
+
+@contextlib.contextmanager
+def head_nudged(torch, gen, record):
+    """While the block runs, every head product also runs on its hidden
+    state moved by ``one_step``; ``record[0]`` keeps the largest |Δ| of the
+    logits.  The path goes on with the unmoved logits."""
+    from repro_torch.models import lm as LM
+
+    head_logits = LM._head_logits
+
+    def nudged(x, head):
+        out = head_logits(x, head)
+        moved = head_logits(one_step(torch, x, gen), head)
+        record[0] = max(record[0], float((moved - out).abs().max()))
+        return out
+
+    LM._head_logits = nudged
+    try:
+        yield
+    finally:
+        LM._head_logits = head_logits
+
+
+def teacher_forced_check(torch, pipe, queries, retrieved, generated, *,
+                         phase="rag_check", window_layer=None,
+                         call_rtol=0.0) -> dict:
     """Replay every batch through the kernel path and the plain path — the
     same LM code with each attention call given to the kernel's plain
     version (``flash_attention_plain``: dense, with the kernel's masks and
     rounding) — both fed the kernel path's generated tokens, and compare
     the prefill logits and every decode step's logits.  The plain replay
     also runs the kernel on each call's inputs (the path's shapes, strides
-    and data) and holds it against the plain output, call by call.
+    and data) and holds it against the plain output, call by call: each
+    element within ``FLASH_TOL["bfloat16"] + call_rtol * |plain|``.
 
-    The control: the first batch again, with the kernel's causal mask
+    The controls: the first batch again, with the kernel's causal mask
     shifted by one key (each query loses its own) in the first, the middle
-    and the last layer in turn; the call-by-call check must reject each.
-    A one-key shift in a late layer moves the logits no more than bf16
-    noise does, so the logit check alone cannot see it; the line reports
-    how far each control moved them.  Times the kernel path's prefill and
-    decode steps on the way."""
+    and the last layer in turn; the call-by-call check must reject each,
+    and the logit check the first.  A one-key shift in a later layer moves
+    the logits no more than bf16 noise does, so the logit check alone
+    cannot see it; the line reports how far each control moved them.
+    ``window_layer`` (a sliding-window layer) adds a control that widens
+    that layer's window by one key, which must fail the call-by-call check
+    too.  The witness of that noise: the first batch on the plain path
+    with every attention output moved by one bf16 step (``one_step``),
+    against the plain path; and each head product on its hidden state so
+    moved.
+
+    In a MoE model a bf16 difference in attention can send a token to
+    another expert (or past an expert's capacity), which moves that
+    token's logits by far more than the attention error: each path's
+    routing is recorded, the logits whose own token reached another set of
+    experts are counted and reported apart, and the logit checks hold the
+    others, which must be at least ``MOE_HELD_FLOOR`` of them.  The
+    witness reports how many tokens one bf16 step routes apart.  The logit
+    tolerance and the near-tie margin are in units of the plain logits'
+    RMS (at least 1) over the first batch: a head tied to unit-variance
+    embedding rows gives logits sqrt(d_model) times a fan-in head's.
+    Times the kernel path's prefill and decode steps on the way; emits and
+    returns the ``phase`` line."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models import lm as LM
 
     lm, cfg = pipe.lm, pipe.cfg
-    prefill_ms, step_ms = [], []
+    n_moe = 0 if cfg.moe is None else cfg.n_layers - cfg.moe.first_k_dense
+    prefill_ms, prefill_retries, step_ms = [], [], []
+    n_queries, batch, new_tokens = len(queries), RAG_BATCH, RAG_NEW_TOKENS
 
-    def run(prompts, toks, route=None, timed=False):
+    def run(prompts, toks, route=None, timed=False, routes=None):
         """(B, T, V) float32 logits, attention through ``route`` (the
-        kernel unless given)."""
+        kernel unless given); MoE routing appended to ``routes``."""
         kernel = ops.flash_attention
         if route is not None:
             ops.flash_attention = route
         try:
-            s = prompts.shape[1]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = LM.prefill(lm, prompts,
-                                       decode_len=s + RAG_NEW_TOKENS)
-            if timed:
+            with (moe_routes(torch, routes) if routes is not None
+                  else contextlib.nullcontext()):
+                s = prompts.shape[1]
+                retries = torch.cuda.memory_stats()["num_alloc_retries"]
                 torch.cuda.synchronize()
-                prefill_ms.append((time.perf_counter() - t0) * 1e3)
-            out = [logits]
-            for i in range(RAG_NEW_TOKENS - 1):
                 t0 = time.perf_counter()
-                logits, cache = LM.decode_step(lm, cache, toks[:, i:i + 1],
-                                               s + i)
+                logits, cache = LM.prefill(lm, prompts,
+                                           decode_len=s + new_tokens)
                 if timed:
                     torch.cuda.synchronize()
-                    step_ms.append((time.perf_counter() - t0) * 1e3)
-                out.append(logits)
+                    prefill_ms.append((time.perf_counter() - t0) * 1e3)
+                    prefill_retries.append(torch.cuda.memory_stats()[
+                        "num_alloc_retries"] - retries)
+                out = [logits]
+                for i in range(new_tokens - 1):
+                    t0 = time.perf_counter()
+                    logits, cache = LM.decode_step(lm, cache,
+                                                   toks[:, i:i + 1], s + i)
+                    if timed:
+                        torch.cuda.synchronize()
+                        step_ms.append((time.perf_counter() - t0) * 1e3)
+                    out.append(logits)
         finally:
             ops.flash_attention = kernel
         return torch.stack(out, dim=1)
 
-    def paired(err, shift_layer=None):
+    def paired(err, over, shift_layer=None, widen_layer=None):
         """A route running the kernel (its causal mask shifted by one key
-        in ``shift_layer``) and the plain version on each call's inputs;
-        keeps the largest |Δ| of prefill and of decode calls in ``err`` and
-        returns the plain output, or the shifted kernel's in a control."""
+        in ``shift_layer``, or its window widened by one key in
+        ``widen_layer``) and the plain version on each call's inputs; keeps
+        the largest |Δ| of prefill and of decode calls in ``err``, and the
+        largest |Δ| / (call_tol + call_rtol * |plain|) in ``over``, and
+        returns the plain output, or the altered kernel's in a control."""
         calls = [0]
+        control = shift_layer is not None or widen_layer is not None
 
         def route(q, k, v, *, causal=False, window=None, scale=None):
-            shift = calls[0] % cfg.n_layers == shift_layer
+            layer = calls[0] % cfg.n_layers
             calls[0] += 1
+            shift = layer == shift_layer
             kk, vv = (k[:, :, :-1], v[:, :, :-1]) if shift else (k, v)
-            got = fa.flash_attention(q, kk, vv, causal=causal, window=window,
+            kw = window
+            if layer == widen_layer and window is not None:
+                kw = window + 1
+            got = fa.flash_attention(q, kk, vv, causal=causal, window=kw,
                                      scale=scale)
             want = fa.flash_attention_plain(q, k, v, causal=causal,
                                             window=window, scale=scale)
             kind = "decode" if q.shape[2] == 1 else "prefill"
-            err[kind] = max(err[kind],
-                            float((got.float() - want.float()).abs().max()))
-            return got if shift_layer is not None else want
+            d = (got.float() - want.float()).abs()
+            err[kind] = max(err[kind], float(d.max()))
+            over[kind] = max(over[kind], float(
+                (d / (call_tol + call_rtol * want.float().abs())).max()))
+            return got if control else want
         return route
 
-    def gap(got, plain):
+    def nudged(gen):
+        """The plain version, its output moved by one step."""
+        def route(q, k, v, *, causal=False, window=None, scale=None):
+            return one_step(torch, fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window, scale=scale), gen)
+        return route
+
+    def gap(got, plain, clean=None):
         """max |Δ|, positions, argmax agreements, near-ties, disagreements
-        at a plain margin >= NEAR_TIE, largest margin of a disagreement."""
+        at a plain margin >= the near-tie margin, largest margin of a
+        disagreement; over the ``clean`` (B, T) positions only when
+        given."""
+        if clean is not None:
+            got, plain = got[clean], plain[clean]
+        if got.numel() == 0:
+            return 0.0, 0, 0, 0, 0, 0.0
         top2 = plain.topk(2, dim=-1).values
         margin = top2[..., 0] - top2[..., 1]
         agree = got.argmax(-1) == plain.argmax(-1)
         return (float((got - plain).abs().max()), agree.numel(),
-                int(agree.sum()), int((margin < NEAR_TIE).sum()),
-                int((~agree & (margin >= NEAR_TIE)).sum()),
+                int(agree.sum()), int((margin < near_tie[0]).sum()),
+                int((~agree & (margin >= near_tie[0])).sum()),
                 float(margin[~agree].max()) if bool((~agree).any()) else 0.0)
 
-    max_diff = pre_diff = worst_margin = 0.0
-    n_cmp = n_agree = n_near = n_far = pre_agree = n_replay_same = 0
+    max_diff = pre_diff = worst_margin = flip_diff = 0.0
+    n_cmp = n_agree = n_near = n_far = pre_agree = pre_n = n_replay_same = 0
+    n_flip_logits = n_flip_tokens = n_tokens = 0
+    call_tol = FLASH_TOL["bfloat16"]
+    logit_rms, near_tie = None, [NEAR_TIE]
     call_err = {"prefill": 0.0, "decode": 0.0}
-    plain0 = None
-    for i in range(0, RAG_QUERIES, RAG_BATCH):
-        prompts = pipe.assemble_prompts(queries[i:i + RAG_BATCH],
-                                        retrieved[i:i + RAG_BATCH])
-        toks = generated[i:i + RAG_BATCH]
-        kern = run(prompts, toks, timed=True)
+    call_over = {"prefill": 0.0, "decode": 0.0}
+    first = None
+    for i in range(0, n_queries, batch):
+        prompts = pipe.assemble_prompts(queries[i:i + batch],
+                                        retrieved[i:i + batch])
+        toks = generated[i:i + batch]
+        k_routes, p_routes = ([], []) if n_moe else (None, None)
+        kern = run(prompts, toks, timed=True, routes=k_routes)
         n_replay_same += int(torch.equal(kern.argmax(-1), toks))
-        plain = run(prompts, toks, paired(call_err))
-        diff, n, agree, near, far, margin = gap(kern, plain)
+        plain = run(prompts, toks, paired(call_err, call_over),
+                    routes=p_routes)
+        if logit_rms is None:
+            logit_rms = float(plain.pow(2).mean().sqrt())
+            near_tie[0] = NEAR_TIE * max(1.0, logit_rms)
+        clean = None
+        if n_moe:
+            b, s = prompts.shape
+            flipped, n_tok = route_flips(torch, k_routes, p_routes, n_moe,
+                                         b, s, new_tokens)
+            clean = ~flipped
+            n_flip_logits += int(flipped.sum())
+            n_flip_tokens += n_tok
+            n_tokens += b * (s + new_tokens - 1)
+            if bool(flipped.any()):
+                flip_diff = max(flip_diff, float(
+                    (kern[flipped] - plain[flipped]).abs().max()))
+        diff, n, agree, near, far, margin = gap(kern, plain, clean)
         max_diff, worst_margin = max(max_diff, diff), max(worst_margin, margin)
         n_cmp, n_agree, n_near, n_far = (n_cmp + n, n_agree + agree,
                                          n_near + near, n_far + far)
-        diff, _, agree, _, _, _ = gap(kern[:, :1], plain[:, :1])
+        diff, n, agree, _, _, _ = gap(
+            kern[:, :1], plain[:, :1], None if clean is None else clean[:, :1])
         pre_diff, pre_agree = max(pre_diff, diff), pre_agree + agree
-        if plain0 is None:
-            plain0 = (prompts, toks, plain)
-        del kern, plain
+        pre_n += n
+        if first is None:
+            first = (prompts, toks, plain, clean, p_routes)
+        del kern, plain, k_routes, p_routes
 
-    controls = {}
-    prompts, toks, plain = plain0
-    for layer in (0, cfg.n_layers // 2, cfg.n_layers - 1):
+    logit_tol = LOGIT_TOL * max(1.0, logit_rms)
+    controls = {"control_shifted_causal_mask_by_layer": {},
+                "control_widened_window_by_layer": {}}
+    prompts, toks, plain, clean, p_routes = first
+    shift_layers = (0, cfg.n_layers // 2, cfg.n_layers - 1)
+    tried = [("control_shifted_causal_mask_by_layer", layer,
+              {"shift_layer": layer}) for layer in shift_layers]
+    if window_layer is not None:
+        tried.append(("control_widened_window_by_layer", window_layer,
+                      {"widen_layer": window_layer}))
+    for name, layer, kw in tried:
         err = {"prefill": 0.0, "decode": 0.0}
-        c = gap(run(prompts, toks, paired(err, layer)), plain)
-        controls[str(layer)] = {"call_max_abs_err": err,
-                                "logit_max_abs_diff": c[0],
-                                "argmax_disagree": c[1] - c[2],
-                                "disagree_at_margin_ge_near_tie": c[4]}
-    del plain0, plain
-    call_tol = FLASH_TOL["bfloat16"]
-    emit({"phase": "rag_check",
-          "prefill_ms_per_batch": statistics.mean(prefill_ms),
-          "decode_ms_per_token": statistics.mean(step_ms),
-          "decode_ms_per_token_p50": statistics.median(step_ms),
-          "calls_checked": RAG_QUERIES // RAG_BATCH * cfg.n_layers
-          * RAG_NEW_TOKENS, "call_max_abs_err": call_err,
-          "call_tol": call_tol,
-          "logits_compared": n_cmp, "logit_max_abs_diff": max_diff,
-          "prefill_logit_max_abs_diff": pre_diff,
-          "prefill_argmax_agree": pre_agree / RAG_QUERIES,
-          "logit_tol": LOGIT_TOL, "argmax_agree": n_agree / n_cmp,
-          "argmax_disagree": n_cmp - n_agree,
-          "disagree_max_plain_margin": worst_margin,
-          "near_tie_margin": NEAR_TIE, "near_ties": n_near,
-          "replay_tokens_equal_batches": n_replay_same,
-          "control_shifted_causal_mask_by_layer": controls})
-    if max(call_err.values()) > call_tol:
-        fail(f"rag: an attention call of the path differs from its plain "
-             f"version by {call_err} > {call_tol}")
-    if max_diff > LOGIT_TOL:
-        fail(f"rag: kernel vs plain logits differ by {max_diff} > {LOGIT_TOL}")
+        over = {"prefill": 0.0, "decode": 0.0}
+        c = gap(run(prompts, toks, paired(err, over, **kw)), plain, clean)
+        controls[name][str(layer)] = {
+            "call_max_abs_err": err, "call_err_over_limit": over,
+            "logit_max_abs_diff": c[0],
+            "logit_max_abs_diff_over_rms": c[0] / logit_rms,
+            "argmax_disagree": c[1] - c[2],
+            "disagree_at_margin_ge_near_tie": c[4]}
+    if window_layer is None:
+        del controls["control_widened_window_by_layer"]
+    gen = torch.Generator(device=plain.device)
+    gen.manual_seed(0)
+    head_diff, w_routes = [0.0], [] if n_moe else None
+    with head_nudged(torch, gen, head_diff):
+        w = gap(run(prompts, toks, nudged(gen), routes=w_routes), plain)
+    witness = {"logit_max_abs_diff": w[0],
+               "logit_max_abs_diff_over_rms": w[0] / logit_rms,
+               "argmax_disagree": w[1] - w[2],
+               "head_logit_max_abs_diff": head_diff[0]}
+    if n_moe:
+        b, s = prompts.shape
+        witness.update({"tokens": b * (s + new_tokens - 1),
+                        "tokens_with_other_experts": route_flips(
+                            torch, w_routes, p_routes, n_moe, b, s,
+                            new_tokens)[1]})
+    del first, plain, clean, p_routes, w_routes
+    n_attn = cfg.n_layers if cfg.mla is None else 0
+    line = {"phase": phase, "model": cfg.name,
+            "prefill_ms_per_batch": statistics.mean(prefill_ms),
+            "prefill_ms": prefill_ms,
+            "prefill_alloc_retries": prefill_retries,
+            "decode_ms_per_token": statistics.mean(step_ms),
+            "decode_ms_per_token_p50": statistics.median(step_ms),
+            "calls_checked": n_queries // batch * (
+                cfg.n_layers + n_attn * (new_tokens - 1)),
+            "call_max_abs_err": call_err, "call_tol": call_tol,
+            "call_rtol": call_rtol, "call_err_over_limit": call_over,
+            "logits_compared": n_cmp, "logit_max_abs_diff": max_diff,
+            "logit_max_abs_diff_over_rms": max_diff / logit_rms,
+            "prefill_logit_max_abs_diff": pre_diff,
+            "prefill_argmax_agree": pre_agree / max(pre_n, 1),
+            "logit_tol": logit_tol, "logit_rms": logit_rms,
+            "argmax_agree": n_agree / max(n_cmp, 1),
+            "argmax_disagree": n_cmp - n_agree,
+            "disagree_max_plain_margin": worst_margin,
+            "near_tie_margin": near_tie[0], "near_ties": n_near,
+            "replay_tokens_equal_batches": n_replay_same, **controls,
+            "witness_one_bf16_step": witness}
+    n_logits = n_queries // batch * batch * new_tokens
+    if n_moe:
+        line.update({"tokens": n_tokens,
+                     "tokens_with_other_experts": n_flip_tokens,
+                     "logits_of_tokens_with_other_experts": n_flip_logits,
+                     "logit_max_abs_diff_other_experts": flip_diff,
+                     "held_share": n_cmp / n_logits,
+                     "held_floor": MOE_HELD_FLOOR})
+    emit(line)
+    if max(call_over.values()) > 1.0:
+        fail(f"{cfg.name}: an attention call of the path differs from its "
+             f"plain version by {call_err}, {call_over} of the limit "
+             f"{call_tol} + {call_rtol} |plain|")
+    if max_diff > logit_tol:
+        fail(f"{cfg.name}: kernel vs plain logits differ by {max_diff} > "
+             f"{logit_tol}")
     if n_far:
-        fail(f"rag: {n_far} argmax disagreements where the plain top-2 "
-             f"margin is >= {NEAR_TIE}")
-    blind = [layer for layer, c in controls.items()
-             if max(c["call_max_abs_err"].values()) <= call_tol]
+        fail(f"{cfg.name}: {n_far} argmax disagreements where the plain "
+             f"top-2 margin is >= {near_tie[0]}")
+    if n_cmp < MOE_HELD_FLOOR * n_logits:
+        fail(f"{cfg.name}: the logit check held {n_cmp} of {n_logits} "
+             f"logits, below the floor {MOE_HELD_FLOOR}")
+    shift0 = controls["control_shifted_causal_mask_by_layer"]["0"]
+    if shift0["logit_max_abs_diff"] <= logit_tol:
+        fail(f"{cfg.name}: the logit check misses the first layer's "
+             f"shifted-mask control ({shift0['logit_max_abs_diff']} <= "
+             f"{logit_tol})")
+    blind = [f"{name} {layer}" for name, by_layer in controls.items()
+             for layer, c in by_layer.items()
+             if max(c["call_err_over_limit"].values()) <= 1.0]
     if blind:
-        fail(f"rag: the call-by-call check misses a causal mask shifted by "
-             f"one key in layer(s) {blind}: {controls}")
+        fail(f"{cfg.name}: the call-by-call check misses control(s) "
+             f"{blind}: {controls}")
+    return line
 
 
-def profile_generate(torch, pipe, queries, retrieved, wall_ms) -> None:
+def profile_generate(torch, pipe, queries, retrieved, wall_ms, *,
+                     path="rag generate") -> None:
     """Trace one ``generate`` with ``torch.profiler``: device time by
     kernel, and the device's busy share of the untraced call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device alone: a trace of host ops too takes tens of seconds to
+    # summarise at tens of thousands of launches, and loses more records
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         pipe.generate(queries, retrieved, max_new_tokens=RAG_NEW_TOKENS)
         torch.cuda.synchronize()
     rows = []
@@ -2614,7 +3153,7 @@ def profile_generate(torch, pipe, queries, retrieved, wall_ms) -> None:
     busy = sum(r["device_ms"] for r in rows)
     flash = sum(r["device_ms"] for r in rows
                 if "flash_attention_kernel" in r["name"])
-    emit({"phase": "profile", "path": "rag generate", "batch": RAG_BATCH,
+    emit({"phase": "profile", "path": path, "batch": len(queries),
           "device_busy_ms": busy, "generate_wall_ms": wall_ms,
           "device_busy_share": busy / wall_ms,
           "flash_attention_device_ms": flash, "kernels": rows[:12]})
@@ -3453,10 +3992,13 @@ def _scan_entry(name, source, replaces, launches, rows) -> dict:
     return out
 
 
-def _flash_entry(launches, rows) -> dict:
+def _flash_entry(launches, rows, families) -> dict:
     """The kernels-line entry: the bf16 serving rows (prefill first, then
     decode and the 4k prompt), every case's largest error per type, the
-    main path's launches in all and by kernel."""
+    main path's launches in all and by kernel; then the LM families'
+    launches by kernel and their rows (phase 7b)."""
+    fam_launches, fam_rows = families
+    rows = rows + fam_rows
     serve = {r["case"]: r for r in rows if r["dtype"] == "bfloat16"}
     f32 = {r["case"]: r for r in rows if r["dtype"] == "float32"
            and r["case"] in ("prefill", "decode")}
@@ -3483,7 +4025,10 @@ def _flash_entry(launches, rows) -> dict:
             "decode": {k: serve["decode"][k]
                        for k in keys + ("host_us_per_call",)},
             "prefill_4k": {k: serve["prefill_4k"][k] for k in keys},
-            "float32": {c: {k: r[k] for k in keys} for c, r in f32.items()}}
+            "float32": {c: {k: r[k] for k in keys} for c, r in f32.items()},
+            "lm_families_launches": fam_launches,
+            "lm_families": {r["case"]: {k: r[k] for k in keys}
+                            for r in fam_rows}}
 
 
 def _bag_entry(launches, rows) -> dict:
@@ -3562,7 +4107,7 @@ def _ladder_entry(launches, step_rows, ladder_rows) -> dict:
 
 def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
            launches, paper_counts, dur_counts, scan_rows, flash_rows,
-           bag_rows, seg_rows) -> None:
+           bag_rows, seg_rows, families) -> None:
     """Print the kernels line, the card line and the final result line."""
     s32 = [r for r in stage_rows if r["case"] == "flat_stage0_q32"][0]
     tt = [r for r in stage_rows if r["case"] == "two_tower_stage0"][0]
@@ -3605,7 +4150,7 @@ def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
                     "src/repro/kernels/pq_scan.py:224",
                     launches["pq_scan.pq_ivf_scan_topk"],
                     [scan_rows["ivf_pq"]]),
-        _flash_entry(launches, flash_rows),
+        _flash_entry(launches, flash_rows, families),
         _bag_entry(launches, bag_rows),
         _seg_entry(launches, seg_rows),
     ]

@@ -18,9 +18,12 @@ observability layers are the same host code.
   repro_torch.checkpoint      — checkpoints in the JAX package's format
                                 (npz + msgpack manifest, own codec)
   repro_torch.obs             — metrics registry and request traces
-  repro_torch.configs         — LM configurations (Mistral-Nemo-12B)
-  repro_torch.layers          — norms, FFN, RoPE, GQA attention
-  repro_torch.models          — the dense GQA LM (prefill, decode)
+  repro_torch.configs         — the architecture registry (five LM
+                                families, recsys, EGNN)
+  repro_torch.layers          — norms, FFN, RoPE, GQA attention (windows,
+                                ring caches), MoE, MLA
+  repro_torch.models          — the LM (dense GQA, local:global, MoE,
+                                MLA; prefill, decode), recsys, EGNN
   repro_torch.rag             — RAGPipeline: retrieve, assemble, generate
   repro_torch.launch          — the serving launcher (closed-loop demo,
                                 HTTP server, router and client modes) and

@@ -1,8 +1,8 @@
 """Architecture registry: ``get_arch(id)`` -> module with CONFIG /
-SMOKE_CONFIG (and SHAPES for the recsys and GNN families).
+SMOKE_CONFIG / SHAPES.
 
-The port's own configs: the LM of the RAG path, the recsys family and
-EGNN.  The JAX package's other LMs are not ported yet.
+The port's own copy of the JAX package's registry: the five LM families,
+EGNN and the recsys family, under the same ids and in the same order.
 """
 
 import importlib
@@ -13,7 +13,11 @@ from repro_torch.configs.base import (EGNNConfig, LMConfig, MLAConfig,
 
 _ARCHS: Dict[str, str] = {
     # LM family
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     # GNN
     "egnn": "repro_torch.configs.egnn",
     # RecSys
@@ -23,7 +27,8 @@ _ARCHS: Dict[str, str] = {
     "dlrm-rm2": "repro_torch.configs.dlrm_rm2",
 }
 
-LM_ARCHS = ["mistral-nemo-12b"]
+LM_ARCHS = ["starcoder2-3b", "gemma3-4b", "mistral-nemo-12b",
+            "deepseek-v2-236b", "qwen3-moe-235b-a22b"]
 GNN_ARCHS = ["egnn"]
 RECSYS_ARCHS = ["two-tower-retrieval", "din", "autoint", "dlrm-rm2"]
 

@@ -8,7 +8,7 @@ architecture module in ``repro_torch.configs`` exposes
 
     CONFIG        — the exact published configuration
     SMOKE_CONFIG  — a reduced same-family configuration for CPU tests
-    SHAPES        — shape name -> ShapeSpec (recsys and GNN modules)
+    SHAPES        — shape name -> ShapeSpec
 """
 
 from __future__ import annotations

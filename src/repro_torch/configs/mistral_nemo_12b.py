@@ -5,6 +5,7 @@ vocab=131072, SwiGLU, rope theta 1M, full attention.
 """
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.configs.shapes import lm_shapes
 
 CONFIG = LMConfig(
     name="mistral-nemo-12b",
@@ -19,3 +20,5 @@ SMOKE_CONFIG = LMConfig(
     d_ff=256, vocab=512, ffn_type="swiglu",
     param_dtype="float32", compute_dtype="float32", remat=False,
 )
+
+SHAPES = lm_shapes(long_ok=False)

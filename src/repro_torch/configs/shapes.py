@@ -1,7 +1,33 @@
-"""Input-shape sets of the recsys and GNN families (the JAX package's
-``RECSYS_SHAPES`` and ``GNN_SHAPES``, the port's own copy)."""
+"""Input-shape sets of each architecture family (the JAX package's
+``LM_SHAPES`` / ``lm_shapes``, ``RECSYS_SHAPES`` and ``GNN_SHAPES``, the
+port's own copy)."""
+
+import dataclasses
 
 from repro_torch.configs.base import ShapeSpec
+
+LM_SHAPES = {
+    "train_4k": ShapeSpec(name="train_4k", kind="train",
+                          seq_len=4096, global_batch=256),
+    "prefill_32k": ShapeSpec(name="prefill_32k", kind="prefill",
+                             seq_len=32768, global_batch=32),
+    "decode_32k": ShapeSpec(name="decode_32k", kind="decode",
+                            seq_len=32768, global_batch=128),
+    "long_500k": ShapeSpec(name="long_500k", kind="decode",
+                           seq_len=524288, global_batch=1),
+}
+
+
+def lm_shapes(*, long_ok: bool, skip_reason: str = ""):
+    shapes = dict(LM_SHAPES)
+    if not long_ok:
+        shapes["long_500k"] = dataclasses.replace(
+            shapes["long_500k"],
+            skip_reason=skip_reason or (
+                "pure full-attention arch: 512k decode requires sub-quadratic "
+                "attention / windowed cache (see DESIGN.md §Arch-applicability)"))
+    return shapes
+
 
 GNN_SHAPES = {
     "full_graph_sm": ShapeSpec(name="full_graph_sm", kind="graph",

@@ -11,12 +11,14 @@ package's plain references, ported as they are (``impl="dense"``).
 Decode writes the step's key and value into the preallocated cache in
 place and attends over the cache prefix ``[:pos + 1]`` — a strided view,
 never copied; with the kernel's end alignment that is exactly
-``decode_attention``'s mask ``k_pos <= pos``.
-
-Sliding windows and ring caches on the LM path (the local:global layers of
-Gemma3) are not ported yet: ``mha_forward`` / ``mha_decode`` raise
-``NotImplementedError`` for ``window > 0`` or ``ring=True``.  The JAX
-package's sharding hooks (``constrain``) have no counterpart.
+``decode_attention``'s mask ``k_pos <= pos``.  Sliding windows (Gemma3's
+local layers) pass ``window`` to the kernel, whose mask ``k_pos > q_pos -
+window`` is ``_mask``'s.  A ring cache (``ring=True``, a local layer's
+window-sized cache) takes the step at slot ``pos % S`` and is attended
+over its filled prefix ``[:pos + 1]`` until it wraps, then whole: the JAX
+package's ``(k_pos <= pos) | (pos >= S)``.  Keys are rotated when they are
+written, so the order of the slots does not matter to the softmax.  The
+JAX package's sharding hooks (``constrain``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -33,9 +35,6 @@ from repro_torch.layers.rope import apply_rope
 Tensor = torch.Tensor
 
 _NEG_INF = -1e30
-_LOCAL_GLOBAL = ("sliding-window / ring-cache attention on the LM path is "
-                 "not ported yet (the Gemma3 local:global slice, ROADMAP §1 "
-                 "item 7)")
 
 
 # ---------------------------------------------------------------- params --
@@ -140,8 +139,6 @@ def mha_forward(
     (k, v) as (B, Hkv, S, Dh) for the cache.  ``impl="chunked"`` runs the
     flash kernel (plain version on the CPU), ``"dense"`` the reference.
     """
-    if window > 0:
-        raise NotImplementedError(_LOCAL_GLOBAL)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
@@ -154,7 +151,8 @@ def mha_forward(
     if impl == "dense":
         o = dense_attention(q, k, v, causal=causal, window=window)
     elif impl == "chunked":
-        o = ops.flash_attention(q, k, v, causal=causal)
+        o = ops.flash_attention(q, k, v, causal=causal,
+                                window=window if window > 0 else None)
     else:
         raise ValueError(f"impl={impl!r}: expected 'chunked' or 'dense'")
     o = o.transpose(1, 2).reshape(b, s, n_heads * d_head)
@@ -172,13 +170,13 @@ def mha_decode(
 ):
     """One-token decode step.  x: (B, 1, D); caches (B, Hkv, S, Dh).
 
-    The new key and value are written into the caches in place at ``pos``.
-    ``positions`` is ``pos`` as a (1,) tensor on x's device for RoPE (built
-    here unless given: a decode step builds it once for all its layers).
-    Returns (out (B, 1, D), k_cache, v_cache).
+    The new key and value are written into the caches in place at ``pos``
+    (``ring=True``: at ``pos % S``, the cache holding only the last S
+    tokens of a sliding-window layer).  ``positions`` is ``pos`` as a (1,)
+    tensor on x's device for RoPE (built here unless given: a decode step
+    builds it once for all its layers).  Returns (out (B, 1, D), k_cache,
+    v_cache).
     """
-    if ring or window > 0:
-        raise NotImplementedError(_LOCAL_GLOBAL)
     b = x.shape[0]
     q = (x @ p.wq).reshape(b, 1, n_heads, d_head).transpose(1, 2)
     k = (x @ p.wk).reshape(b, 1, n_kv_heads, d_head).transpose(1, 2)
@@ -187,13 +185,19 @@ def mha_decode(
         positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
-    k_cache[:, :, pos] = k[:, :, 0].to(k_cache.dtype)
-    v_cache[:, :, pos] = v[:, :, 0].to(v_cache.dtype)
+    slot = pos % k_cache.shape[2] if ring else pos
+    k_cache[:, :, slot] = k[:, :, 0].to(k_cache.dtype)
+    v_cache[:, :, slot] = v[:, :, 0].to(v_cache.dtype)
     if impl == "dense":
-        o = decode_attention(q, k_cache, v_cache, pos=pos, window=window)
+        o = decode_attention(q, k_cache, v_cache, pos=pos,
+                             window=0 if ring else window, ring=ring)
     elif impl == "chunked":
-        o = ops.flash_attention(q, k_cache[:, :, :pos + 1],
-                                v_cache[:, :, :pos + 1], causal=True)
+        # the filled prefix; once a ring has wrapped the slice is all of it,
+        # and the ring is the window
+        n = pos + 1
+        o = ops.flash_attention(
+            q, k_cache[:, :, :n], v_cache[:, :, :n], causal=True,
+            window=window if window > 0 and not ring else None)
     else:
         raise ValueError(f"impl={impl!r}: expected 'chunked' or 'dense'")
     o = o.transpose(1, 2).reshape(b, 1, n_heads * d_head)

@@ -58,6 +58,17 @@ def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
     return out.to(x.dtype)
 
 
+def layernorm(x: Tensor, scale: Tensor, bias: Tensor,
+              eps: float = 1e-5) -> Tensor:
+    """LayerNorm in fp32 (gain ``scale``, ``bias``), cast back to x's
+    dtype."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(x.dtype)
+
+
 # ----------------------------------------------------------------- FFN ----
 
 class FFN(nn.Module):

@@ -1,1 +1,2 @@
-"""Models of the RAG path: the dense GQA LM (``repro_torch.models.lm``)."""
+"""Models: the LM of the RAG path (``repro_torch.models.lm``: dense GQA,
+local:global, MoE and MLA families), the recsys models and EGNN."""

@@ -10,8 +10,9 @@ embeddings.  Retrieval runs through `repro_torch.engine.RetrievalEngine`
 rows in step.  ``start_driver()`` puts an async ``EngineDriver`` in front
 of the engine so that queries from many threads coalesce; ``retrieve`` and
 ``serve`` then route through it.  Generation is greedy: ``prefill`` over
-the assembled prompts, then ``decode_step`` per new token, every attention
-layer through the flash kernel on the card.
+the assembled prompts into the model's decode cache, whatever its layout,
+then ``decode_step`` per new token; attention runs through the flash
+kernel on the card (MLA's absorbed decode excepted).
 
 Everything runs on ``device`` ("cuda" unless the caller passes "cpu"): the
 LM's weights, the engine's rows and the prompts.

@@ -1108,6 +1108,148 @@ class TestLMOnCard:
         assert flash_attention.launches == before + 2 * 5
 
 
+# the other LM families' attention shapes (Gemma3: 8 / 4 heads of 256, a
+# window; MLA: q / k of 192 and v of 128 padded to 256)
+FAMILY_FLASH_CASES = [
+    (1, 8, 4, 300, 300, 256, True, 100),     # windowed prefill, dh 256
+    (2, 8, 4, 1100, 1100, 256, True, 1024),  # Gemma3's window, cut short
+    (2, 8, 4, 700, 700, 256, True, None),    # a global layer's prefill
+]
+
+
+@pytest.mark.cuda
+class TestLMFamiliesOnCard:
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,causal,window",
+                             FAMILY_FLASH_CASES)
+    def test_bf16_prefill_dh256(self, cuda, b, hq, hkv, sq, skv, dh, causal,
+                                window):
+        g = torch.Generator(device=cuda).manual_seed(sq)
+        bf = torch.bfloat16
+        q = torch.randn((b, hq, sq, dh), generator=g, device=cuda).to(bf)
+        k = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(bf)
+        v = torch.randn((b, skv, hkv, dh), generator=g,
+                        device=cuda).to(bf).transpose(1, 2)
+        _flash_on_card(q, k, v, causal, window, "fma")
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_ring_decode_across_the_wrap(self, cuda, dtype):
+        """``mha_decode(ring=True)`` on the card (one ``decode_splitkv``
+        launch a step, over the ring's filled prefix, then all of it)
+        against the same steps on the CPU, before, at and after the wrap."""
+        from repro_torch.layers import attention as A
+        gen = torch.Generator().manual_seed(5)
+        p = A.attn_init(gen, 256, 8, 4, 256, dtype)
+        p_gpu = A.Attention(*(w.to(cuda) for w in (p.wq, p.wk, p.wv, p.wo)))
+        kc = torch.zeros((2, 4, 48, 256), dtype=dtype)
+        vc = torch.zeros_like(kc)
+        kg, vg = kc.to(cuda), vc.to(cuda)
+        tol = FLASH_TOL[dtype]
+        for pos in range(60):
+            x = torch.randn((2, 1, 256), generator=gen).to(dtype)
+            before = dict(flash_attention.launches_by_kernel)
+            got, _, _ = A.mha_decode(p_gpu, x.to(cuda), kg, vg, pos=pos,
+                                     n_heads=8, n_kv_heads=4, d_head=256,
+                                     window=48, ring=True)
+            want, _, _ = A.mha_decode(p, x, kc, vc, pos=pos, n_heads=8,
+                                      n_kv_heads=4, d_head=256, window=48,
+                                      ring=True)
+            assert flash_attention.launches_by_kernel["decode_splitkv"] \
+                == before["decode_splitkv"] + 1
+            torch.testing.assert_close(got.float().cpu(), want.float(),
+                                       rtol=tol, atol=tol)
+        torch.testing.assert_close(kg.float().cpu(), kc.float(), rtol=tol,
+                                   atol=tol)
+
+    def test_mla_padded_prefill(self, cuda):
+        """MLA's prefill call — q / k of 192 and v of 128 zero-padded to
+        256, the scale of 192 — against the plain attention on the
+        unpadded tensors, and ``mla_forward`` on the card against the
+        CPU."""
+        import torch.nn.functional as F
+        from repro_torch.configs.base import MLAConfig
+        from repro_torch.layers import mla as M
+        g = torch.Generator(device=cuda).manual_seed(6)
+        bf = torch.bfloat16
+        q = torch.randn((2, 16, 300, 192), generator=g, device=cuda).to(bf)
+        k = torch.randn((2, 16, 300, 192), generator=g, device=cuda).to(bf)
+        v = torch.randn((2, 16, 300, 128), generator=g, device=cuda).to(bf)
+        before = dict(flash_attention.launches_by_kernel)
+        got = ops.flash_attention(F.pad(q, (0, 64)), F.pad(k, (0, 64)),
+                                  F.pad(v, (0, 128)), causal=True,
+                                  scale=192 ** -0.5)[..., :128]
+        want = flash_attention.flash_attention_plain(q, k, v, causal=True,
+                                                     scale=192 ** -0.5)
+        assert flash_attention.launches_by_kernel["fma"] == before["fma"] + 1
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        cfg = MLAConfig(q_lora_rank=48, kv_lora_rank=32, d_nope=32,
+                        d_rope=16, d_v=32)
+        p = M.mla_init(torch.Generator().manual_seed(2), 96, 4, cfg,
+                       torch.float32)
+        p_gpu = M.MLA(**{n: w.to(cuda) for n, w in p.named_parameters()})
+        x = torch.randn((2, 90, 96), generator=torch.Generator().manual_seed(3))
+        got = M.mla_forward(p_gpu, x.to(cuda), n_heads=4, cfg=cfg)
+        want = M.mla_forward(p, x, n_heads=4, cfg=cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("cf", [0.5, 1.25])
+    def test_moe_apply_matches_cpu(self, cuda, cf):
+        """``moe_apply`` on the card against the CPU: routing, capacity
+        drops and output (float32 weights)."""
+        from repro_torch.configs.base import MoEConfig
+        from repro_torch.layers import moe as E
+        cfg = MoEConfig(n_experts=16, top_k=4, d_ff_expert=64,
+                        n_shared_experts=1, d_ff_shared=32,
+                        capacity_factor=cf)
+        p = E.moe_init(torch.Generator().manual_seed(4), 128, cfg, "swiglu",
+                       torch.float32)
+        p_gpu = E.MoE(p.router.to(cuda), p.w_in.to(cuda), p.w_out.to(cuda),
+                      p.w_gate.to(cuda),
+                      type(p.shared)(p.shared.w_in.to(cuda),
+                                     p.shared.w_out.to(cuda),
+                                     p.shared.w_gate.to(cuda)))
+        x = torch.randn((3, 100, 128),
+                        generator=torch.Generator().manual_seed(5))
+        got, aux = E.moe_apply(p_gpu, x.to(cuda), cfg, "swiglu")
+        want, waux = E.moe_apply(p, x, cfg, "swiglu")
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(aux.cpu(), waux, rtol=1e-5, atol=1e-7)
+        x2 = x.reshape(-1, 128)
+        logits = x2 @ p.router
+        _, ig, *_ = E._dispatch_local(x2.to(cuda), logits.to(cuda), cfg)
+        _, ic, *_ = E._dispatch_local(x2, logits, cfg)
+        for a, b in zip(ig[:5], ic[:5]):     # experts, order, slots, drops
+            assert torch.equal(a.cpu(), b)
+
+    @pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-4b",
+                                      "qwen3-moe-235b-a22b",
+                                      "deepseek-v2-236b"])
+    def test_family_decode_matches_cpu(self, cuda, arch):
+        """Each family's smoke config on the card (kernel path) against the
+        same weights on the CPU (plain path): prefill into the decode
+        layout (Gemma3's rings of 16 from a 20-token prompt), then four
+        decode steps."""
+        cfg = get_arch(arch).SMOKE_CONFIG
+        lm_gpu = LM.init_lm(cfg, seed=3, device=cuda)
+        lm_cpu = LM.init_lm(cfg, seed=3, device="cpu")
+        lm_cpu.load_state_dict({k: v.cpu() for k, v in
+                                lm_gpu.state_dict().items()})
+        g = torch.Generator().manual_seed(0)
+        toks = torch.randint(1, cfg.vocab, (3, 20), generator=g)
+        lg, cg = LM.prefill(lm_gpu, toks.to(cuda), decode_len=24)
+        lc, cc = LM.prefill(lm_cpu, toks, decode_len=24)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-4, atol=2e-4)
+        tok = lc.argmax(-1, keepdim=True)
+        for i in range(4):
+            lg, cg = LM.decode_step(lm_gpu, cg, tok.to(cuda), 20 + i)
+            lc, cc = LM.decode_step(lm_cpu, cc, tok, 20 + i)
+            torch.testing.assert_close(lg.cpu(), lc, rtol=2e-4, atol=2e-4)
+            tok = lc.argmax(-1, keepdim=True)
+        for name in cc:
+            torch.testing.assert_close(cg[name].cpu(), cc[name], rtol=2e-4,
+                                       atol=2e-4)
+
+
 def _bag_case(dev, f, v, d, b, l, dtype, seed):
     """Stacked tables and (B, F, L) ids with padding, an all-padding bag and
     an id beyond the vocabulary."""

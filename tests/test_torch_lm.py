@@ -32,7 +32,7 @@ from repro.layers import common as JC
 from repro.layers import rope as JR
 from repro.models import lm as JLM
 
-from repro_torch.configs.base import LMConfig, MLAConfig, MoEConfig
+from repro_torch.configs.base import LMConfig
 from repro_torch.configs.mistral_nemo_12b import SMOKE_CONFIG
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
@@ -224,17 +224,6 @@ class TestAttention:
         close(TA.dense_attention(t(qs), t(kc), t(vc), causal=True, window=6),
               want)
 
-    def test_window_and_ring_wait_for_their_slice(self):
-        rng = np.random.default_rng(13)
-        _, tp = _attn(rng, 32, 2, 2, 16)
-        with pytest.raises(NotImplementedError, match="Gemma3"):
-            TA.mha_forward(tp, torch.zeros(1, 3, 32), n_heads=2,
-                           n_kv_heads=2, d_head=16, window=4)
-        with pytest.raises(NotImplementedError, match="Gemma3"):
-            TA.mha_decode(tp, torch.zeros(1, 1, 32), torch.zeros(1, 2, 4, 16),
-                          torch.zeros(1, 2, 4, 16), pos=0, n_heads=2,
-                          n_kv_heads=2, d_head=16, ring=True)
-
 
 TIED_MLP = LMConfig(name="tied-mlp", n_layers=2, d_model=64, n_heads=4,
                     n_kv_heads=4, d_head=16, d_ff=96, vocab=300,
@@ -349,14 +338,3 @@ class TestLM:
         logits, cache = TLM.prefill(lm, toks)
         assert logits.dtype == torch.float32
         assert cache["k"].dtype == torch.bfloat16
-
-    @pytest.mark.parametrize("change,slice_name", [
-        ({"moe": MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)}, "MoE"),
-        ({"mla": MLAConfig(q_lora_rank=0, kv_lora_rank=16, d_nope=8,
-                           d_rope=8, d_v=8)}, "MLA"),
-        ({"local_global_period": 2, "window": 4}, "Gemma3"),
-    ])
-    def test_other_families_raise(self, change, slice_name):
-        cfg = dataclasses.replace(SMOKE_CONFIG, **change)
-        with pytest.raises(NotImplementedError, match=slice_name):
-            TLM.init_lm(cfg, device="cpu")
