@@ -176,7 +176,42 @@ in phases that each print one JSON line:
                  search held against the plain path on the same inputs,
                  and every per-query search one stage-0 and one ladder
                  launch
- 11. kernels line, card line, and the final ``{"ok": true, ...}`` line.
+ 11. train    — training through the port's ``TrainLoop`` (AdamW, the
+                 train step, every gradient through the hand-written
+                 backward kernels).  First each backward kernel against its
+                 plain version on the card, with CUDA-event and device
+                 times, its bound and the library's backward (SDPA through
+                 ``torch.autograd.grad``, ``F.embedding_bag``,
+                 ``index_select``): the flash backward at StarCoder2's
+                 training shape (q (1, 24, 4,096, 128), kv (1, 2, 4,096,
+                 128)), Gemma3's head dim 256 with its 1,024-key window and
+                 MLA's padded group-1 call; the bag backward at the
+                 two-tower shape (4 fields x 8,192 bags onto 4 x 1M x 256)
+                 and a padded mean case; the segment backward at EGNN's
+                 minibatch_lg budget.  Then StarCoder2-3B at full depth and
+                 width (30 layers, bf16, remat on), 6 steps of 4 x 4,096
+                 tokens from ``lm_batch_stream`` (train_4k's global batch
+                 of 256 cut to 4): finite losses and grad norms, the last
+                 loss below the first, two flash forward launches (the
+                 forward and its recompute) and one backward a layer a
+                 step, step ms, tokens/s, the share of the bf16 peak and
+                 peak memory; then at batch 1 the kernel path against the
+                 plain path (``impl="dense"``, plain attention under
+                 autograd) from the same weights — loss within 1e-2, global
+                 grad norm within 2%, cosine >= 0.99 for every leaf of the
+                 first, middle and last layers and the embedding — and the
+                 same check with the middle layer's causal mask shifted by
+                 one key on the plain path, which must fail.  Two-tower
+                 retrieval whole (8 x 1M x 256 tables, batches of 8,192,
+                 Matryoshka losses): its step-1 gradients against the
+                 plain path's, 5 steps, the loss falls.  EGNN on
+                 minibatch_lg subgraphs (1,024 seeds, fanout 15 / 10) of a
+                 power-law random graph of Reddit's size (232,965 nodes,
+                 114,615,892 edges, 602 features; drawn on the card) built
+                 as a host CSR (its seconds recorded): step-1 gradients against the plain
+                 path's, 5 steps over two subgraphs in turn, step 5's loss
+                 (step 1's subgraph) below step 1's
+ 12. kernels line, card line, and the final ``{"ok": true, ...}`` line.
 
 Phase 2 also holds the embedding-bag and segment-sum kernels against their
 plain versions on their edge cases (bags of 8 and 100 ids with padding, sum
@@ -256,7 +291,8 @@ TRACE_ATTEMPTS = 10
 LARGE_K = (512, 1024)
 
 KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan",
-               "flash_attention", "embedding_bag", "segment_sum")
+               "flash_attention", "flash_attention_bwd", "embedding_bag",
+               "segment_sum")
 
 # The RAG phase (configs/mistral_nemo_12b.py at full width): a flat corpus
 # of 262,144 documents of 256 tokens, 64 queries, 32 new tokens per request
@@ -475,7 +511,13 @@ def counters():
             "pq_scan.pq_ivf_scan_topk": (pq_scan, "ivf_launches"),
             "flash_attention.flash_attention": (flash_attention, "launches"),
             "embedding_bag.embedding_bag": (embedding_bag, "launches"),
-            "segment_sum.sorted_segment_sum": (segment_sum, "launches")}
+            "segment_sum.sorted_segment_sum": (segment_sum, "launches"),
+            "flash_attention.flash_attention_backward": (flash_attention,
+                                                         "bwd_launches"),
+            "embedding_bag.embedding_bag_backward": (embedding_bag,
+                                                     "bwd_launches"),
+            "segment_sum.sorted_segment_sum_backward": (segment_sum,
+                                                        "bwd_launches")}
 
 
 @contextlib.contextmanager
@@ -868,9 +910,12 @@ def run(args) -> None:
 
     # -- 10. the paper's experiments ------------------------------------------
     paper_counts = paper_phase(torch, dev, args.seed)
+
+    # -- 11. training ----------------------------------------------------------
+    train = train_phase(torch, dev, args.seed)
     finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
            launches, paper_counts, dur_counts, scan_rows, flash_rows,
-           bag_rows, seg_rows, families)
+           bag_rows, seg_rows, families, train)
 
 
 # -- 10. the paper's experiments ---------------------------------------------
@@ -3968,6 +4013,752 @@ def profile_search(torch, engine, q_host, search_s: float, backend) -> None:
           "kernels": rows[:12]})
 
 
+# -- 11. training -------------------------------------------------------------
+
+# The training phase (PERF.md §2, §5): StarCoder2-3B at its published width
+# and depth (30 layers, bf16, remat), batches of TRAIN_LM_BATCH sequences of
+# train_4k's 4,096 tokens (its global batch of 256 is a multi-card batch,
+# cut to one card's 4); two-tower whole (8 x 1M x 256 tables) at batches of
+# 8,192 (train_batch's 65,536 is a global batch); EGNN on minibatch_lg
+# subgraphs (1,024 seeds, fanout 15 / 10, the JAX package's budgets,
+# src/repro/launch/inputs.py:209-211) of a random graph of Reddit's size.
+# StarCoder2's peak learning rate is 3e-4 after 3 warm-up steps: at 1e-3
+# its AdamW steps (about lr a weight, all 3,072 inputs of a logit moving
+# together) raised the loss from step 3 on (11.29 -> 12.05, H100).
+TRAIN_LM = ("starcoder2-3b", 4, 4096, 6)        # arch, batch, seq, steps
+TRAIN_LM_LR, TRAIN_LM_WARMUP = 3e-4, 3
+TRAIN_TT_BATCH, TRAIN_TT_STEPS, TRAIN_TT_LR = 8192, 5, 1e-3
+REDDIT_NODES, REDDIT_EDGES, REDDIT_FEATS = 232_965, 114_615_892, 602
+TRAIN_EG_SEEDS, TRAIN_EG_FANOUT, TRAIN_EG_STEPS = 1024, (15, 10), 5
+TRAIN_EG_LR = 1e-3
+# Tolerances.  The flash backward against its plain version: the largest
+# |Δ| over the largest |plain| of dq, dk, dv, 1e-4 in float32 (another
+# summation order) and 8e-3 in bf16 (one rounding of the results, 2 ** -8
+# of the largest, and the float32 sums' order).  The bag backward: 1e-5 of
+# the largest |plain| (float32 atomics add ids that meet in one row in no
+# fixed order).  The segment backward is a copy: equal bits.
+FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
+BAG_BWD_TOL = 1e-5
+# The LM kernel path against the plain path (impl="dense": plain attention
+# under autograd) from the same weights and batch of one sequence: the loss
+# within 1e-2 relative, the global gradient norm within 2%, and a cosine of
+# at least 0.99 between the two paths' gradients for every leaf of the
+# first, middle and last layers and for the embedding (bf16 weights and
+# activations, two attention implementations that round at other places).
+LM_LOSS_RTOL, LM_GNORM_RTOL, LM_GRAD_COS = 1e-2, 2e-2, 0.99
+# Recsys and EGNN step-1 gradients, kernel path against plain path: 1e-4
+# of each leaf's largest |plain| (the same float32 products; the bag
+# backward's atomics and the segment sum's compensated order apart).
+TRAIN_GRAD_RTOL = 1e-4
+
+
+def rel_err(torch, got, want) -> float:
+    scale = float(want.float().abs().max()) or 1.0
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def grad_of(torch, fn, inputs, d_out):
+    """The gradient of ``fn(*inputs)`` against ``d_out`` through autograd:
+    (a timed callable of the backward alone, its first result)."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+    out = fn(*leaves)
+    call = lambda: torch.autograd.grad(out, leaves, d_out, retain_graph=True)
+    return call, call()
+
+
+def flash_bwd_row(torch, case, q, k, v, *, causal, window, scale=None,
+                  flush=None) -> dict:
+    """The flash backward kernel against its plain version on the card:
+    dq, dk, dv within ``FLASH_BWD_TOL``, CUDA-event and device times, the
+    plain version's and SDPA's backward (``torch.autograd.grad``) times,
+    and the bound: bytes (q, k, v, dO read once, dq, dk, dv written
+    once) and operations (the five products of 2 * dh for every kept
+    (query, key) pair: S, dP, dV, dQ, dK) at the bf16 tensor-core peak."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dtype = str(q.dtype).split(".")[-1]
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = torch.Generator(device=q.device)
+    g.manual_seed(sq + dh)
+    do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    kern = lambda: fa.flash_attention_backward(
+        q, k, v, do, causal=causal, window=window, scale=scale)
+    plain = lambda: fa.flash_attention_backward_plain(
+        q, k, v, do, causal=causal, window=window, scale=scale)
+    before = fa.bwd_launches
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    if fa.bwd_launches != before + 1:
+        fail(f"flash backward {case}: {fa.bwd_launches - before} launches")
+    errs = {n: rel_err(torch, x, y) for n, x, y in zip(("dq", "dk", "dv"),
+                                                       got, want)}
+    tol = FLASH_BWD_TOL[dtype]
+    if max(errs.values()) > tol or not all(bool(torch.isfinite(x).all())
+                                           for x in got):
+        fail(f"flash backward {case}: relative errors {errs} (tol {tol})")
+    max_abs = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(got, want))
+    del got, want
+    keep = flash_keep(torch, sq, skv, causal, window, q.device)
+    kept = int(keep.sum())
+    sdpa_kw = ({"is_causal": True} if causal and window is None and sq == skv
+               else {"attn_mask": keep})
+    if scale is not None:
+        sdpa_kw["scale"] = scale
+    lib, _ = grad_of(torch, lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, enable_gqa=True, **sdpa_kw), (q, k, v), do)
+    n_bytes = q.element_size() * dh * (4 * b * hq * sq + 4 * b * hkv * skv)
+    n_ops = 10.0 * dh * b * hq * kept
+    bnd, by = bound_ms(n_bytes, n_ops, PEAK_BF16_FLOPS)
+    dev_all, dev_own = device_ms(torch, kern, ("flash_bwd",), per_call=2)
+    row = {"kernel": "flash_attention.flash_attention_backward",
+           "case": case, "dtype": dtype,
+           "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} "
+                    f"causal={causal} window={window}",
+           "max_abs_err": max_abs, "rel_err": errs, "tol": tol,
+           "ms": cuda_ms(torch, kern, runs=5, warmup=1, flush=flush),
+           "plain_ms": cuda_ms(torch, plain, runs=3, warmup=1, flush=flush),
+           "library_ms": cuda_ms(torch, lib, runs=5, warmup=1, flush=flush),
+           "device_ms": dev_all, "kernel_device_ms": dev_own,
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes, "ops": n_ops}
+    if scale is not None:
+        row["scale"] = scale
+    emit({"phase": "train_kernels", **row})
+    del lib
+    torch.cuda.empty_cache()
+    return row
+
+
+def bag_bwd_row(torch, case, ids, n_rows, d, mode, *, flush,
+                library=False) -> dict:
+    """The embedding-bag backward kernel against its plain version: dense
+    (F, V, D) float32 table gradients within ``BAG_BWD_TOL``, CUDA-event
+    and device times, the plain version's, and (``library``: bags of one
+    id, no padding) ``F.embedding_bag``'s backward over the stacked tables;
+    bound by bytes: d_out and the ids read once, the dense gradient written
+    once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as eb
+
+    b, f, bag_len = ids.shape
+    g = torch.Generator(device=ids.device)
+    g.manual_seed(n_rows + d)
+    d_out = torch.randn((b, f, d), generator=g, device=ids.device)
+    kern = lambda: eb.embedding_bag_backward(d_out, ids, n_rows, mode)
+    plain = lambda: eb.embedding_bag_backward_plain(d_out, ids, n_rows, mode)
+    before = eb.bwd_launches
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    if eb.bwd_launches != before + 1:
+        fail(f"embedding_bag backward {case}: not one launch")
+    err = rel_err(torch, got, want)
+    max_abs = float((got - want).abs().max())
+    if err > BAG_BWD_TOL:
+        fail(f"embedding_bag backward {case}: relative error {err}")
+    del got, want
+    torch.cuda.empty_cache()
+    lib_ms = None
+    if library:
+        weight = torch.randn((f * n_rows, d), generator=g, device=ids.device)
+        flat = (ids.long() + n_rows * torch.arange(
+            f, device=ids.device)[None, :, None]).reshape(b * f, bag_len)
+        lib, _ = grad_of(torch, lambda w: F.embedding_bag(flat, w, mode=mode),
+                         (weight,), d_out.reshape(b * f, d))
+        lib_ms = cuda_ms(torch, lib, runs=5, warmup=1, flush=flush)
+        del lib, weight
+        torch.cuda.empty_cache()
+    n_bytes = d_out.numel() * 4 + ids.numel() * 4 + f * n_rows * d * 4
+    bnd, by = bound_ms(n_bytes, 0.0)
+    dev_all, dev_own = device_ms(torch, kern,
+                                 ("embedding_bag_backward_kernel",),
+                                 per_call=1)
+    row = {"kernel": "embedding_bag.embedding_bag_backward", "case": case,
+           "shape": f"d_out {tuple(d_out.shape)} ids {tuple(ids.shape)} "
+                    f"onto ({f}, {n_rows}, {d}) mode={mode}",
+           "padded": int((ids < 0).sum()), "beyond_vocab":
+               int((ids >= n_rows).sum()),
+           "max_abs_err": max_abs, "rel_err": err, "tol": BAG_BWD_TOL,
+           "ms": cuda_ms(torch, kern, runs=5, warmup=1, flush=flush),
+           "plain_ms": cuda_ms(torch, plain, runs=3, warmup=1, flush=flush),
+           "library_ms": lib_ms, "device_ms": dev_all,
+           "kernel_device_ms": dev_own, "bound_ms": bnd, "bound_by": by,
+           "bytes": n_bytes}
+    emit({"phase": "train_kernels", **row})
+    return row
+
+
+def seg_bwd_row(torch, dev, case, n_rows, n_seg, d, *, flush) -> dict:
+    """The segment-sum backward kernel against its plain version at
+    EGNN's minibatch_lg budget (rows sorted by a random receiver, a tail of
+    padded rows past indptr[N]): equal bits; CUDA-event and device times,
+    the plain version's and ``index_select``'s (the same gather); bound by
+    bytes: d_out and indptr read once, the rows' gradient written once."""
+    from repro_torch.kernels import segment_sum as ss
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(n_rows + n_seg)
+    seg = torch.randint(0, n_seg, (n_rows,), generator=g, device=dev,
+                        dtype=torch.int32)
+    seg[-n_rows // 20:] = n_seg                       # padded edges
+    _, seg_s, indptr = ss.sort_by_segment(seg, n_seg)
+    d_out = torch.randn((n_seg, d), generator=g, device=dev)
+    kern = lambda: ss.sorted_segment_sum_backward(d_out, seg_s, indptr)
+    plain = lambda: ss.sorted_segment_sum_backward_plain(d_out, seg_s,
+                                                         indptr)
+    live = seg_s < n_seg
+    idx = seg_s.clamp(max=n_seg - 1).long()
+    lib = lambda: d_out.index_select(0, idx)
+    before = ss.bwd_launches
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if ss.bwd_launches != before + 1 or not torch.equal(got, want):
+        fail(f"segment_sum backward {case}: not equal to the plain version")
+    if not torch.equal(lib()[live], got[live]):
+        fail(f"segment_sum backward {case}: index_select disagrees")
+    n_bytes = d_out.numel() * 4 + indptr.numel() * 4 + n_rows * d * 4
+    bnd, by = bound_ms(n_bytes, 0.0)
+    dev_all, dev_own = device_ms(torch, kern,
+                                 ("segment_sum_backward_kernel",),
+                                 per_call=1)
+    row = {"kernel": "segment_sum.sorted_segment_sum_backward", "case": case,
+           "shape": f"d_out ({n_seg}, {d}) onto {n_rows} rows "
+                    f"({int(live.sum())} live)",
+           "max_abs_err": 0.0, "equal_plain": True,
+           "ms": cuda_ms(torch, kern, flush=flush),
+           "plain_ms": cuda_ms(torch, plain, flush=flush),
+           "library_ms": cuda_ms(torch, lib, flush=flush),
+           "device_ms": dev_all, "kernel_device_ms": dev_own,
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
+    emit({"phase": "train_kernels", **row})
+    return row
+
+
+def train_kernel_rows(torch, dev) -> dict:
+    """Each backward kernel against its plain version at the training
+    path's shapes: the flash backward at StarCoder2's (q (1, 24, 4096,
+    128), kv (1, 2, 4096, 128)), Gemma3's head dim 256 with its 1,024-key
+    window and DeepSeek-V2's MLA call padded to 256 (group 1, 128 heads,
+    1,024 tokens); the bag backward at the two-tower shape and a padded
+    mean case; the segment backward at minibatch_lg's budget."""
+    from repro_torch.configs import get_arch
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    rows = {"flash": [], "bag": [], "seg": []}
+    sc = get_arch("starcoder2-3b").CONFIG
+    s = TRAIN_LM[2]
+    rows["flash"].append(flash_bwd_row(
+        torch, "starcoder2_train", rnd(1, sc.n_heads, s, sc.d_head),
+        rnd(1, sc.n_kv_heads, s, sc.d_head),
+        rnd(1, s, sc.n_kv_heads, sc.d_head).transpose(1, 2), causal=True,
+        window=None, flush=flush))
+    gm = get_arch("gemma3-4b").CONFIG
+    rows["flash"].append(flash_bwd_row(
+        torch, "gemma3_window_dh256", rnd(1, gm.n_heads, s, gm.d_head),
+        rnd(1, gm.n_kv_heads, s, gm.d_head),
+        rnd(1, s, gm.n_kv_heads, gm.d_head).transpose(1, 2), causal=True,
+        window=gm.window, flush=flush))
+    m = get_arch("deepseek-v2-236b").CONFIG
+    dqk = m.mla.d_nope + m.mla.d_rope
+    rows["flash"].append(flash_bwd_row(
+        torch, "mla_padded_group1", rnd(1, m.n_heads, 1024, 256),
+        rnd(1, m.n_heads, 1024, 256), rnd(1, m.n_heads, 1024, 256),
+        causal=True, window=None, scale=dqk ** -0.5, flush=flush))
+
+    tt = get_arch("two-tower-retrieval").CONFIG
+    nf = tt.n_sparse // 2
+    ids = torch.randint(0, tt.vocab_per_field, (TRAIN_TT_BATCH, nf, 1),
+                        generator=g, device=dev, dtype=torch.int32)
+    rows["bag"].append(bag_bwd_row(torch, "two_tower_train", ids,
+                                   tt.vocab_per_field, tt.embed_dim, "sum",
+                                   flush=flush, library=True))
+    ids = torch.randint(-1, 100_000 + 2, (4096, 8, 20), generator=g,
+                        device=dev, dtype=torch.int32)
+    rows["bag"].append(bag_bwd_row(torch, "padded_mean_L20", ids, 100_000,
+                                   64, "mean", flush=flush))
+    del ids
+    f = TRAIN_EG_FANOUT
+    n_nodes = TRAIN_EG_SEEDS * (1 + f[0] + f[0] * f[1])
+    n_edges = TRAIN_EG_SEEDS * (f[0] + f[0] * f[1])
+    rows["seg"].append(seg_bwd_row(torch, dev, "minibatch_lg_m", n_edges,
+                                   n_nodes,
+                                   get_arch("egnn").CONFIG.d_hidden,
+                                   flush=flush))
+    del flush
+    _free(torch)
+    return rows
+
+
+def _leaf_paths(tree, prefix=""):
+    """(path, leaf) of a nested dict of tensors, in sorted-key order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out += _leaf_paths(v, f"{prefix}{k}/")
+        else:
+            out.append((f"{prefix}{k}", v))
+    return out
+
+
+def lm_grad_check(torch, cfg, params, batch, impl, layers):
+    """(loss, global gradient norm, {leaf: float32 gradient}) of one
+    batch through ``lm_loss(impl=)``: every leaf of ``layers`` of the
+    stacked layers, and the embedding, kept."""
+    from repro_torch.models import lm as LM
+
+    paths = _leaf_paths(params)
+    loss, _ = LM.lm_loss(LM.lm_view(params, cfg), batch, impl=impl)
+    grads = torch.autograd.grad(loss, [p for _, p in paths])
+    norm2 = sum(float(g.float().pow(2).sum()) for g in grads)
+    kept = {}
+    for (path, _), gr in zip(paths, grads):
+        if path == "embed":
+            kept[path] = gr.float()
+        elif path.startswith("layers/"):
+            for l in layers:
+                kept[f"{path}[{l}]"] = gr[l].float()
+    del grads
+    return float(loss.detach()), norm2 ** 0.5, kept
+
+
+def lm_compare(torch, kern, plain, calls=None) -> dict:
+    """The kernel path's (loss, norm, grads) against the plain path's:
+    relative loss and norm gaps, the least cosine, the plain attention
+    calls' largest error against the kernel on their own inputs (over the
+    call limit; ``calls``), and whether all are within their limits."""
+    loss_gap = abs(kern[0] - plain[0]) / abs(plain[0])
+    norm_gap = abs(kern[1] - plain[1]) / plain[1]
+    cos = {}
+    for name, a in kern[2].items():
+        b = plain[2][name]
+        cos[name] = float((a * b).sum() / (a.norm() * b.norm()).clamp(
+            min=1e-30))
+    worst = min(cos, key=cos.get)
+    out = {"loss": kern[0], "plain_loss": plain[0], "loss_rel_gap": loss_gap,
+           "grad_norm": kern[1], "plain_grad_norm": plain[1],
+           "grad_norm_rel_gap": norm_gap, "min_cosine": cos[worst],
+           "min_cosine_leaf": worst, "leaves_checked": len(cos),
+           "ok": bool(loss_gap <= LM_LOSS_RTOL and norm_gap <= LM_GNORM_RTOL
+                      and cos[worst] >= LM_GRAD_COS)}
+    if calls is not None:
+        layer = max(calls, key=calls.get)
+        out.update({"calls_checked": len(calls), "worst_call_layer": layer,
+                    "worst_call_over_limit": calls[layer]})
+        out["ok"] = out["ok"] and calls[layer] <= 1.0
+    return out
+
+
+@contextlib.contextmanager
+def plain_attention(torch, params, n_layers, *, calls=None, shift=None,
+                    nudge=False):
+    """Hooks on the plain path's attention (``dense_attention``), each
+    layer found by its ``wq`` view of ``params``.  ``calls``: each layer's
+    first call (the forward's; the recompute repeats it) held against the
+    flash kernel on its own inputs, ``calls[layer]`` the largest |Δ| over
+    FLASH_TOL + FAMILY_CALL_RTOL * |plain|.  ``shift``: that layer's causal
+    mask shifted by one key (each query also sees the next token).
+    ``nudge``: every attention output moved one bf16 step (the witness of
+    bf16 noise)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.layers import attention as A
+
+    wq = params["layers"]["attn"]["wq"]
+    layer_of = {wq[l].data_ptr(): l for l in range(n_layers)}
+    mha, dense = A.mha_forward, A.dense_attention
+    state = {"layer": None}
+
+    def mha_hooked(p, x, **kw):
+        state["layer"] = layer_of.get(p.wq.data_ptr())
+        try:
+            return mha(p, x, **kw)
+        finally:
+            state["layer"] = None
+
+    def dense_hooked(q, k, v, *, causal, window, q_offset=0):
+        l = state["layer"]
+        o = dense(q, k, v, causal=causal, window=window,
+                  q_offset=q_offset + int(l is not None and l == shift))
+        if nudge:
+            o = (o.float() * (1 + 2 ** -8)).to(o.dtype)
+        if calls is not None and l is not None and l not in calls:
+            with torch.no_grad():
+                want = o.detach().float()
+                got = fa.flash_attention(
+                    q.detach(), k.detach(), v.detach(), causal=causal,
+                    window=window if window > 0 else None).float()
+                lim = FLASH_TOL["bfloat16"] + FAMILY_CALL_RTOL * want.abs()
+                calls[l] = float(((got - want).abs() / lim).max())
+        return o
+
+    A.mha_forward, A.dense_attention = mha_hooked, dense_hooked
+    try:
+        yield
+    finally:
+        A.mha_forward, A.dense_attention = mha, dense
+
+
+def lm_path_check(torch, cfg, params, batch, layers) -> dict:
+    """The kernel path against the plain path (``impl="dense"``: plain
+    attention under autograd, every call also held to the kernel on its own
+    inputs) from ``params`` on one batch, then the same with the middle
+    layer's causal mask shifted by one key on the plain path (the control),
+    which must fail."""
+    kern = lm_grad_check(torch, cfg, params, batch, "chunked", layers)
+    calls = {}
+    with plain_attention(torch, params, cfg.n_layers, calls=calls):
+        plain = lm_grad_check(torch, cfg, params, batch, "dense", layers)
+    check = lm_compare(torch, kern, plain, calls)
+    ctl_calls = {}
+    with plain_attention(torch, params, cfg.n_layers, calls=ctl_calls,
+                         shift=layers[1]):
+        control = lm_compare(torch, kern, lm_grad_check(
+            torch, cfg, params, batch, "dense", layers), ctl_calls)
+    return {"check": check, "control": control,
+            "control_shift_layer": layers[1]}
+
+
+def lm_train_run(torch, dev, seed) -> dict:
+    """StarCoder2-3B trained at full depth and width through the port's
+    ``TrainLoop``.  Before the first step, the kernel path against the
+    plain path at batch 1 from the initial weights, and the shifted-mask
+    control; after the last, the same comparison and a witness (the plain
+    path with every attention output one bf16 step off) recorded."""
+    from repro_torch.checkpoint.ckpt import _leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synth import lm_batch_stream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm as LM
+    from repro_torch.train import TrainLoop
+    from repro_torch.train.loop import to_device
+
+    arch, b, s, steps = TRAIN_LM
+    cfg = get_arch(arch).CONFIG
+    if not cfg.remat or cfg.param_dtype != "bfloat16":
+        fail(f"{arch}: expected a bf16 config with remat")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.param_tree(LM.init_lm(cfg, seed=seed, device=dev))
+    for p in _leaves(params)[0]:
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    # the kernel path against the plain path, one sequence, same weights
+    one = to_device(next(lm_batch_stream(np.random.default_rng(seed + 1),
+                                         cfg.vocab, 1, s)), dev)
+    layers = (0, cfg.n_layers // 2, cfg.n_layers - 1)
+    t0 = time.perf_counter()
+    first = lm_path_check(torch, cfg, params, one, layers)
+    if not first["check"]["ok"]:
+        fail(f"{arch}: kernel path against plain path {first['check']}")
+    if first["control"]["ok"]:
+        fail(f"{arch}: the shifted-mask control passed the check: "
+             f"{first['control']}")
+    check_s = time.perf_counter() - t0
+    _free(torch)
+
+    loop = TrainLoop(lambda p, bt: LM.lm_loss(LM.lm_view(p, cfg), bt),
+                     lambda: params,
+                     lm_batch_stream(np.random.default_rng(seed), cfg.vocab,
+                                     b, s),
+                     log_every=1, base_lr=TRAIN_LM_LR, warmup=TRAIN_LM_WARMUP,
+                     total_steps=steps)
+    n_params = sum(p.numel() for p in _leaves(params)[0])
+    zero_counts()
+    t0 = time.perf_counter()
+    loop.run(steps)
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [h["loss"] for h in loop.history]
+    gnorms = [h["grad_norm"] for h in loop.history]
+    if not all(np.isfinite(losses + gnorms)) or not losses[-1] < losses[0]:
+        fail(f"{arch} training: losses {losses}, grad norms {gnorms}")
+    kind = fa.route(torch.bfloat16, cfg.d_head, s,
+                    cfg.n_heads // cfg.n_kv_heads, s)
+    want = {"flash_attention.flash_attention": 2 * cfg.n_layers * steps,
+            f"flash_attention.{kind}": 2 * cfg.n_layers * steps,
+            "flash_attention.flash_attention_backward": cfg.n_layers * steps}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"{arch} training launches {counts}, expected {want} (a "
+             f"forward and a remat recompute, one backward a layer a step)")
+    step_s = float(np.median(loop.step_times))
+    tokens = b * s
+    attn_flops = 3 * 4.0 * b * cfg.n_heads * cfg.d_head * s * (s + 1) / 2 \
+        * cfg.n_layers
+    flops = 6.0 * n_params * tokens + attn_flops
+    row = {"phase": "train", "model": arch, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": n_params, "batch": b, "seq": s,
+           "global_batch_cut": "train_4k's 256 sequences to 4 (one card)",
+           "steps": steps, "lr": TRAIN_LM_LR, "losses": losses,
+           "grad_norms": gnorms, "init_s": init_s, "train_s": train_s,
+           "step_ms_p50": step_s * 1e3,
+           "step_ms": [t * 1e3 for t in loop.step_times],
+           "tokens_per_s": tokens / step_s, "model_flops_per_step": flops,
+           "attention_flops_per_step": attn_flops,
+           "bf16_peak_share": flops / step_s / PEAK_BF16_FLOPS,
+           "max_memory_allocated_gb": peak_gb,
+           "launches": {k: counts[k] for k in want},
+           "plain_check": first["check"], "control": first["control"],
+           "control_shift_layer": first["control_shift_layer"],
+           "check_s": check_s}
+    del loop
+    _free(torch)
+
+    # after the steps: recorded, not gated (the plain path rounds dP to
+    # bf16 through p.to(v.dtype)'s backward, which swamps dP - D in rows
+    # peaked on one key; the witness shows that floor)
+    kern = lm_grad_check(torch, cfg, params, one, "chunked", layers)
+    plain = lm_grad_check(torch, cfg, params, one, "dense", layers)
+    with plain_attention(torch, params, cfg.n_layers, nudge=True):
+        witness = lm_grad_check(torch, cfg, params, one, "dense", layers)
+    row["after_training"] = {
+        "kernel_vs_plain": lm_compare(torch, kern, plain),
+        "witness_vs_plain": lm_compare(torch, witness, plain)}
+    emit(row)
+    del params, kern, plain, witness
+    _free(torch)
+    return {k: counts[k] for k in want}
+
+
+def loss_grads(torch, loss_fn, params, batch):
+    """(loss, every leaf's gradient, zeros where the loss does not reach
+    the leaf) of one batch."""
+    from repro_torch.checkpoint.ckpt import _leaves
+
+    leaves = _leaves(params)[0]
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                                  for g, p in zip(grads, leaves)]
+
+
+def step1_check(torch, name, loss_fn, params, batch) -> dict:
+    """The kernel path's step-1 gradients against the plain path's (every
+    ``ops`` entry on its plain version), leaf by leaf within
+    ``TRAIN_GRAD_RTOL`` of the leaf's largest |plain|."""
+    lk, gk = loss_grads(torch, loss_fn, params, batch)
+    with plain_ops():
+        lp, gp = loss_grads(torch, loss_fn, params, batch)
+    errs = [rel_err(torch, a, b) for a, b in zip(gk, gp)]
+    worst = max(errs)
+    if worst > TRAIN_GRAD_RTOL or abs(lk - lp) > 1e-5 * abs(lp):
+        fail(f"{name}: step-1 gradients of the kernel path against the "
+             f"plain path: loss {lk} / {lp}, worst leaf {worst}")
+    return {"loss": lk, "plain_loss": lp, "max_rel_grad_err": worst,
+            "leaves": len(errs)}
+
+
+def two_tower_train_run(torch, dev, seed) -> dict:
+    """Two-tower retrieval trained whole (8 x 1M x 256 tables, towers
+    1024-512-256, Matryoshka losses at 64 / 128) at batches of 8,192."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synth import recsys_batch_stream
+    from repro_torch.models import recsys as R
+    from repro_torch.train import TrainLoop
+    from repro_torch.train.loop import to_device
+
+    cfg = get_arch("two-tower-retrieval").CONFIG
+
+    def stream():
+        return recsys_batch_stream(np.random.default_rng(seed), cfg.family,
+                                   TRAIN_TT_BATCH, n_sparse=cfg.n_sparse,
+                                   vocab=cfg.vocab_per_field)
+
+    loss_fn = lambda p, bt: R.recsys_loss(p, bt, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = R.param_tree(R.recsys_init(cfg, seed=seed, device=dev))
+    check = step1_check(torch, "two-tower", loss_fn, params,
+                        to_device(next(stream()), dev))
+    check["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 2**30
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(loss_fn, lambda: params, stream(), log_every=1,
+                     base_lr=TRAIN_TT_LR, warmup=1,
+                     total_steps=TRAIN_TT_STEPS)
+    zero_counts()
+    t0 = time.perf_counter()
+    loop.run(TRAIN_TT_STEPS)
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [h["loss"] for h in loop.history]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"two-tower training: losses {losses}")
+    want = {"embedding_bag.embedding_bag": 2 * TRAIN_TT_STEPS,
+            "embedding_bag.embedding_bag_backward": 2 * TRAIN_TT_STEPS}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"two-tower training launches {counts}, expected {want}")
+    step_s = float(np.median(loop.step_times))
+    emit({"phase": "train", "model": "two-tower-retrieval",
+          "batch": TRAIN_TT_BATCH,
+          "global_batch_cut": "train_batch's 65,536 to 8,192",
+          "steps": TRAIN_TT_STEPS, "losses": losses,
+          "accuracies": [h["acc"] for h in loop.history],
+          "step1_check": check, "train_s": train_s,
+          "step_ms_p50": step_s * 1e3,
+          "step_ms": [t * 1e3 for t in loop.step_times],
+          "examples_per_s": TRAIN_TT_BATCH / step_s,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": {k: counts[k] for k in want}})
+    del loop, params
+    _free(torch)
+    return {k: counts[k] for k in want}
+
+
+def egnn_train_run(torch, dev, seed) -> dict:
+    """EGNN (CONFIG width, 602 input features) trained on minibatch_lg
+    subgraphs of a power-law random graph of Reddit's size (drawn on the
+    card, built as a host CSR); two subgraphs taken in turn, so step 5 sees
+    step 1's."""
+    import itertools
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import egnn as EG
+    from repro_torch.models import graph as G
+    from repro_torch.train import TrainLoop
+
+    cfg = dataclasses.replace(get_arch("egnn").CONFIG,
+                              d_feat_in=REDDIT_FEATS)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    n, e = REDDIT_NODES, REDDIT_EDGES
+    # power-law endpoints (random_graph's Pareto weights) drawn on the card
+    # by inverse CDF, in bulk, then moved to the host the sampler reads
+    w = rng.pareto(2.0, n) + 1.0
+    cdf = torch.from_numpy(np.cumsum(w / w.sum())).to(dev)
+
+    def endpoints():
+        u = torch.rand((e,), generator=gen, device=dev, dtype=torch.float64)
+        ids = torch.searchsorted(cdf, u, right=True).clamp_(max=n - 1)
+        return ids.to(torch.int32).cpu().numpy()
+
+    senders, receivers = endpoints(), endpoints()
+    feats = torch.randn((n, REDDIT_FEATS), generator=gen,
+                        device=dev).cpu().numpy()
+    labels = rng.integers(0, cfg.n_classes, n, dtype=np.int32)
+    coords = rng.normal(size=(n, 3)).astype(np.float32)
+    del cdf
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr = G.CSRGraph(n, senders, receivers)
+    csr_s = time.perf_counter() - t0
+    max_deg = int(np.diff(csr.indptr).max())
+    del senders, receivers
+    f = TRAIN_EG_FANOUT
+    budget = dict(node_budget=TRAIN_EG_SEEDS * (1 + f[0] + f[0] * f[1]),
+                  edge_budget=TRAIN_EG_SEEDS * (f[0] + f[0] * f[1]))
+    t0 = time.perf_counter()
+    graphs = [G.sampled_subgraph(rng, csr, feats, labels, coords,
+                                 TRAIN_EG_SEEDS, f, device=dev, **budget)
+              for _ in range(2)]
+    sample_s = (time.perf_counter() - t0) / 2
+    del csr, feats
+    live = [int(g_.edge_mask.sum()) for g_ in graphs]
+
+    loss_fn = lambda pr, g_: EG.egnn_loss(pr, g_, cfg)
+    params = EG.param_tree(EG.egnn_init(cfg, seed=seed, device=dev))
+    check = step1_check(torch, "EGNN", loss_fn, params, graphs[0])
+    loop = TrainLoop(loss_fn, lambda: params, itertools.cycle(graphs),
+                     log_every=1, base_lr=TRAIN_EG_LR, warmup=1,
+                     total_steps=TRAIN_EG_STEPS, prefetch=False)
+    zero_counts()
+    t0 = time.perf_counter()
+    loop.run(TRAIN_EG_STEPS)
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    losses = [h["loss"] for h in loop.history]
+    if not all(np.isfinite(losses)) or not losses[4] < losses[0]:
+        fail(f"EGNN training: losses {losses} (steps 1 and 5 see the same "
+             f"subgraph)")
+    # a forward sums degrees, coordinates and messages in each layer; the
+    # backward reaches every sum but the degrees' (no gradient) and the
+    # last layer's coordinates (the loss reads the features only)
+    want = {"segment_sum.sorted_segment_sum": 3 * cfg.n_layers
+            * TRAIN_EG_STEPS,
+            "segment_sum.sorted_segment_sum_backward":
+                (2 * cfg.n_layers - 1) * TRAIN_EG_STEPS}
+    if any(counts[k] != n_ for k, n_ in want.items()):
+        fail(f"EGNN training launches {counts}, expected {want}")
+    emit({"phase": "train", "model": "egnn", "shape": "minibatch_lg",
+          "graph": {"nodes": n, "edges": e, "features": REDDIT_FEATS,
+                    "max_out_degree": max_deg},
+          "graph_draw_s": gen_s, "csr_build_s": csr_s,
+          "sample_s": sample_s, "live_edges": live, **budget,
+          "steps": TRAIN_EG_STEPS, "losses": losses,
+          "step1_check": check, "train_s": train_s,
+          "step_ms_p50": float(np.median(loop.step_times)) * 1e3,
+          "step_ms": [t_ * 1e3 for t_ in loop.step_times],
+          "launches": {k: counts[k] for k in want}})
+    del loop, params, graphs
+    _free(torch)
+    return {k: counts[k] for k in want}
+
+
+def train_phase(torch, dev, seed):
+    """Phase 11: the backward kernels' rows, then the three training runs.
+    Returns (the main paths' launches by counter, the kernel rows)."""
+    emit({"phase": "train_memory", "before": "train_phase",
+          "allocated_gb": torch.cuda.memory_allocated() / 2**30})
+    rows = train_kernel_rows(torch, dev)
+    counts = {}
+    for run in (lm_train_run, two_tower_train_run, egnn_train_run):
+        counts.update(run(torch, dev, seed))
+        # what a run leaves on the card (it should free all it made)
+        emit({"phase": "train_memory", "after": run.__name__,
+              "allocated_gb": torch.cuda.memory_allocated() / 2**30})
+    return counts, rows
+
+
+def _bwd_entry(name, source, launches, rows, note) -> dict:
+    """The kernels-line entry of a backward kernel: its first row, the
+    others beside it, the training path's launches."""
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "kernel_device_ms",
+            "bound_ms", "bound_by", "shape")
+    first = rows[0]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": note, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: first[k] for k in keys},
+            **{r["case"]: {k: r[k] for k in keys} for r in rows[1:]}}
+
+
+def train_entries(counts, rows) -> list:
+    new = "none: new in the port, no Pallas counterpart (the JAX package " \
+          "trains through XLA: {})"
+    return [
+        _bwd_entry("flash_attention.flash_attention_backward",
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   counts["flash_attention.flash_attention_backward"],
+                   rows["flash"],
+                   new.format("src/repro/layers/attention.py:95")),
+        _bwd_entry("embedding_bag.embedding_bag_backward",
+                   "src/repro_torch/csrc/embedding_bag.cu",
+                   counts["embedding_bag.embedding_bag_backward"],
+                   rows["bag"], new.format("src/repro/models/recsys.py:41")),
+        _bwd_entry("segment_sum.sorted_segment_sum_backward",
+                   "src/repro_torch/csrc/segment_sum.cu",
+                   counts["segment_sum.sorted_segment_sum_backward"],
+                   rows["seg"], new.format("src/repro/models/egnn.py:89")),
+    ]
+
+
 def _scan_entry(name, source, replaces, launches, rows) -> dict:
     first = rows[0]
     out = {"name": name, "route": "cuda", "source": source,
@@ -4107,7 +4898,7 @@ def _ladder_entry(launches, step_rows, ladder_rows) -> dict:
 
 def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
            launches, paper_counts, dur_counts, scan_rows, flash_rows,
-           bag_rows, seg_rows, families) -> None:
+           bag_rows, seg_rows, families, train) -> None:
     """Print the kernels line, the card line and the final result line."""
     s32 = [r for r in stage_rows if r["case"] == "flat_stage0_q32"][0]
     tt = [r for r in stage_rows if r["case"] == "two_tower_stage0"][0]
@@ -4153,6 +4944,7 @@ def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
         _flash_entry(launches, flash_rows, families),
         _bag_entry(launches, bag_rows),
         _seg_entry(launches, seg_rows),
+        *train_entries(*train),
     ]
     kernels[1]["paper_launches"] = paper_counts["gather_rescore.ladder"]
     # the recovered engine's and the follower's searches, and the recovered

@@ -100,10 +100,16 @@ def _decode(a: np.ndarray, dtype_name: str):
     return a
 
 
+def _is_namedtuple(t) -> bool:
+    return isinstance(t, tuple) and hasattr(t, "_fields")
+
+
 def _leaves(tree) -> Tuple[List[Any], str]:
     """(leaves in JAX's flatten order, the tree's ``PyTreeDef(...)``
-    string): dicts by sorted key, lists and tuples in order, ``None`` an
-    empty subtree, anything else a leaf."""
+    string): dicts by sorted key, lists, tuples and ``NamedTuple``s in
+    order, ``None`` an empty subtree, anything else a leaf.  A
+    ``NamedTuple`` prints as JAX prints it, ``CustomNode(namedtuple[Name],
+    [...])``."""
     leaves: List[Any] = []
 
     def walk(t) -> str:
@@ -114,6 +120,9 @@ def _leaves(tree) -> Tuple[List[Any], str]:
             return "{" + ", ".join(parts) + "}"
         if isinstance(t, (list, tuple)):
             parts = [walk(v) for v in t]
+            if _is_namedtuple(t):
+                return (f"CustomNode(namedtuple[{type(t).__name__}], ["
+                        + ", ".join(parts) + "])")
             if isinstance(t, list):
                 return "[" + ", ".join(parts) + "]"
             return "(" + ", ".join(parts) + ("," if len(parts) == 1 else "") \
@@ -134,6 +143,8 @@ def _unflatten(tree, leaves: List[Any]):
         if isinstance(t, dict):
             out = {k: build(t[k]) for k in sorted(t)}
             return {k: out[k] for k in t}
+        if _is_namedtuple(t):
+            return type(t)(*[build(v) for v in t])
         if isinstance(t, (list, tuple)):
             return type(t)(build(v) for v in t)
         return next(it)
@@ -301,8 +312,9 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 def _as_tensor(a, like, device) -> torch.Tensor:
     """A restored array as a tensor of ``like``'s dtype on ``device``
     (``like``'s device when None)."""
+    # ascontiguousarray makes a 0-d array 1-d: the shape is put back
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(a))
+        np.ascontiguousarray(a)).reshape(a.shape)
     if isinstance(like, torch.Tensor):
         dtype, dev = like.dtype, like.device
     else:

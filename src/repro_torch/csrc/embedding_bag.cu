@@ -479,6 +479,61 @@ cudaError_t launch_typed(const EmbeddingBagArgs& a) {
   }
 }
 
+
+// --------------------------------------------------------------- backward --
+//
+// embedding_bag_backward: the gradient of the tables, dense (F, V, D)
+// float32, zeroed by the caller.  The JAX package has no backward kernel
+// (it trains through XLA's gather, src/repro/models/recsys.py:41); this is
+// what jax.grad of that gather gives: each id in [0, V) of a bag adds the
+// bag's d_out row to its table row (divided by the bag's count of ids >= 0
+// under `mean`); negative ids are padding, and ids >= V, which the forward
+// clamps to row V - 1, get nothing (the gather's transpose drops
+// out-of-range indices).  One warp a (bag, field) output row, d_out read
+// as 16-byte words where D is a multiple of 4, float32 atomic adds (RED)
+// into the table: ids that meet in one row add in no fixed order.
+
+__global__ void __launch_bounds__(kThreads)
+embedding_bag_backward_kernel(const float* __restrict__ d_out,
+                              const int* __restrict__ ids, float* d_tab,
+                              long long n_bags, int n_fields, int bag_len,
+                              int vocab, int d, int mean) {
+  const long long w =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= n_bags) return;
+  const int* bag = ids + w * bag_len;
+  float denom = 1.f;
+  if (mean) {
+    int cnt = 0;
+    for (int l = lane; l < bag_len; l += 32) cnt += __ldg(bag + l) >= 0;
+#pragma unroll
+    for (int sh = 16; sh > 0; sh >>= 1)
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, sh);
+    denom = static_cast<float>(max(cnt, 1));
+  }
+  const float* g = d_out + w * d;
+  float* tab = d_tab + static_cast<long long>(w % n_fields) * vocab * d;
+  const bool vec = (d & 3) == 0;
+  for (int l = 0; l < bag_len; ++l) {
+    const int id = __ldg(bag + l);
+    if (id < 0 || id >= vocab) continue;
+    float* row = tab + static_cast<long long>(id) * d;
+    if (vec) {
+      for (int c = 4 * lane; c < d; c += 128) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(g + c));
+        atomicAdd(row + c, mean ? x.x / denom : x.x);
+        atomicAdd(row + c + 1, mean ? x.y / denom : x.y);
+        atomicAdd(row + c + 2, mean ? x.z / denom : x.z);
+        atomicAdd(row + c + 3, mean ? x.w / denom : x.w);
+      }
+    } else {
+      for (int c = lane; c < d; c += 32)
+        atomicAdd(row + c, mean ? __ldg(g + c) / denom : __ldg(g + c));
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -497,6 +552,23 @@ int embedding_bag_launch(const EmbeddingBagArgs* args) {
   const cudaError_t err = a.bf16 ? launch_typed<__nv_bfloat16>(a)
                                  : launch_typed<float>(a);
   return static_cast<int>(err);
+}
+
+// The tables' gradient: d_tab (n_fields, vocab, d) float32, zeroed by the
+// caller, += each valid id's share of d_out (n_bags = B * n_fields rows of
+// d float32, contiguous, 16-byte aligned); ids (B, n_fields, bag_len)
+// int32 contiguous.  Returns the launch's CUDA error.
+int embedding_bag_backward_launch(const float* d_out, const int* ids,
+                                  float* d_tab, long long n_bags,
+                                  int n_fields, int bag_len, int vocab, int d,
+                                  int mean, void* stream) {
+  if (n_bags < 1 || n_fields < 1 || vocab < 1 || d < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n_bags * 32 + kThreads - 1) / kThreads;
+  embedding_bag_backward_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      d_out, ids, d_tab, n_bags, n_fields, bag_len, vocab, d, mean);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Human-readable name of a CUDA error code returned by the launcher.

@@ -493,6 +493,79 @@ cudaError_t launch_main(const float* data, const int* indptr,
   return cudaGetLastError();
 }
 
+
+// --------------------------------------------------------------- backward --
+//
+// segment_sum_backward: the gradient of the rows, d_data (n_rows, d)
+// float32: each live row gets its segment's d_out row, the rows outside
+// every segment (past the clamped indptr[N], or before indptr[0]) 0.  The
+// JAX package has no backward kernel (it trains through
+// jax.ops.segment_sum, src/repro/models/egnn.py:89-97, whose transpose is
+// this gather).  A warp a task of 32 consecutive rows: each lane finds its
+// row's segment by a binary search of indptr, clamped as the forward
+// clamps it, so a hub's rows spread over many warps; then the warp copies
+// the rows' d_out rows out, 16-byte words (several rows a step where D / 4
+// divides 32), lanes across the columns; at D <= 4 a lane a row.  No
+// arithmetic: the result is d_out's bits.
+
+__device__ __forceinline__ int clamped_ptr(const int* indptr, int s,
+                                           int nnz) {
+  return min(max(__ldg(indptr + s), 0), nnz);
+}
+
+__global__ void __launch_bounds__(kThreads)
+segment_sum_backward_kernel(const float* __restrict__ d_out,
+                            const int* __restrict__ indptr, float* d_data,
+                            int n_seg, int n_rows, int d, long long ld,
+                            int vec) {
+  const long long task =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long r0 = task * 32;
+  if (r0 >= n_rows) return;
+  const int nnz = min(max(__ldg(indptr + n_seg), 0), n_rows);
+  const long long r = r0 + lane;
+  int seg = -1;
+  if (r < nnz && n_seg > 0) {
+    int lo = 0, hi = n_seg;             // the last s with ptr[s] <= r
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (clamped_ptr(indptr, mid, nnz) <= r) lo = mid; else hi = mid;
+    }
+    if (clamped_ptr(indptr, lo, nnz) <= r) seg = lo;
+  }
+  if (d <= 4) {
+    if (r < n_rows)
+      for (int c = 0; c < d; ++c)
+        d_data[r * ld + c] = seg >= 0 ? __ldg(d_out + static_cast<long long>(seg) * d + c) : 0.f;
+    return;
+  }
+  const int n_here = static_cast<int>(min(32LL, n_rows - r0));
+  if (vec) {
+    const int w4 = d >> 2;              // 16-byte words a row
+    const int per = (w4 <= 32 && (32 % w4) == 0) ? 32 / w4 : 1;
+    const int sub = per > 1 ? lane / w4 : 0;
+    const int c0 = per > 1 ? lane % w4 : lane;
+    for (int k = 0; k < 32; k += per) {
+      const int kr = k + sub;
+      const int s = __shfl_sync(0xffffffffu, seg, kr & 31);
+      if (kr >= n_here) continue;
+      float4* dst = reinterpret_cast<float4*>(d_data + (r0 + kr) * ld);
+      const float4* src =
+          reinterpret_cast<const float4*>(d_out + static_cast<long long>(s) * d);
+      for (int c = c0; c < w4; c += (per > 1 ? w4 : 32))
+        dst[c] = s >= 0 ? __ldg(src + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int k = 0; k < n_here; ++k) {
+      const int s = __shfl_sync(0xffffffffu, seg, k);
+      float* dst = d_data + (r0 + k) * ld;
+      for (int c = lane; c < d; c += 32)
+        dst[c] = s >= 0 ? __ldg(d_out + static_cast<long long>(s) * d + c) : 0.f;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -520,6 +593,24 @@ int segment_sum_launch(const float* data, const int* indptr, float* out,
   segment_sum_fixup<<<(n_tasks + kWarps - 1) / kWarps, kThreads, 0, st>>>(
       indptr, bounds, carry, out, n_seg, n_rows, d, items, n_tasks);
   return (int)cudaGetLastError();
+}
+
+// The rows' gradient: d_data (n_rows, d) float32, row stride ld elements,
+// unit stride on d; d_out (n_seg, d) float32 contiguous; indptr (n_seg +
+// 1,) int32 as the forward took it.  vec != 0 selects 16-byte words (d and
+// ld multiples of 4, both pointers 16-byte aligned).  Returns the launch's
+// CUDA error.
+int segment_sum_backward_launch(const float* d_out, const int* indptr,
+                                float* d_data, int n_seg, int n_rows, int d,
+                                long long ld, int vec, void* stream) {
+  if (n_rows < 1 || d < 1 || n_seg < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long warps = (static_cast<long long>(n_rows) + 31) / 32;
+  const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
+  segment_sum_backward_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      d_out, indptr, d_data, n_seg, n_rows, d, ld, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Human-readable name of a CUDA error code returned by the launcher.

@@ -1,16 +1,50 @@
-"""Synthetic recsys batches with planted structure (host-side numpy).
+"""Synthetic but learnable data streams (host-side numpy): the port's own
+copy of ``src/repro/data/synth.py``.
 
-The port's own copy of ``recsys_batch_stream`` from the JAX package
-(``src/repro/data/synth.py:49``): clicks come from a planted low-rank
-user x item affinity.  The same ``numpy.random.Generator`` state gives the
-same batches as the JAX package's generator.
+  * LM: an order-1 Markov chain over the vocab (`synthetic_markov_lm`,
+    `lm_batch_stream`): the cross-entropy floor is the chain's conditional
+    entropy, well below the uniform log V.
+  * RecSys: clicks from a planted low-rank user x item affinity
+    (`recsys_batch_stream`).
+
+The same ``numpy.random.Generator`` state gives the same arrays as the JAX
+package's generators, bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+
+def synthetic_markov_lm(
+    rng: np.random.Generator, vocab: int, *, branching: int = 16
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Sparse row-stochastic transition matrix: (vocab, branching) next
+    ids and their probabilities."""
+    nxt = rng.integers(0, vocab, size=(vocab, branching), dtype=np.int32)
+    w = rng.dirichlet(np.ones(branching) * 0.5, size=vocab).astype(np.float32)
+    return nxt, w
+
+
+def lm_batch_stream(
+    rng: np.random.Generator, vocab: int, batch: int, seq: int,
+    *, branching: int = 16,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Yields {'tokens': (batch, seq + 1) int32} from a Markov chain."""
+    nxt, w = synthetic_markov_lm(rng, vocab, branching=branching)
+    state = rng.integers(0, vocab, size=batch, dtype=np.int32)
+    while True:
+        toks = np.empty((batch, seq + 1), np.int32)
+        toks[:, 0] = state
+        for t in range(seq):
+            choice = (rng.random(batch)[:, None] >
+                      np.cumsum(w[state], axis=1)).sum(axis=1)
+            choice = np.minimum(choice, branching - 1)
+            state = nxt[state, choice]
+            toks[:, t + 1] = state
+        yield {"tokens": toks}
 
 
 def recsys_batch_stream(

@@ -26,6 +26,14 @@ On a CPU tensor the wrapper runs the plain version
 (`embedding_bag_plain`, ``ref.embedding_bag_ref``); on a CUDA tensor it
 launches the kernel or raises.  ``mode='max'`` has no kernel (as in the JAX
 package, whose ``embedding_bag_op`` sends it to the reference).
+
+The backward (`embedding_bag_backward`, ``embedding_bag_backward_kernel``
+in the same source) has no Pallas counterpart: the JAX package trains
+through XLA's gather.  It writes the dense (F, V, D) float32 gradient of
+the tables, as ``jax.grad`` of that gather gives it: a warp a bag, float32
+atomic adds into the zeroed table.  `EmbeddingBagFn` puts the forward
+kernel and this backward behind autograd; ``ops.embedding_bag`` takes it
+only when gradients are asked for.
 """
 
 from __future__ import annotations
@@ -57,6 +65,8 @@ ROUTES = ("vec16", "scalar")
 #: Calls that launched the kernel on the card, in all and by route.
 launches = 0
 launches_by_kernel: Dict[str, int] = {r: 0 for r in ROUTES}
+#: Backward calls that launched the backward kernel on the card.
+bwd_launches = 0
 
 # EmbeddingBagArgs of csrc/embedding_bag.cu: tab, ids, out, stream;
 # ld_field, ld_row; n_bags, n_fields, bag_len, vocab, d, mean, bf16, route,
@@ -64,6 +74,7 @@ launches_by_kernel: Dict[str, int] = {r: 0 for r in ROUTES}
 ARGS = struct.Struct("@4Q2q14i")
 _local = threading.local()        # a packing buffer for each thread
 _fn = None
+_bwd = None
 
 
 def _kernel():
@@ -279,3 +290,100 @@ def embedding_bag(tables: Tensor, ids: Tensor, *, mode: str = "sum") -> Tensor:
     launches += 1
     launches_by_kernel[kind] += 1
     return out
+
+
+# ---------------------------------------------------------------- backward --
+
+def _bwd_kernel():
+    global _bwd
+    if _bwd is None:
+        lib = _build.library("embedding_bag")
+        fn = lib.embedding_bag_backward_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd = (lib, fn)
+    return _bwd
+
+
+def embedding_bag_backward_plain(d_out: Tensor, ids: Tensor, n_rows: int,
+                                 mode: str = "sum") -> Tensor:
+    """The backward kernel's function in plain PyTorch (any device): each
+    id in [0, n_rows) adds its bag's ``d_out`` row (divided by the bag's
+    count of ids >= 0 under ``mean``) to its row of the (F, n_rows, D)
+    float32 result; negative ids and ids >= n_rows add nothing."""
+    b, f, bag_len = ids.shape
+    d = d_out.shape[-1]
+    g = d_out.to(torch.float32).reshape(b, f, d)
+    if mode == "mean":
+        cnt = (ids >= 0).sum(dim=-1, keepdim=True).clamp(min=1)
+        g = g / cnt.to(torch.float32)
+    elif mode != "sum":
+        raise ValueError(f"the backward covers 'sum' and 'mean', got {mode!r}")
+    out = torch.zeros((f * n_rows + 1, d), dtype=torch.float32,
+                      device=d_out.device)
+    idx = ids.long()
+    live = (idx >= 0) & (idx < n_rows)
+    field = torch.arange(f, device=ids.device)[None, :, None]
+    flat = torch.where(live, field * n_rows + idx,
+                       torch.full_like(idx, f * n_rows))
+    rows = g[:, :, None, :].expand(b, f, bag_len, d)
+    out.index_add_(0, flat.reshape(-1), rows.reshape(-1, d))
+    return out[:-1].reshape(f, n_rows, d)
+
+
+def embedding_bag_backward(d_out: Tensor, ids: Tensor, n_rows: int,
+                           mode: str = "sum") -> Tensor:
+    """Gradient of the (F, n_rows, D) tables of `embedding_bag` given the
+    output's gradient ``d_out`` (B, F, D) and the call's (B, F, L) int32
+    ids: dense float32.  CPU tensors go to `embedding_bag_backward_plain`;
+    on a CUDA tensor the kernel launches or the call raises."""
+    if d_out.device.type == "cpu" and ids.device.type == "cpu":
+        return embedding_bag_backward_plain(d_out, ids, n_rows, mode)
+    global bwd_launches
+    if d_out.device.type != "cuda" or ids.device != d_out.device:
+        raise ValueError(f"d_out and ids must share one CUDA device, got "
+                         f"{d_out.device}, {ids.device}")
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"the backward covers 'sum' and 'mean', got {mode!r}")
+    if ids.dtype != torch.int32 or ids.dim() != 3:
+        raise ValueError(f"ids must be (B, F, L) int32, got "
+                         f"{tuple(ids.shape)} {ids.dtype}")
+    b, f, bag_len = ids.shape
+    d = d_out.shape[-1]
+    if tuple(d_out.shape) != (b, f, d):
+        raise ValueError(f"d_out {tuple(d_out.shape)} does not match ids "
+                         f"{tuple(ids.shape)}")
+    g = d_out.to(torch.float32).contiguous()
+    ids = ids.contiguous()
+    out = torch.zeros((f, n_rows, d), dtype=torch.float32,
+                      device=d_out.device)
+    if b * f * d * bag_len == 0 or n_rows == 0:
+        return out
+    lib, fn = _bwd_kernel()
+    err = fn(g.data_ptr(), ids.data_ptr(), out.data_ptr(), b * f, f, bag_len,
+             n_rows, d, int(mode == "mean"),
+             torch._C._cuda_getCurrentRawStream(d_out.device.index))
+    _build.check(lib, err, "embedding_bag_backward")
+    bwd_launches += 1
+    return out
+
+
+class EmbeddingBagFn(torch.autograd.Function):
+    """`embedding_bag` over (F, V, D) tables and (B, F, L) int32 ids (the
+    forward kernel, unchanged) with `embedding_bag_backward` as the
+    tables' gradient, cast to their dtype."""
+
+    @staticmethod
+    def forward(ctx, tables, ids, mode):
+        out = embedding_bag(tables, ids, mode=mode)
+        ctx.save_for_backward(ids)
+        ctx.info = (tables.shape[1], mode, tables.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        ids, = ctx.saved_tensors
+        n_rows, mode, dtype = ctx.info
+        g = embedding_bag_backward(d_out, ids, n_rows, mode)
+        return g.to(dtype), None, None

@@ -31,6 +31,15 @@ On a CPU tensor the wrapper runs the plain version
 launches a kernel or raises.  `decode_partials_plain` and
 `combine_partials` spell out the split-kv kernel's arithmetic in plain
 PyTorch for the tests.
+
+The backward (`flash_attention_backward`, ``csrc/flash_attention_bwd.cu``)
+has no Pallas counterpart: the JAX package trains through XLA's
+``chunked_attention``.  Two launches recompute each row's log-sum-exp and
+``D = rowsum(P o dP)`` and accumulate dQ, then dK and dV with the GQA sum
+inside the block, in float32 FMA (see the source).  `FlashAttentionFn`
+puts the forward kernel and this backward behind autograd;
+``ops.flash_attention`` takes it only when gradients are asked for.
+`flash_attention_backward_plain` spells out the same arithmetic.
 """
 
 from __future__ import annotations
@@ -69,13 +78,22 @@ launches = 0
 launches_by_kernel: Dict[str, int] = {"prefill_wgmma": 0,
                                       "decode_splitkv": 0, "fma": 0}
 
+#: Backward calls that launched the backward kernels on the card (two
+#: launches a call: dQ with the log-sum-exp, then dK and dV).
+bwd_launches = 0
+
 _KIND = {"fma": 0, "decode_splitkv": 1, "prefill_wgmma": 2}
 # FlashArgs of csrc/flash_attention.cu: q, k, v, o, part, counters, stream;
 # the nine strides; b, hq, hkv, sq, skv, dh, causal, has_window, window,
 # n_split, split_keys, is_bf16, vec; scale
 _ARGS = struct.Struct("@7Q9q13if")
+# BwdArgs of csrc/flash_attention_bwd.cu: q, k, v, dout, dq, dk, dv, lse,
+# delta, stream; the strides of q, k, v and dout (batch, head, position);
+# b, hq, hkv, sq, skv, dh, causal, has_window, window, is_bf16; scale
+_BWD_ARGS = struct.Struct("@10Q12q10id")
 _lib = None
 _fn = None
+_bwd = None
 _local = threading.local()        # a packing buffer for each thread
 # per device: (int32 counters, all 0 between launches; float32 scratch)
 _workspace: Dict[int, Tuple[Tensor, Tensor]] = {}
@@ -291,3 +309,138 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     launches += 1
     launches_by_kernel[kind] += 1
     return out
+
+
+# ---------------------------------------------------------------- backward --
+
+def _bwd_kernel():
+    global _bwd
+    if _bwd is None:
+        lib = _build.library("flash_attention_bwd")
+        size = lib.flash_attention_backward_args_size
+        size.argtypes, size.restype = [], ctypes.c_int
+        if size() != _BWD_ARGS.size:
+            raise RuntimeError(f"flash_attention_bwd: the library's argument "
+                               f"block is {size()} bytes, the wrapper packs "
+                               f"{_BWD_ARGS.size}")
+        fn = lib.flash_attention_backward_launch
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+        _bwd = (lib, fn)
+    return _bwd
+
+
+def flash_attention_backward_plain(
+    q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
+    causal: bool = False, window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward kernels' arithmetic in plain PyTorch (any device).
+
+    float32 throughout: s = scale q.k over the kept keys, lse its
+    log-sum-exp, P = exp(s - lse) (0 on masked keys and on rows with no
+    kept key), dV = P^T dO, dP = dO V^T, D = rowsum(P o dP), dS = P o (dP
+    - D), dQ = scale dS K, dK = scale dS^T Q; the q heads of a group summed
+    into their kv head.  The derivative of the unrounded softmax.  Returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window is not None:
+        keep &= k_pos > q_pos - window
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(keep & torch.isfinite(lse), torch.exp(s - lse),
+                    torch.zeros_like(s))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+
+    def group_sum(x):
+        return x.reshape(b, hkv, rep, skv, dh).sum(dim=2)
+
+    return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
+
+
+def flash_attention_backward(
+    q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
+    causal: bool = False, window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Gradients (dq, dk, dv) of `flash_attention` at (q, k, v), given the
+    output's gradient ``do`` ((B, Hq, Sq, Dh) of q's dtype, unit stride on
+    the head dim or copied to it).
+
+    Covers what the forward covers: float32 and bf16, head dims
+    `HEAD_DIMS`, groups up to `MAX_GROUP`, causal and windowed masks
+    aligned to the end of kv, K and V by strides, any positive scale.
+    Returns dq (B, Hq, Sq, Dh) and dk, dv (B, Hkv, Skv, Dh), contiguous, in
+    the inputs' dtype.  CPU tensors go to `flash_attention_backward_plain`;
+    on a CUDA tensor the kernels launch or the call raises."""
+    devices = (q.device, k.device, v.device)
+    if all(d.type == "cpu" for d in devices + (do.device,)):
+        return flash_attention_backward_plain(q, k, v, do, causal=causal,
+                                              window=window, scale=scale)
+    global bwd_launches
+    _check(q, k, v, devices)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must be {tuple(q.shape)} {q.dtype} on "
+                         f"{q.device}, got {tuple(do.shape)} {do.dtype} on "
+                         f"{do.device}")
+    do = do if do.stride(3) == 1 else do.contiguous()
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    dev = q.device
+    dq = torch.empty((b, hq, sq, dh), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, hkv, skv, dh), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    ws = torch.empty((2, b * hq * sq), dtype=torch.float32, device=dev)
+    lib, fn = _bwd_kernel()
+    buf = ctypes.create_string_buffer(_BWD_ARGS.size)
+    _BWD_ARGS.pack_into(
+        buf, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws[0].data_ptr(),
+        ws[1].data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        b, hq, hkv, sq, skv, dh, int(causal),
+        window is not None, 0 if window is None else int(window),
+        q.dtype == torch.bfloat16, float(scale))
+    _build.check(lib, fn(ctypes.addressof(buf)), "flash_attention_backward")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` (the forward kernel, unchanged) with
+    `flash_attention_backward` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, scale)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_backward(q, k, v, do, causal=causal,
+                                              window=window, scale=scale)
+        return dq, dk, dv, None, None, None

@@ -6,6 +6,13 @@ the kernel's plain version.  There is no switch that sends CUDA tensors
 down the plain path: on the card it is the kernel or an exception.  Search
 and LM code call these, never the kernels directly.
 
+The three kernels a training step reaches — flash attention, the
+embedding bag and the sorted segment sum — each have a hand-written
+backward behind a ``torch.autograd.Function``.  An entry takes the
+``Function`` only when gradients are asked for (grad mode on and an input
+that requires grad); otherwise it calls the wrapper as before, so serving
+launches exactly what it launched.
+
 ``plain`` holds the search, embedding-bag and segment-sum entry points
 bound to the plain versions on any device; the ``*_plain`` reference
 searches pass it (as ``impl=``), and a check on the card may put its
@@ -29,6 +36,12 @@ Tensor = torch.Tensor
 
 def _on_cuda(*ts) -> bool:
     return any(t is not None and t.is_cuda for t in ts)
+
+
+def _wants_grad(*ts) -> bool:
+    """Gradients asked for: grad mode on and an input requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def _contiguous(col: Optional[Tensor]) -> Optional[Tensor]:
@@ -158,6 +171,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
                     window: Optional[int] = None,
                     scale: Optional[float] = None) -> Tensor:
     """Fused attention (prefill and decode), queries aligned to the end of kv."""
+    if _wants_grad(q, k, v):
+        return fa.FlashAttentionFn.apply(q, k, v, causal, window, scale)
     if _on_cuda(q, k, v):
         return fa.flash_attention(q, k, v, causal=causal, window=window,
                                   scale=scale)
@@ -168,6 +183,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
 def embedding_bag(tables: Tensor, ids: Tensor, *, mode: str = "sum") -> Tensor:
     """EmbeddingBag over stacked (F, V, D) tables with (B, F, L) ids (or one
     (V, D) table with (B, L) ids): float32 per-bag sum / mean / max."""
+    if mode != "max" and _wants_grad(tables):
+        if tables.dim() == 2:
+            return embedding_bag(tables[None], ids[:, None], mode=mode)[:, 0]
+        return eb.EmbeddingBagFn.apply(tables, ids, mode)
     if _on_cuda(tables, ids):
         if mode == "max":
             raise NotImplementedError(
@@ -179,6 +198,10 @@ def embedding_bag(tables: Tensor, ids: Tensor, *, mode: str = "sum") -> Tensor:
 
 def segment_sum(data: Tensor, seg_ids: Tensor, *, num_segments: int) -> Tensor:
     """Float32 segment sum of unsorted rows; ids outside [0, N) dropped."""
+    if _wants_grad(data) and _on_cuda(data, seg_ids):
+        order, seg_s, indptr = ss.sort_by_segment(seg_ids, num_segments)
+        return sorted_segment_sum(data[order], seg_s, indptr,
+                                  num_segments=num_segments)
     if _on_cuda(data, seg_ids):
         return ss.segment_sum(data, seg_ids, num_segments=num_segments)
     return ss.segment_sum_plain(data, seg_ids, num_segments=num_segments)
@@ -187,6 +210,9 @@ def segment_sum(data: Tensor, seg_ids: Tensor, *, num_segments: int) -> Tensor:
 def sorted_segment_sum(data: Tensor, seg_ids: Tensor, indptr: Tensor, *,
                        num_segments: int) -> Tensor:
     """Float32 segment sum of rows sorted by segment, with CSR ``indptr``."""
+    if _wants_grad(data):
+        return ss.SortedSegmentSumFn.apply(data, seg_ids, indptr,
+                                           num_segments)
     if _on_cuda(data, indptr):
         return ss.sorted_segment_sum(data, seg_ids, indptr,
                                      num_segments=num_segments)

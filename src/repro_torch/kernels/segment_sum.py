@@ -33,6 +33,14 @@ On a CPU tensor each entry runs its plain version (``index_add_``, as
 launches the kernel or raises.
 The plain version of the sorted entry reads ``seg_ids`` and never
 ``indptr``, so it checks the pointer the kernel trusts.
+
+The backward of the sorted entry (`sorted_segment_sum_backward`,
+``segment_sum_backward_kernel`` in the same source) has no Pallas
+counterpart: the JAX package trains through ``jax.ops.segment_sum``.  Each
+live row gets its segment's ``d_out`` row, found from ``indptr`` (a warp a
+task of 32 rows, 16-byte words; see the source).  `SortedSegmentSumFn`
+puts the forward kernel and this backward behind autograd;
+``ops.sorted_segment_sum`` takes it only when gradients are asked for.
 """
 
 from __future__ import annotations
@@ -61,8 +69,11 @@ NARROW_MAX_D = 4
 #: by main kernel.
 launches = 0
 launches_by_kernel = {"wide": 0, "narrow": 0}
+#: Backward calls that launched the backward kernel on the card.
+bwd_launches = 0
 
 _fn = None
+_bwd = None
 
 
 def _kernel():
@@ -280,3 +291,80 @@ def segment_sum(data: Tensor, seg_ids: Tensor, *, num_segments: int) -> Tensor:
     order, seg_s, indptr = sort_by_segment(seg_ids, num_segments)
     return sorted_segment_sum(data[order], seg_s, indptr,
                               num_segments=num_segments)
+
+
+# ---------------------------------------------------------------- backward --
+
+def _bwd_kernel():
+    global _bwd
+    if _bwd is None:
+        lib = _build.library("segment_sum")
+        fn = lib.segment_sum_backward_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd = (lib, fn)
+    return _bwd
+
+
+def sorted_segment_sum_backward_plain(d_out: Tensor, seg_ids: Tensor,
+                                      indptr: Tensor) -> Tensor:
+    """The backward kernel's function in plain PyTorch (any device): row e
+    gets ``d_out[seg_ids[e]]`` where ``seg_ids[e]`` is a segment, else 0.
+    Reads ``seg_ids`` and never ``indptr``, as the forward's plain version
+    does.  Returns (E, D) float32 ((E,) for 1-D ``d_out``)."""
+    n = d_out.shape[0]
+    seg = seg_ids.long()
+    live = (seg >= 0) & (seg < n)
+    g = d_out.to(torch.float32)
+    rows = g[seg.clamp(0, max(n - 1, 0))] if n else \
+        g.new_zeros((seg.shape[0],) + tuple(g.shape[1:]))
+    mask = live.reshape((-1,) + (1,) * (g.dim() - 1))
+    return torch.where(mask, rows, torch.zeros_like(rows))
+
+
+def sorted_segment_sum_backward(d_out: Tensor, seg_ids: Tensor,
+                                indptr: Tensor) -> Tensor:
+    """Gradient of the rows of `sorted_segment_sum` given the output's
+    gradient ``d_out`` (N, D) or (N,): (E, D) float32, E = ``seg_ids``'
+    length, each live row its segment's ``d_out`` row and 0 elsewhere.
+    CPU tensors go to `sorted_segment_sum_backward_plain`; on a CUDA tensor
+    the kernel launches (reading ``indptr``) or the call raises."""
+    if d_out.device.type == "cpu" and indptr.device.type == "cpu":
+        return sorted_segment_sum_backward_plain(d_out, seg_ids, indptr)
+    if d_out.dim() == 1:
+        return sorted_segment_sum_backward(d_out[:, None], seg_ids,
+                                           indptr)[:, 0]
+    global bwd_launches
+    n, d = d_out.shape
+    _check(d_out, indptr, n)
+    e = seg_ids.shape[0]
+    g = d_out.contiguous()
+    out = torch.empty((e, d), dtype=torch.float32, device=d_out.device)
+    if out.numel() == 0:
+        return out
+    lib, fn = _bwd_kernel()
+    vec = d % 4 == 0 and g.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    err = fn(g.data_ptr(), indptr.data_ptr(), out.data_ptr(), n, e, d, d,
+             int(vec), torch.cuda.current_stream(d_out.device).cuda_stream)
+    _build.check(lib, err, "sorted_segment_sum_backward")
+    bwd_launches += 1
+    return out
+
+
+class SortedSegmentSumFn(torch.autograd.Function):
+    """`sorted_segment_sum` (the forward kernel, unchanged) with
+    `sorted_segment_sum_backward` as the rows' gradient."""
+
+    @staticmethod
+    def forward(ctx, data, seg_ids, indptr, num_segments):
+        out = sorted_segment_sum(data, seg_ids, indptr,
+                                 num_segments=num_segments)
+        ctx.save_for_backward(seg_ids, indptr)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        seg_ids, indptr = ctx.saved_tensors
+        return (sorted_segment_sum_backward(d_out, seg_ids, indptr),
+                None, None, None)

@@ -1,0 +1,99 @@
+"""Training launcher: the port of ``src/repro/launch/train.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
+        --smoke --steps 100 --ckpt-dir /tmp/run1 [--device cpu]
+
+Resolves ``--arch`` through the registry (``get_arch`` / ``family_of``),
+builds the family's synthetic data stream (the Markov-chain LM stream, a
+fixed random graph, the planted recsys clicks), and drives the
+fault-tolerant ``TrainLoop`` (restart-aware; async checkpoints in the JAX
+package's format; an emergency checkpoint on interrupt).  ``--smoke``
+selects the reduced config; ``--device cpu`` runs the kernels' plain
+versions (the tests), ``cuda`` (the default) the CUDA kernels and their
+backward kernels.  One device: the JAX package's elastic mesh for more
+than one waits for the multi-device slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+
+import numpy as np
+
+from repro_torch.configs import family_of, get_arch
+from repro_torch.data.synth import lm_batch_stream, recsys_batch_stream
+from repro_torch.layers.common import resolve_device
+from repro_torch.models import egnn as EG
+from repro_torch.models import lm as LM
+from repro_torch.models import recsys as RS
+from repro_torch.models.graph import random_graph
+from repro_torch.train import TrainLoop
+
+
+def build(arch: str, *, smoke: bool, batch: int, seq: int, device):
+    """(loss_fn, init_fn, data iterator, cfg) of ``arch``'s family."""
+    mod = get_arch(arch)
+    cfg = mod.SMOKE_CONFIG if smoke else mod.CONFIG
+    fam = family_of(arch)
+    rng = np.random.default_rng(0)
+    if fam == "lm":
+        data = lm_batch_stream(rng, cfg.vocab, batch, seq)
+        return (lambda p, b: LM.lm_loss(LM.lm_view(p, cfg), b),
+                lambda: LM.param_tree(LM.init_lm(cfg, seed=0, device=device)),
+                data, cfg)
+    if fam == "gnn":
+        g = random_graph(rng, 256, 1024, cfg.d_feat_in or 16,
+                         n_classes=cfg.n_classes, device=device)
+        return (lambda p, b: EG.egnn_loss(p, b, cfg),
+                lambda: EG.param_tree(EG.egnn_init(cfg, seed=0,
+                                                   device=device)),
+                itertools.repeat(g), cfg)
+    data = recsys_batch_stream(rng, cfg.family, batch,
+                               n_sparse=cfg.n_sparse or 6,
+                               vocab=cfg.vocab_per_field,
+                               n_dense=cfg.n_dense or 13,
+                               seq_len=cfg.seq_len or 10)
+    return (lambda p, b: RS.recsys_loss(p, b, cfg),
+            lambda: RS.param_tree(RS.recsys_init(cfg, seed=0, device=device)),
+            data, cfg)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Train one architecture of the registry on one device "
+                    "(the elastic multi-device mesh waits for the "
+                    "multi-device slice).")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="bf16 gradients before clipping (the JAX package's "
+                         "compression before the data-parallel reduction)")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (the CUDA kernels, the default) or 'cpu' "
+                         "(their plain versions)")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    loss_fn, init_fn, data, _ = build(args.arch, smoke=args.smoke,
+                                      batch=args.batch, seq=args.seq,
+                                      device=device)
+    loop = TrainLoop(
+        loss_fn, init_fn, data,
+        ckpt_dir=args.ckpt_dir, ckpt_every=max(args.steps // 5, 10),
+        log_every=10, base_lr=args.lr, warmup=max(args.steps // 10, 5),
+        total_steps=args.steps, accum_steps=args.accum,
+        grad_dtype="bfloat16" if args.grad_compress else None)
+    metrics = loop.run(args.steps)
+    print(f"[launch] done: {metrics}")
+
+
+if __name__ == "__main__":
+    main()

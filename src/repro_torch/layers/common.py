@@ -1,5 +1,5 @@
 """Core layers: norms, dense projections, FFN variants, MLP towers,
-initializers.
+initializers, the token cross-entropy.
 
 The port of ``src/repro/layers/common.py``.  Weights keep the JAX
 package's layout, (d_in, d_out), and every projection is ``x @ w``, so a
@@ -140,14 +140,58 @@ def mlp_init(generator: torch.Generator, dims, dtype, *,
                [torch.zeros((b,), dtype=dtype, device=device) for _, b in pairs])
 
 
-def mlp_apply(mlp: MLP, x: Tensor, *, act=F.relu,
+def mlp_layers(mlp):
+    """(w, b) of each layer of an ``MLP`` or of the JAX package's list of
+    ``{"w", "b"}`` dicts (the training tree, `mlp_tree`)."""
+    if isinstance(mlp, MLP):
+        return list(zip(mlp.w, mlp.b))
+    return [(layer["w"], layer["b"]) for layer in mlp]
+
+
+def mlp_tree(mlp: MLP):
+    """An ``MLP`` as the JAX package's list of ``{"w", "b"}`` dicts, of
+    tensors sharing the weights' storage (detached: a training tree's own
+    leaves)."""
+    return [{"w": w.detach(), "b": b.detach()} for w, b in mlp_layers(mlp)]
+
+
+def mlp_cast(mlp, dtype):
+    """``mlp`` with its weights in ``dtype`` (itself when they are)."""
+    if isinstance(mlp, MLP):
+        return mlp.cast(dtype)
+    if mlp[0]["w"].dtype == dtype:
+        return mlp
+    return [{k: t.to(dtype) for k, t in layer.items()} for layer in mlp]
+
+
+def mlp_apply(mlp, x: Tensor, *, act=F.relu,
               final_act: bool = False) -> Tensor:
-    n = len(mlp.w)
-    for i, (w, b) in enumerate(zip(mlp.w, mlp.b)):
+    """``mlp`` an ``MLP`` or a list of ``{"w", "b"}`` dicts."""
+    layers = mlp_layers(mlp)
+    n = len(layers)
+    for i, (w, b) in enumerate(layers):
         x = x @ w + b
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+# ------------------------------------------------------------- losses ----
+
+def softmax_xent(logits: Tensor, labels: Tensor, *, z_loss: float = 0.0):
+    """Token cross-entropy in float32 with an optional z-loss; labels < 0
+    are ignored.  Returns (mean loss, number of valid tokens)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    valid = labels >= 0
+    safe = labels.clamp(min=0).long()
+    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    n = valid.sum().clamp(min=1)
+    return nll.sum() / n, n
 
 
 def resolve_device(device) -> torch.device:

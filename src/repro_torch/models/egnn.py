@@ -25,9 +25,19 @@ Entry points
   egnn_init(cfg, seed=, device=)            -> params (random weights)
   load_jax_params(np_params, cfg, device=)  -> params (the JAX package's
                                                ``egnn_init`` pytree)
+  param_tree(params)                        -> that pytree (MLPs as lists
+                                               of ``{"w", "b"}``, sharing
+                                               the weights' storage)
   egnn_forward(params, graph, cfg)          -> (logits (N, C), coords (N, 3))
+  egnn_loss(params, graph, cfg)             -> (loss, metrics), gradients
+                                               enabled
 
-The training loss (``egnn_loss``) waits for the training slice.
+``egnn_loss`` runs the same layers with gradients enabled: the chunked
+edge MLPs write into the preallocated buffers as in inference (autograd
+records each chunk's copy), and each sum's gradient comes from the
+segment-sum backward kernel on the card (``ops.sorted_segment_sum`` takes
+it only when gradients are asked for).  Both take the params as
+``egnn_init`` / ``load_jax_params`` make them or as ``param_tree``.
 """
 
 from __future__ import annotations
@@ -41,8 +51,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import EGNNConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.segment_sum import sort_by_segment
-from repro_torch.layers.common import (MLP, dtype_of, mlp_apply, mlp_init,
-                                       resolve_device)
+from repro_torch.layers.common import (MLP, dtype_of, mlp_apply, mlp_cast,
+                                       mlp_init, mlp_tree, resolve_device)
 from repro_torch.models.graph import Graph
 
 Tensor = torch.Tensor
@@ -117,7 +127,7 @@ def _messages(p, hm: Tensor, xm: Tensor, es: SortedEdges, mdt
               ) -> Tuple[Tensor, Tensor]:
     """(m (E_live, d), wdx (E_live, 3)) in sorted edge order, evaluated in
     chunks of ``EDGE_CHUNK_BYTES`` of edge-MLP input."""
-    phi_e, phi_x = p["phi_e"].cast(mdt), p["phi_x"].cast(mdt)
+    phi_e, phi_x = mlp_cast(p["phi_e"], mdt), mlp_cast(p["phi_x"], mdt)
     e, d = es.senders.shape[0], hm.shape[1]
     m = torch.empty((e, d), dtype=mdt, device=hm.device)
     wdx = torch.empty((e, 3), dtype=mdt, device=hm.device)
@@ -159,10 +169,44 @@ def _layer(p, h: Tensor, x: Tensor, es: SortedEdges, ones: Tensor,
     return h, x
 
 
+def param_tree(params: Params) -> Dict:
+    """The JAX package's ``egnn_init`` pytree of ``params``: each MLP a
+    list of ``{"w", "b"}``, the leaves sharing the weights' storage."""
+    def conv(m):
+        return mlp_tree(m) if isinstance(m, MLP) else m
+
+    return {"encoder": conv(params["encoder"]),
+            "layers": [{k: conv(v) for k, v in layer.items()}
+                       for layer in params["layers"]],
+            "decoder": conv(params["decoder"])}
+
+
 @torch.no_grad()
 def egnn_forward(params: Params, g: Graph, cfg: EGNNConfig
                  ) -> Tuple[Tensor, Tensor]:
     """Returns (logits (N, n_classes), coords' (N, 3))."""
+    return _forward(params, g, cfg)
+
+
+def egnn_loss(params: Params, g: Graph, cfg: EGNNConfig):
+    """Masked node-classification cross-entropy (labels -1 ignored), with
+    gradients enabled.  Returns (loss, {"loss", "acc", "n"})."""
+    with torch.enable_grad():
+        logits, _ = _forward(params, g, cfg)
+        lf = logits.to(torch.float32)
+        valid = (g.labels >= 0) & g.node_mask
+        safe = g.labels.clamp(min=0).long()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, safe[:, None])[:, 0]
+        nll = torch.where(valid, lse - gold, torch.zeros_like(lse))
+        n = valid.sum().clamp(min=1)
+        loss = nll.sum() / n
+        acc = ((lf.argmax(-1) == safe) & valid).sum() / n
+    return loss, {"loss": loss, "acc": acc, "n": n}
+
+
+def _forward(params: Params, g: Graph, cfg: EGNNConfig
+             ) -> Tuple[Tensor, Tensor]:
     h = mlp_apply(params["encoder"], g.nodes.to(dtype_of(cfg.param_dtype)))
     x = g.coords.to(h.dtype)
     es = sort_edges(g)

@@ -11,6 +11,12 @@ Entry points
   init_cache(cfg, batch, seq)                   -> empty decode cache
   prefill_to_decode_cache(cfg, cache, s, total) -> the decode layout
   decode_step(lm, cache, tok, pos)              -> (logits (B, V) f32, cache)
+  param_tree(lm)                                -> the JAX package's pytree
+                                                   (layers stacked), a copy
+  lm_view(params, cfg)                          -> an LM over a param_tree's
+                                                   leaves (views, no copy)
+  lm_loss(lm, batch, impl=)                     -> (loss, metrics) with
+                                                   gradients enabled
 
 The JAX package scans stacked layer weights; here the layers are
 ``ModuleList``s walked by a Python loop: ``dense_layers`` (DeepSeek's
@@ -22,8 +28,26 @@ the JAX layouts and key names — ``{"k", "v"}`` of (L, B, Hkv, S, Dh);
 place.  Attention runs through the flash kernel on the card
 (``impl="chunked"``, the default) or the plain reference (``impl="dense"``);
 MLA's absorbed decode and the MoE dispatch are plain products, as in the
-JAX package.  ``lm_forward`` returns logits only: ``moe_apply``'s aux loss
-belongs to the training loss, which is not ported (no ``lm_loss``).
+JAX package.  ``lm_forward`` returns logits only; ``moe_apply``'s aux loss
+goes into ``lm_loss``.
+
+Training.  ``lm_forward``, ``prefill`` and ``decode_step`` run under
+``inference_mode``; ``lm_loss`` runs the same layers with gradients
+enabled (the flash kernel's backward behind ``ops.flash_attention`` on the
+card), each block under ``torch.utils.checkpoint`` when ``cfg.remat`` is
+set (the JAX package's ``jax.checkpoint``), and adds the MoE layers' aux
+loss to the token cross-entropy.  A model trains as the JAX package's
+pytree: ``param_tree(lm)`` is that tree (``layers`` and ``dense_layers``
+stacked (L, ...), the key names and leaf order of ``init_lm``), the
+inverse of ``load_jax_params``, and ``lm_view(params, cfg)`` reads its
+leaves as an ``LM`` (each layer a view of the stacked leaves), so the
+gradients, the optimizer state and the checkpoints are the JAX package's
+tree leaf by leaf.  An ``LM`` module trains too, after
+``lm.requires_grad_(True)``: its gradients land on its parameters.  On
+the card a bf16 model's
+float32 logits come from ``torch.mm(..., out_dtype=torch.float32)``, whose
+backward (`_Bf16Head`) takes the logits' gradient in bf16, as a bf16
+product's backward does.
 """
 
 from __future__ import annotations
@@ -32,6 +56,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import LMConfig
@@ -39,7 +64,8 @@ from repro_torch.layers import attention as A
 from repro_torch.layers import mla as M
 from repro_torch.layers import moe as E
 from repro_torch.layers.common import (FFN, dense_init, dtype_of, embed_init,
-                                       ffn_apply, ffn_init, rmsnorm)
+                                       ffn_apply, ffn_init, rmsnorm,
+                                       softmax_xent)
 
 Tensor = torch.Tensor
 Cache = Dict[str, Tensor]
@@ -220,23 +246,45 @@ def _head_logits(x: Tensor, head: Tensor) -> Tensor:
     if x.dtype == torch.float32:
         return x @ head.to(torch.float32)
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
+    if x.is_cuda and torch.is_grad_enabled() and (x.requires_grad
+                                                  or head.requires_grad):
+        out = _Bf16Head.apply(x2, head.to(x.dtype))
+    elif x.is_cuda:
         out = torch.mm(x2, head.to(x.dtype), out_dtype=torch.float32)
     else:
         out = x2.to(torch.float32) @ head.to(torch.float32)
     return out.reshape(*x.shape[:-1], head.shape[-1])
 
 
-def _ffn_or_moe(blk: Block, h2: Tensor, cfg: LMConfig) -> Tensor:
+class _Bf16Head(torch.autograd.Function):
+    """(T, D) x (D, V) in bf16 with float32 logits on the card; the
+    backward rounds the logits' gradient to bf16 for its two products
+    (float32 accumulation)."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ head.T, x2.T @ g
+
+
+def _ffn_or_moe(blk: Block, h2: Tensor, cfg: LMConfig
+                ) -> Tuple[Tensor, Optional[Tensor]]:
+    """(the FFN or MoE output, the MoE aux loss or None)."""
     if blk.moe is not None:
-        return E.moe_apply(blk.moe, h2, cfg.moe, cfg.ffn_type)[0]
-    return ffn_apply(blk.ffn, h2, cfg.ffn_type)
+        return E.moe_apply(blk.moe, h2, cfg.moe, cfg.ffn_type)
+    return ffn_apply(blk.ffn, h2, cfg.ffn_type), None
 
 
 def _block(blk: Block, x: Tensor, *, cfg: LMConfig, window: int,
            theta: float, impl: str):
-    """One prefill layer: (x, its cache entries) — (k, v) of (B, Hkv, S,
-    Dh), or MLA's (c_kv, k_rope)."""
+    """One prefill layer: (x, its cache entries, the MoE aux loss or None)
+    — the entries (k, v) of (B, Hkv, S, Dh), or MLA's (c_kv, k_rope)."""
     h = rmsnorm(x, blk.ln1, cfg.norm_eps)
     if cfg.mla is not None:
         a, kv = M.mla_forward(blk.attn, h, n_heads=cfg.n_heads, cfg=cfg.mla,
@@ -249,7 +297,8 @@ def _block(blk: Block, x: Tensor, *, cfg: LMConfig, window: int,
             impl=impl, return_kv=True)
     x = x + a
     h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
-    return x + _ffn_or_moe(blk, h2, cfg), kv
+    y, aux = _ffn_or_moe(blk, h2, cfg)
+    return x + y, kv, aux
 
 
 def _layers(lm: LM):
@@ -265,7 +314,7 @@ def lm_forward(lm: LM, tokens: Tensor, *, impl: str = "chunked") -> Tensor:
     cfg = lm.cfg
     x = lm.embed[tokens].to(dtype_of(cfg.compute_dtype))
     for _, blk, w, th in _layers(lm):
-        x, _ = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl)
+        x, _, _ = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl)
     x = rmsnorm(x, lm.final_ln, cfg.norm_eps)
     return _head_logits(x, lm.head)
 
@@ -396,7 +445,7 @@ def prefill(lm: LM, tokens: Tensor, *, impl: str = "chunked",
                  "v": torch.empty(shape, dtype=dt, device=dev)}
     x = lm.embed[tokens].to(dtype_of(cfg.compute_dtype))
     for l, blk, w, th in _layers(lm):
-        x, kv = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl)
+        x, kv, _ = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl)
         if decode_len is None:
             names = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
             for name, c in zip(names, kv):
@@ -433,7 +482,7 @@ def decode_step(lm: LM, cache: Cache, tokens: Tensor, pos: int, *,
 def _decode_block_tail(blk: Block, x: Tensor, a: Tensor, cfg: LMConfig):
     x = x + a
     h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
-    return x + _ffn_or_moe(blk, h2, cfg)
+    return x + _ffn_or_moe(blk, h2, cfg)[0]
 
 
 def _attn_decode(blk, cfg, h, k_c, v_c, pos, posv, w, th, impl, ring=False):
@@ -485,3 +534,121 @@ def _decode_unrolled(lm: LM, cache: Cache, x: Tensor, pos: int,
             ig += 1
         x = _decode_block_tail(blk, x, a, cfg)
     return x
+
+
+# ========================================================== training =====
+
+def _weights(node) -> Dict:
+    """A block's (or its attention's, FFN's, MoE's) weights as the JAX
+    package's dict: its own tensors by name, absent optional weights left
+    out, sub-modules as dicts."""
+    out = {}
+    for name, p in node.named_parameters(recurse=False):
+        out[name] = p
+    for name, child in node.named_children():
+        if child is not None:
+            out[name] = _weights(child)
+    return out
+
+
+def _map_tree(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map_tree(fn, *[t[k] for t in trees]) for k in trees[0]}
+    return fn(*trees)
+
+
+@torch.no_grad()
+def param_tree(lm: LM) -> Dict:
+    """The JAX package's ``init_lm`` pytree of ``lm``'s weights: a new tree
+    of new tensors, ``layers`` and ``dense_layers`` stacked (L, ...), the
+    reference's key names.  ``load_jax_params``' inverse."""
+    def stack(blocks):
+        trees = [_weights(b) for b in blocks]
+        return _map_tree(lambda *ts: torch.stack(ts), *trees)
+
+    out = {"embed": lm.embed.clone(), "layers": stack(lm.layers),
+           "final_ln": lm.final_ln.clone()}
+    if len(lm.dense_layers):
+        out["dense_layers"] = stack(lm.dense_layers)
+    if lm.lm_head is not None:
+        out["lm_head"] = lm.lm_head.clone()
+    return out
+
+
+class _Node(dict):
+    """One layer's weights read as attributes (``blk.attn.wq``); a name
+    that is absent reads None, as an absent optional weight does on the
+    modules."""
+
+    def __getattr__(self, name):
+        return self.get(name)
+
+
+def _index(tree, l: int):
+    if isinstance(tree, dict):
+        return _Node({k: _index(v, l) for k, v in tree.items()})
+    return tree[l]
+
+
+class LMView:
+    """An ``LM`` over the leaves of a `param_tree`: the same attributes
+    (``cfg``, ``embed``, ``final_ln``, ``lm_head``, ``head``,
+    ``blocks()``), each layer's weights views of the stacked leaves, so
+    gradients reach the tree's own tensors."""
+
+    def __init__(self, params: Dict, cfg: LMConfig):
+        self.cfg = cfg
+        self.embed = params["embed"]
+        self.final_ln = params["final_ln"]
+        self.lm_head = params.get("lm_head")
+        self._params = params
+
+    @property
+    def head(self) -> Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+    def blocks(self) -> List[_Node]:
+        n_dense = _n_dense_prefix(self.cfg)
+        out = [_index(self._params["dense_layers"], l) for l in range(n_dense)]
+        return out + [_index(self._params["layers"], l)
+                      for l in range(self.cfg.n_layers - n_dense)]
+
+
+def lm_view(params: Dict, cfg: LMConfig) -> LMView:
+    """``params`` (a `param_tree`) read as an LM, without a copy."""
+    return LMView(params, cfg)
+
+
+def _train_forward(lm, tokens: Tensor, impl: str) -> Tuple[Tensor, Tensor]:
+    """(logits (B, S, V) float32, the summed MoE aux loss) with gradients
+    enabled; each block checkpointed when ``cfg.remat``."""
+    cfg = lm.cfg
+    x = lm.embed[tokens].to(dtype_of(cfg.compute_dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, blk, w, th in _layers(lm):
+        def layer(x, blk=blk, w=w, th=th):
+            x, _, a = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl)
+            return x, (torch.zeros((), dtype=torch.float32, device=x.device)
+                       if a is None else a)
+
+        if cfg.remat:
+            x, a = torch.utils.checkpoint.checkpoint(layer, x,
+                                                     use_reentrant=False)
+        else:
+            x, a = layer(x)
+        aux = aux + a
+    x = rmsnorm(x, lm.final_ln, cfg.norm_eps)
+    return _head_logits(x, lm.head), aux
+
+
+def lm_loss(lm, batch: Dict[str, Tensor], *, impl: str = "chunked"):
+    """batch['tokens']: (B, S + 1) int.  Returns (loss, {"loss", "xent",
+    "aux", "tokens"}): the next-token cross-entropy over tokens[:, 1:] plus
+    the MoE aux loss.  ``lm`` an ``LM`` or an `lm_view`."""
+    with torch.enable_grad():
+        tokens = batch["tokens"]
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        logits, aux = _train_forward(lm, inputs, impl)
+        xent, n_tok = softmax_xent(logits, labels)
+        loss = xent + aux
+    return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": n_tok}

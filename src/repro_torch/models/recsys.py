@@ -22,9 +22,16 @@ Entry points
   recsys_forward (din / autoint / dlrm)         -> (B,) logits
   serve_candidates                              -> (B, C) scores
 
-Training (``two_tower_loss``, ``ctr_loss``, ``recsys_loss``) and the
-sharding annotations wait for the training slice; the port serves on one
-card.
+Training: ``two_tower_loss`` (in-batch sampled softmax with the
+Matryoshka losses on embedding prefixes), ``ctr_loss`` and their dispatch
+``recsys_loss`` run the same forwards with gradients enabled; the tables'
+gradient comes from the embedding bag's backward kernel on the card
+(``ops.embedding_bag`` takes it only when gradients are asked for).  They
+take the params as ``recsys_init`` / ``load_jax_params`` make them or as
+``param_tree(params)``, the JAX package's pytree (MLPs as lists of ``{"w",
+"b"}``) whose leaves share the weights' storage: the tree an optimizer
+and a checkpoint walk.  The sharding annotations wait for the multi-device
+slice; the port trains and serves on one card.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from repro_torch.core.progressive import progressive_search
 from repro_torch.core.schedule import ProgressiveSchedule, make_schedule
 from repro_torch.kernels import ops
 from repro_torch.layers.common import (MLP, dense_init, dtype_of, mlp_apply,
-                                       mlp_init, resolve_device)
+                                       mlp_init, mlp_tree, resolve_device)
 
 Tensor = torch.Tensor
 Params = Dict[str, object]
@@ -261,6 +268,71 @@ _FORWARDS = {"din": din_forward, "autoint": autoint_forward,
 def recsys_forward(params: Params, batch: Dict[str, Tensor],
                    cfg: RecsysConfig) -> Tensor:
     return _FORWARDS[cfg.family](params, batch, cfg)
+
+
+# -------------------------------------------------------------- training --
+
+def param_tree(params: Params) -> Dict:
+    """The JAX package's ``recsys_init`` pytree of ``params``: tables and
+    AutoInt's attention weights as tensors, each MLP as a list of ``{"w",
+    "b"}``; the leaves share the weights' storage (detached)."""
+    def conv(v):
+        if isinstance(v, MLP):
+            return mlp_tree(v)
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return v.detach()
+
+    return {k: conv(v) for k, v in params.items()}
+
+
+def _inbatch_softmax(u: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
+    """(mean in-batch softmax loss at temperature 1 / 20, top-1 accuracy):
+    row i's positive is column i."""
+    logits = (u @ v.T) * 20.0
+    lf = logits.to(torch.float32)
+    labels = torch.arange(u.shape[0], device=u.device)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.diagonal(lf)
+    loss = torch.mean(lse - gold)
+    acc = torch.mean((logits.argmax(-1) == labels).to(torch.float32))
+    return loss, acc
+
+
+def two_tower_loss(params: Params, batch: Dict[str, Tensor],
+                   cfg: RecsysConfig):
+    """In-batch sampled-softmax retrieval loss (RecSys'19), plus the
+    Matryoshka losses on the embeddings' first ``cfg.matryoshka_dims``
+    dims (renormalised), averaged over them, so the item index serves
+    progressive search."""
+    u = tower_user(params, batch["user_ids"])
+    v = tower_item(params, batch["item_ids"])
+    loss, acc = _inbatch_softmax(u, v)
+    for d in cfg.matryoshka_dims:
+        l_d, _ = _inbatch_softmax(_normalize(u[:, :d]), _normalize(v[:, :d]))
+        loss = loss + l_d / max(len(cfg.matryoshka_dims), 1)
+    return loss, {"loss": loss, "acc": acc}
+
+
+def ctr_loss(params: Params, batch: Dict[str, Tensor], cfg: RecsysConfig):
+    """Binary logistic loss of the CTR models (DIN, AutoInt, DLRM)."""
+    logits = recsys_forward(params, batch, cfg).to(torch.float32)
+    y = batch["label"].to(torch.float32)
+    loss = torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-logits.abs())))
+    acc = torch.mean(((logits > 0) == (y > 0.5)).to(torch.float32))
+    return loss, {"loss": loss, "acc": acc}
+
+
+def recsys_loss(params: Params, batch: Dict[str, Tensor],
+                cfg: RecsysConfig):
+    """The family's training loss: (loss, {"loss", "acc"})."""
+    with torch.enable_grad():
+        if cfg.family == "two_tower":
+            return two_tower_loss(params, batch, cfg)
+        return ctr_loss(params, batch, cfg)
 
 
 # --------------------------------------------------- candidate scoring --

@@ -1,0 +1,235 @@
+"""Training loop: the train-step factory and the fault-tolerant driver —
+the port of ``src/repro/train/loop.py``.
+
+``make_train_step`` builds the (params, opt_state, batch) -> (params',
+opt_state', metrics) step from any ``loss_fn(params, batch) -> (loss,
+metrics)`` over a tree of tensors (`repro_torch.optim`'s trees), with
+optional gradient accumulation over microbatches (float32 sums, each
+divided by ``accum_steps``; the last microbatch's metrics) and optional
+bf16 gradient compression.  The JAX package's ``jit`` has no counterpart
+(PyTorch runs eagerly; ``jit=False`` existed for the dry run only).
+``donate`` (the default, as the JAX package's donated buffers) updates the
+parameters and moments in place.
+
+``TrainLoop`` is the production driver:
+  * restart-aware: restores the latest complete ``(params, OptState)``
+    checkpoint on construction (`repro_torch.checkpoint`, the JAX
+    package's format: either package resumes the other's run),
+  * async checkpoints every ``ckpt_every`` steps, and an emergency
+    checkpoint on ``KeyboardInterrupt``,
+  * host-side prefetch of the next batch on a thread; each batch goes to
+    the parameters' device once per step,
+  * step-time telemetry (p50 / p95 over the last 512 steps) and a
+    ``history`` of the logged metrics; the step's end is synchronised
+    where the JAX package blocks on the loss.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from typing import Any, Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint.ckpt import _leaves, _unflatten
+from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+
+Tensor = torch.Tensor
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every array leaf of a batch (dicts, lists, tuples and
+    dataclasses such as ``models.graph.Graph``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return type(tree)(**{f.name: _tree_map(fn, getattr(tree, f.name))
+                             for f in dataclasses.fields(tree)})
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        return fn(tree)
+    return tree
+
+
+def to_device(batch, device):
+    """A host batch on ``device``: numpy arrays and tensors moved."""
+    def move(x):
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(device)
+
+    return _tree_map(move, batch)
+
+
+def make_train_step(
+    loss_fn: Callable,
+    *,
+    base_lr: float = 3e-4,
+    warmup: int = 100,
+    total_steps: int = 10000,
+    weight_decay: float = 0.1,
+    max_grad_norm: float = 1.0,
+    accum_steps: int = 1,
+    grad_dtype: Optional[str] = None,
+    donate: bool = True,
+):
+    """Build a train step.
+
+    ``loss_fn(params, batch) -> (loss, metrics)``.  With ``accum_steps >
+    1`` the batch's leading axis must be divisible by it; microbatches run
+    one after another, their float32 gradients summed.  The step's metrics
+    are detached tensors plus ``grad_norm`` and ``lr``.
+    """
+
+    def grads_of(params, batch):
+        leaves, _ = _leaves(params)
+        for p in leaves:
+            if p.is_floating_point() and not p.requires_grad:
+                p.requires_grad_(True)
+        loss, metrics = loss_fn(params, batch)
+        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g
+              for g, p in zip(gs, leaves)]
+        return gs, {k: v.detach() if isinstance(v, Tensor) else v
+                    for k, v in metrics.items()}
+
+    def accumulate(params, batch):
+        if accum_steps == 1:
+            return grads_of(params, batch)
+        acc = None
+        for i in range(accum_steps):
+            micro = _tree_map(
+                lambda x: x.reshape((accum_steps, -1) + tuple(x.shape[1:]))[i],
+                batch)
+            gs, metrics = grads_of(params, micro)
+            with torch.no_grad():
+                if acc is None:
+                    acc = [torch.zeros(g.shape, dtype=torch.float32,
+                                       device=g.device) for g in gs]
+                for a, g in zip(acc, gs):
+                    a.add_(g.to(torch.float32) / accum_steps)
+        return acc, metrics
+
+    def step(params, opt_state, batch):
+        gs, metrics = accumulate(params, batch)
+        grads = _unflatten(params, gs)
+        lr = cosine_schedule(opt_state.step, base_lr=base_lr, warmup=warmup,
+                             total=total_steps)
+        params, opt_state, om = adamw_update(
+            params, grads, opt_state, lr=lr, weight_decay=weight_decay,
+            max_grad_norm=max_grad_norm, grad_dtype=grad_dtype,
+            inplace=donate)
+        return params, opt_state, {**metrics, **om, "lr": lr}
+
+    return step
+
+
+class _Prefetcher:
+    """One-batch-ahead host prefetch on a daemon thread."""
+
+    def __init__(self, it: Iterator):
+        self.it = it
+        self._next = None
+        self._sem_full = threading.Semaphore(0)
+        self._sem_empty = threading.Semaphore(1)
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        for item in self.it:
+            self._sem_empty.acquire()
+            self._next = item
+            self._sem_full.release()
+
+    def __next__(self):
+        self._sem_full.acquire()
+        item = self._next
+        self._sem_empty.release()
+        return item
+
+
+class TrainLoop:
+    """Fault-tolerant training driver."""
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        init_params_fn: Callable[[], Any],
+        data_iter: Iterator,
+        *,
+        ckpt_dir: Optional[str] = None,
+        ckpt_every: int = 100,
+        log_every: int = 10,
+        prefetch: bool = True,
+        **step_kwargs,
+    ):
+        self.step_fn = make_train_step(loss_fn, **step_kwargs)
+        self.data = _Prefetcher(data_iter) if prefetch else data_iter
+        self.log_every = log_every
+        self.ckpt_every = ckpt_every
+        self.mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+        self.step_times: collections.deque = collections.deque(maxlen=512)
+        self.history: list = []
+
+        params = init_params_fn()
+        opt_state = adamw_init(params)
+        self.device = opt_state.step.device
+        self.state = (params, opt_state)
+        self.start_step = 0
+        if self.mgr is not None:
+            restored, step = self.mgr.restore((params, opt_state))
+            if restored is not None:
+                self.state = restored
+                self.start_step = int(step)
+                print(f"[train] restored checkpoint at step {step}")
+
+    def _emergency_save(self, step):
+        if self.mgr is not None:
+            print(f"[train] emergency checkpoint at step {step}")
+            self.mgr.save_async(step, self.state)
+            self.mgr.wait()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, n_steps: int) -> Dict[str, float]:
+        params, opt_state = self.state
+        step = self.start_step
+        last_metrics: Dict[str, float] = {}
+        try:
+            while step < n_steps:
+                batch = to_device(next(self.data), self.device)
+                t0 = time.perf_counter()
+                params, opt_state, metrics = self.step_fn(params, opt_state,
+                                                          batch)
+                self._sync()
+                dt = time.perf_counter() - t0
+                self.step_times.append(dt)
+                self.state = (params, opt_state)
+                step += 1
+                if step % self.log_every == 0 or step == n_steps:
+                    last_metrics = {k: float(v) for k, v in metrics.items()}
+                    ts = np.asarray(self.step_times)
+                    last_metrics["step_p50_ms"] = float(
+                        np.percentile(ts, 50) * 1e3)
+                    last_metrics["step_p95_ms"] = float(
+                        np.percentile(ts, 95) * 1e3)
+                    self.history.append({"step": step, **last_metrics})
+                    print(f"[train] step {step}: " + " ".join(
+                        f"{k}={v:.4g}" for k, v in last_metrics.items()))
+                if self.mgr is not None and step % self.ckpt_every == 0:
+                    self.mgr.save_async(step, self.state)
+        except KeyboardInterrupt:
+            self._emergency_save(step)
+            raise
+        if self.mgr is not None:
+            self.mgr.save_async(step, self.state)
+            self.mgr.wait()
+        return last_metrics

@@ -9,7 +9,9 @@
   ``tests/test_faults.py::TestCorruptCheckpoint`` on tensors.
 * Across packages: what ``repro.checkpoint`` writes the port reads and the
   reverse, with equal arrays (bfloat16 bit for bit), equal CRCs and equal
-  manifests apart from the write time.
+  manifests apart from the write time; a training checkpoint's
+  ``(params, OptState(step, mu, nu))`` restores into the other package's
+  ``OptState``.
 
 Everything is compared exactly: bytes, bits, CRCs and decoded values.
 """
@@ -363,6 +365,40 @@ class TestAcrossPackages:
         # the write time apart
         assert _manifest(tmp_path / "p" / "step_00000005") \
             == _manifest(tmp_path / "j" / "step_00000005")
+
+    def test_optimizer_state_both_ways(self, tmp_path):
+        """``(params, OptState(step, mu, nu))``, the tree both packages'
+        ``TrainLoop`` save: the reference's restores into the port's
+        ``OptState`` and the port's into the reference's, with equal
+        arrays and equal manifests (JAX's ``CustomNode`` treedef)."""
+        from repro.optim import OptState as JOptState
+        from repro_torch.optim import OptState as POptState
+        rng = np.random.default_rng(6)
+        arrs = [rng.normal(size=s).astype(np.float32)
+                for s in ((3, 4), (4,), (3, 4), (4,), (3, 4), (4,))]
+
+        def tree(opt, conv, step):
+            p = {"w": conv(arrs[0]), "b": conv(arrs[1])}
+            return (p, opt(step, {"w": conv(arrs[2]), "b": conv(arrs[3])},
+                           {"w": conv(arrs[4]), "b": conv(arrs[5])}))
+
+        jtree = tree(JOptState, jnp.asarray, jnp.asarray(7, jnp.int32))
+        ptree = tree(POptState, torch.from_numpy,
+                     torch.tensor(7, dtype=torch.int32))
+        assert pckpt._leaves(ptree)[1] == str(jax.tree.structure(jtree))
+        jckpt.save_checkpoint(str(tmp_path / "j"), 7, jtree)
+        save_checkpoint(str(tmp_path / "p"), 7, ptree)
+        restored, step = restore_checkpoint(str(tmp_path / "j"), ptree)
+        assert step == 7 and isinstance(restored[1], POptState)
+        assert int(restored[1].step) == 7
+        back, step = jckpt.restore_checkpoint(str(tmp_path / "p"), jtree)
+        assert step == 7 and isinstance(back[1], JOptState)
+        for p, j, b in zip(pckpt._leaves(restored)[0], jax.tree.leaves(jtree),
+                           jax.tree.leaves(back)):
+            np.testing.assert_array_equal(_bits(p), _bits(j))
+            np.testing.assert_array_equal(_bits(b), _bits(j))
+        assert _manifest(tmp_path / "p" / "step_00000007") \
+            == _manifest(tmp_path / "j" / "step_00000007")
 
     def test_named_arrays_both_ways(self, tmp_path):
         rng = np.random.default_rng(3)

@@ -1601,3 +1601,163 @@ class TestRecsysAndEGNNOnCard:
         lc, xc = EG.egnn_forward(p_cpu, graph, cfg)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(xg.cpu(), xc, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------ backward kernels --
+
+def _rel_err(got, want):
+    """max |got - want| / max |want| (1 where want is all zero)."""
+    scale = float(want.float().abs().max()) or 1.0
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+#: The flash backward against its plain version: float32 sums in another
+#: order, and in bf16 the results' one rounding (2 ** -8 of the largest).
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+
+
+@pytest.mark.cuda
+class TestFlashBackwardOnCard:
+    @pytest.mark.parametrize(
+        "b,hq,hkv,sq,skv,dh,dtype,causal,window,v_t,scale", [
+            (2, 4, 2, 100, 100, 64, torch.float32, True, None, False, None),
+            (1, 8, 8, 65, 130, 16, torch.float32, True, None, False, None),
+            (1, 2, 1, 77, 77, 32, torch.bfloat16, True, 16, True, None),
+            (1, 24, 2, 300, 300, 128, torch.bfloat16, True, None, True, None),
+            (1, 64, 1, 70, 70, 32, torch.bfloat16, True, None, False, None),
+            (1, 4, 2, 90, 90, 256, torch.bfloat16, True, 40, False, None),
+            (2, 4, 4, 33, 33, 256, torch.float32, False, None, False, None),
+            (1, 3, 1, 50, 120, 128, torch.float32, False, 30, False, None),
+            (1, 4, 4, 96, 96, 256, torch.bfloat16, True, None, False,
+             192 ** -0.5),                       # MLA's padded group-1 call
+            (1, 2, 2, 80, 40, 64, torch.float32, True, None, False, None),
+        ])
+    def test_matches_plain(self, cuda, b, hq, hkv, sq, skv, dh, dtype, causal,
+                           window, v_t, scale):
+        """Head dims 16-256, groups 1-64, bf16 and float32, lengths off
+        the tiles, causal and windowed masks, Sq < Skv and Sq > Skv (rows
+        with no key), a transposed v view, a given scale."""
+        g = torch.Generator(device=cuda).manual_seed(sq + skv + dh + hq)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+        q, k = rnd(b, hq, sq, dh), rnd(b, hkv, skv, dh)
+        v = rnd(b, skv, hkv, dh).transpose(1, 2) if v_t else rnd(b, hkv, skv, dh)
+        do = rnd(b, hq, sq, dh)
+        before = flash_attention.bwd_launches
+        got = flash_attention.flash_attention_backward(
+            q, k, v, do, causal=causal, window=window, scale=scale)
+        assert flash_attention.bwd_launches == before + 1
+        want = flash_attention.flash_attention_backward_plain(
+            q, k, v, do, causal=causal, window=window, scale=scale)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            assert x.shape == y.shape and x.dtype == dtype, name
+            assert bool(torch.isfinite(x).all()), name
+            assert _rel_err(x, y) <= FLASH_BWD_TOL[dtype], \
+                (name, _rel_err(x, y))
+
+    def test_peaked_rows_match_exact_softmax_gradient(self, cuda):
+        """Rows whose attention sits on one key: D is summed from P and dP
+        in float32, so dq keeps the exact softmax gradient's direction
+        (from rowsum(dO o O) of the bf16 output it did not: 0.33 in a
+        trained StarCoder2-3B layer)."""
+        g = torch.Generator(device=cuda).manual_seed(7)
+        q = (6 * torch.randn((1, 8, 256, 64), generator=g, device=cuda)).to(
+            torch.bfloat16)
+        k = torch.randn((1, 2, 256, 64), generator=g, device=cuda).to(
+            torch.bfloat16)
+        v = torch.randn((1, 2, 256, 64), generator=g, device=cuda).to(
+            torch.bfloat16)
+        do = torch.randn((1, 8, 256, 64), generator=g, device=cuda).to(
+            torch.bfloat16)
+        got = flash_attention.flash_attention_backward(q, k, v, do,
+                                                       causal=True)
+        exact = [x.float().requires_grad_(True) for x in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *exact, is_causal=True, enable_gqa=True)
+        want = torch.autograd.grad(out, exact, do.float())
+        for x, y in zip(got, want):
+            cos = float((x.float() * y).sum() / (x.float().norm() * y.norm()))
+            assert cos > 0.9999, cos
+
+    def test_autograd_route_and_counts(self, cuda):
+        """``ops.flash_attention`` takes the autograd Function only when a
+        gradient is asked for; the backward matches SDPA's in float32."""
+        g = torch.Generator(device=cuda).manual_seed(1)
+        q = torch.randn((1, 4, 70, 64), generator=g, device=cuda)
+        k = torch.randn((1, 4, 70, 64), generator=g, device=cuda)
+        v = torch.randn((1, 4, 70, 64), generator=g, device=cuda)
+        f0, b0 = flash_attention.launches, flash_attention.bwd_launches
+        with torch.no_grad():
+            ops.flash_attention(q, k, v, causal=True)
+        assert (flash_attention.launches, flash_attention.bwd_launches) == \
+            (f0 + 1, b0)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        out = ops.flash_attention(qs, ks, vs, causal=True)
+        out.backward(torch.ones_like(out))
+        assert (flash_attention.launches, flash_attention.bwd_launches) == \
+            (f0 + 2, b0 + 1)
+        qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+        ref = torch.nn.functional.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=True)
+        ref.backward(torch.ones_like(ref))
+        for x, y in ((qs, qr), (ks, kr), (vs, vr)):
+            assert _rel_err(x.grad, y.grad) <= 1e-4
+
+
+@pytest.mark.cuda
+class TestEmbeddingBagBackwardOnCard:
+    @pytest.mark.parametrize("f,v,d,b,l,mode,dtype", [
+        (4, 1000, 256, 512, 1, "sum", torch.float32),   # the two-tower shape
+        (3, 50, 13, 64, 8, "mean", torch.float32),      # odd D, padding, ids >= V
+        (2, 100, 64, 100, 5, "sum", torch.bfloat16),
+        (1, 10, 8, 1000, 3, "sum", torch.float32),      # many ids on one row
+    ])
+    def test_matches_plain(self, cuda, f, v, d, b, l, mode, dtype):
+        g = torch.Generator(device=cuda).manual_seed(f * v + d)
+        ids = torch.randint(-1, v + 3, (b, f, l), generator=g, device=cuda,
+                            dtype=torch.int32)
+        ids[0] = -1                                     # an all-padding bag
+        d_out = torch.randn((b, f, d), generator=g, device=cuda)
+        before = embedding_bag.bwd_launches
+        got = embedding_bag.embedding_bag_backward(d_out, ids, v, mode)
+        assert embedding_bag.bwd_launches == before + 1
+        want = embedding_bag.embedding_bag_backward_plain(d_out, ids, v, mode)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        tables = torch.randn((f, v, d), generator=g, device=cuda).to(dtype)
+        tables.requires_grad_()
+        out = ops.embedding_bag(tables, ids, mode=mode)
+        out.backward(d_out)
+        assert tables.grad.dtype == dtype
+        torch.testing.assert_close(tables.grad.float(), want.to(dtype).float(),
+                                   rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+class TestSegmentSumBackwardOnCard:
+    @pytest.mark.parametrize("e,n,d", [
+        (1000, 100, 64), (400, 50, 3), (3000, 200, 1), (2000, 80, 6),
+        (500, 300, 128), (700, 40, 256), (0, 10, 64),
+    ])
+    def test_matches_plain(self, cuda, e, n, d):
+        """Empty segments, a hub, padded rows at the tail (ids >= N), D of
+        1 to 256 on the narrow, scalar and 16-byte paths: the gradient is
+        a copy, equal bit for bit."""
+        g = torch.Generator(device=cuda).manual_seed(e + n + d)
+        seg = torch.randint(0, n + 3, (e,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        seg[: e // 3] = 1
+        order, seg_s, indptr = segment_sum.sort_by_segment(seg, n)
+        d_out = torch.randn((n, d), generator=g, device=cuda)
+        before = segment_sum.bwd_launches
+        got = segment_sum.sorted_segment_sum_backward(d_out, seg_s, indptr)
+        want = segment_sum.sorted_segment_sum_backward_plain(d_out, seg_s,
+                                                             indptr)
+        assert segment_sum.bwd_launches == before + (1 if e else 0)
+        assert got.shape == (e, d) and torch.equal(got, want)
+        data = torch.randn((e, d), generator=g, device=cuda,
+                           requires_grad=True)
+        out = ops.sorted_segment_sum(data, seg_s, indptr, num_segments=n)
+        out.backward(d_out)
+        assert torch.equal(data.grad, want)

@@ -211,6 +211,9 @@ class TestPackageRules:
             "    repro_torch.__path__, 'repro_torch.')]\n"
             "assert len(names) > 20, names\n"
             "assert 'repro_torch.serve.http' in names, names\n"
+            "for need in ('repro_torch.optim.adamw', 'repro_torch.train.loop',\n"
+            "             'repro_torch.launch.train'):\n"
+            "    assert need in names, (need, names)\n"
             "for name in names:\n"
             "    for mod in [m for m in sys.modules if m.startswith('repro_torch')]:\n"
             "        del sys.modules[mod]\n"
