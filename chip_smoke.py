@@ -211,7 +211,31 @@ in phases that each print one JSON line:
                  as a host CSR (its seconds recorded): step-1 gradients against the plain
                  path's, 5 steps over two subgraphs in turn, step 5's loss
                  (step 1's subgraph) below step 1's
- 12. kernels line, card line, and the final ``{"ok": true, ...}`` line.
+ 12. distributed — the multi-device paths over ``torch.distributed``
+                 (the card is one GPU, so ranks share it): the
+                 corpus-sharded progressive search at the paper's
+                 deployment (1,000,000 x 3,584 rows drawn on the card chunk
+                 by chunk from ``--seed``, prefix norms, 2,470 noisy-copy
+                 queries in batches of 32) across 4 ``gloo`` ranks of
+                 250,000 rows each — each rank draws its own slab on the
+                 card — in ``local`` and ``global`` mode, then the same
+                 calls as an NCCL world of one in this process; held
+                 against the one-process ``progressive_search`` (global:
+                 ids equal up to near-ties, their count printed; local:
+                 recall@10 and top-1 against an exact search no lower;
+                 sentinels equal) with each rank's launches (local: one
+                 stage-0 and one ladder launch a call; global: one stage-0
+                 launch and one rescore step a later stage), per-call ms
+                 and the collectives' host time and bytes staged through
+                 the host; first the rescore kernel on a candidate table
+                 three quarters -1.  Then one Qwen3-MoE layer at full width
+                 (d_model 4,096, 128 experts, top-8, bf16) on 2 x 512
+                 tokens, expert-parallel over 2 and 4 ranks, against
+                 ``moe_apply`` (relative L2 <= 1e-2, the aux loss equal);
+                 then ``torch.distributed.run`` of the training launcher
+                 on 2 ranks (Qwen3-MoE smoke, 10 steps, checkpointed),
+                 resumed on one rank
+ 13. kernels line, card line, and the final ``{"ok": true, ...}`` line.
 
 Phase 2 also holds the embedding-bag and segment-sum kernels against their
 plain versions on their edge cases (bags of 8 and 100 ids with padding, sum
@@ -913,9 +937,14 @@ def run(args) -> None:
 
     # -- 11. training ----------------------------------------------------------
     train = train_phase(torch, dev, args.seed)
+
+    # -- 12. multi-device --------------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_counts, _ = distributed_phase(torch, dev, args.seed)
     finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
            launches, paper_counts, dur_counts, scan_rows, flash_rows,
-           bag_rows, seg_rows, families, train)
+           bag_rows, seg_rows, families, train, dist_counts)
 
 
 # -- 10. the paper's experiments ---------------------------------------------
@@ -4896,9 +4925,497 @@ def _ladder_entry(launches, step_rows, ladder_rows) -> dict:
                       for r in step_rows]}
 
 
+# -- 12. multi-device ---------------------------------------------------------
+
+# Phase 12: the corpus-sharded search at the paper's deployment over 4
+# ``gloo`` ranks that share the card (250,000 rows each) and over an NCCL
+# world of one; the expert-parallel MoE layer at Qwen3-MoE's width over 2
+# and 4 ranks; the elastic training launcher across 2 ranks, resumed on 1.
+DIST_RANKS = 4
+DIST_CHUNK = 50_000            # rows drawn from one seed (slabs are whole chunks)
+DIST_BATCH = 32
+EP_RANKS = (2, 4)
+EP_TOKENS = (2, 512)
+EP_TOL = 1e-2                  # relative L2 of the EP layer against moe_apply
+EP_RUNS = 5
+DIST_TIMEOUT_S = 600
+LAUNCH_ARCH, LAUNCH_STEPS = "qwen3-moe-235b-a22b", 10
+# The ranks' device and the one-rank world's backend (a rehearsal on the
+# CPU sets them to "cpu" and "gloo").
+DIST_DEVICE, ONE_RANK_BACKEND = "cuda", "nccl"
+
+
+def dist_scales(torch, dev):
+    """The serving phase's per-dim scales (a decaying spectrum)."""
+    s = (1.0 + torch.arange(D_EMB, device=dev, dtype=torch.float32)) ** -0.2
+    return s / s.norm() * D_EMB ** 0.5
+
+
+def dist_rows(torch, dev, seed, lo, hi):
+    """Rows [lo, hi) of the phase's corpus, drawn on the card: chunk c of
+    `DIST_CHUNK` rows from its own seed, so a rank draws its slab with the
+    same bits as the whole corpus holds."""
+    if lo % DIST_CHUNK or hi % DIST_CHUNK:
+        fail(f"rows [{lo}, {hi}) are not whole chunks of {DIST_CHUNK}")
+    scales = dist_scales(torch, dev)
+    out = torch.empty((hi - lo, D_EMB), device=dev, dtype=torch.float32)
+    gen = torch.Generator(device=dev)
+    for c in range(lo // DIST_CHUNK, hi // DIST_CHUNK):
+        gen.manual_seed(seed * 100_003 + 7_919 + c)
+        a = c * DIST_CHUNK - lo
+        torch.randn((DIST_CHUNK, D_EMB), generator=gen, device=dev,
+                    out=out[a:a + DIST_CHUNK])
+        out[a:a + DIST_CHUNK].mul_(scales)
+    return out
+
+
+def _rank_setup(rank, world, init, backend="gloo"):
+    """A spawned rank: the checkout's ``src`` on the path, the card, the
+    process group (a ``file://`` rendezvous, no port)."""
+    import datetime
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    return torch, dist
+
+
+def _search_calls(torch, fn, q, db_l, sqp_l):
+    """``fn`` over every batch of ``q``: (scores, ids, per-call event ms,
+    per-call (collective, staging) host s), one warm-up call first."""
+    from repro_torch.sharding import collectives as C
+
+    fn(q[:DIST_BATCH], db_l, sqp_l)
+    torch.cuda.synchronize()
+    zero_counts()
+    C.reset_counts()
+    out_s, out_i, ms, coll = [], [], [], []
+    for a in range(0, q.shape[0], DIST_BATCH):
+        c0, s0 = C.seconds, C.staged_seconds
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        s, i = fn(q[a:a + DIST_BATCH], db_l, sqp_l)
+        ev1.record()
+        ev1.synchronize()
+        ms.append(ev0.elapsed_time(ev1))
+        coll.append((C.seconds - c0, C.staged_seconds - s0))
+        out_s.append(s)
+        out_i.append(i)
+    counts = read_counts()
+    return (torch.cat(out_s).cpu().numpy(), torch.cat(out_i).cpu().numpy(),
+            ms, coll, counts, C.staged_bytes, dict(C.calls))
+
+
+def dist_search_rank(rank, world, init, seed, queries, out_dir):
+    """One rank of the 4-rank ``gloo`` world: its slab drawn on the card,
+    both modes over every batch; results and counts to ``out_dir``."""
+    torch, dist = _rank_setup(rank, world, init)
+    from repro_torch.core import make_schedule
+    from repro_torch.core.distributed import build_sharded_search
+    from repro_torch.core.index import prefix_squared_norms
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    dev = torch.device(DIST_DEVICE)
+    if dev.type == "cuda":
+        for stem in ("distance_topk", "gather_rescore"):
+            _build.library(stem)
+    sched = make_schedule(D_START, D_EMB, K0, final_k=FINAL_K)
+    dims = tuple(s.dim for s in sched.stages)
+    rows = N_DOCS // world
+    db_l = dist_rows(torch, dev, seed, rank * rows, (rank + 1) * rows)
+    sqp_l = prefix_squared_norms(db_l, dims)
+    q = queries.to(dev)
+    mesh = make_mesh_compat((world,), ("data",), device_type=dev.type)
+    res = {}
+    for mode in ("local", "global"):
+        fn = build_sharded_search(mesh, sched, N_DOCS, has_prefix=True,
+                                  index_dims=dims, mode=mode)
+        s, i, ms, coll, counts, staged, calls = _search_calls(
+            torch, fn, q, db_l, sqp_l)
+        res[mode] = {"ms": ms, "collective_s": coll, "staged_bytes": staged,
+                     "calls": calls, "counts": counts}
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"search_{mode}.npz"), s=s, i=i)
+    with open(os.path.join(out_dir, f"search_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ep_rank(rank, world, init, seed, out_dir):
+    """One rank of an EP world (1, world) over ('data', 'model'): the
+    Qwen3-MoE layer at full width, EP against ``moe_apply`` on the same
+    rank."""
+    torch, dist = _rank_setup(rank, world, init)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.layers.common import dtype_of
+    from repro_torch.layers.moe import moe_apply, moe_init
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.specs import make_ctx
+
+    cfg = get_arch(LAUNCH_ARCH).CONFIG
+    dev = torch.device(DIST_DEVICE)
+    dt = dtype_of(cfg.param_dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 404)
+    p = moe_init(gen, cfg.d_model, cfg.moe, cfg.ffn_type, dt, device=dev)
+    x = (torch.randn(EP_TOKENS + (cfg.d_model,), generator=gen, device=dev)
+         .to(dtype_of(cfg.compute_dtype)))
+    mesh = make_mesh_compat((1, world), ("data", "model"),
+                            device_type=dev.type)
+    ctx = make_ctx(mesh)
+    with torch.no_grad():
+        y_ref, aux_ref = moe_apply(p, x, cfg.moe, cfg.ffn_type)
+        C.reset_counts()
+        y, aux = moe_apply(p, x, cfg.moe, cfg.ffn_type, ctx=ctx)
+        torch.cuda.synchronize()
+        if C.calls["all_to_all"] != 2:
+            fail(f"EP rank {rank}: {C.calls} collectives, not 2 all-to-all")
+        calls = dict(C.calls)
+        rel = float((y.float() - y_ref.float()).norm()
+                    / y_ref.float().norm())
+        ep_ms = cuda_ms(torch, lambda: moe_apply(p, x, cfg.moe, cfg.ffn_type,
+                                                 ctx=ctx),
+                        runs=EP_RUNS, warmup=1)
+        ref_ms = cuda_ms(torch, lambda: moe_apply(p, x, cfg.moe,
+                                                  cfg.ffn_type),
+                         runs=EP_RUNS, warmup=1)
+    res = {"rel_l2": rel, "aux": float(aux), "aux_ref": float(aux_ref),
+           "finite": bool(torch.isfinite(y).all()), "ms": ep_ms,
+           "moe_apply_ms": ref_ms, "calls": calls,
+           "staged_bytes_a_call": C.staged_bytes // (EP_RUNS + 2),
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    with open(os.path.join(out_dir, f"ep{world}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn(torch, fn, world, args, out_dir):
+    """``fn(rank, world, init, *args)`` on ``world`` spawned ranks; a rank
+    that raises fails the phase (the others are ended)."""
+    import torch.multiprocessing as mp
+
+    init = "file://" + os.path.join(out_dir, f"rdzv_{fn.__name__}_{world}")
+    t0 = time.perf_counter()
+    mp.spawn(fn, args=(world, init) + tuple(args), nprocs=world, join=True)
+    return time.perf_counter() - t0
+
+
+def rescore_minus_one_check(torch, dev, q, db, sq, sched):
+    """The rescore kernel on the candidate tables a rank sees in
+    ``global`` mode: three quarters -1 (the rows other ranks own)."""
+    from repro_torch.core import truncated as T
+    from repro_torch.kernels import distance_topk, gather_rescore
+
+    s0, st = sched.stages[0], sched.stages[1]
+    _, cand = distance_topk.l2_topk(q, db, dim=s0.dim, k=s0.k,
+                                    sq_at_dim=sq[:, 0].contiguous())
+    rows = N_DOCS // DIST_RANKS
+    mine = (cand >= rows) & (cand < 2 * rows)              # rank 1's rows
+    local = torch.where(mine, cand - rows, torch.full_like(cand, -1))
+    slab, sq_l = db[rows:2 * rows], sq[rows:2 * rows, 1].contiguous()
+    got = gather_rescore.gather_rescore_topk(q, slab, local, dim=st.dim,
+                                             k=st.k, sq_at_dim=sq_l)
+    want = T.rescore_candidates(q, slab, local, dim=st.dim, k=st.k,
+                                db_sq_at_dim=sq_l)
+    err, agree, tol = compare(torch, got, want)
+    n_slots = int((local >= 0).sum())
+    if agree < 1.0 or err > tol:
+        fail(f"rescore with -1 slots: agree={agree} err={err} (tol {tol})")
+    row = {"phase": "distributed", "check": "rescore_minus_one",
+           "Q": q.shape[0], "C": local.shape[1], "k": st.k, "dim": st.dim,
+           "live_slots": n_slots, "minus_one_share":
+           1.0 - n_slots / local.numel(), "max_abs_err": err,
+           "ids_agree": agree}
+    emit(row)
+
+
+def nccl_world_of_one(torch, q, db, sq, sched, out_dir):
+    """The same sharded calls as a one-rank NCCL world in this process (the
+    whole corpus is its slab)."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.core.distributed import build_sharded_search
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    dims = tuple(s.dim for s in sched.stages)
+    dist.init_process_group(
+        ONE_RANK_BACKEND,
+        init_method="file://" + os.path.join(out_dir, "rdzv_one"),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = make_mesh_compat((1,), ("data",), device_type=q.device.type)
+        out = {}
+        for mode in ("local", "global"):
+            fn = build_sharded_search(mesh, sched, N_DOCS, has_prefix=True,
+                                      index_dims=dims, mode=mode)
+            s, i, ms, coll, counts, staged, calls = _search_calls(
+                torch, fn, q, db, sq)
+            out[mode] = (s, i, ms, coll, counts, staged, calls)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dist_search(torch, dev, seed, out_dir):
+    """The sharded search part of phase 12; returns the launch counts of
+    rank 0 by mode."""
+    from repro_torch.core import make_schedule, progressive_search
+    from repro_torch.core.index import prefix_squared_norms
+
+    sched = make_schedule(D_START, D_EMB, K0, final_k=FINAL_K)
+    dims = tuple(s.dim for s in sched.stages)
+    t0 = time.perf_counter()
+    db = dist_rows(torch, dev, seed, 0, N_DOCS)
+    sq = prefix_squared_norms(db, dims)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 77)
+    scales = dist_scales(torch, dev)
+    src = torch.randperm(N_DOCS, generator=gen, device=dev)[:N_QUERIES]
+    sig = 1.25 * torch.exp(0.55 * torch.randn((N_QUERIES,), generator=gen,
+                                              device=dev))
+    q = db[src] + sig[:, None] * scales * torch.randn(
+        (N_QUERIES, D_EMB), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+
+    # ground truth: exact full-dim L2 top-10 (chunked matmul)
+    norms = (db * db).sum(1)
+    truth = torch.cat([torch.topk(norms - 2.0 * q[a:a + 256] @ db.T, FINAL_K,
+                                  dim=1, largest=False).indices
+                       for a in range(0, N_QUERIES, 256)])
+    del norms
+
+    def single(qb):
+        return progressive_search(qb, db, sched, sq_prefix=sq,
+                                  index_dims=dims)
+
+    single(q[:DIST_BATCH])
+    torch.cuda.synchronize()
+    ref_s, ref_i, ref_ms = [], [], []
+    for a in range(0, N_QUERIES, DIST_BATCH):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        s, i = single(q[a:a + DIST_BATCH])
+        ev1.record()
+        ev1.synchronize()
+        ref_ms.append(ev0.elapsed_time(ev1))
+        ref_s.append(s)
+        ref_i.append(i)
+    ref_s, ref_i = torch.cat(ref_s), torch.cat(ref_i)
+
+    rescore_minus_one_check(torch, dev, q[:DIST_BATCH], db, sq, sched)
+
+    def recall(ids):
+        ids = torch.as_tensor(ids, device=dev).long()
+        hit = (ids[:, :, None] == truth[:, None, :]).any(dim=2)
+        return (float(hit.float().mean()),
+                float((ids[:, 0] == truth[:, 0]).float().mean()))
+
+    def check(label, mode, s, i, ms, coll, counts, staged, calls, n_ranks):
+        s_t = torch.as_tensor(s, device=dev)
+        i_t = torch.as_tensor(i, device=dev)
+        if s_t.shape != ref_s.shape or not bool(torch.isfinite(s_t).all()):
+            fail(f"{label} {mode}: scores of shape {tuple(s_t.shape)} or "
+                 f"not finite")
+        if not torch.equal(i_t == -1, ref_i == -1):
+            fail(f"{label} {mode}: sentinels differ from one process")
+        err, agree, tol = compare(torch, (s_t, i_t), (ref_s, ref_i))
+        differ = int((i_t != ref_i).sum())
+        r10, top1 = recall(i)
+        r10_1, top1_1 = recall(ref_i)
+        n_calls = len(ms)
+        row = {"phase": "distributed", "part": "search", "world": label,
+               "ranks": n_ranks, "mode": mode, "queries": N_QUERIES,
+               "batch": DIST_BATCH, "calls": n_calls,
+               "ids_equal_share": float((i_t == ref_i).float().mean()),
+               "ids_differ": differ,
+               # global: every differing slot is a near-tie (checked below)
+               "tied_slots": differ if mode == "global" else None,
+               "agree_up_to_ties": agree, "max_abs_err": err, "tol": tol,
+               "recall_at_10": r10, "top1": top1,
+               "single_recall_at_10": r10_1, "single_top1": top1_1,
+               "ms_p50": statistics.median(ms), "ms_mean": float(np.mean(ms)),
+               "collective_host_ms_p50": 1e3 * statistics.median(
+                   c for c, _ in coll),
+               "staging_host_ms_p50": 1e3 * statistics.median(
+                   st for _, st in coll),
+               "collective_host_share": sum(c for c, _ in coll) / max(
+                   1e-3 * float(np.sum(ms)), 1e-9),
+               "single_ms_p50": statistics.median(ref_ms),
+               "staged_bytes": staged, "staged_bytes_a_call":
+               staged / n_calls, "collectives": calls,
+               "launches": {k: counts[k] for k in (
+                   "distance_topk.l2_topk", "distance_topk.wgmma",
+                   "gather_rescore.ladder", "gather_rescore.step")}}
+        emit(row)
+        if mode == "global" and agree < 1.0:
+            fail(f"{label} global: ids differ from one process beyond ties "
+                 f"(agree {agree})")
+        if mode == "local" and (r10 < r10_1 or top1 < top1_1):
+            fail(f"{label} local: recall@10 {r10} / top-1 {top1} below one "
+                 f"process's {r10_1} / {top1_1}")
+        n_stages = len(sched.stages)
+        want = ({"distance_topk.l2_topk": n_calls,
+                 "gather_rescore.ladder": n_calls, "gather_rescore.step": 0}
+                if mode == "local" else
+                {"distance_topk.l2_topk": n_calls, "gather_rescore.ladder": 0,
+                 "gather_rescore.step": n_calls * (n_stages - 1)})
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"{label} {mode}: launches {got}, want {want}")
+        return row
+
+    # the 4-rank gloo world sharing the card
+    spawn_s = _spawn(torch, dist_search_rank, DIST_RANKS,
+                     (seed, q.cpu(), out_dir), out_dir)
+    rows = {}
+    for mode in ("local", "global"):
+        z = np.load(os.path.join(out_dir, f"search_{mode}.npz"))
+        per_rank = [json.load(open(os.path.join(
+            out_dir, f"search_rank{r}.json")))[mode]
+            for r in range(DIST_RANKS)]
+        for r, pr in enumerate(per_rank):
+            want = ({"distance_topk.l2_topk": len(pr["ms"]),
+                     "gather_rescore.ladder": len(pr["ms"])}
+                    if mode == "local" else
+                    {"distance_topk.l2_topk": len(pr["ms"]),
+                     "gather_rescore.step":
+                     len(pr["ms"]) * (len(sched.stages) - 1)})
+            got = {k: pr["counts"][k] for k in want}
+            if got != want:
+                fail(f"gloo rank {r} {mode}: launches {got}, want {want}")
+        r0 = per_rank[0]
+        rows[("gloo", mode)] = check(
+            "gloo", mode, z["s"], z["i"], r0["ms"], r0["collective_s"],
+            r0["counts"], r0["staged_bytes"], r0["calls"], DIST_RANKS)
+        rows[("gloo", mode)]["rank_ms_p50"] = [
+            statistics.median(pr["ms"]) for pr in per_rank]
+    gloo_ids = {mode: np.load(os.path.join(out_dir, f"search_{mode}.npz"))["i"]
+                for mode in ("local", "global")}
+
+    # the same calls as an NCCL world of one
+    nccl = nccl_world_of_one(torch, q, db, sq, sched, out_dir)
+    for mode, (s, i, ms, coll, counts, staged, calls) in nccl.items():
+        rows[("nccl", mode)] = check(ONE_RANK_BACKEND, mode, s, i, ms, coll,
+                                     counts, staged, calls, 1)
+        if staged:
+            fail(f"nccl {mode}: {staged} bytes staged through the host")
+    if not np.array_equal(nccl["local"][1], ref_i.cpu().numpy()):
+        fail("nccl world of one, local: ids differ from one process")
+    emit({"phase": "distributed", "part": "search_summary",
+          "draw_s": draw_s, "gloo_world_s": spawn_s,
+          "nccl_local_equals_single": True,
+          "gloo_global_equals_nccl_global_share": float(
+              (gloo_ids["global"] == nccl["global"][1]).mean())})
+    del db, sq, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {mode: rows[("gloo", mode)]["launches"] for mode in
+            ("local", "global")}
+
+
+def dist_ep(torch, seed, out_dir):
+    """The EP MoE part of phase 12."""
+    out = {}
+    for world in EP_RANKS:
+        spawn_s = _spawn(torch, ep_rank, world, (seed, out_dir), out_dir)
+        per = [json.load(open(os.path.join(out_dir,
+                                           f"ep{world}_rank{r}.json")))
+               for r in range(world)]
+        for r, res in enumerate(per):
+            if not res["finite"] or res["rel_l2"] > EP_TOL:
+                fail(f"EP {world} rank {r}: rel L2 {res['rel_l2']} "
+                     f"(tol {EP_TOL}), finite {res['finite']}")
+            if abs(res["aux"] - res["aux_ref"]) > 1e-5 * abs(res["aux_ref"]):
+                fail(f"EP {world} rank {r}: aux {res['aux']} vs "
+                     f"{res['aux_ref']}")
+        row = {"phase": "distributed", "part": "moe_ep", "ranks": world,
+               "mesh": {"data": 1, "model": world}, "tokens": list(EP_TOKENS),
+               "arch": LAUNCH_ARCH, "tol": EP_TOL,
+               "rel_l2": [r["rel_l2"] for r in per],
+               "aux": per[0]["aux"], "aux_moe_apply": per[0]["aux_ref"],
+               "ms": [r["ms"] for r in per],
+               "moe_apply_ms": [r["moe_apply_ms"] for r in per],
+               "staged_bytes_a_call": per[0]["staged_bytes_a_call"],
+               "collectives_a_call": per[0]["calls"],
+               "peak_gb": [r["peak_gb"] for r in per], "world_s": spawn_s}
+        emit(row)
+        out[world] = row
+    return out
+
+
+def dist_launcher(out_dir):
+    """The training launcher across 2 ranks sharing the card, then resumed
+    on one; returns the two outputs' first lines."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    ck = os.path.join(out_dir, "ckpt")
+    base = ["-m", "repro_torch.launch.train", "--arch", LAUNCH_ARCH,
+            "--smoke", "--ckpt-dir", ck]
+    runs = {}
+    for label, pre, steps in (
+            ("ranks2", ["-m", "torch.distributed.run", "--standalone",
+                        "--nproc-per-node=2"], LAUNCH_STEPS),
+            ("ranks1", [], LAUNCH_STEPS + 2)):
+        t0 = time.perf_counter()
+        cmd = [sys.executable] + pre + base + ["--steps", str(steps)]
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=HERE, timeout=CLI_TIMEOUT * 3)
+        if r.returncode != 0:
+            fail(f"launcher {label} exited {r.returncode}:\n{r.stdout[-3000:]}"
+                 f"\n{r.stderr[-3000:]}")
+        lines = r.stdout.strip().splitlines()
+        losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines
+                  if ln.startswith("[train] step")]
+        if not losses or not np.isfinite(losses).all():
+            fail(f"launcher {label}: losses {losses}")
+        runs[label] = {"first_line": lines[0], "losses": losses,
+                       "s": time.perf_counter() - t0,
+                       "restored": [ln for ln in lines if "restored" in ln]}
+    if not runs["ranks2"]["first_line"].startswith(
+            "[launch] process group: gloo, world 2"):
+        fail(f"launcher 2 ranks: first line {runs['ranks2']['first_line']}")
+    if runs["ranks1"]["restored"] != [
+            f"[train] restored checkpoint at step {LAUNCH_STEPS}"]:
+        fail(f"launcher 1 rank did not resume step {LAUNCH_STEPS}: "
+             f"{runs['ranks1']}")
+    emit({"phase": "distributed", "part": "launcher", "arch": LAUNCH_ARCH,
+          **runs})
+    return runs
+
+
+def distributed_phase(torch, dev, seed):
+    """Phase 12.  Returns the 4-rank search's launches of rank 0 by mode."""
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        launches = dist_search(torch, dev, seed, out_dir)
+        ep = dist_ep(torch, seed, out_dir)
+        dist_launcher(out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    emit({"phase": "distributed", "part": "done",
+          "seconds": time.perf_counter() - t0})
+    return launches, ep
+
+
 def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
            launches, paper_counts, dur_counts, scan_rows, flash_rows,
-           bag_rows, seg_rows, families, train) -> None:
+           bag_rows, seg_rows, families, train, dist_counts) -> None:
     """Print the kernels line, the card line and the final result line."""
     s32 = [r for r in stage_rows if r["case"] == "flat_stage0_q32"][0]
     tt = [r for r in stage_rows if r["case"] == "two_tower_stage0"][0]
@@ -4947,6 +5464,13 @@ def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
         *train_entries(*train),
     ]
     kernels[1]["paper_launches"] = paper_counts["gather_rescore.ladder"]
+    # phase 12: rank 0 of the 4-rank sharded search, by mode
+    kernels[0]["distributed_launches"] = {
+        mode: c["distance_topk.l2_topk"] for mode, c in dist_counts.items()}
+    kernels[1]["distributed_launches"] = {
+        mode: {kind: c[f"gather_rescore.{kind}"] for kind in ("ladder",
+                                                              "step")}
+        for mode, c in dist_counts.items()}
     # the recovered engine's and the follower's searches, and the recovered
     # engine's profile_stages (stage by stage: one rescore step a stage)
     for path, counts in dur_counts.items():

@@ -25,6 +25,9 @@ observability layers are the same host code.
   repro_torch.models          — the LM (dense GQA, local:global, MoE,
                                 MLA; prefill, decode), recsys, EGNN
   repro_torch.rag             — RAGPipeline: retrieve, assemble, generate
+  repro_torch.sharding        — logical-axis rules over a named
+                                ``DeviceMesh`` and the collectives of the
+                                multi-device paths (``torch.distributed``)
   repro_torch.launch          — the serving launcher (closed-loop demo,
                                 HTTP server, router and client modes) and
                                 the paper's experiment driver

@@ -9,6 +9,8 @@ Public API:
                                           versions on any device
   progressive_search_pooled             — the paper's pooled variant
                                           (§III.D), stage 0 on the kernel
+  sharded_progressive_search            — corpus-sharded search across the
+                                          ranks of a mesh
   build_index / index_for_schedule      — prefix-norm index build
   top1_accuracy / recall_at_k           — metrics (§III.E)
 """
@@ -40,6 +42,7 @@ from repro_torch.core.progressive import (
     progressive_search_pooled_plain,
     rescore_ladder,
 )
+from repro_torch.core.distributed import sharded_progressive_search
 from repro_torch.core.metrics import overlap_at_k, recall_at_k, top1_accuracy
 
 __all__ = [
@@ -50,5 +53,6 @@ __all__ = [
     "inject_candidates", "rescore_ladder",
     "progressive_search", "progressive_search_plain",
     "progressive_search_pooled", "progressive_search_pooled_plain",
+    "sharded_progressive_search",
     "top1_accuracy", "recall_at_k", "overlap_at_k",
 ]

@@ -62,6 +62,12 @@ def attn_init(generator: torch.Generator, d_model: int, n_heads: int,
                    scale=(n_heads * d_head) ** -0.5))
 
 
+def attn_specs():
+    """Logical axes of the attention weights (the JAX package's)."""
+    return {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+
+
 # ------------------------------------------------------------ mask math --
 
 def _mask(q_pos: Tensor, k_pos: Tensor, window: int, causal: bool) -> Tensor:

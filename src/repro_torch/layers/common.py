@@ -92,6 +92,14 @@ def ffn_init(generator: torch.Generator, d_model: int, d_ff: int,
     return FFN(w_in, w_out, w_gate)
 
 
+def ffn_specs(ffn_type: str):
+    """Logical axes of an FFN's weights (the JAX package's)."""
+    p = {"w_in": ("embed", "mlp"), "w_out": ("mlp", "embed")}
+    if ffn_type == "swiglu":
+        p["w_gate"] = ("embed", "mlp")
+    return p
+
+
 def ffn_apply(p: FFN, x: Tensor, ffn_type: str) -> Tensor:
     h = x @ p.w_in
     if ffn_type == "swiglu":
@@ -138,6 +146,12 @@ def mlp_init(generator: torch.Generator, dims, dtype, *,
     return MLP([dense_init(generator, a, b, dtype, device=device)
                 for a, b in pairs],
                [torch.zeros((b,), dtype=dtype, device=device) for _, b in pairs])
+
+
+def mlp_specs(dims, *, bias: bool = True):
+    """Logical axes of an ``mlp_init(dims)`` tower (the JAX package's)."""
+    layer = {"w": ("embed", "mlp"), **({"b": ("mlp",)} if bias else {})}
+    return [dict(layer) for _ in range(len(dims) - 1)]
 
 
 def mlp_layers(mlp):

@@ -85,6 +85,15 @@ def mla_init(generator: torch.Generator, d_model: int, n_heads: int,
                **q)
 
 
+def mla_specs(cfg: MLAConfig):
+    """Logical axes of the MLA weights (the JAX package's)."""
+    p = ({"wq_a": ("embed", None), "q_norm": (None,), "wq_b": (None, "heads")}
+         if cfg.q_lora_rank else {"wq": ("embed", "heads")})
+    p.update({"wkv_a": ("embed", None), "kv_norm": (None,),
+              "wkv_b": (None, "heads"), "wo": ("heads", "embed")})
+    return p
+
+
 def _project_q(p: MLA, x: Tensor, n_heads: int, cfg: MLAConfig):
     b, s, _ = x.shape
     if cfg.q_lora_rank:

@@ -12,8 +12,12 @@ unsorted place and sums a token's k outputs in top-k order — the same sum
 as the JAX package's scatter-add, in a fixed order (``index_add_`` on the
 card adds with atomics, whose order changes from run to run).
 
-``moe_apply_ep`` (the expert-parallel ``shard_map`` path) needs a mesh and
-waits for the multi-device slice; ``moe_apply`` has no ``ctx`` route.
+Two execution paths share the dispatch (`_dispatch_local`): one device
+(and decode), and ``moe_apply_ep``, the expert-parallel path that
+``moe_apply`` takes on a mesh with a ``model`` dim for a (B, S > 1, D)
+slab, as the JAX package does: each rank dispatches its own token slab,
+one all-to-all over ``model`` hands every rank the tokens routed to its
+experts, and a second one brings the results back.
 Supports DeepSeek-style shared experts and normalised top-k gates.
 """
 
@@ -27,7 +31,7 @@ from torch import nn
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.layers.common import (FFN, _trunc_normal, dense_init,
-                                       ffn_apply, ffn_init)
+                                       ffn_apply, ffn_init, ffn_specs)
 
 Tensor = torch.Tensor
 
@@ -64,6 +68,21 @@ def moe_init(generator: torch.Generator, d_model: int, cfg: MoEConfig,
                        dtype, device=device)
               if cfg.n_shared_experts else None)
     return MoE(router, w_in, w_out, w_gate, shared)
+
+
+def moe_specs(cfg: MoEConfig, ffn_type: str):
+    """Logical axes of an MoE layer's weights (the JAX package's)."""
+    p = {
+        # router replicated: tiny, and the EP path needs full-D logits
+        "router": (None, None),
+        "w_in": ("expert", "embed", "mlp"),
+        "w_out": ("expert", "mlp", "embed"),
+    }
+    if ffn_type == "swiglu":
+        p["w_gate"] = ("expert", "embed", "mlp")
+    if cfg.n_shared_experts:
+        p["shared"] = ffn_specs(ffn_type)
+    return p
 
 
 def _dispatch_local(x2: Tensor, logits: Tensor, cfg: MoEConfig):
@@ -113,12 +132,107 @@ def _combine_local(y_buf: Tensor, info, t: int, d: int) -> Tensor:
     return unsorted.reshape(t, experts.shape[1], d).sum(dim=1)
 
 
-def moe_apply(p: MoE, x: Tensor, cfg: MoEConfig,
-              ffn_type: str) -> Tuple[Tensor, Tensor]:
+def _experts(p: MoE, buf: Tensor, ffn_type: str, lo: int = 0,
+             hi: Optional[int] = None) -> Tensor:
+    """Experts [lo, hi) of ``p`` over their (hi - lo, C, D) packed buffer."""
+    h = torch.bmm(buf, p.w_in[lo:hi])
+    if ffn_type == "swiglu":
+        h = F.silu(torch.bmm(buf, p.w_gate[lo:hi])) * h
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h, approximate="tanh")
+    return torch.bmm(h, p.w_out[lo:hi])
+
+
+def _uses_ep(ctx, x: Tensor, cfg: MoEConfig) -> bool:
+    """The JAX package's test for the EP path: a mesh with a ``model`` dim
+    that divides the experts, and a (B, S > 1, D) slab."""
+    mesh = getattr(ctx, "mesh", None) if ctx is not None else None
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return False
+    ep = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))["model"]
+    return cfg.n_experts % ep == 0 and x.dim() == 3 and x.shape[1] > 1
+
+
+def moe_apply_ep(p: MoE, x: Tensor, cfg: MoEConfig, ffn_type: str,
+                 ctx) -> Tuple[Tensor, Tensor]:
+    """Expert-parallel MoE over the ``model`` dim of ``ctx.mesh``: the
+    train / prefill path of the JAX package's ``moe_apply_ep``.
+
+    ``x`` is this rank's (B_l, S, D) token slab: the batch sharded over
+    ``(pod, data)``, replicated over ``model``.
+
+      1. each rank dispatches its slab into a local (E, C_l, D) buffer,
+         with the capacity of its own T;
+      2. one all-to-all over ``model`` (bf16 on the wire) turns it into
+         (E/ep, C_l·ep, D): rank m gets, from every member, the tokens
+         routed to experts [m·E/ep, (m+1)·E/ep);
+      3. rank m runs those experts.  The expert weights are held whole on
+         every rank (replicated; the JAX package's FSDP gather of them over
+         ``data`` has nothing to gather), and rank m reads its slice;
+      4. the reverse all-to-all and the local combine put the gate-weighted
+         results back in token order; the shared experts run locally.
+
+    The aux loss is each rank's local value averaged over the token axes
+    (``pmean``).  Gradients: the ep members of a ``model`` group hold
+    copies of the same tokens, so the owner of an expert receives ep
+    copies' gradients, ep times the one-device gradient of that group's
+    tokens, and the other members none.  The data-parallel mean over the
+    world (``collectives.all_reduce_mean_``, the train step's reduction)
+    divides by ep again: what reaches the optimizer is the one-device
+    gradient, for the expert weights as for every replicated weight.
+    """
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.specs import mesh_axes, mesh_coordinate
+
+    mesh = ctx.mesh
+    sizes = mesh_axes(mesh)
+    ep = sizes["model"]
+    b, s, d = x.shape
+    e = cfg.n_experts
+    if e % ep:
+        raise ValueError(f"{e} experts do not split over {ep} ranks")
+    per = e // ep
+    m = mesh_coordinate(mesh)["model"]
+    token_axes = tuple(a for a in ("pod", "data", "model") if a in sizes)
+
+    x2 = x.reshape(-1, d)
+    t_l = x2.shape[0]
+    logits = x2.to(torch.float32) @ p.router
+    buf, info, frac_t, frac_p = _dispatch_local(x2, logits, cfg)
+    aux_local = cfg.aux_loss_coef * e * torch.sum(frac_t * frac_p)
+    aux = C.all_mean(aux_local, mesh, token_axes)
+
+    # EP exchange: (E, C_l, D) -> (E/ep, ep·C_l, D), bf16 on the wire
+    cap = buf.shape[1]
+    recv = C.all_to_all(buf.to(torch.bfloat16), mesh, "model")
+    recv = recv.reshape(ep, per, cap, d).transpose(0, 1).reshape(
+        per, ep * cap, d).to(x2.dtype)
+    y_buf = _experts(p, recv, ffn_type, m * per, (m + 1) * per)
+
+    # reverse exchange + local combine
+    back = y_buf.to(torch.bfloat16).reshape(per, ep, cap, d).transpose(0, 1)
+    back = C.all_to_all(back.reshape(e, cap, d), mesh, "model")
+    y = _combine_local(back.to(x2.dtype), info, t_l, d)
+    y = y.reshape(b, s, d)
+    if p.shared is not None:
+        y = y + ffn_apply(p.shared, x, ffn_type)
+    return y, aux
+
+
+def moe_apply(p: MoE, x: Tensor, cfg: MoEConfig, ffn_type: str, *,
+              ctx=None) -> Tuple[Tensor, Tensor]:
     """Apply the MoE FFN.  x: (B, S, D) or (T, D).
+
+    When ``ctx`` carries a mesh with a ``model`` dim that divides the
+    experts and x is a (B, S > 1, D) slab, dispatch goes through
+    `moe_apply_ep`; single-token decode and one device keep the local
+    path.
 
     Returns (output matching x's shape, aux load-balancing loss, a float32
     scalar tensor)."""
+    if _uses_ep(ctx, x, cfg):
+        return moe_apply_ep(p, x, cfg, ffn_type, ctx)
     shape_in = x.shape
     d = shape_in[-1]
     x2 = x.reshape(-1, d)
@@ -130,13 +244,7 @@ def moe_apply(p: MoE, x: Tensor, cfg: MoEConfig,
         frac_tokens * frac_probs)
 
     # ---- expert FFN over the packed buffer ----
-    h = torch.bmm(buf, p.w_in)
-    if ffn_type == "swiglu":
-        h = F.silu(torch.bmm(buf, p.w_gate)) * h
-    else:
-        # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(h, approximate="tanh")
-    y_buf = torch.bmm(h, p.w_out)
+    y_buf = _experts(p, buf, ffn_type)
 
     # ---- combine: each pair back to its token, gate-weighted ----
     y = _combine_local(y_buf, info, t, d)

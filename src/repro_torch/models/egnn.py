@@ -52,7 +52,8 @@ from repro_torch.configs.base import EGNNConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.segment_sum import sort_by_segment
 from repro_torch.layers.common import (MLP, dtype_of, mlp_apply, mlp_cast,
-                                       mlp_init, mlp_tree, resolve_device)
+                                       mlp_init, mlp_specs, mlp_tree,
+                                       resolve_device)
 from repro_torch.models.graph import Graph
 
 Tensor = torch.Tensor
@@ -179,6 +180,17 @@ def param_tree(params: Params) -> Dict:
             "layers": [{k: conv(v) for k, v in layer.items()}
                        for layer in params["layers"]],
             "decoder": conv(params["decoder"])}
+
+
+def egnn_param_logical(cfg: EGNNConfig) -> Dict:
+    """Logical axes of a `param_tree` (the JAX package's
+    ``egnn_param_logical``)."""
+    return {"encoder": mlp_specs((0, 0)),
+            "layers": [{"phi_e": mlp_specs((0, 0, 0)),
+                        "phi_x": mlp_specs((0, 0, 0)),
+                        "phi_h": mlp_specs((0, 0, 0))}
+                       for _ in range(cfg.n_layers)],
+            "decoder": mlp_specs((0, 0, 0))}
 
 
 @torch.no_grad()

@@ -6,8 +6,8 @@ Entry points
   init_lm(cfg, seed=, device=)                  -> LM (random weights)
   load_jax_params(np_params, cfg, device)       -> LM (the JAX package's
                                                    ``init_lm`` pytree)
-  lm_forward(lm, tokens)                        -> logits (B, S, V) f32
-  prefill(lm, tokens, decode_len=)             -> (last logits, cache)
+  lm_forward(lm, tokens, ctx=)                  -> logits (B, S, V) f32
+  prefill(lm, tokens, decode_len=, ctx=)        -> (last logits, cache)
   init_cache(cfg, batch, seq)                   -> empty decode cache
   prefill_to_decode_cache(cfg, cache, s, total) -> the decode layout
   decode_step(lm, cache, tok, pos)              -> (logits (B, V) f32, cache)
@@ -15,8 +15,10 @@ Entry points
                                                    (layers stacked), a copy
   lm_view(params, cfg)                          -> an LM over a param_tree's
                                                    leaves (views, no copy)
-  lm_loss(lm, batch, impl=)                     -> (loss, metrics) with
+  lm_loss(lm, batch, impl=, ctx=)               -> (loss, metrics) with
                                                    gradients enabled
+  lm_param_logical(cfg) / cache_logical(cfg)    -> logical axes of a
+                                                   param_tree / a cache
 
 The JAX package scans stacked layer weights; here the layers are
 ``ModuleList``s walked by a Python loop: ``dense_layers`` (DeepSeek's
@@ -64,8 +66,9 @@ from repro_torch.layers import attention as A
 from repro_torch.layers import mla as M
 from repro_torch.layers import moe as E
 from repro_torch.layers.common import (FFN, dense_init, dtype_of, embed_init,
-                                       ffn_apply, ffn_init, rmsnorm,
-                                       softmax_xent)
+                                       ffn_apply, ffn_init, ffn_specs,
+                                       rmsnorm, softmax_xent)
+from repro_torch.sharding.specs import NULL_CTX, ShardingCtx
 
 Tensor = torch.Tensor
 Cache = Dict[str, Tensor]
@@ -224,6 +227,55 @@ def load_jax_params(np_params: Dict, cfg: LMConfig, device="cuda") -> LM:
               stack("dense_layers", n_dense) if n_dense else None)
 
 
+# ==================================================== logical axes =======
+
+def _layer_logical(cfg: LMConfig, *, moe_layer: bool) -> Dict:
+    p: Dict = {"ln1": (None,), "ln2": (None,)}
+    p["attn"] = (M.mla_specs(cfg.mla) if cfg.mla is not None
+                 else A.attn_specs())
+    if moe_layer:
+        p["moe"] = E.moe_specs(cfg.moe, cfg.ffn_type)
+    else:
+        p["ffn"] = ffn_specs(cfg.ffn_type)
+    return p
+
+
+def _stack_logical(tree):
+    """Prepend the stacked-layers axis to every leaf's logical tuple."""
+    if isinstance(tree, dict):
+        return {k: _stack_logical(v) for k, v in tree.items()}
+    return ("layers",) + tree
+
+
+def lm_param_logical(cfg: LMConfig) -> Dict:
+    """Logical axes of a `param_tree` (the JAX package's
+    ``lm_param_logical``)."""
+    log = {
+        "embed": ("vocab", "embed"),
+        "layers": _stack_logical(
+            _layer_logical(cfg, moe_layer=cfg.moe is not None)),
+        "final_ln": (None,),
+    }
+    if _n_dense_prefix(cfg):
+        log["dense_layers"] = _stack_logical(
+            _layer_logical(cfg, moe_layer=False))
+    if not cfg.tie_embeddings:
+        log["lm_head"] = ("embed", "vocab")
+    return log
+
+
+def cache_logical(cfg: LMConfig) -> Dict:
+    """Logical axes of an `init_cache` cache (the JAX package's)."""
+    if cfg.mla is not None:
+        return {"ckv": ("layers", "batch", "kv_seq", None),
+                "krope": ("layers", "batch", "kv_seq", None)}
+    log = ("layers", "batch", "kv_heads", "kv_seq", None)
+    if cfg.local_global_period > 0:
+        return {"k_local": log, "v_local": log,
+                "k_global": log, "v_global": log}
+    return {"k": log, "v": log}
+
+
 # ========================================================= forward =======
 
 def _windows_thetas(cfg: LMConfig) -> Tuple[List[int], List[float]]:
@@ -273,16 +325,17 @@ class _Bf16Head(torch.autograd.Function):
         return g @ head.T, x2.T @ g
 
 
-def _ffn_or_moe(blk: Block, h2: Tensor, cfg: LMConfig
+def _ffn_or_moe(blk: Block, h2: Tensor, cfg: LMConfig,
+                ctx: ShardingCtx = NULL_CTX
                 ) -> Tuple[Tensor, Optional[Tensor]]:
     """(the FFN or MoE output, the MoE aux loss or None)."""
     if blk.moe is not None:
-        return E.moe_apply(blk.moe, h2, cfg.moe, cfg.ffn_type)
+        return E.moe_apply(blk.moe, h2, cfg.moe, cfg.ffn_type, ctx=ctx)
     return ffn_apply(blk.ffn, h2, cfg.ffn_type), None
 
 
 def _block(blk: Block, x: Tensor, *, cfg: LMConfig, window: int,
-           theta: float, impl: str):
+           theta: float, impl: str, ctx: ShardingCtx = NULL_CTX):
     """One prefill layer: (x, its cache entries, the MoE aux loss or None)
     — the entries (k, v) of (B, Hkv, S, Dh), or MLA's (c_kv, k_rope)."""
     h = rmsnorm(x, blk.ln1, cfg.norm_eps)
@@ -297,7 +350,7 @@ def _block(blk: Block, x: Tensor, *, cfg: LMConfig, window: int,
             impl=impl, return_kv=True)
     x = x + a
     h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
-    y, aux = _ffn_or_moe(blk, h2, cfg)
+    y, aux = _ffn_or_moe(blk, h2, cfg, ctx)
     return x + y, kv, aux
 
 
@@ -309,12 +362,15 @@ def _layers(lm: LM):
 
 
 @torch.inference_mode()
-def lm_forward(lm: LM, tokens: Tensor, *, impl: str = "chunked") -> Tensor:
-    """tokens (B, S) int -> logits (B, S, V) float32."""
+def lm_forward(lm: LM, tokens: Tensor, *, impl: str = "chunked",
+               ctx: ShardingCtx = NULL_CTX) -> Tensor:
+    """tokens (B, S) int -> logits (B, S, V) float32.  On a mesh
+    (``ctx``) ``tokens`` is this rank's block of the batch."""
     cfg = lm.cfg
     x = lm.embed[tokens].to(dtype_of(cfg.compute_dtype))
     for _, blk, w, th in _layers(lm):
-        x, _, _ = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl)
+        x, _, _ = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl,
+                         ctx=ctx)
     x = rmsnorm(x, lm.final_ln, cfg.norm_eps)
     return _head_logits(x, lm.head)
 
@@ -419,7 +475,8 @@ def prefill_to_decode_cache(cfg: LMConfig, cache: Cache, prompt_len: int,
 
 @torch.inference_mode()
 def prefill(lm: LM, tokens: Tensor, *, impl: str = "chunked",
-            decode_len: Optional[int] = None) -> Tuple[Tensor, Cache]:
+            decode_len: Optional[int] = None,
+            ctx: ShardingCtx = NULL_CTX) -> Tuple[Tensor, Cache]:
     """Inference prefill: (last-token logits (B, V) f32, cache).
 
     Without ``decode_len`` the cache is the JAX package's prefill layout,
@@ -445,7 +502,8 @@ def prefill(lm: LM, tokens: Tensor, *, impl: str = "chunked",
                  "v": torch.empty(shape, dtype=dt, device=dev)}
     x = lm.embed[tokens].to(dtype_of(cfg.compute_dtype))
     for l, blk, w, th in _layers(lm):
-        x, kv, _ = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl)
+        x, kv, _ = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl,
+                          ctx=ctx)
         if decode_len is None:
             names = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
             for name, c in zip(names, kv):
@@ -619,7 +677,8 @@ def lm_view(params: Dict, cfg: LMConfig) -> LMView:
     return LMView(params, cfg)
 
 
-def _train_forward(lm, tokens: Tensor, impl: str) -> Tuple[Tensor, Tensor]:
+def _train_forward(lm, tokens: Tensor, impl: str,
+                   ctx: ShardingCtx = NULL_CTX) -> Tuple[Tensor, Tensor]:
     """(logits (B, S, V) float32, the summed MoE aux loss) with gradients
     enabled; each block checkpointed when ``cfg.remat``."""
     cfg = lm.cfg
@@ -627,7 +686,8 @@ def _train_forward(lm, tokens: Tensor, impl: str) -> Tuple[Tensor, Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, blk, w, th in _layers(lm):
         def layer(x, blk=blk, w=w, th=th):
-            x, _, a = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl)
+            x, _, a = _block(blk, x, cfg=cfg, window=w, theta=th, impl=impl,
+                             ctx=ctx)
             return x, (torch.zeros((), dtype=torch.float32, device=x.device)
                        if a is None else a)
 
@@ -641,14 +701,17 @@ def _train_forward(lm, tokens: Tensor, impl: str) -> Tuple[Tensor, Tensor]:
     return _head_logits(x, lm.head), aux
 
 
-def lm_loss(lm, batch: Dict[str, Tensor], *, impl: str = "chunked"):
+def lm_loss(lm, batch: Dict[str, Tensor], *, impl: str = "chunked",
+            ctx: ShardingCtx = NULL_CTX):
     """batch['tokens']: (B, S + 1) int.  Returns (loss, {"loss", "xent",
     "aux", "tokens"}): the next-token cross-entropy over tokens[:, 1:] plus
-    the MoE aux loss.  ``lm`` an ``LM`` or an `lm_view`."""
+    the MoE aux loss.  ``lm`` an ``LM`` or an `lm_view`.  On a mesh
+    (``ctx``) the batch is this rank's block and the MoE layers take the
+    expert-parallel path."""
     with torch.enable_grad():
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
-        logits, aux = _train_forward(lm, inputs, impl)
+        logits, aux = _train_forward(lm, inputs, impl, ctx)
         xent, n_tok = softmax_xent(logits, labels)
         loss = xent + aux
     return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": n_tok}

@@ -288,6 +288,35 @@ def param_tree(params: Params) -> Dict:
     return {k: conv(v) for k, v in params.items()}
 
 
+def recsys_param_logical(cfg: RecsysConfig, params) -> Dict:
+    """Logical axes mirroring a `param_tree`'s structure (the JAX
+    package's ``recsys_param_logical``)."""
+    table_log = ("fields", "rows", None)
+
+    def mlp_log(layers):
+        return [{"w": ("embed", "mlp"), **({"b": ("mlp",)} if "b" in l else {})}
+                for l in layers]
+
+    if cfg.family == "two_tower":
+        return {"user_tables": table_log, "item_tables": table_log,
+                "user_mlp": mlp_log(params["user_mlp"]),
+                "item_mlp": mlp_log(params["item_mlp"])}
+    if cfg.family == "din":
+        return {"item_table": ("rows", None),
+                "attn_mlp": mlp_log(params["attn_mlp"]),
+                "mlp": mlp_log(params["mlp"])}
+    if cfg.family == "autoint":
+        return {"tables": table_log,
+                "attn": [{k: ("embed", "mlp") for k in l}
+                         for l in params["attn"]],
+                "out": mlp_log(params["out"])}
+    if cfg.family == "dlrm":
+        return {"tables": table_log,
+                "bot_mlp": mlp_log(params["bot_mlp"]),
+                "top_mlp": mlp_log(params["top_mlp"])}
+    raise ValueError(cfg.family)
+
+
 def _inbatch_softmax(u: Tensor, v: Tensor) -> Tuple[Tensor, Tensor]:
     """(mean in-batch softmax loss at temperature 1 / 20, top-1 accuracy):
     row i's positive is column i."""

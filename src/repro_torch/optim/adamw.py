@@ -17,8 +17,8 @@ the new parameters and moments into the given tensors, which is what the
 JAX package's train step gets by donating its buffers, and what lets a
 3B-parameter model's step fit beside its moments.
 
-The logical-axes function ``opt_state_logical`` belongs to the sharding
-layer and waits for the multi-device slice.
+``opt_state_logical`` mirrors the params' logical axes, so the moments
+shard as their parameters do.
 """
 
 from __future__ import annotations
@@ -57,6 +57,11 @@ def adamw_init(params) -> OptState:
 
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     mu=_map(zeros, params), nu=_map(zeros, params))
+
+
+def opt_state_logical(param_logical) -> OptState:
+    """Logical axes of an ``OptState`` given the params' logical tree."""
+    return OptState(step=(), mu=param_logical, nu=param_logical)
 
 
 def cosine_schedule(step, *, base_lr: float, warmup: int, total: int,

@@ -11,6 +11,17 @@ bf16 gradient compression.  The JAX package's ``jit`` has no counterpart
 ``donate`` (the default, as the JAX package's donated buffers) updates the
 parameters and moments in place.
 
+On a mesh (``ctx`` from `repro_torch.sharding.make_ctx`) the step runs on
+every rank of the process group, data-parallel: each rank takes its rows
+of the global batch (the ``batch`` rule, ``(pod, data)``; a batch that
+does not divide, or a graph, stays whole on every rank), and the
+gradients are averaged over the world before clipping and AdamW, so every
+rank applies the same update to its whole copy of the parameters (the
+JAX package's GSPMD reduction, here one explicit all-reduce a dtype);
+``grad_dtype='bfloat16'`` casts them before that reduction.  The mean also
+undoes the expert-parallel MoE's ep-fold expert gradients (see
+``layers.moe.moe_apply_ep``).
+
 ``TrainLoop`` is the production driver:
   * restart-aware: restores the latest complete ``(params, OptState)``
     checkpoint on construction (`repro_torch.checkpoint`, the JAX
@@ -21,7 +32,9 @@ parameters and moments in place.
     the parameters' device once per step,
   * step-time telemetry (p50 / p95 over the last 512 steps) and a
     ``history`` of the logged metrics; the step's end is synchronised
-    where the JAX package blocks on the loss.
+    where the JAX package blocks on the loss,
+  * on a mesh: every rank restores, only rank 0 prints and writes
+    checkpoints, and the others wait for its last one at a barrier.
 """
 
 from __future__ import annotations
@@ -37,7 +50,9 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.ckpt import _leaves, _unflatten
+from repro_torch.layers.common import dtype_of
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.sharding.specs import NULL_CTX, ShardingCtx
 
 Tensor = torch.Tensor
 
@@ -78,14 +93,18 @@ def make_train_step(
     accum_steps: int = 1,
     grad_dtype: Optional[str] = None,
     donate: bool = True,
+    ctx: ShardingCtx = NULL_CTX,
 ):
     """Build a train step.
 
     ``loss_fn(params, batch) -> (loss, metrics)``.  With ``accum_steps >
     1`` the batch's leading axis must be divisible by it; microbatches run
     one after another, their float32 gradients summed.  The step's metrics
-    are detached tensors plus ``grad_norm`` and ``lr``.
+    are detached tensors plus ``grad_norm`` and ``lr`` (on a mesh, the loss
+    metrics of this rank's rows).  With a mesh in ``ctx`` the step is
+    data-parallel: see the module docstring.
     """
+    mesh = ctx.mesh
 
     def grads_of(params, batch):
         leaves, _ = _leaves(params)
@@ -116,8 +135,18 @@ def make_train_step(
                     a.add_(g.to(torch.float32) / accum_steps)
         return acc, metrics
 
+    def local_rows(batch):
+        if mesh is None or not isinstance(batch, dict):
+            return batch
+        return _tree_map(lambda x: ctx.local_block(x, ("batch",)), batch)
+
     def step(params, opt_state, batch):
-        gs, metrics = accumulate(params, batch)
+        gs, metrics = accumulate(params, local_rows(batch))
+        if mesh is not None:
+            from repro_torch.sharding.collectives import all_reduce_mean_
+            if grad_dtype:
+                gs = [g.to(dtype_of(grad_dtype)) for g in gs]
+            all_reduce_mean_(gs)
         grads = _unflatten(params, gs)
         lr = cosine_schedule(opt_state.step, base_lr=base_lr, warmup=warmup,
                              total=total_steps)
@@ -167,12 +196,18 @@ class TrainLoop:
         ckpt_every: int = 100,
         log_every: int = 10,
         prefetch: bool = True,
+        ctx: ShardingCtx = NULL_CTX,
         **step_kwargs,
     ):
-        self.step_fn = make_train_step(loss_fn, **step_kwargs)
+        self.step_fn = make_train_step(loss_fn, ctx=ctx, **step_kwargs)
         self.data = _Prefetcher(data_iter) if prefetch else data_iter
         self.log_every = log_every
         self.ckpt_every = ckpt_every
+        self.distributed = ctx.mesh is not None
+        self.lead = True
+        if self.distributed:
+            import torch.distributed as dist
+            self.lead = dist.get_rank() == 0
         self.mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.step_times: collections.deque = collections.deque(maxlen=512)
         self.history: list = []
@@ -187,13 +222,30 @@ class TrainLoop:
             if restored is not None:
                 self.state = restored
                 self.start_step = int(step)
-                print(f"[train] restored checkpoint at step {step}")
+                self._say(f"[train] restored checkpoint at step {step}")
+
+    def _say(self, line: str) -> None:
+        if self.lead:
+            print(line, flush=True)
+
+    def _save(self, step, wait: bool = False) -> None:
+        """Checkpoint ``step`` (rank 0 only on a mesh: every rank holds
+        the same whole tensors); with ``wait`` block until it is written,
+        the other ranks at a barrier."""
+        if self.mgr is None:
+            return
+        if self.lead:
+            self.mgr.save_async(step, self.state)
+            if wait:
+                self.mgr.wait()
+        if wait and self.distributed:
+            import torch.distributed as dist
+            dist.barrier()
 
     def _emergency_save(self, step):
         if self.mgr is not None:
-            print(f"[train] emergency checkpoint at step {step}")
-            self.mgr.save_async(step, self.state)
-            self.mgr.wait()
+            self._say(f"[train] emergency checkpoint at step {step}")
+            self._save(step, wait=True)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -222,14 +274,12 @@ class TrainLoop:
                     last_metrics["step_p95_ms"] = float(
                         np.percentile(ts, 95) * 1e3)
                     self.history.append({"step": step, **last_metrics})
-                    print(f"[train] step {step}: " + " ".join(
+                    self._say(f"[train] step {step}: " + " ".join(
                         f"{k}={v:.4g}" for k, v in last_metrics.items()))
-                if self.mgr is not None and step % self.ckpt_every == 0:
-                    self.mgr.save_async(step, self.state)
+                if step % self.ckpt_every == 0:
+                    self._save(step)
         except KeyboardInterrupt:
             self._emergency_save(step)
             raise
-        if self.mgr is not None:
-            self.mgr.save_async(step, self.state)
-            self.mgr.wait()
+        self._save(step, wait=True)
         return last_metrics

@@ -1761,3 +1761,198 @@ class TestSegmentSumBackwardOnCard:
         out = ops.sorted_segment_sum(data, seg_s, indptr, num_segments=n)
         out.backward(d_out)
         assert torch.equal(data.grad, want)
+
+
+# ------------------------------------------------------ multi-device ----
+
+_DIST_WORKER = r'''
+import json, os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+N, D, Q = 20000, 256, 24
+
+
+def setup():
+    from repro_torch.core import make_schedule
+    from repro_torch.core.index import prefix_squared_norms
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    db = torch.randn((N, D), generator=g, device="cuda")
+    q = db[:Q] + 0.1 * torch.randn((Q, D), generator=g, device="cuda")
+    sched = make_schedule(32, 256, 32, final_k=4)
+    dims = tuple(s.dim for s in sched.stages)
+    return db, q, sched, dims, prefix_squared_norms(db, dims)
+
+
+def search(mesh, world, rank, out, tag):
+    from repro_torch.core.distributed import build_sharded_search
+    from repro_torch.kernels import distance_topk, gather_rescore
+    db, q, sched, dims, sqp = setup()
+    rows = N // world
+    lo = rank * rows
+    res = {}
+    for mode in ("local", "global"):
+        fn = build_sharded_search(mesh, sched, N, has_prefix=True,
+                                  index_dims=dims, mode=mode)
+        l0, g0 = distance_topk.launches, dict(gather_rescore.launches_by_kernel)
+        s, i = fn(q, db[lo:lo + rows], sqp[lo:lo + rows])
+        torch.cuda.synchronize()
+        res[mode] = {"l2_topk": distance_topk.launches - l0,
+                     **{k: gather_rescore.launches_by_kernel[k] - g0[k]
+                        for k in g0}}
+        np.savez(os.path.join(out, f"{tag}_{mode}_{rank}.npz"),
+                 s=s.cpu().numpy(), i=i.cpu().numpy())
+    with open(os.path.join(out, f"{tag}_counts_{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def ep(mesh, rank, out):
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.layers.moe import moe_apply, moe_init
+    from repro_torch.sharding.specs import make_ctx
+    cfg = MoEConfig(n_experts=16, top_k=4, d_ff_expert=128)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    p = moe_init(g, 256, cfg, "swiglu", torch.bfloat16, device="cuda")
+    x = torch.randn((2, 64, 256), generator=g, device="cuda").bfloat16()
+    with torch.no_grad():
+        y1, a1 = moe_apply(p, x, cfg, "swiglu")
+        y, a = moe_apply(p, x, cfg, "swiglu", ctx=make_ctx(mesh))
+    rel = float((y.float() - y1.float()).norm() / y1.float().norm())
+    with open(os.path.join(out, f"ep_{rank}.json"), "w") as f:
+        json.dump({"rel_l2": rel, "aux": float(a), "aux_one": float(a1)}, f)
+
+
+def rank_main(rank, world, out):
+    sys.path.insert(0, os.environ["REPRO_SRC"])
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        out, "rdzv"), rank=rank, world_size=world)
+    from repro_torch.launch.mesh import make_mesh_compat
+    search(make_mesh_compat((world,), ("data",)), world, rank, out, "gloo")
+    ep(make_mesh_compat((1, world), ("data", "model")), rank, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    out = sys.argv[1]
+    mp.spawn(rank_main, args=(2, out), nprocs=2)
+    from repro_torch.core import progressive_search
+    from repro_torch.core.progressive import _topk_first
+    db, q, sched, dims, sqp = setup()
+    s, i = progressive_search(q, db, sched, sq_prefix=sqp, index_dims=dims)
+    np.savez(os.path.join(out, "single.npz"), s=s.cpu().numpy(),
+             i=i.cpu().numpy())
+    # the local mode's two slabs searched and merged in this one process
+    rows = N // 2
+    parts = [progressive_search(q, db[r * rows:(r + 1) * rows], sched,
+                                sq_prefix=sqp[r * rows:(r + 1) * rows],
+                                index_dims=dims) for r in range(2)]
+    all_s = torch.cat([p[0] for p in parts], 1)
+    all_i = torch.cat([p[1] + r * rows for r, p in enumerate(parts)], 1)
+    ms, pos = _topk_first(all_s, parts[0][0].shape[1])
+    np.savez(os.path.join(out, "emulated_local.npz"), s=ms.cpu().numpy(),
+             i=torch.gather(all_i, 1, pos).cpu().numpy())
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        out, "rdzv_nccl"), rank=0, world_size=1)
+    from repro_torch.launch.mesh import make_mesh_compat
+    search(make_mesh_compat((1,), ("data",)), 1, 0, out, "nccl")
+    dist.destroy_process_group()
+    print("OK")
+'''
+
+
+@pytest.fixture(scope="module")
+def dist_run(tmp_path_factory):
+    """The sharded search in a ``gloo`` world of 2 ranks sharing the card
+    and in an NCCL world of one, and the EP MoE on 2 ranks: one worker
+    script, its outputs as npz / json in a temporary directory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import subprocess
+    import sys
+    d = tmp_path_factory.mktemp("dist_card")
+    (d / "worker.py").write_text(_DIST_WORKER)
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = dict(os.environ, REPRO_SRC=src,
+               PYTHONPATH=src + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, str(d / "worker.py"), str(d)],
+                       capture_output=True, text=True, env=env, timeout=600)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    return d
+
+
+def _npz(d, name):
+    z = np.load(d / f"{name}.npz")
+    return z["s"], z["i"]
+
+
+@pytest.mark.cuda
+class TestDistributedOnCard:
+    @pytest.mark.parametrize("world", ["gloo", "nccl"])
+    def test_global_equals_one_process(self, dist_run, world):
+        want = _npz(dist_run, "single")
+        ranks = 2 if world == "gloo" else 1
+        for r in range(ranks):
+            assert_topk_close(_npz(dist_run, f"{world}_global_{r}"), want)
+
+    def test_local_gloo_equals_its_one_process_merge(self, dist_run):
+        want = _npz(dist_run, "emulated_local")
+        for r in range(2):
+            got = _npz(dist_run, f"gloo_local_{r}")
+            np.testing.assert_array_equal(got[1], want[1])
+            np.testing.assert_array_equal(got[0], want[0])
+
+    def test_local_nccl_of_one_equals_one_process(self, dist_run):
+        got, want = _npz(dist_run, "nccl_local_0"), _npz(dist_run, "single")
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+
+    @pytest.mark.parametrize("world", ["gloo", "nccl"])
+    def test_launches_a_call(self, dist_run, world):
+        import json
+        for r in range(2 if world == "gloo" else 1):
+            c = json.loads((dist_run / f"{world}_counts_{r}.json").read_text())
+            assert c["local"] == {"l2_topk": 1, "ladder": 1, "step": 0}
+            assert c["global"] == {"l2_topk": 1, "ladder": 0, "step": 3}
+
+    def test_ep_moe_on_two_ranks(self, dist_run):
+        import json
+        for r in range(2):
+            res = json.loads((dist_run / f"ep_{r}.json").read_text())
+            assert res["rel_l2"] <= 1e-2
+            assert abs(res["aux"] - res["aux_one"]) <= 1e-6 * abs(
+                res["aux_one"])
+
+    @pytest.mark.parametrize("dead", [0.5, 0.9, 0.99, 1.0])
+    @pytest.mark.parametrize("k", [1, 16, 64])
+    def test_rescore_mostly_minus_one(self, cuda, dead, k):
+        """The rescore kernel on candidate tables where most slots are -1
+        (a rank's view in ``global`` mode), some queries with none live."""
+        from repro_torch.core import truncated as T
+        g = torch.Generator(device=cuda)
+        g.manual_seed(int(dead * 100) + k)
+        n, d, nq, c = 5000, 512, 32, 64
+        db = torch.randn((n, d), generator=g, device=cuda)
+        q = torch.randn((nq, d), generator=g, device=cuda)
+        cand = torch.randint(0, n, (nq, c), generator=g, device=cuda,
+                             dtype=torch.int32)
+        drop = torch.rand((nq, c), generator=g, device=cuda) < dead
+        drop[:4] = True                       # queries with no live slot
+        cand = torch.where(drop, torch.full_like(cand, -1), cand)
+        sq = (db[:, :256] ** 2).sum(1)
+        for dim, sq_at in ((256, sq), (512, None)):
+            got = gather_rescore.gather_rescore_topk(q, db, cand, dim=dim,
+                                                     k=k, sq_at_dim=sq_at)
+            want = T.rescore_candidates(q, db, cand, dim=dim, k=k,
+                                        db_sq_at_dim=sq_at)
+            assert_topk_close([x.cpu() for x in got],
+                              [x.cpu() for x in want])
+            assert bool((got[1][:4] == -1).all())

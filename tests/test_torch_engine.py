@@ -212,7 +212,11 @@ class TestPackageRules:
             "assert len(names) > 20, names\n"
             "assert 'repro_torch.serve.http' in names, names\n"
             "for need in ('repro_torch.optim.adamw', 'repro_torch.train.loop',\n"
-            "             'repro_torch.launch.train'):\n"
+            "             'repro_torch.launch.train',\n"
+            "             'repro_torch.core.distributed',\n"
+            "             'repro_torch.sharding.specs',\n"
+            "             'repro_torch.sharding.collectives',\n"
+            "             'repro_torch.launch.mesh'):\n"
             "    assert need in names, (need, names)\n"
             "for name in names:\n"
             "    for mod in [m for m in sys.modules if m.startswith('repro_torch')]:\n"
