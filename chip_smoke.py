@@ -23,7 +23,10 @@ in phases that each print one JSON line:
                  stage-0 kernel at k = 512 and 1,024 on both its pass-1
                  kernels (dim 128 on ``wgmma``, 512 on ``fma``) at the
                  serving batch and at the paper sweep's 2,470 queries, with
-                 tombstones, and on stores with fewer live rows than k
+                 tombstones, and on stores with fewer live rows than k;
+                 the stage-0 kernel's bf16 route (``wgmma_bf16``) at the
+                 serving shape on the rows' (N, 128) bf16 block, with its
+                 bf16 bound and a bf16 ``matmul`` + ``topk`` yardstick
   3. corpus    — synthetic corpus generated on the card from ``--seed``,
                  loaded into a ``RetrievalEngine`` (flat backend), warmed up
   4. serving   — ``engine.search`` over every query and requests from client
@@ -142,7 +145,9 @@ in phases that each print one JSON line:
                  search 64 -> 256, k0 128, final_k 10) and scores 512 users x
                  4,096 candidates with ``serve_candidates``, and times the
                  stage-0 kernel at the two-tower's shape (Q 512, dim 64,
-                 k 128 over the item DB) beside ``matmul`` + ``topk``;
+                 k 128 over the item DB) beside ``matmul`` + ``topk``, in
+                 float32 and on the bf16 route (the DB's (1M, 64) bf16
+                 block);
                  DLRM-RM2 (26 x 5M x 64 tables) runs ``recsys_forward`` at
                  512 and 262,144 rows; DIN and AutoInt one 512-row batch
                  each.  Every
@@ -228,10 +233,23 @@ in phases that each print one JSON line:
                  launch and one rescore step a later stage), per-call ms
                  and the collectives' host time and bytes staged through
                  the host; first the rescore kernel on a candidate table
-                 three quarters -1.  Then one Qwen3-MoE layer at full width
-                 (d_model 4,096, 128 experts, top-8, bf16) on 2 x 512
-                 tokens, expert-parallel over 2 and 4 ranks, against
-                 ``moe_apply`` (relative L2 <= 1e-2, the aux loss equal);
+                 three quarters -1.  Then the staged bf16 search
+                 (``build_sharded_search_staged``: each rank's (250,000,
+                 128) bf16 block, its float32 rows, stage 0 on
+                 ``wgmma_bf16``, one rescore step a later stage) over the
+                 4 ``gloo`` ranks and in the NCCL world of one, against
+                 the same calls on the plain versions and, top-1, the
+                 float32 sharded search (above 0.95); then the two-tower
+                 ``retrieval_cand`` cell (``launch/inputs.py``) at
+                 1,000,000 items in an NCCL world of one (the bag, the
+                 bf16 stage 0, two steps) against its plain path, beside
+                 the dry run's bytes of that cell (its whole arguments
+                 must be the real ones' bytes).  Then one Qwen3-MoE layer
+                 at full width (d_model 4,096, 128 experts, top-8, bf16)
+                 on 2 x 512 tokens, expert-parallel over 2 and 4 ranks
+                 that each hold only their 128 / ep experts (their bytes
+                 printed), against ``moe_apply`` (relative L2 <= 1e-2,
+                 the aux loss equal);
                  then ``torch.distributed.run`` of the training launcher
                  on 2 ranks (Qwen3-MoE smoke, 10 steps, checkpointed),
                  resumed on one rank
@@ -314,7 +332,8 @@ TRACE_ATTEMPTS = 10
 # The stage-0 kernel's large-k cases (phase 2): the paper sweeps k0 to 1,024.
 LARGE_K = (512, 1024)
 
-KERNEL_LIBS = ("distance_topk", "gather_rescore", "ivf_scan", "pq_scan",
+KERNEL_LIBS = ("distance_topk", "distance_topk_bf16", "gather_rescore",
+               "ivf_scan", "pq_scan",
                "flash_attention", "flash_attention_bwd", "embedding_bag",
                "segment_sum")
 
@@ -624,9 +643,15 @@ def run(args) -> None:
 
     # -- 1. device + build ---------------------------------------------------
     t0 = time.perf_counter()
+    clock = {}                 # wall seconds of the script's parts
+
+    def lap(part: str) -> None:
+        clock[part] = time.perf_counter() - t0 - sum(clock.values())
+
     for stem in KERNEL_LIBS:                 # the first call builds them all
         _build.library(stem)
     build_s = time.perf_counter() - t0
+    lap("build")
     ptxas = {stem: [ln.strip() for ln in rep.splitlines()
                     if "registers" in ln or "spill" in ln]
              for stem, rep in _build.ptxas_report.items()}
@@ -665,6 +690,13 @@ def run(args) -> None:
         stage_rows.append(row)
         if nq == 32:
             q32, out32 = q, got
+    # the bf16 route at the same shape: the staged index's (N, d_start)
+    # bf16 block of these rows, their float32 norms
+    db0 = db[:, :s0.dim].to(torch.bfloat16)
+    row, _ = l2_row(torch, "flat_stage0_bf16_q32", q32.to(torch.bfloat16),
+                    db0, s0.dim, s0.k, sq=sq0, valid=valid)
+    stage_rows.append(row)
+    del db0
 
     # small stores: all rows invalid (every slot (+inf, -1)), and Ncap < k
     for n_small, all_invalid in ((1000, True), (50, False)):
@@ -914,34 +946,44 @@ def run(args) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("kernels_to_backends")
+
     # -- 7. the RAG generation path ------------------------------------------
     launches.update(rag_phase(torch, dev, args.seed))
+    lap("rag")
 
     # -- 7b. the other LM families -------------------------------------------
     families = lm_families_phase(torch, dev, args.seed)
+    lap("lm_families")
 
     # -- 8. the recsys serving path, 9. EGNN inference -------------------------
-    counts, rows, tt_stage_row = recsys_phase(torch, dev, args.seed)
+    counts, rows, tt_stage_rows = recsys_phase(torch, dev, args.seed)
     launches.update(counts)
     bag_rows += rows
-    stage_rows.append(tt_stage_row)
+    stage_rows += tt_stage_rows
     counts, rows = gnn_phase(torch, dev, args.seed)
     launches.update(counts)
     seg_rows += rows
     ladder_rows += [scan_rows.pop("quantized_pq_ladder")]
     gc.collect()
     torch.cuda.empty_cache()
+    lap("recsys_gnn")
 
     # -- 10. the paper's experiments ------------------------------------------
     paper_counts = paper_phase(torch, dev, args.seed)
+    lap("paper")
 
     # -- 11. training ----------------------------------------------------------
     train = train_phase(torch, dev, args.seed)
+    lap("train")
 
     # -- 12. multi-device --------------------------------------------------------
     gc.collect()
     torch.cuda.empty_cache()
     dist_counts, _ = distributed_phase(torch, dev, args.seed)
+    lap("distributed")
+    emit({"phase": "clock", "seconds": clock,
+          "total_s": time.perf_counter() - t0})
     finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
            launches, paper_counts, dur_counts, scan_rows, flash_rows,
            bag_rows, seg_rows, families, train, dist_counts)
@@ -2125,9 +2167,11 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None,
     beside it and beside ``torch.matmul`` + ``torch.topk`` (the yardstick,
     in blocks of at most `YARD_QUERIES` queries), with its device time and
     both bounds: operations at the float32 FMA rate and as 3xTF32 on the
-    tensor cores.  ``plain_runs`` runs time the plain version and the
-    yardstick (fewer where one call takes seconds).  Returns (row, kernel
-    output)."""
+    tensor cores; on bf16 rows and queries (the bf16 route) two bytes a
+    dim and one bf16 product an operation, with a bf16 ``matmul`` (float32
+    accumulation) in the yardstick.  ``plain_runs`` runs time the plain
+    version and the yardstick (fewer where one call takes seconds).
+    Returns (row, kernel output)."""
     from repro_torch.core import truncated as T
     from repro_torch.kernels import distance_topk
 
@@ -2136,12 +2180,15 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None,
     plain = lambda: T.truncated_search(q, db, dim=dim, k=k, db_sq_at_dim=sq,
                                        valid=valid)
 
+    bf16 = db.dtype == torch.bfloat16
+
     def yardstick():
         x = db[:, :dim]
-        norms = (x * x).sum(1) if sq is None else sq
+        norms = (x.float() * x.float()).sum(1) if sq is None else sq
         out = []
         for a in range(0, q.shape[0], YARD_QUERIES):
-            s = norms - 2.0 * torch.matmul(q[a:a + YARD_QUERIES, :dim], x.T)
+            s = norms - 2.0 * torch.matmul(q[a:a + YARD_QUERIES, :dim],
+                                           x.T).float()
             if valid is not None:
                 s = s.masked_fill(~valid, float("inf"))
             out.append(torch.topk(s, k, dim=1, largest=False))
@@ -2155,26 +2202,37 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None,
     if agree < 1.0 or err > tol:
         fail(f"l2_topk {case}: max|Δ|={err} (tol {tol}), agree={agree}")
     n_read = n if valid is None else int(valid.sum())
-    n_bytes = (n_read * (4 * dim + (4 if sq is not None else 0))
-               + (n if valid is not None else 0) + nq * dim * 4 + nq * k * 8)
+    esize = db.element_size()
+    n_bytes = (n_read * (esize * dim + (4 if sq is not None else 0))
+               + (n if valid is not None else 0) + nq * dim * esize
+               + nq * k * 8)
     n_ops = 2.0 * nq * n_read * dim
     b32, by32 = bound_ms(n_bytes, n_ops)
     btf, bytf = bound_ms(n_bytes, 3 * n_ops, PEAK_TF32_FLOPS)
+    bbf, bybf = bound_ms(n_bytes, n_ops, PEAK_BF16_FLOPS)
     served = distance_topk.route(q, db, dim, k)
+    key = distance_topk.counter_key(served, db.dtype)
     n_groups = distance_topk.plan(q, db, dim, k)[-1]
     dev_all, dev_own = device_ms(torch, kern, ("l2_scan", "l2_merge"),
                                  per_call=2 if n_groups == 1 else 3)
     slow = dict(runs=plain_runs, warmup=min(3, plain_runs))
+    before = distance_topk.launches_by_kernel[key]
+    kern()
+    if distance_topk.launches_by_kernel[key] != before + 1:
+        fail(f"l2_topk {case}: the call did not launch {key}")
     row = {"kernel": "distance_topk.l2_topk", "case": case, "Q": nq,
-           "Ncap": n, "dim": dim, "k": k, "served_by": served,
+           "Ncap": n, "dim": dim, "k": k, "served_by": key,
+           "dtype": str(db.dtype).replace("torch.", ""),
            "max_abs_err": err, "tol": tol, "ids_agree": agree,
            "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain, **slow),
            "matmul_topk_ms": cuda_ms(torch, yardstick, **slow),
            "device_ms": dev_all, "kernel_device_ms": dev_own,
-           "bound_ms": btf if served == "wgmma" else b32,
-           "bound_by": bytf if served == "wgmma" else by32,
+           "bound_ms": bbf if bf16 else btf if served == "wgmma" else b32,
+           "bound_by": bybf if bf16 else bytf if served == "wgmma" else by32,
            "bound_f32_ms": b32, "bound_3xtf32_ms": btf, "bytes": n_bytes,
            "shape": f"Q={nq} Ncap={n} dim={dim} k={k}"}
+    if bf16:
+        row["bound_bf16_ms"] = bbf
     emit({"phase": "kernels", **row})
     return row, got
 
@@ -3495,10 +3553,10 @@ def segment_edge_cases(torch, dev, flush) -> list:
 def recsys_phase(torch, dev, seed):
     """Two-tower retrieval, DLRM-RM2, DIN and AutoInt at CONFIG width, one
     model at a time.  Returns ({embedding_bag: launches of the main paths},
-    the embedding-bag rows at the path's shapes, the stage-0 row at the
-    two-tower's shape)."""
+    the embedding-bag rows at the path's shapes, the stage-0 rows at the
+    two-tower's shape, float32 and bf16)."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    counts, rows, stage_row = two_tower_run(torch, dev, seed)
+    counts, rows, stage_rows = two_tower_run(torch, dev, seed)
     n_dlrm, rows_dlrm = dlrm_run(torch, dev, seed, flush)
     counts += n_dlrm
     rows += rows_dlrm
@@ -3508,7 +3566,7 @@ def recsys_phase(torch, dev, seed):
     torch.cuda.empty_cache()
     # every table of the path is contiguous float32 with whole 16-byte rows
     return {"embedding_bag.embedding_bag": counts, "embedding_bag.vec16":
-            counts, "embedding_bag.scalar": 0}, rows, stage_row
+            counts, "embedding_bag.scalar": 0}, rows, stage_rows
 
 
 def _batch(torch, dev, cfg, batch, seed):
@@ -3626,13 +3684,18 @@ def two_tower_run(torch, dev, seed):
     rows = [bag_row(torch, "two_tower_item_build", params["item_tables"],
                     item_ids, library=True, runs=10)]
     s0 = sched.stages[0]
-    stage_row, _ = l2_row(torch, "two_tower_stage0",
-                          R.tower_user(params, users[P99_BATCH]), db,
-                          s0.dim, s0.k)
+    u = R.tower_user(params, users[P99_BATCH])
+    stage_row, _ = l2_row(torch, "two_tower_stage0", u, db, s0.dim, s0.k)
     stage_row["launches"] = counts["distance_topk.l2_topk"]
-    del params, db, out, sc, item_ids, users
+    # the bf16 route at the same shape: the staged index's bf16 block and
+    # the float32 rows' norms (the retrieval_cand cell's stage 0)
+    bf_row, _ = l2_row(torch, "two_tower_stage0_bf16", u.to(torch.bfloat16),
+                       db[:, :s0.dim].to(torch.bfloat16), s0.dim, s0.k,
+                       sq=(db[:, :s0.dim] ** 2).sum(1))
+    del params, db, out, sc, item_ids, users, u
     _free(torch)
-    return counts["embedding_bag.embedding_bag"], rows, stage_row
+    return (counts["embedding_bag.embedding_bag"], rows,
+            [stage_row, bf_row])
 
 
 def dlrm_run(torch, dev, seed, flush):
@@ -5012,9 +5075,36 @@ def _search_calls(torch, fn, q, db_l, sqp_l):
             ms, coll, counts, C.staged_bytes, dict(C.calls))
 
 
+def staged_calls(torch, mesh, sched, db_l, sqp_l, q):
+    """The staged bf16 search over this rank's slab (its (rows, d_start)
+    bf16 block, the float32 rows, the first stage's norms) on every batch
+    of ``q``, on the kernels and then on the plain versions: ((scores, ids,
+    per-call ms, collective s, counts, staged bytes, calls) of the kernel
+    path, (scores, ids) of the plain path)."""
+    from repro_torch.core.distributed import build_sharded_search_staged
+
+    fn = build_sharded_search_staged(mesh, sched, N_DOCS)
+    db0_l = db_l[:, :sched.stages[0].dim].to(torch.bfloat16)
+    sq0_l = sqp_l[:, :1].contiguous()
+
+    def staged(qb, _db, _sq):
+        return fn(qb, db0_l, db_l, sq0_l)
+
+    got = _search_calls(torch, staged, q, db_l, sqp_l)
+    with plain_ops():
+        plain = [staged(q[a:a + DIST_BATCH], None, None)
+                 for a in range(0, q.shape[0], DIST_BATCH)]
+    ps = torch.cat([x for x, _ in plain]).cpu().numpy()
+    pi = torch.cat([x for _, x in plain]).cpu().numpy()
+    del db0_l
+    return got, (ps, pi)
+
+
 def dist_search_rank(rank, world, init, seed, queries, out_dir):
     """One rank of the 4-rank ``gloo`` world: its slab drawn on the card,
-    both modes over every batch; results and counts to ``out_dir``."""
+    both modes and the staged bf16 search over every batch, the staged
+    search also on the plain versions; results and counts to
+    ``out_dir``."""
     torch, dist = _rank_setup(rank, world, init)
     from repro_torch.core import make_schedule
     from repro_torch.core.distributed import build_sharded_search
@@ -5024,7 +5114,7 @@ def dist_search_rank(rank, world, init, seed, queries, out_dir):
 
     dev = torch.device(DIST_DEVICE)
     if dev.type == "cuda":
-        for stem in ("distance_topk", "gather_rescore"):
+        for stem in ("distance_topk", "distance_topk_bf16", "gather_rescore"):
             _build.library(stem)
     sched = make_schedule(D_START, D_EMB, K0, final_k=FINAL_K)
     dims = tuple(s.dim for s in sched.stages)
@@ -5043,6 +5133,13 @@ def dist_search_rank(rank, world, init, seed, queries, out_dir):
                      "calls": calls, "counts": counts}
         if rank == 0:
             np.savez(os.path.join(out_dir, f"search_{mode}.npz"), s=s, i=i)
+    (s, i, ms, coll, counts, staged, calls), (ps, pi) = staged_calls(
+        torch, mesh, sched, db_l, sqp_l, q)
+    res["staged"] = {"ms": ms, "collective_s": coll, "staged_bytes": staged,
+                     "calls": calls, "counts": counts}
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "search_staged.npz"), s=s, i=i,
+                 ps=ps, pi=pi)
     with open(os.path.join(out_dir, f"search_rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -5051,13 +5148,14 @@ def dist_search_rank(rank, world, init, seed, queries, out_dir):
 
 def ep_rank(rank, world, init, seed, out_dir):
     """One rank of an EP world (1, world) over ('data', 'model'): the
-    Qwen3-MoE layer at full width, EP against ``moe_apply`` on the same
-    rank."""
+    Qwen3-MoE layer at full width holding only this rank's experts
+    (``ShardingCtx.held_blocks``), EP against ``moe_apply`` of the whole
+    layer on the same rank; the expert bytes this rank holds."""
     torch, dist = _rank_setup(rank, world, init)
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.layers.common import dtype_of
-    from repro_torch.layers.moe import moe_apply, moe_init
+    from repro_torch.layers.moe import MoE, moe_apply, moe_init, moe_specs
     from repro_torch.sharding import collectives as C
     from repro_torch.sharding.specs import make_ctx
 
@@ -5072,18 +5170,28 @@ def ep_rank(rank, world, init, seed, out_dir):
     mesh = make_mesh_compat((1, world), ("data", "model"),
                             device_type=dev.type)
     ctx = make_ctx(mesh)
+    experts = ("w_in", "w_gate", "w_out")
+    whole = {k: getattr(p, k) for k in ("router", *experts)}
+    held = ctx.held_blocks({k: moe_specs(cfg.moe, cfg.ffn_type)[k]
+                            for k in whole}, whole)
+    p_held = MoE(held["router"], held["w_in"], held["w_out"],
+                 held["w_gate"], p.shared)
+    held_bytes = sum(held[k].numel() * held[k].element_size()
+                     for k in experts)
+    whole_bytes = sum(whole[k].numel() * whole[k].element_size()
+                      for k in experts)
     with torch.no_grad():
         y_ref, aux_ref = moe_apply(p, x, cfg.moe, cfg.ffn_type)
         C.reset_counts()
-        y, aux = moe_apply(p, x, cfg.moe, cfg.ffn_type, ctx=ctx)
+        y, aux = moe_apply(p_held, x, cfg.moe, cfg.ffn_type, ctx=ctx)
         torch.cuda.synchronize()
         if C.calls["all_to_all"] != 2:
             fail(f"EP rank {rank}: {C.calls} collectives, not 2 all-to-all")
         calls = dict(C.calls)
         rel = float((y.float() - y_ref.float()).norm()
                     / y_ref.float().norm())
-        ep_ms = cuda_ms(torch, lambda: moe_apply(p, x, cfg.moe, cfg.ffn_type,
-                                                 ctx=ctx),
+        ep_ms = cuda_ms(torch, lambda: moe_apply(p_held, x, cfg.moe,
+                                                 cfg.ffn_type, ctx=ctx),
                         runs=EP_RUNS, warmup=1)
         ref_ms = cuda_ms(torch, lambda: moe_apply(p, x, cfg.moe,
                                                   cfg.ffn_type),
@@ -5092,6 +5200,7 @@ def ep_rank(rank, world, init, seed, out_dir):
            "finite": bool(torch.isfinite(y).all()), "ms": ep_ms,
            "moe_apply_ms": ref_ms, "calls": calls,
            "staged_bytes_a_call": C.staged_bytes // (EP_RUNS + 2),
+           "expert_bytes_held": held_bytes, "expert_bytes_whole": whole_bytes,
            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
     with open(os.path.join(out_dir, f"ep{world}_rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -5141,7 +5250,7 @@ def rescore_minus_one_check(torch, dev, q, db, sq, sched):
 
 def nccl_world_of_one(torch, q, db, sq, sched, out_dir):
     """The same sharded calls as a one-rank NCCL world in this process (the
-    whole corpus is its slab)."""
+    whole corpus is its slab), the staged search on both paths too."""
     import datetime
 
     import torch.distributed as dist
@@ -5163,6 +5272,8 @@ def nccl_world_of_one(torch, q, db, sq, sched, out_dir):
             s, i, ms, coll, counts, staged, calls = _search_calls(
                 torch, fn, q, db, sq)
             out[mode] = (s, i, ms, coll, counts, staged, calls)
+        out["staged"], out["staged_plain"] = staged_calls(
+            torch, mesh, sched, db, sq, q)
     finally:
         dist.destroy_process_group()
     return out
@@ -5306,13 +5417,74 @@ def dist_search(torch, dev, seed, out_dir):
     gloo_ids = {mode: np.load(os.path.join(out_dir, f"search_{mode}.npz"))["i"]
                 for mode in ("local", "global")}
 
+    def staged_check(label, got, plain, n_ranks, f32_ids, per_rank_counts):
+        """The staged bf16 search: the kernel path against the plain path
+        on the same slabs (ids up to near-ties, sentinels equal), top-1
+        agreement with the float32 sharded search above 0.95 (the JAX
+        package's own check of it), every stage-0 launch on a bf16
+        route, one rescore step a later stage."""
+        s, i, ms, coll, counts, staged_b, calls = got
+        ps, pi = plain
+        s_t = torch.as_tensor(s, device=dev)
+        i_t = torch.as_tensor(i, device=dev)
+        err, agree, tol = compare(torch, (s_t, i_t), (
+            torch.as_tensor(ps, device=dev), torch.as_tensor(pi, device=dev)))
+        if agree < 1.0 or err > tol or s_t.shape != ref_s.shape:
+            fail(f"{label} staged: ids agree {agree} with the plain path, "
+                 f"max|Δ| {err} (tol {tol})")
+        top1_f32 = float((i[:, 0] == f32_ids[:, 0]).mean())
+        if top1_f32 <= 0.95:
+            fail(f"{label} staged: top-1 agrees with the float32 sharded "
+                 f"search in {top1_f32} of the queries (want > 0.95)")
+        n_calls = len(ms)
+        want = {"distance_topk.l2_topk": n_calls,
+                "distance_topk.wgmma_bf16": n_calls,
+                "gather_rescore.step": n_calls * (len(sched.stages) - 1),
+                "gather_rescore.ladder": 0}
+        for r, c in enumerate(per_rank_counts):
+            if {k: c[k] for k in want} != want:
+                fail(f"{label} staged rank {r}: launches "
+                     f"{ {k: c[k] for k in want} }, want {want}")
+        r10, top1 = recall(i)
+        row = {"phase": "distributed", "part": "staged_search",
+               "world": label, "ranks": n_ranks, "queries": N_QUERIES,
+               "batch": DIST_BATCH, "calls": n_calls,
+               "block": f"bf16 (N, {sched.stages[0].dim})",
+               "ids_agree_plain": agree, "max_abs_err": err, "tol": tol,
+               "top1_agree_f32": top1_f32,
+               "recall_at_10": r10, "top1": top1,
+               "ms_p50": statistics.median(ms),
+               "collective_host_ms_p50": 1e3 * statistics.median(
+                   c for c, _ in coll),
+               "staged_bytes_a_call": staged_b / n_calls,
+               "collectives": calls, "launches": {k: counts[k] for k in (
+                   "distance_topk.l2_topk", "distance_topk.wgmma_bf16",
+                   "distance_topk.fma_bf16", "gather_rescore.step",
+                   "gather_rescore.ladder")}}
+        emit(row)
+        return row
+
+    z = np.load(os.path.join(out_dir, "search_staged.npz"))
+    per_rank = [json.load(open(os.path.join(
+        out_dir, f"search_rank{r}.json")))["staged"]
+        for r in range(DIST_RANKS)]
+    r0 = per_rank[0]
+    staged_rows = {"gloo": staged_check(
+        "gloo", (z["s"], z["i"], r0["ms"], r0["collective_s"], r0["counts"],
+                 r0["staged_bytes"], r0["calls"]), (z["ps"], z["pi"]),
+        DIST_RANKS, gloo_ids["local"], [pr["counts"] for pr in per_rank])}
+
     # the same calls as an NCCL world of one
     nccl = nccl_world_of_one(torch, q, db, sq, sched, out_dir)
-    for mode, (s, i, ms, coll, counts, staged, calls) in nccl.items():
+    for mode in ("local", "global"):
+        s, i, ms, coll, counts, staged, calls = nccl[mode]
         rows[("nccl", mode)] = check(ONE_RANK_BACKEND, mode, s, i, ms, coll,
                                      counts, staged, calls, 1)
         if staged:
             fail(f"nccl {mode}: {staged} bytes staged through the host")
+    staged_rows["nccl"] = staged_check(
+        ONE_RANK_BACKEND, nccl["staged"], nccl["staged_plain"], 1,
+        nccl["local"][1], [nccl["staged"][4]])
     if not np.array_equal(nccl["local"][1], ref_i.cpu().numpy()):
         fail("nccl world of one, local: ids differ from one process")
     emit({"phase": "distributed", "part": "search_summary",
@@ -5323,8 +5495,9 @@ def dist_search(torch, dev, seed, out_dir):
     del db, sq, q
     gc.collect()
     torch.cuda.empty_cache()
-    return {mode: rows[("gloo", mode)]["launches"] for mode in
-            ("local", "global")}
+    return {**{mode: rows[("gloo", mode)]["launches"] for mode in
+               ("local", "global")},
+            **{f"staged_{w}": r["launches"] for w, r in staged_rows.items()}}
 
 
 def dist_ep(torch, seed, out_dir):
@@ -5342,6 +5515,9 @@ def dist_ep(torch, seed, out_dir):
             if abs(res["aux"] - res["aux_ref"]) > 1e-5 * abs(res["aux_ref"]):
                 fail(f"EP {world} rank {r}: aux {res['aux']} vs "
                      f"{res['aux_ref']}")
+            if res["expert_bytes_held"] * world != res["expert_bytes_whole"]:
+                fail(f"EP {world} rank {r}: holds {res['expert_bytes_held']}"
+                     f" expert bytes of {res['expert_bytes_whole']}")
         row = {"phase": "distributed", "part": "moe_ep", "ranks": world,
                "mesh": {"data": 1, "model": world}, "tokens": list(EP_TOKENS),
                "arch": LAUNCH_ARCH, "tol": EP_TOL,
@@ -5351,6 +5527,8 @@ def dist_ep(torch, seed, out_dir):
                "moe_apply_ms": [r["moe_apply_ms"] for r in per],
                "staged_bytes_a_call": per[0]["staged_bytes_a_call"],
                "collectives_a_call": per[0]["calls"],
+               "expert_bytes_a_rank": [r["expert_bytes_held"] for r in per],
+               "expert_bytes_whole": per[0]["expert_bytes_whole"],
                "peak_gb": [r["peak_gb"] for r in per], "world_s": spawn_s}
         emit(row)
         out[world] = row
@@ -5398,12 +5576,234 @@ def dist_launcher(out_dir):
     return runs
 
 
+def dryrun_cell_records(arch, shape, out_dir) -> dict:
+    """The dry runs of one cell on both meshes (``repro_torch.launch.dryrun``,
+    meta tensors, a fake process group of 256 or 512 ranks), each in a
+    subprocess, both at once: a callable that waits for them and returns
+    their JSON records by mesh."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    outdir = os.path.join(out_dir, "dryrun")
+    procs = {m: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", m, "--outdir", outdir, "--quiet"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=HERE) for m in ("single", "multi")}
+
+    def wait() -> dict:
+        out = {}
+        for m, pr in procs.items():
+            try:
+                _, err = pr.communicate(timeout=CLI_TIMEOUT * 3)
+            except subprocess.TimeoutExpired:
+                for p in procs.values():
+                    p.kill()
+                raise
+            if pr.returncode != 0:
+                fail(f"dry run of {arch} x {shape} x {m} exited "
+                     f"{pr.returncode}:\n{err[-3000:]}")
+            with open(os.path.join(outdir, f"{arch}__{shape}__{m}.json")) as f:
+                out[m] = json.load(f)
+        return out
+
+    return wait
+
+
+def profile_timeline(torch, fn, wall_ms, label, out_dir) -> None:
+    """Trace one call of ``fn`` with ``torch.profiler`` and print where its
+    time goes: each device launch in order with its device time and the
+    device's idle gap before it, the device's busy and idle time over the
+    call's span, the CUDA runtime calls (launches, copies, synchronisations)
+    and the host ops with the most host time of their own.  A trace that
+    lost kernel records (fewer kernels than kernel-launch calls, see
+    `device_ms`; cuBLAS launches some kernels with no runtime launch call)
+    is taken again, up to `TRACE_ATTEMPTS` times; the line says whether
+    the one printed is whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(out_dir, f"{label}.trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        evs = [e for e in (trace["traceEvents"] if isinstance(trace, dict)
+                           else trace) if e.get("ph") == "X"]
+        dev = sorted((e for e in evs if e.get("cat") in
+                      ("kernel", "gpu_memcpy", "gpu_memset")),
+                     key=lambda e: e["ts"])
+        host = [e for e in evs if e.get("cat") == "cpu_op"]
+        runtime = {}
+        for e in evs:
+            if e.get("cat") == "cuda_runtime":
+                n, us = runtime.get(e["name"], (0, 0.0))
+                runtime[e["name"]] = (n + 1, us + e["dur"])
+        n_calls = sum(n for k, (n, _) in runtime.items()
+                      if "LaunchKernel" in k)
+        n_kernels = sum(e.get("cat") == "kernel" for e in dev)
+        whole = bool(dev) and bool(host) and n_kernels >= n_calls
+        if whole:
+            break
+    if not dev or not host:
+        emit({"phase": "profile", "path": label, "wall_ms": wall_ms,
+              "measured": False, "attempts": TRACE_ATTEMPTS,
+              "device_events": len(dev), "host_events": len(host)})
+        return
+    start = min(e["ts"] for e in host)
+    end = max(e["ts"] + e["dur"] for e in dev)
+    launches, prev = [], start
+    for e in dev:
+        launches.append({"name": e["name"][:60], "us": e["dur"],
+                         "gap_us": max(e["ts"] - prev, 0.0)})
+        prev = max(prev, e["ts"] + e["dur"])
+    busy_us = sum(e["dur"] for e in dev)
+    host_top = sorted(
+        ({"name": ev.key[:60], "count": ev.count,
+          "self_host_ms": ev.self_cpu_time_total / 1e3}
+         for ev in prof.key_averages()), key=lambda r: -r["self_host_ms"])
+    emit({"phase": "profile", "path": label, "wall_ms": wall_ms,
+          "trace_whole": whole, "attempts": attempt + 1,
+          "kernel_launch_calls": n_calls, "kernels": n_kernels,
+          "span_ms": (end - start) / 1e3, "device_busy_ms": busy_us / 1e3,
+          "device_idle_ms": (end - start - busy_us) / 1e3,
+          "device_busy_share": busy_us / (end - start),
+          "n_launches": len(dev), "launches": launches,
+          "cuda_runtime": {k: {"count": n, "ms": us / 1e3}
+                           for k, (n, us) in runtime.items()},
+          "host_top": host_top[:10]})
+
+
+RETRIEVAL_CELL = ("two-tower-retrieval", "retrieval_cand")
+RETRIEVAL_USERS = 8
+
+
+def retrieval_cell_rank(rank, world, init, seed, out_dir):
+    """The cell's rank, an NCCL world of one in a fresh process (a trace
+    taken late in the script's own process loses its kernel records): the
+    arguments at full width, one call on the kernels with the counters
+    from 0, the same call on the plain versions, both timed, and one
+    traced call (`profile_timeline`); its results to ``out_dir``."""
+    torch, dist = _rank_setup(rank, world, init, backend=ONE_RANK_BACKEND)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.inputs import two_tower_retrieval
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import recsys as R
+
+    arch, shape = RETRIEVAL_CELL
+    dev = torch.device(DIST_DEVICE)
+    cfg = get_arch(arch).CONFIG
+    c = get_arch(arch).SHAPES[shape].n_candidates
+    base = torch.cuda.memory_allocated()
+    params = R.recsys_init(cfg, seed=seed, device=dev)
+    nf = params["item_tables"].shape[0]
+    with torch.no_grad():
+        db = torch.cat([R.tower_item(params, torch.arange(
+            a, min(a + 250_000, c), dtype=torch.int32, device=dev)[
+            :, None, None].expand(-1, nf, 1).contiguous())
+            for a in range(0, c, 250_000)])
+    d0 = cfg.retrieval_d_start
+    db0 = db[:, :d0].to(torch.bfloat16)
+    sqp = (db[:, :d0] ** 2).sum(1, keepdim=True)
+    users = _batch(torch, dev, cfg, RETRIEVAL_USERS, seed + 31)["user_ids"]
+    torch.cuda.synchronize()
+    arg_bytes = tree_bytes((R.param_tree(params), users, db0, db, sqp))
+    held_bytes = torch.cuda.memory_allocated() - base
+
+    mesh = make_mesh_compat((1,), ("data",), device_type=dev.type)
+    fn, sched = two_tower_retrieval(cfg, mesh, c)
+    call = lambda: fn(params, users, db0, db, sqp)
+    call()                                         # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    s, i = call()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with plain_ops():
+        ps, pi = call()
+    torch.cuda.synchronize()
+    err, agree, tol = compare(torch, (s, i), (ps, pi))
+    ms = cuda_ms(torch, call, runs=10)
+    with plain_ops():
+        plain_ms = cuda_ms(torch, call, runs=3, warmup=1)
+    profile_timeline(torch, call, ms, shape, out_dir)
+    res = {"counts": counts, "n_steps": len(sched.stages) - 1,
+           "schedule": sched.describe(), "block": f"bf16 ({c}, {d0})",
+           "candidates": c, "shape": list(s.shape),
+           "finite": bool(torch.isfinite(s).all()),
+           "ids_negative": bool((i < 0).any()), "agree": agree,
+           "err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+           "arg_bytes": arg_bytes, "held_bytes": held_bytes,
+           "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+    with open(os.path.join(out_dir, "retrieval_cand.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def retrieval_cell_run(torch, dev, seed, out_dir):
+    """The two-tower ``retrieval_cand`` cell (``launch/inputs.py``) at its
+    full width on the card (`retrieval_cell_rank`): 1,000,000 items (their
+    DB built by the item tower), the staged index's (C, 64) bf16 block, 8
+    users; the user tower (the embedding bag), the bf16 stage 0 and the
+    rescore steps, held against the same function on the plain versions.
+    Beside it the dry run's bytes of the cell, run meanwhile: its whole
+    arguments must be the bytes of the real ones."""
+    arch, shape = RETRIEVAL_CELL
+    t0 = time.perf_counter()
+    dry_wait = dryrun_cell_records(arch, shape, out_dir)
+    cell_s = _spawn(torch, retrieval_cell_rank, 1, (seed, out_dir), out_dir)
+    dry = dry_wait()
+    dry_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "retrieval_cand.json")) as f:
+        r = json.load(f)
+    counts, n_steps = r["counts"], r["n_steps"]
+    want = {"embedding_bag.embedding_bag": 1, "embedding_bag.vec16": 1,
+            "distance_topk.l2_topk": 1, "distance_topk.wgmma_bf16": 1,
+            "gather_rescore.gather_rescore_topk": n_steps,
+            "gather_rescore.step": n_steps, "gather_rescore.ladder": 0}
+    if {k: counts[k] for k in want} != want:
+        fail(f"retrieval_cand: launches {counts}, want {want}")
+    if r["agree"] < 1.0 or r["err"] > r["tol"] \
+            or r["shape"] != [RETRIEVAL_USERS, 1] or not r["finite"] \
+            or r["ids_negative"]:
+        fail(f"retrieval_cand: shape {r['shape']}, ids agree {r['agree']} "
+             f"with the plain path, max|Δ| {r['err']} (tol {r['tol']})")
+    whole = {m: sum(int(np.prod(x["shape"], dtype=np.int64)) * x["itemsize"]
+                    for x in rec["leaves"]) for m, rec in dry.items()}
+    if any(w != r["arg_bytes"] for w in whole.values()):
+        fail(f"retrieval_cand: the dry run's arguments hold {whole} bytes, "
+             f"the real ones {r['arg_bytes']}")
+    emit({"phase": "distributed", "part": shape, "arch": arch,
+          "candidates": r["candidates"], "users": RETRIEVAL_USERS,
+          "schedule": r["schedule"], "block": r["block"],
+          "ids_agree_plain": r["agree"], "max_abs_err": r["err"],
+          "tol": r["tol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+          "launches": {k: counts[k] for k in want},
+          "arg_bytes": r["arg_bytes"],
+          "memory_allocated_bytes": r["held_bytes"], "peak_gb": r["peak_gb"],
+          "cell_process_s": cell_s, "dryrun_s": dry_s,
+          "dryrun": {m: {"arg_bytes_whole": whole[m],
+                         "arg_bytes_rules_a_rank": rec["arg_bytes_rules"],
+                         "arg_bytes_port_a_rank": rec["arg_bytes_port"],
+                         "n_ranks": rec["n_ranks"], "flops": rec["flops"],
+                         "roofline": rec["roofline"]}
+                     for m, rec in dry.items()}})
+    return {k: counts[k] for k in want}
+
+
 def distributed_phase(torch, dev, seed):
-    """Phase 12.  Returns the 4-rank search's launches of rank 0 by mode."""
+    """Phase 12.  Returns the 4-rank search's launches of rank 0 by mode
+    (and the staged search's, by world) and the retrieval cell's."""
     t0 = time.perf_counter()
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
     try:
         launches = dist_search(torch, dev, seed, out_dir)
+        launches["retrieval_cand"] = retrieval_cell_run(torch, dev, seed,
+                                                        out_dir)
         ep = dist_ep(torch, seed, out_dir)
         dist_launcher(out_dir)
     finally:
@@ -5424,16 +5824,28 @@ def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
               "bound_3xtf32_ms", "shape")
     kernels = [
         {"name": "distance_topk.l2_topk", "route": "cuda",
-         "source": "src/repro_torch/csrc/distance_topk.cu",
+         "source": "src/repro_torch/csrc/distance_topk.cuh (built by "
+                   "distance_topk.cu and distance_topk_bf16.cu)",
          "replaces": "src/repro/kernels/distance_topk.py:128",
          "launches": launches["distance_topk.l2_topk"],
          "launches_by_kernel": {kind: launches[f"distance_topk.{kind}"]
-                                for kind in ("wgmma", "fma")},
+                                for kind in ("wgmma", "fma", "wgmma_bf16",
+                                             "fma_bf16")},
          "max_abs_err": max(r["max_abs_err"]
                             for r in stage_rows + large_rows),
          "library_ms": None, **{k: s32[k] for k in s_keys},
          "two_tower": {"launches": tt["launches"],
                        **{k: tt[k] for k in s_keys}},
+         # the bf16 route (the staged index's stage 0) at the serving and
+         # the two-tower shapes, and its launches on the staged search's
+         # path and the retrieval_cand cell's (phase 12)
+         "bf16": {"launches": {
+             path: c["distance_topk.wgmma_bf16"] + c.get(
+                 "distance_topk.fma_bf16", 0)
+             for path, c in dist_counts.items()
+             if path.startswith("staged") or path == "retrieval_cand"},
+             **{r["case"]: {k: r[k] for k in s_keys + ("bound_bf16_ms",)}
+                for r in stage_rows if r.get("dtype") == "bfloat16"}},
          "large_k": {r["case"]: {k: r[k] for k in s_keys}
                      for r in large_rows},
          "paper_launches": {kind: paper_counts[f"distance_topk.{kind}"]

@@ -25,9 +25,11 @@ A merge takes the k smallest of the gathered (Q, S·k) scores in
 ``lax.top_k``'s (score, position) order, so ties fall as in the JAX
 package; a -1 id stays -1 with its +inf score.
 
-The staged bf16 layout (``build_sharded_search_staged``) is not ported:
-its stage-0 block is bfloat16, which the port's stage-0 kernel does not
-read.
+``build_sharded_search_staged`` is the staged index layout: each shard
+keeps its rows' stage-0 prefix as a separate (rows, Ds) bfloat16 block
+beside the full-precision rows, scans that block at stage 0 (the bf16
+route of the stage-0 kernel on CUDA tensors: exact products, float32
+sums, half the row bytes), rescores from the float32 rows and merges once.
 """
 
 from __future__ import annotations
@@ -127,6 +129,58 @@ def build_sharded_search(
             s, c = merge(s_l, c_l)
             s, c = s[:, :stage.k], c[:, :stage.k]
         return s, c
+
+    return fn
+
+
+def build_sharded_search_staged(
+    mesh,
+    sched: ProgressiveSchedule,
+    n: int,
+    *,
+    db_axes: Tuple[str, ...] = ("data",),
+    dtype_wire: torch.dtype = torch.bfloat16,
+):
+    """The search callable ``fn(q, db0_local, db_local, sqp_local)`` over a
+    staged index of ``n`` rows sharded over ``db_axes``, called by every
+    rank of the mesh (the JAX package's function of the same name).
+
+      q:         (Q, D) float32 queries, the same on every rank;
+      db0_local: this rank's (n / shards, Ds) stage-0 block in
+                 ``dtype_wire`` (Ds >= the schedule's first dim);
+      db_local:  this rank's (n / shards, D) float32 rows;
+      sqp_local: (n / shards, 1) float32 squared norms of the block's rows
+                 at the first stage's dim.
+
+    Stage 0 scans the block with q cast to ``dtype_wire`` (k0 candidates a
+    shard: a shard of fewer live rows gives (+inf, -1) slots), every later
+    stage rescores this shard's candidates from the float32 rows with their
+    norms computed there, and one merge ends it.  Returns ((Q, final_k)
+    scores, (Q, final_k) int32 global ids), the same on every rank.
+    Building it makes the gather's process groups, so every rank builds it
+    at the same point."""
+    sizes = mesh_axes(mesh)
+    n_shards = math.prod(sizes[a] for a in db_axes)
+    if n % n_shards:
+        raise ValueError(f"corpus rows {n} not divisible by {n_shards}")
+    rows_local = n // n_shards
+    axes = tuple(db_axes)
+    offset = C.axis_index(mesh, axes) * rows_local
+    C.axis_group(mesh, axes)
+    s0 = sched.stages[0]
+
+    def fn(q: Tensor, db0_l: Tensor, db_l: Tensor, sqp_l: Tensor):
+        if db0_l.shape[0] != rows_local or db_l.shape[0] != rows_local:
+            raise ValueError(f"this rank's blocks have {db0_l.shape[0]} and "
+                             f"{db_l.shape[0]} rows, not {rows_local} "
+                             f"(= {n} / {n_shards})")
+        s, c = ops.truncated_search(
+            q.to(dtype_wire), db0_l, dim=s0.dim, k=s0.k,
+            db_sq_at_dim=sqp_l[:, 0], block_n=rows_local)
+        for stage in sched.stages[1:]:
+            s, c = ops.rescore_candidates(q, db_l, c, dim=stage.dim,
+                                          k=stage.k)
+        return _merge_final(s, c, mesh, axes, offset)
 
     return fn
 

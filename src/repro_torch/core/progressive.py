@@ -159,7 +159,10 @@ def _topk_first(s: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     tied = s == kth
     need = k - below.sum(1, keepdim=True, dtype=torch.int32)
     take = below | (tied & (torch.cumsum(tied, 1, dtype=torch.int32) <= need))
-    pos = take.nonzero()[:, 1].view(s.shape[0], k)
+    if take.is_meta:             # no values (the dry run): the shape alone
+        pos = torch.empty((s.shape[0], k), dtype=torch.long, device=s.device)
+    else:
+        pos = take.nonzero()[:, 1].view(s.shape[0], k)
     sc = torch.gather(s, 1, pos)
     order = torch.sort(sc, dim=1, stable=True).indices
     return torch.gather(sc, 1, order), torch.gather(pos, 1, order)

@@ -23,6 +23,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -30,6 +32,15 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+def off_card(*xs) -> bool:
+    """Whether a call's tensors (or devices) hold no value on a card: all
+    on the CPU (the plain version's inputs) or on the meta device (the dry
+    run's shapes, which go through the plain version's arithmetic as
+    shapes alone).  A wrapper sends such a call to its plain version."""
+    return all((x if isinstance(x, torch.device) else x.device).type
+               in ("cpu", "meta") for x in xs)
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

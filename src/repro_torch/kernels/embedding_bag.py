@@ -262,7 +262,7 @@ def embedding_bag(tables: Tensor, ids: Tensor, *, mode: str = "sum") -> Tensor:
       no valid id gives 0.  Sums start at +0.0 and take the rows in id
       order, as the plain version does: the two agree bit for bit.
     """
-    if tables.device.type == "cpu" and ids.device.type == "cpu":
+    if _build.off_card(tables, ids):
         return embedding_bag_plain(tables, ids, mode=mode)
     if tables.dim() == 2 and ids.dim() == 2:
         return embedding_bag(tables[None], ids[:, None], mode=mode)[:, 0]
@@ -338,7 +338,7 @@ def embedding_bag_backward(d_out: Tensor, ids: Tensor, n_rows: int,
     output's gradient ``d_out`` (B, F, D) and the call's (B, F, L) int32
     ids: dense float32.  CPU tensors go to `embedding_bag_backward_plain`;
     on a CUDA tensor the kernel launches or the call raises."""
-    if d_out.device.type == "cpu" and ids.device.type == "cpu":
+    if _build.off_card(d_out, ids):
         return embedding_bag_backward_plain(d_out, ids, n_rows, mode)
     global bwd_launches
     if d_out.device.type != "cuda" or ids.device != d_out.device:

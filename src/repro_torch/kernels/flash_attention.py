@@ -263,7 +263,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     calls on one device are issued on one stream at a time.
     """
     devices = (q.device, k.device, v.device)
-    if all(d.type == "cpu" for d in devices):
+    if _build.off_card(*devices):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     global launches
@@ -390,7 +390,7 @@ def flash_attention_backward(
     the inputs' dtype.  CPU tensors go to `flash_attention_backward_plain`;
     on a CUDA tensor the kernels launch or the call raises."""
     devices = (q.device, k.device, v.device)
-    if all(d.type == "cpu" for d in devices + (do.device,)):
+    if _build.off_card(*devices, do):
         return flash_attention_backward_plain(q, k, v, do, causal=causal,
                                               window=window, scale=scale)
     global bwd_launches

@@ -312,8 +312,7 @@ def rescore_ladder_topk(
       as the plain steps chained give.
     """
     stages = tuple((int(d), int(k)) for d, k in stages)
-    if q.device.type == "cpu" and db.device.type == "cpu" \
-            and cand.device.type == "cpu":
+    if _build.off_card(q, db, cand):
         return rescore_ladder_topk_plain(q, db, cand, stages,
                                          sq_prefix=sq_prefix, sq_cols=sq_cols,
                                          valid=valid)
@@ -346,8 +345,7 @@ def gather_rescore_topk(
       equal scores keep the lower position in ``cand``, and a slot with no
       finite score is (+inf, -1).
     """
-    if q.device.type == "cpu" and db.device.type == "cpu" \
-            and cand.device.type == "cpu":
+    if _build.off_card(q, db, cand):
         return gather_rescore_topk_plain(q, db, cand, dim=dim, k=k,
                                          sq_at_dim=sq_at_dim, valid=valid)
     sq = None

@@ -491,7 +491,7 @@ def ivf_scan_topk(
       keep the earlier scan position (probe rank, then slot).
     """
     _no_pq(pack)
-    if q.device.type == "cpu":
+    if _build.off_card(q):
         return ivf_scan_topk_plain(q, probe, member_ids, pack, k=k,
                                    valid=valid)
     global launches

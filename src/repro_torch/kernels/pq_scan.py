@@ -247,7 +247,7 @@ def pq_scan_topk(
       ((Q, k) float32 ADC scores ascending, +inf at empty slots; (Q, k)
       int32 ids, -1 at empty slots).  Equal scores keep the lower row.
     """
-    if lut.device.type == "cpu":
+    if _build.off_card(lut):
         return pq_scan_topk_plain(lut, codes, ids, k=k)
     global flat_launches
     _check(lut, codes, k, ids)
@@ -306,7 +306,7 @@ def pq_ivf_scan_topk(
       global doc ids, -1 empties).  Equal scores keep the earlier scan
       position (probe rank, then slot).
     """
-    if q.device.type == "cpu":
+    if _build.off_card(q):
         return pq_ivf_scan_topk_plain(q, probe, member_ids, pack, k=k,
                                       lut=lut, valid=valid)
     global ivf_launches

@@ -246,7 +246,7 @@ def sorted_segment_sum(data: Tensor, seg_ids: Tensor, indptr: Tensor, *,
     Returns:
       (N, D) float32 ((N,) for 1-D data); empty segments are 0.
     """
-    if data.device.type == "cpu" and indptr.device.type == "cpu":
+    if _build.off_card(data, indptr):
         return sorted_segment_sum_plain(data, seg_ids, indptr,
                                         num_segments=num_segments)
     if data.dim() == 1:
@@ -286,7 +286,7 @@ def segment_sum(data: Tensor, seg_ids: Tensor, *, num_segments: int) -> Tensor:
     On the card: a stable sort by segment, the CSR pointer, then the
     kernel (one launch).  Returns (N, D) float32 ((N,) for 1-D data).
     """
-    if data.device.type == "cpu" and seg_ids.device.type == "cpu":
+    if _build.off_card(data, seg_ids):
         return segment_sum_plain(data, seg_ids, num_segments=num_segments)
     order, seg_s, indptr = sort_by_segment(seg_ids, num_segments)
     return sorted_segment_sum(data[order], seg_s, indptr,
@@ -330,7 +330,7 @@ def sorted_segment_sum_backward(d_out: Tensor, seg_ids: Tensor,
     length, each live row its segment's ``d_out`` row and 0 elsewhere.
     CPU tensors go to `sorted_segment_sum_backward_plain`; on a CUDA tensor
     the kernel launches (reading ``indptr``) or the call raises."""
-    if d_out.device.type == "cpu" and indptr.device.type == "cpu":
+    if _build.off_card(d_out, indptr):
         return sorted_segment_sum_backward_plain(d_out, seg_ids, indptr)
     if d_out.dim() == 1:
         return sorted_segment_sum_backward(d_out[:, None], seg_ids,

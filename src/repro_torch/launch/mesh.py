@@ -7,8 +7,11 @@ r, as JAX's meshes place devices.  Functions, not module-level constants:
 importing this module touches no process group, so the tests and
 single-device runs never see one.
 
-The TPU pod meshes of the JAX package's dry run (``make_production_mesh``,
-16 x 16 and 2 x 16 x 16) are not ported.
+``make_production_mesh`` gives the JAX package's dry-run meshes, (16, 16)
+``('data', 'model')`` and (2, 16, 16) ``('pod', 'data', 'model')``, over
+the default process group: 256 or 512 ranks, which the dry run
+(`repro_torch.launch.dryrun`) makes as a ``fake`` process group in one
+process.
 """
 
 from __future__ import annotations
@@ -29,6 +32,16 @@ def make_mesh_compat(shape: Sequence[int], axes: Sequence[str], *,
                          f"differ in length")
     return init_device_mesh(device_type, tuple(int(s) for s in shape),
                             mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(multi_pod: bool = False, *,
+                         device_type: str = "cuda"):
+    """The JAX package's production mesh: (16, 16) over ``('data',
+    'model')``, or with ``multi_pod`` (2, 16, 16) over ``('pod', 'data',
+    'model')``, over the default process group (256 or 512 ranks)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh_compat(shape, axes, device_type=device_type)
 
 
 def elastic_shape(n: int, n_model: int = 0) -> Tuple[int, int]:

@@ -20,9 +20,10 @@ process group — ``nccl`` when each local rank has a card of its own,
 ``gloo`` when ranks share one (or on the CPU), printed on the first line —
 builds the elastic (data, model) mesh of the live ranks
 (``launch.mesh.make_elastic_mesh``), and trains data-parallel on it, the
-MoE layers expert-parallel over ``model``.  The checkpoint holds whole
-tensors, so a run restarted on fewer ranks (or on one) resumes from what
-the larger world wrote: the elastic rescale.
+MoE layers expert-parallel over ``model``, each rank holding only its
+experts.  The checkpoint holds whole tensors, so a run restarted on fewer
+ranks (or on one) resumes from what the larger world wrote: the elastic
+rescale.
 """
 
 from __future__ import annotations
@@ -84,7 +85,8 @@ def join_world(device: torch.device):
 
 def build(arch: str, *, smoke: bool, batch: int, seq: int, device,
           ctx=NULL_CTX):
-    """(loss_fn, init_fn, data iterator, cfg) of ``arch``'s family."""
+    """(loss_fn, init_fn, data iterator, cfg, the parameters' logical
+    axes) of ``arch``'s family."""
     mod = get_arch(arch)
     cfg = mod.SMOKE_CONFIG if smoke else mod.CONFIG
     fam = family_of(arch)
@@ -93,22 +95,23 @@ def build(arch: str, *, smoke: bool, batch: int, seq: int, device,
         data = lm_batch_stream(rng, cfg.vocab, batch, seq)
         return (lambda p, b: LM.lm_loss(LM.lm_view(p, cfg), b, ctx=ctx),
                 lambda: LM.param_tree(LM.init_lm(cfg, seed=0, device=device)),
-                data, cfg)
+                data, cfg, LM.lm_param_logical(cfg))
     if fam == "gnn":
         g = random_graph(rng, 256, 1024, cfg.d_feat_in or 16,
                          n_classes=cfg.n_classes, device=device)
         return (lambda p, b: EG.egnn_loss(p, b, cfg),
                 lambda: EG.param_tree(EG.egnn_init(cfg, seed=0,
                                                    device=device)),
-                itertools.repeat(g), cfg)
+                itertools.repeat(g), cfg, EG.egnn_param_logical(cfg))
     data = recsys_batch_stream(rng, cfg.family, batch,
                                n_sparse=cfg.n_sparse or 6,
                                vocab=cfg.vocab_per_field,
                                n_dense=cfg.n_dense or 13,
                                seq_len=cfg.seq_len or 10)
+    shapes = RS.param_tree(RS.recsys_init(cfg, device="meta"))
     return (lambda p, b: RS.recsys_loss(p, b, cfg),
             lambda: RS.param_tree(RS.recsys_init(cfg, seed=0, device=device)),
-            data, cfg)
+            data, cfg, RS.recsys_param_logical(cfg, shapes))
 
 
 def main(argv=None):
@@ -135,15 +138,16 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     ctx, device = join_world(device)
-    loss_fn, init_fn, data, _ = build(args.arch, smoke=args.smoke,
-                                      batch=args.batch, seq=args.seq,
-                                      device=device, ctx=ctx)
+    loss_fn, init_fn, data, cfg, logical = build(
+        args.arch, smoke=args.smoke, batch=args.batch, seq=args.seq,
+        device=device, ctx=ctx)
     loop = TrainLoop(
         loss_fn, init_fn, data,
         ckpt_dir=args.ckpt_dir, ckpt_every=max(args.steps // 5, 10),
         log_every=10, base_lr=args.lr, warmup=max(args.steps // 10, 5),
         total_steps=args.steps, accum_steps=args.accum,
-        grad_dtype="bfloat16" if args.grad_compress else None, ctx=ctx)
+        grad_dtype="bfloat16" if args.grad_compress else None, ctx=ctx,
+        logical=logical)
     metrics = loop.run(args.steps)
     if loop.lead:
         print(f"[launch] done: {metrics}", flush=True)

@@ -208,6 +208,16 @@ def softmax_xent(logits: Tensor, labels: Tensor, *, z_loss: float = 0.0):
     return nll.sum() / n, n
 
 
+def seeded_generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` for initialising weights on
+    ``device``: on the device itself, or on the CPU for ``meta`` tensors
+    (which have no generator of their own and draw nothing: the dry run's
+    shapes)."""
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises when it names CUDA and no
     CUDA device is available (pass ``device="cpu"`` for the plain path)."""

@@ -18,11 +18,16 @@ Two execution paths share the dispatch (`_dispatch_local`): one device
 slab, as the JAX package does: each rank dispatches its own token slab,
 one all-to-all over ``model`` hands every rank the tokens routed to its
 experts, and a second one brings the results back.
+On a mesh with a ``model`` dim a layer holds only its rank's E/ep experts
+(the ``expert`` rule's block, `ShardingCtx.held_blocks`): the EP path runs
+them as they are, and the local path (decode) gathers the whole experts
+over ``model`` first (what GSPMD inserts for the JAX package).
 Supports DeepSeek-style shared experts and normalised top-k gates.
 """
 
 from __future__ import annotations
 
+import types
 from typing import Optional, Tuple
 
 import torch
@@ -34,7 +39,6 @@ from repro_torch.layers.common import (FFN, _trunc_normal, dense_init,
                                        ffn_apply, ffn_init, ffn_specs)
 
 Tensor = torch.Tensor
-
 
 class MoE(nn.Module):
     """Router (float32, (D, E)), expert weights (E, D, F) / (E, F, D) in the
@@ -100,8 +104,12 @@ def _dispatch_local(x2: Tensor, logits: Tensor, cfg: MoEConfig):
         gate_vals = gate_vals / torch.clamp(
             gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
-    frac_tokens = torch.bincount(experts.reshape(-1), minlength=e).to(
-        torch.float32) / t
+    # tokens a routed slot sends to each expert (a bincount; counted by a
+    # scatter of ones, which meta tensors also take)
+    ones = torch.ones(experts.numel(), dtype=torch.float32,
+                      device=x2.device)
+    frac_tokens = torch.zeros(e, dtype=torch.float32, device=x2.device) \
+        .scatter_add_(0, experts.reshape(-1), ones) / t
     frac_probs = probs.mean(dim=0)
 
     cap = min(max(int(t * k / e * cfg.capacity_factor), 4), t)
@@ -132,16 +140,45 @@ def _combine_local(y_buf: Tensor, info, t: int, d: int) -> Tensor:
     return unsorted.reshape(t, experts.shape[1], d).sum(dim=1)
 
 
-def _experts(p: MoE, buf: Tensor, ffn_type: str, lo: int = 0,
-             hi: Optional[int] = None) -> Tensor:
-    """Experts [lo, hi) of ``p`` over their (hi - lo, C, D) packed buffer."""
-    h = torch.bmm(buf, p.w_in[lo:hi])
+def _experts(p: MoE, buf: Tensor, ffn_type: str) -> Tensor:
+    """The experts ``p`` holds over their (E_held, C, D) packed buffer."""
+    h = torch.bmm(buf, p.w_in)
     if ffn_type == "swiglu":
-        h = F.silu(torch.bmm(buf, p.w_gate[lo:hi])) * h
+        h = F.silu(torch.bmm(buf, p.w_gate)) * h
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
-    return torch.bmm(h, p.w_out[lo:hi])
+    return torch.bmm(h, p.w_out)
+
+
+def _ep_size(ctx) -> int:
+    """The ``model`` dim of ``ctx``'s mesh (1 without one)."""
+    mesh = getattr(ctx, "mesh", None) if ctx is not None else None
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return 1
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))["model"]
+
+
+def _whole_experts(p: MoE, cfg: MoEConfig, ctx):
+    """``p`` with its whole experts: as it is when it holds all E, else its
+    E/ep slice all-gathered over ``model`` (in expert order)."""
+    e = cfg.n_experts
+    held = p.w_in.shape[0]
+    if held == e:
+        return p
+    ep = _ep_size(ctx)
+    if ep * held != e:
+        raise ValueError(f"the layer holds {held} of {e} experts, not "
+                         f"E / ep = {e} / {ep}: pass the mesh's ctx")
+    from repro_torch.sharding import collectives as C
+
+    def join(w):
+        return None if w is None else C.all_gather(
+            w, ctx.mesh, "model", dim=0).reshape((e,) + tuple(w.shape[1:]))
+
+    return types.SimpleNamespace(router=p.router, w_in=join(p.w_in),
+                                 w_out=join(p.w_out), w_gate=join(p.w_gate),
+                                 shared=p.shared)
 
 
 def _uses_ep(ctx, x: Tensor, cfg: MoEConfig) -> bool:
@@ -150,8 +187,8 @@ def _uses_ep(ctx, x: Tensor, cfg: MoEConfig) -> bool:
     mesh = getattr(ctx, "mesh", None) if ctx is not None else None
     if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
         return False
-    ep = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))["model"]
-    return cfg.n_experts % ep == 0 and x.dim() == 3 and x.shape[1] > 1
+    return (cfg.n_experts % _ep_size(ctx) == 0 and x.dim() == 3
+            and x.shape[1] > 1)
 
 
 def moe_apply_ep(p: MoE, x: Tensor, cfg: MoEConfig, ffn_type: str,
@@ -164,12 +201,14 @@ def moe_apply_ep(p: MoE, x: Tensor, cfg: MoEConfig, ffn_type: str,
 
       1. each rank dispatches its slab into a local (E, C_l, D) buffer,
          with the capacity of its own T;
-      2. one all-to-all over ``model`` (bf16 on the wire) turns it into
-         (E/ep, C_l·ep, D): rank m gets, from every member, the tokens
+      2. one all-to-all over ``model`` (bf16 on the wire)
+         turns it into (E/ep, C_l·ep, D): rank m gets, from every member, the tokens
          routed to experts [m·E/ep, (m+1)·E/ep);
-      3. rank m runs those experts.  The expert weights are held whole on
-         every rank (replicated; the JAX package's FSDP gather of them over
-         ``data`` has nothing to gather), and rank m reads its slice;
+      3. rank m runs those experts, the only ones ``p`` holds (its E/ep
+         slice, the ``expert`` rule's block, `ShardingCtx.held_blocks`).
+         The slice is whole over ``data`` (the JAX package's rules also
+         split it over ``data`` and gather it back a layer: here there is
+         nothing to gather);
       4. the reverse all-to-all and the local combine put the gate-weighted
          results back in token order; the shared experts run locally.
 
@@ -177,13 +216,13 @@ def moe_apply_ep(p: MoE, x: Tensor, cfg: MoEConfig, ffn_type: str,
     (``pmean``).  Gradients: the ep members of a ``model`` group hold
     copies of the same tokens, so the owner of an expert receives ep
     copies' gradients, ep times the one-device gradient of that group's
-    tokens, and the other members none.  The data-parallel mean over the
-    world (``collectives.all_reduce_mean_``, the train step's reduction)
-    divides by ep again: what reaches the optimizer is the one-device
-    gradient, for the expert weights as for every replicated weight.
+    tokens.  The train step's reduction (``collectives.reduce_gradients_``)
+    averages a slice over the other axes and divides by ep again.  What
+    reaches the optimizer is the one-device gradient of the slice, as the
+    world mean leaves it for every replicated weight.
     """
     from repro_torch.sharding import collectives as C
-    from repro_torch.sharding.specs import mesh_axes, mesh_coordinate
+    from repro_torch.sharding.specs import mesh_axes
 
     mesh = ctx.mesh
     sizes = mesh_axes(mesh)
@@ -193,7 +232,10 @@ def moe_apply_ep(p: MoE, x: Tensor, cfg: MoEConfig, ffn_type: str,
     if e % ep:
         raise ValueError(f"{e} experts do not split over {ep} ranks")
     per = e // ep
-    m = mesh_coordinate(mesh)["model"]
+    if p.w_in.shape[0] != per:
+        raise ValueError(f"the layer holds {p.w_in.shape[0]} experts, not "
+                         f"this rank's {per} of {e}: cut it with "
+                         f"ShardingCtx.held_blocks")
     token_axes = tuple(a for a in ("pod", "data", "model") if a in sizes)
 
     x2 = x.reshape(-1, d)
@@ -208,7 +250,7 @@ def moe_apply_ep(p: MoE, x: Tensor, cfg: MoEConfig, ffn_type: str,
     recv = C.all_to_all(buf.to(torch.bfloat16), mesh, "model")
     recv = recv.reshape(ep, per, cap, d).transpose(0, 1).reshape(
         per, ep * cap, d).to(x2.dtype)
-    y_buf = _experts(p, recv, ffn_type, m * per, (m + 1) * per)
+    y_buf = _experts(p, recv, ffn_type)
 
     # reverse exchange + local combine
     back = y_buf.to(torch.bfloat16).reshape(per, ep, cap, d).transpose(0, 1)
@@ -227,12 +269,14 @@ def moe_apply(p: MoE, x: Tensor, cfg: MoEConfig, ffn_type: str, *,
     When ``ctx`` carries a mesh with a ``model`` dim that divides the
     experts and x is a (B, S > 1, D) slab, dispatch goes through
     `moe_apply_ep`; single-token decode and one device keep the local
-    path.
+    path, which gathers a layer's held expert slices whole first (not
+    differentiable: decode runs without gradients).
 
     Returns (output matching x's shape, aux load-balancing loss, a float32
     scalar tensor)."""
     if _uses_ep(ctx, x, cfg):
         return moe_apply_ep(p, x, cfg, ffn_type, ctx)
+    p = _whole_experts(p, cfg, ctx)
     shape_in = x.shape
     d = shape_in[-1]
     x2 = x.reshape(-1, d)

@@ -53,7 +53,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.segment_sum import sort_by_segment
 from repro_torch.layers.common import (MLP, dtype_of, mlp_apply, mlp_cast,
                                        mlp_init, mlp_specs, mlp_tree,
-                                       resolve_device)
+                                       resolve_device, seeded_generator)
 from repro_torch.models.graph import Graph
 
 Tensor = torch.Tensor
@@ -81,7 +81,10 @@ def sort_edges(g: Graph) -> SortedEdges:
     r = torch.where(g.edge_mask, g.receivers.clamp(min=0),
                     torch.full_like(g.receivers, n))
     order, r_s, indptr = sort_by_segment(r, n)
-    n_live = int(indptr[-1])              # one host sync per forward
+    # one host sync per forward; meta tensors (the dry run) hold no
+    # values: every edge counts as live, as the JAX package's padded
+    # edges all are computed
+    n_live = order.shape[0] if indptr.is_meta else int(indptr[-1])
     order = order[:n_live]
     return SortedEdges(senders=g.senders.clamp(0, n - 1)[order].to(torch.int32),
                        receivers=r_s[:n_live], edge_attr=g.edge_attr[order],
@@ -92,8 +95,7 @@ def sort_edges(g: Graph) -> SortedEdges:
 def egnn_init(cfg: EGNNConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights from a seeded generator on ``device``."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(device, seed)
     dt = dtype_of(cfg.param_dtype)
     d, de = cfg.d_hidden, cfg.d_edge
 

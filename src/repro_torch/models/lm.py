@@ -10,7 +10,7 @@ Entry points
   prefill(lm, tokens, decode_len=, ctx=)        -> (last logits, cache)
   init_cache(cfg, batch, seq)                   -> empty decode cache
   prefill_to_decode_cache(cfg, cache, s, total) -> the decode layout
-  decode_step(lm, cache, tok, pos)              -> (logits (B, V) f32, cache)
+  decode_step(lm, cache, tok, pos, ctx=)        -> (logits (B, V) f32, cache)
   param_tree(lm)                                -> the JAX package's pytree
                                                    (layers stacked), a copy
   lm_view(params, cfg)                          -> an LM over a param_tree's
@@ -67,7 +67,8 @@ from repro_torch.layers import mla as M
 from repro_torch.layers import moe as E
 from repro_torch.layers.common import (FFN, dense_init, dtype_of, embed_init,
                                        ffn_apply, ffn_init, ffn_specs,
-                                       rmsnorm, softmax_xent)
+                                       rmsnorm, seeded_generator,
+                                       softmax_xent)
 from repro_torch.sharding.specs import NULL_CTX, ShardingCtx
 
 Tensor = torch.Tensor
@@ -159,8 +160,7 @@ def init_lm(cfg: LMConfig, *, seed: int = 0, device="cuda") -> LM:
     package's truncated-normal fan-in init; other numbers than its
     ``jax.random`` draws)."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(device, seed)
     dt = dtype_of(cfg.param_dtype)
     n_dense = _n_dense_prefix(cfg)
     embed = embed_init(gen, cfg.vocab, cfg.d_model, dt, device=device)
@@ -516,31 +516,35 @@ def prefill(lm: LM, tokens: Tensor, *, impl: str = "chunked",
 
 @torch.inference_mode()
 def decode_step(lm: LM, cache: Cache, tokens: Tensor, pos: int, *,
-                impl: str = "chunked") -> Tuple[Tensor, Cache]:
+                impl: str = "chunked",
+                ctx: ShardingCtx = NULL_CTX) -> Tuple[Tensor, Cache]:
     """One decode step.  tokens: (B, 1) int; ``pos`` the new token's position.
 
     Writes the step's cache entries in place and returns (logits (B, V)
     f32, cache).  Dispatches as the JAX package does: local:global configs
     layer by layer with ring caches (``_decode_unrolled``), MLA through its
     absorbed decode (``_decode_mla``), the rest through ``_decode_gqa``.
+    On a mesh (``ctx``) an MoE layer that holds only its rank's experts
+    gathers them whole for the step (``layers.moe.moe_apply``).
     """
     cfg = lm.cfg
     x = lm.embed[tokens].to(dtype_of(cfg.compute_dtype))      # (B, 1, D)
     posv = torch.full((1,), pos, dtype=torch.long, device=x.device)
     if cfg.local_global_period > 0:
-        x = _decode_unrolled(lm, cache, x, pos, posv, impl)
+        x = _decode_unrolled(lm, cache, x, pos, posv, impl, ctx)
     elif cfg.mla is not None:
-        x = _decode_mla(lm, cache, x, pos, posv)
+        x = _decode_mla(lm, cache, x, pos, posv, ctx)
     else:
-        x = _decode_gqa(lm, cache, x, pos, posv, impl)
+        x = _decode_gqa(lm, cache, x, pos, posv, impl, ctx)
     x = rmsnorm(x, lm.final_ln, cfg.norm_eps)
     return _head_logits(x[:, 0], lm.head), cache
 
 
-def _decode_block_tail(blk: Block, x: Tensor, a: Tensor, cfg: LMConfig):
+def _decode_block_tail(blk: Block, x: Tensor, a: Tensor, cfg: LMConfig,
+                       ctx: ShardingCtx = NULL_CTX):
     x = x + a
     h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
-    return x + _ffn_or_moe(blk, h2, cfg)[0]
+    return x + _ffn_or_moe(blk, h2, cfg, ctx)[0]
 
 
 def _attn_decode(blk, cfg, h, k_c, v_c, pos, posv, w, th, impl, ring=False):
@@ -552,17 +556,18 @@ def _attn_decode(blk, cfg, h, k_c, v_c, pos, posv, w, th, impl, ring=False):
 
 
 def _decode_gqa(lm: LM, cache: Cache, x: Tensor, pos: int, posv: Tensor,
-                impl: str):
+                impl: str, ctx: ShardingCtx = NULL_CTX):
     cfg = lm.cfg
     for l, blk, w, th in _layers(lm):
         h = rmsnorm(x, blk.ln1, cfg.norm_eps)
         a = _attn_decode(blk, cfg, h, cache["k"][l], cache["v"][l], pos,
                          posv, w, th, impl)
-        x = _decode_block_tail(blk, x, a, cfg)
+        x = _decode_block_tail(blk, x, a, cfg, ctx)
     return x
 
 
-def _decode_mla(lm: LM, cache: Cache, x: Tensor, pos: int, posv: Tensor):
+def _decode_mla(lm: LM, cache: Cache, x: Tensor, pos: int, posv: Tensor,
+                ctx: ShardingCtx = NULL_CTX):
     cfg = lm.cfg
     for l, blk, _, _ in _layers(lm):
         h = rmsnorm(x, blk.ln1, cfg.norm_eps)
@@ -570,12 +575,12 @@ def _decode_mla(lm: LM, cache: Cache, x: Tensor, pos: int, posv: Tensor):
             blk.attn, h, cache["ckv"][l], cache["krope"][l], pos=pos,
             n_heads=cfg.n_heads, cfg=cfg.mla, rope_theta=cfg.rope_theta,
             positions=posv)
-        x = _decode_block_tail(blk, x, a, cfg)
+        x = _decode_block_tail(blk, x, a, cfg, ctx)
     return x
 
 
 def _decode_unrolled(lm: LM, cache: Cache, x: Tensor, pos: int,
-                     posv: Tensor, impl: str):
+                     posv: Tensor, impl: str, ctx: ShardingCtx = NULL_CTX):
     """local:global decode: ring caches for the local layers."""
     cfg = lm.cfg
     il = ig = 0
@@ -590,7 +595,7 @@ def _decode_unrolled(lm: LM, cache: Cache, x: Tensor, pos: int,
             a = _attn_decode(blk, cfg, h, cache["k_global"][ig],
                              cache["v_global"][ig], pos, posv, 0, th, impl)
             ig += 1
-        x = _decode_block_tail(blk, x, a, cfg)
+        x = _decode_block_tail(blk, x, a, cfg, ctx)
     return x
 
 

@@ -47,7 +47,8 @@ from repro_torch.core.progressive import progressive_search
 from repro_torch.core.schedule import ProgressiveSchedule, make_schedule
 from repro_torch.kernels import ops
 from repro_torch.layers.common import (MLP, dense_init, dtype_of, mlp_apply,
-                                       mlp_init, mlp_tree, resolve_device)
+                                       mlp_init, mlp_tree, resolve_device,
+                                       seeded_generator)
 
 Tensor = torch.Tensor
 Params = Dict[str, object]
@@ -93,8 +94,7 @@ def recsys_init(cfg: RecsysConfig, *, seed: int = 0, device="cuda") -> Params:
     """Random weights from a seeded generator on ``device`` (the JAX
     package's initialisers; other numbers than its ``jax.random`` draws)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = seeded_generator(device, seed)
     dt = dtype_of(cfg.param_dtype)
     d = cfg.embed_dim
 

@@ -107,19 +107,21 @@ def adamw_update(
     params, grads, state: OptState, *, lr, b1: float = 0.9,
     b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
     max_grad_norm: float = 1.0, grad_dtype: Optional[str] = None,
-    inplace: bool = False,
+    inplace: bool = False, grad_norm: Optional[Tensor] = None,
 ):
     """One AdamW step.  Returns (new params, new state, {"grad_norm"}).
 
     ``lr`` a float (or 0-d tensor).  The gradients are clipped leaf by leaf
     as `clip_by_global_norm` clips them (no clipped copy of the whole
-    tree).  With ``inplace`` the parameter and moment tensors of ``params``
-    and ``state`` are overwritten and returned in the same trees; the
-    gradients are only read."""
+    tree), by their global norm, or by ``grad_norm`` when given (the norm
+    of a whole tree of which this rank holds a part).  With ``inplace``
+    the parameter and moment tensors of ``params`` and ``state`` are
+    overwritten and returned in the same trees; the gradients are only
+    read."""
     flat_g, _ = _leaves(grads)
     if grad_dtype:
         flat_g = [g.to(dtype_of(grad_dtype)) for g in flat_g]
-    gnorm = global_norm(flat_g)
+    gnorm = global_norm(flat_g) if grad_norm is None else grad_norm
     scale = torch.clamp(max_grad_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = int(state.step) + 1

@@ -9,8 +9,12 @@
   all_to_all(x, mesh, axis)    -> ``jax.lax.all_to_all`` of dim 0 blocks,
                                   differentiable (its own adjoint)
   all_mean(x, mesh, axes)      -> ``jax.lax.pmean``, differentiable
+  all_sum(x, mesh, axes)       -> ``jax.lax.psum`` (no gradient)
   all_reduce_mean_(tensors)    -> the data-parallel mean over the world, in
                                   place
+  reduce_gradients_(gs, axes, mesh)
+                               -> the train step's reduction of gradients
+                                  held split over some mesh axes, in place
 
 The transport follows the group's backend, chosen by whoever made the
 process group, and never changes after a failure: on NCCL the tensors stay
@@ -232,12 +236,59 @@ def all_mean(x: Tensor, mesh, axes: Axes) -> Tensor:
 
 
 @torch.no_grad()
+def all_sum(x: Tensor, mesh, axes: Axes) -> Tensor:
+    """``jax.lax.psum`` over ``axes``: the members' sum (a new tensor)."""
+    group, order = axis_group(mesh, axes)
+    out = x.clone()
+    if len(order) > 1:
+        _flat_all_reduce_([out], group, mean=False)
+    return out
+
+
+@torch.no_grad()
 def all_reduce_mean_(tensors: Sequence[Tensor]) -> None:
     """Average ``tensors`` over the world in place: one all-reduce a
     dtype, over a flat buffer of that dtype's tensors."""
+    _flat_all_reduce_(tensors, dist.group.WORLD)
+
+
+@torch.no_grad()
+def reduce_gradients_(grads: Sequence[Tensor], split: Sequence[frozenset],
+                      mesh) -> None:
+    """The data-parallel reduction of gradients whose parameters are held
+    split over the mesh axes ``split[i]`` (`ShardingCtx.held_axes`), in
+    place.  A whole parameter's gradient is averaged over the world.  A
+    split one (an expert slice, split over ``model``) differs by rank: it
+    is averaged over the other axes only, then divided by the size of its
+    own axes — the ranks along them hold the same tokens, so the owner of
+    a slice received that many copies' gradients (the ep fold, see
+    ``layers.moe.moe_apply_ep``).  What remains is the one-device gradient
+    of the slice, as the world mean leaves it for a whole parameter."""
+    sizes = mesh_axes(mesh)
+    by_split: Dict[frozenset, List[Tensor]] = {}
+    for g, ax in zip(grads, split):
+        by_split.setdefault(frozenset(ax), []).append(g)
+    for ax, gs in by_split.items():
+        if not ax:
+            all_reduce_mean_(gs)
+            continue
+        rest = tuple(a for a in sizes if a not in ax)
+        if rest:
+            group, order = axis_group(mesh, rest)
+            if len(order) > 1:
+                _flat_all_reduce_(gs, group)
+        fold = math.prod(sizes[a] for a in ax)
+        for g in gs:
+            g.div_(fold)
+
+
+def _flat_all_reduce_(tensors: Sequence[Tensor], group, mean: bool = True
+                      ) -> None:
+    """Average (or, without ``mean``, sum) ``tensors`` over ``group`` in
+    place: one all-reduce a dtype, over a flat buffer of that dtype's
+    tensors."""
     global seconds
     t0 = time.perf_counter()
-    group = dist.group.WORLD
     n = dist.get_world_size(group)
     by_dtype: Dict[torch.dtype, List[Tensor]] = {}
     for t in tensors:
@@ -247,7 +298,8 @@ def all_reduce_mean_(tensors: Sequence[Tensor]) -> None:
         wire = _to_wire(flat, group)
         dist.all_reduce(wire, group=group)
         wire = _from_wire(wire, flat)
-        wire.div_(n)
+        if mean:
+            wire.div_(n)
         off = 0
         for t in ts:
             t.copy_(wire[off:off + t.numel()].view(t.shape))

@@ -28,6 +28,16 @@ mesh shape, with or without ranks behind it.  `sharding` turns a spec into
 DTensor placements, one per mesh dim.  A value on a rank is the local
 block that the JAX package's ``shard_map`` would hand its local function;
 `ShardingCtx.local_block` cuts that block out of a whole tensor.
+
+The rules above are the layout the JAX package runs (through GSPMD).  The
+port holds less of it: a parameter is split only over the names in
+`HELD_SPLIT` (the MoE experts, over ``model``: expert parallelism), and is
+whole on every rank otherwise (data parallelism).  `held_logical` maps a
+leaf's logical names to that layout; `ShardingCtx.held_blocks` cuts a tree
+to it, `ShardingCtx.held_axes` names the mesh axes each leaf is split over
+(the train step reduces a gradient over the others), and
+`ShardingCtx.gather_held` joins the blocks into whole tensors again (the
+checkpoint's).
 """
 
 from __future__ import annotations
@@ -54,6 +64,17 @@ DEFAULT_RULES: Dict[str, Tuple[str, ...]] = {
     "edges": ("pod", "data", "model"),
     "cand": ("data",),
 }
+
+
+#: Logical names the port splits a parameter over on a mesh (the rest of a
+#: rules' layout it holds whole): the experts of an MoE layer.
+HELD_SPLIT: Tuple[str, ...] = ("expert",)
+
+
+def held_logical(logical: Sequence[Optional[str]]) -> tuple:
+    """A leaf's logical names as the port holds it: the names of
+    `HELD_SPLIT` kept, every other dim replicated."""
+    return tuple(n if n in HELD_SPLIT else None for n in logical)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,21 +108,25 @@ def _is_logical_leaf(x) -> bool:
         isinstance(e, (str, type(None))) for e in x)
 
 
-def _map_logical(fn, logical, tree):
-    """``fn(logical leaf, tree leaf)`` over two trees of one structure:
-    dicts by key, lists, tuples and NamedTuples in order."""
+def _map_logical(fn, logical, tree, *more):
+    """``fn(logical leaf, tree leaf, *leaves of more)`` over trees of one
+    structure (the logical tree's): dicts by key, lists, tuples and
+    NamedTuples in order; below a logical leaf a tree's node is passed
+    whole (a shape, say)."""
     if _is_logical_leaf(logical):
-        return fn(logical, tree)
+        return fn(logical, tree, *more)
     if isinstance(logical, dict):
         if set(logical) != set(tree):
             raise ValueError(f"logical keys {sorted(logical)} != "
                              f"tree keys {sorted(tree)}")
-        return {k: _map_logical(fn, logical[k], tree[k]) for k in logical}
+        return {k: _map_logical(fn, logical[k], tree[k],
+                                *[m[k] for m in more]) for k in logical}
     if isinstance(logical, (list, tuple)):
         if len(logical) != len(tree):
             raise ValueError(f"logical length {len(logical)} != tree "
                              f"length {len(tree)}")
-        out = [_map_logical(fn, a, b) for a, b in zip(logical, tree)]
+        out = [_map_logical(fn, a, b, *ms)
+               for a, b, *ms in zip(logical, tree, *more)]
         if isinstance(logical, list):
             return out
         return type(logical)(*out) if hasattr(logical, "_fields") \
@@ -217,6 +242,59 @@ class ShardingCtx:
             size = x.shape[i] // n
             x = x.narrow(i, idx * size, size)
         return x
+
+
+    def held_axes(self, logical_tree, tree):
+        """A tree of frozensets beside ``tree`` (whole tensors, or their
+        shapes): the mesh axes each leaf is split over in the port's layout
+        (empty: whole on every rank)."""
+        def axes(log, x):
+            out = set()
+            for e in self.spec(held_logical(log), tuple(_shape(x))):
+                if e is not None:
+                    out.update((e,) if isinstance(e, str) else e)
+            return frozenset(out)
+
+        return _map_logical(axes, logical_tree, tree)
+
+    def held_blocks(self, logical_tree, tree):
+        """``tree`` (whole tensors) cut to this rank's blocks of the port's
+        layout: a split leaf becomes a copy of its block (so the whole
+        tensor can be freed), any other leaf stays as it is."""
+        if self.mesh is None:
+            return tree
+
+        def cut(log, x):
+            blk = self.local_block(x, held_logical(log))
+            return blk.clone() if blk.shape != x.shape else x
+
+        return _map_logical(cut, logical_tree, tree)
+
+    def gather_held(self, logical_tree, tree, shapes):
+        """The whole tensors of a tree held in the port's layout, whose
+        whole shapes are the tree ``shapes`` (shapes or tensors): each
+        split leaf all-gathered over its axes (a collective: every rank of
+        the mesh calls this at the same point), the rest as they are."""
+        if self.mesh is None:
+            return tree
+        from repro_torch.sharding import collectives as C
+
+        def join(log, x, whole):
+            for i, e in enumerate(self.spec(held_logical(log),
+                                            tuple(_shape(whole)))):
+                if e is None:
+                    continue
+                axes = (e,) if isinstance(e, str) else tuple(e)
+                g = C.all_gather(x, self.mesh, axes, dim=i)
+                x = g.reshape(x.shape[:i] + (-1,) + x.shape[i + 1:])
+            return x
+
+        return _map_logical(join, logical_tree, tree, shapes)
+
+
+def _shape(x) -> Tuple[int, ...]:
+    """The shape of a tensor, or a shape itself."""
+    return tuple(x.shape) if hasattr(x, "shape") else tuple(x)
 
 
 def linear_index(sizes: Dict[str, int], coord: Dict[str, int],

@@ -15,12 +15,18 @@ On a mesh (``ctx`` from `repro_torch.sharding.make_ctx`) the step runs on
 every rank of the process group, data-parallel: each rank takes its rows
 of the global batch (the ``batch`` rule, ``(pod, data)``; a batch that
 does not divide, or a graph, stays whole on every rank), and the
-gradients are averaged over the world before clipping and AdamW, so every
-rank applies the same update to its whole copy of the parameters (the
-JAX package's GSPMD reduction, here one explicit all-reduce a dtype);
-``grad_dtype='bfloat16'`` casts them before that reduction.  The mean also
-undoes the expert-parallel MoE's ep-fold expert gradients (see
-``layers.moe.moe_apply_ep``).
+gradients are reduced by their placement before clipping and AdamW
+(`collectives.reduce_gradients_`, one all-reduce a dtype and placement:
+the JAX package's GSPMD reduction).  A whole parameter's gradient is
+averaged over the world, so every rank applies the same update to its
+copy; a parameter held split (``held_axes``: the MoE experts over
+``model``, `ShardingCtx.held_blocks`) is averaged over the other axes and
+divided by the ep fold of its expert-parallel gradient (see
+``layers.moe.moe_apply_ep``), and the clipping norm sums its squares over
+the ranks that hold the parts.  ``grad_dtype='bfloat16'`` casts the
+gradients before that reduction.  Every other weight is whole on every
+rank: the JAX package's rules also shard weights over ``data`` (FSDP) and
+``model`` (tensor parallelism), which the port does not do yet.
 
 ``TrainLoop`` is the production driver:
   * restart-aware: restores the latest complete ``(params, OptState)``
@@ -34,7 +40,11 @@ undoes the expert-parallel MoE's ep-fold expert gradients (see
     ``history`` of the logged metrics; the step's end is synchronised
     where the JAX package blocks on the loss,
   * on a mesh: every rank restores, only rank 0 prints and writes
-    checkpoints, and the others wait for its last one at a barrier.
+    checkpoints, and the others wait for its last one at a barrier; the
+    parameters' ``logical`` tree (required) places them: every rank cuts
+    its expert blocks from the whole tensors it initialised or restored,
+    and the checkpoint gathers them whole again, so a run resumes on any
+    world.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.ckpt import _leaves, _unflatten
 from repro_torch.layers.common import dtype_of
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.optim.adamw import OptState, opt_state_logical
 from repro_torch.sharding.specs import NULL_CTX, ShardingCtx
 
 Tensor = torch.Tensor
@@ -94,6 +105,7 @@ def make_train_step(
     grad_dtype: Optional[str] = None,
     donate: bool = True,
     ctx: ShardingCtx = NULL_CTX,
+    held_axes=None,
 ):
     """Build a train step.
 
@@ -102,7 +114,9 @@ def make_train_step(
     one after another, their float32 gradients summed.  The step's metrics
     are detached tensors plus ``grad_norm`` and ``lr`` (on a mesh, the loss
     metrics of this rank's rows).  With a mesh in ``ctx`` the step is
-    data-parallel: see the module docstring.
+    data-parallel: see the module docstring; ``held_axes`` (a tree beside
+    the parameters, `ShardingCtx.held_axes`) names the mesh axes each
+    parameter is held split over (None: every parameter whole).
     """
     mesh = ctx.mesh
 
@@ -142,21 +156,56 @@ def make_train_step(
 
     def step(params, opt_state, batch):
         gs, metrics = accumulate(params, local_rows(batch))
+        gnorm = None
         if mesh is not None:
-            from repro_torch.sharding.collectives import all_reduce_mean_
+            from repro_torch.sharding import collectives as C
             if grad_dtype:
                 gs = [g.to(dtype_of(grad_dtype)) for g in gs]
-            all_reduce_mean_(gs)
+            split = ([frozenset()] * len(gs) if held_axes is None
+                     else _leaves(held_axes)[0])
+            C.reduce_gradients_(gs, split, mesh)
+            gnorm = _split_norm(gs, split, mesh)
         grads = _unflatten(params, gs)
         lr = cosine_schedule(opt_state.step, base_lr=base_lr, warmup=warmup,
                              total=total_steps)
         params, opt_state, om = adamw_update(
             params, grads, opt_state, lr=lr, weight_decay=weight_decay,
             max_grad_norm=max_grad_norm, grad_dtype=grad_dtype,
-            inplace=donate)
+            inplace=donate, grad_norm=gnorm)
         return params, opt_state, {**metrics, **om, "lr": lr}
 
     return step
+
+
+@torch.no_grad()
+def _split_norm(gs, split, mesh) -> Tensor:
+    """The global norm of a gradient tree of which this rank holds parts:
+    the float32 sum of squares of the whole leaves, plus each split leaf's
+    summed over the ranks along its axes."""
+    from repro_torch.sharding import collectives as C
+
+    total = torch.zeros((), dtype=torch.float32, device=gs[0].device)
+    parts = {}
+    for g, ax in zip(gs, split):
+        sq = torch.sum(g.to(torch.float32) ** 2)
+        if ax:
+            parts[ax] = parts.get(ax, 0) + sq
+        else:
+            total = total + sq
+    for ax, sq in parts.items():
+        total = total + C.all_sum(sq, mesh, tuple(sorted(ax)))
+    return torch.sqrt(total)
+
+
+def _tree_shapes(tree):
+    """``tree`` with each tensor replaced by its shape (a ``torch.Size``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_shapes(v) for k, v in tree.items()}
+    if isinstance(tree, OptState):
+        return OptState(*[_tree_shapes(v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_shapes(v) for v in tree)
+    return tree.shape
 
 
 class _Prefetcher:
@@ -197,9 +246,12 @@ class TrainLoop:
         log_every: int = 10,
         prefetch: bool = True,
         ctx: ShardingCtx = NULL_CTX,
+        logical=None,
         **step_kwargs,
     ):
-        self.step_fn = make_train_step(loss_fn, ctx=ctx, **step_kwargs)
+        if ctx.mesh is not None and logical is None:
+            raise ValueError("TrainLoop on a mesh needs the parameters' "
+                             "logical tree (logical=)")
         self.data = _Prefetcher(data_iter) if prefetch else data_iter
         self.log_every = log_every
         self.ckpt_every = ckpt_every
@@ -223,6 +275,18 @@ class TrainLoop:
                 self.state = restored
                 self.start_step = int(step)
                 self._say(f"[train] restored checkpoint at step {step}")
+        # the port's layout on a mesh: each rank cuts its expert blocks
+        # from the whole tensors (initialised or restored)
+        self.ctx, self.held = ctx, None
+        held_axes = None
+        if self.distributed:
+            log = (logical, opt_state_logical(logical))
+            shapes = _tree_shapes(self.state)
+            held_axes = ctx.held_axes(logical, shapes[0])
+            self.held = (log, shapes)
+            self.state = ctx.held_blocks(log, self.state)
+        self.step_fn = make_train_step(loss_fn, ctx=ctx, held_axes=held_axes,
+                                       **step_kwargs)
 
     def _say(self, line: str) -> None:
         if self.lead:
@@ -230,12 +294,16 @@ class TrainLoop:
 
     def _save(self, step, wait: bool = False) -> None:
         """Checkpoint ``step`` (rank 0 only on a mesh: every rank holds
-        the same whole tensors); with ``wait`` block until it is written,
-        the other ranks at a barrier."""
+        the same whole tensors, or its blocks of the split ones, which
+        every rank gathers whole first); with ``wait`` block until it is
+        written, the other ranks at a barrier."""
         if self.mgr is None:
             return
+        state = self.state
+        if self.held is not None:
+            state = self.ctx.gather_held(self.held[0], state, self.held[1])
         if self.lead:
-            self.mgr.save_async(step, self.state)
+            self.mgr.save_async(step, state)
             if wait:
                 self.mgr.wait()
         if wait and self.distributed:

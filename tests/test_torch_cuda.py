@@ -288,6 +288,106 @@ class TestLargeKOnCard:
         assert s.shape == (2, 1024)
 
 
+def _bf16_case(dev, nq, n, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    db = torch.randn((n, d), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((nq, d), generator=g, device=dev).to(torch.bfloat16)
+    valid = torch.rand((n,), generator=g, device=dev) > 0.1
+    return q, db, valid
+
+
+@pytest.mark.cuda
+class TestBf16Stage0OnCard:
+    """The bf16 route of stage 0 (the staged index's block: bf16 rows and
+    queries, float32 sums) on both pass-1 kernels, against the plain
+    version on the same bf16 tensors.  Products of two bf16 values are
+    exact in float32, so the scores differ only by the order of the float32
+    sums: the float32 route's tolerance."""
+
+    @pytest.mark.parametrize("k", [1, 128, 1024])
+    @pytest.mark.parametrize("nq,dim,d,kind", [
+        (32, 128, 128, "wgmma"),     # the serving stage 0
+        (512, 64, 64, "wgmma"),      # the two-tower stage 0
+        (37, 256, 256, "wgmma"),     # the widest tensor-core dim, 2 tiles
+        (5, 64, 72, "wgmma"),        # a row stride of 72 (144 bytes)
+        (9, 8, 8, "fma"),            # dim 8: below one k16 step
+        (21, 64, 68, "fma"),         # stride 68 (136 bytes): TMA cannot
+        (13, 30, 34, "fma"),         # odd dim and stride: scalar loads
+        (40, 320, 320, "fma"),       # wider than the tensor-core kernel
+    ])
+    def test_matches_plain(self, cuda, nq, dim, d, kind, k):
+        q, db, valid = _bf16_case(cuda, nq, 20_000, d, nq * 17 + dim + k)
+        sq = (db[:, :dim].float() ** 2).sum(1)
+        assert distance_topk.route(q, db, dim, k) == kind
+        key = kind + "_bf16"
+        for sq_at, ok in ((sq, valid), (None, None)):
+            before = dict(distance_topk.launches_by_kernel)
+            got = distance_topk.l2_topk(q, db, dim=dim, k=k, sq_at_dim=sq_at,
+                                        valid=ok)
+            after = distance_topk.launches_by_kernel
+            assert after[key] == before[key] + 1
+            assert all(after[x] == before[x] for x in after if x != key)
+            want = distance_topk.l2_topk_plain(q, db, dim=dim, k=k,
+                                               sq_at_dim=sq_at, valid=ok)
+            torch.cuda.synchronize()
+            assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+
+    @pytest.mark.parametrize("kind", ["wgmma", "fma"])
+    def test_unaligned_base_and_holes(self, cuda, kind):
+        """A base 2 bytes past alignment (``fma`` either way), a view whose
+        prefix starts mid-row, all-invalid rows and fewer live rows than
+        k: sentinels identical to the plain version's."""
+        q, db, _ = _bf16_case(cuda, 24, 3000, 136, 5)
+        if kind == "wgmma":
+            qq, dd = q[:, 8:].contiguous(), db[:, 8:]     # 16-byte offset
+        else:
+            qq, dd = q[:, 1:], db[:, 1:]                  # 2-byte offset
+        assert distance_topk.route(qq, dd, 64, 128) == kind
+        valid = torch.rand((3000,), device=cuda) < 0.02
+        live = int(valid.sum())
+        s, i = distance_topk.l2_topk(qq, dd, dim=64, k=128, valid=valid)
+        torch.cuda.synchronize()
+        assert (i[:, live:] == -1).all() and torch.isinf(s[:, live:]).all()
+        assert_topk_close([s.cpu(), i.cpu()], [
+            x.cpu() for x in distance_topk.l2_topk_plain(
+                qq, dd, dim=64, k=128, valid=valid)])
+        none = torch.zeros((3000,), dtype=torch.bool, device=cuda)
+        s, i = distance_topk.l2_topk(qq, dd, dim=64, k=16, valid=none)
+        assert (i == -1).all() and torch.isinf(s).all()
+
+    def test_exact_ties_keep_the_lower_id(self, cuda):
+        """Row r + 2048 repeats row r: both kernels score the two the same
+        bits and list the lower id first, as the plain version does."""
+        q, base, _ = _bf16_case(cuda, 16, 2048, 64, 9)
+        db = torch.cat([base, base])
+        wide = torch.zeros((4096, 66), dtype=torch.bfloat16, device=cuda)
+        wide[:, :64] = db                               # stride 66: fma
+        for dd, kind in ((db, "wgmma"), (wide, "fma")):
+            assert distance_topk.route(q, dd, 64, 64) == kind
+            s, i = distance_topk.l2_topk(q, dd, dim=64, k=64)
+            want = distance_topk.l2_topk_plain(q, dd, dim=64, k=64)
+            torch.cuda.synchronize()
+            assert (i[:, 0::2] + 2048 == i[:, 1::2]).all(), kind
+            assert torch.equal(s[:, 0::2], s[:, 1::2]), kind
+            assert_topk_close([s.cpu(), i.cpu()], [x.cpu() for x in want])
+
+    def test_split_count_does_not_matter(self, cuda, monkeypatch):
+        q, db, _ = _bf16_case(cuda, 512, 40_000, 64, 3)
+        outs = []
+        for n_sm in (1, 7, 132):
+            monkeypatch.setitem(distance_topk._n_sm, cuda.index or 0, n_sm)
+            outs.append(distance_topk.l2_topk(q, db, dim=64, k=128))
+        for s, i in outs[1:]:
+            assert torch.equal(s, outs[0][0]) and torch.equal(i, outs[0][1])
+
+    def test_rejects_mixed_dtypes(self, cuda):
+        q, db, _ = _bf16_case(cuda, 2, 100, 16, 1)
+        with pytest.raises(ValueError):
+            distance_topk.l2_topk(q.float(), db, dim=16, k=4)
+        with pytest.raises(ValueError):
+            distance_topk.l2_topk(q.half(), db.half(), dim=16, k=4)
+
+
 @pytest.mark.cuda
 class TestPaperPathOnCard:
     """The pooled search and PCA on the card against the CPU port."""
@@ -1811,16 +1911,21 @@ def search(mesh, world, rank, out, tag):
 
 def ep(mesh, rank, out):
     from repro_torch.configs.base import MoEConfig
-    from repro_torch.layers.moe import moe_apply, moe_init
+    from repro_torch.layers.moe import MoE, moe_apply, moe_init, moe_specs
     from repro_torch.sharding.specs import make_ctx
     cfg = MoEConfig(n_experts=16, top_k=4, d_ff_expert=128)
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     p = moe_init(g, 256, cfg, "swiglu", torch.bfloat16, device="cuda")
     x = torch.randn((2, 64, 256), generator=g, device="cuda").bfloat16()
+    ctx = make_ctx(mesh)
+    names = ("router", "w_in", "w_out", "w_gate")
+    held = ctx.held_blocks({k: moe_specs(cfg, "swiglu")[k] for k in names},
+                           {k: getattr(p, k).data for k in names})
+    p_held = MoE(*(held[k] for k in names))
     with torch.no_grad():
         y1, a1 = moe_apply(p, x, cfg, "swiglu")
-        y, a = moe_apply(p, x, cfg, "swiglu", ctx=make_ctx(mesh))
+        y, a = moe_apply(p_held, x, cfg, "swiglu", ctx=ctx)
     rel = float((y.float() - y1.float()).norm() / y1.float().norm())
     with open(os.path.join(out, f"ep_{rank}.json"), "w") as f:
         json.dump({"rel_l2": rel, "aux": float(a), "aux_one": float(a1)}, f)

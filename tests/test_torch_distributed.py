@@ -12,11 +12,17 @@ input from the same numpy seeds; the two subprocesses run at once.
     (16, 128, 16)) in both modes on an 8-shard ``data`` mesh and on a
     (2, 4) ``('pod', 'data')`` mesh, a corpus of 8 rows whose results hold
     sentinels, and an uneven N;
-  * the expert-parallel MoE on a (2, 4) ``('data', 'model')`` mesh: output
-    and aux against the JAX package's EP path, gradients against the
-    port's one-device gradients (the ep-fold check);
+  * the expert-parallel MoE on a (2, 4) ``('data', 'model')`` mesh, each
+    rank holding only its experts (``ShardingCtx.held_blocks``, 1/ep of
+    the expert bytes): output and aux against the JAX package's EP path,
+    gradients reduced by placement (``collectives.reduce_gradients_``)
+    against the port's one-device gradients of each slice (the ep-fold
+    check), and a decode step under the ctx (the experts gathered whole)
+    equal to one device;
   * Mistral-Nemo's smoke LM trained one step on a (4, 2) mesh against one
-    process.
+    process; Qwen3-MoE's smoke LM one step on a (2, 4) mesh with its
+    experts held split: the gradients that reach AdamW and its clipping
+    norm against one process.
 """
 
 import os
@@ -197,7 +203,26 @@ def moe_part(res):
     coord = mesh_coordinate(mesh)
     res["coord"] = np.asarray([coord["data"], coord["model"]])
 
-    m_ep = module()
+    # the layer as a rank holds it: only its experts
+    from repro_torch.layers.moe import moe_specs
+    logical = moe_specs(cfg, "swiglu")
+    whole = {"router": t(p["router"]), "w_in": t(p["w_in"]),
+             "w_gate": t(p["w_gate"]), "w_out": t(p["w_out"]),
+             "shared": {k: t(v) for k, v in p["shared"].items()}}
+    held = ctx.held_blocks(logical, whole)
+    axes = ctx.held_axes(logical, whole)
+    experts = ("w_in", "w_gate", "w_out")
+    res["held_expert_bytes"] = sum(held[k].numel() * held[k].element_size()
+                                   for k in experts)
+    res["whole_expert_bytes"] = sum(whole[k].numel() * 4 for k in experts)
+    res["held_axes_ok"] = np.asarray(
+        [axes[k] == frozenset({"model"}) for k in experts]
+        + [axes["router"] == frozenset()]
+        + [a == frozenset() for a in axes["shared"].values()])
+    sh = held["shared"]
+    m_ep = MoE(held["router"], held["w_in"], held["w_out"], held["w_gate"],
+               FFN(sh["w_in"], sh["w_out"], sh["w_gate"])
+               ).requires_grad_(True)
     x_l = ctx.local_block(t(x), ("batch", None, None)).clone()
     x_l.requires_grad_(True)
     r_l = ctx.local_block(t(r), ("batch", None, None))
@@ -211,9 +236,29 @@ def moe_part(res):
     res["ep_grad_x"] = gs[-1]
     gs = [g.clone() for g in gs[:-1]]
     res["ep_raw_w_in"] = gs[names.index("w_in")].clone()
-    C.all_reduce_mean_(gs)
+    split = [axes[n] if n in axes else frozenset() for n in names]
+    C.reduce_gradients_(gs, split, mesh)
     for n, g in zip(names, gs):
         res[f"ep_meangrad_{n}"] = g
+    # decode under the ctx: the local path gathers the experts whole
+    with torch.no_grad():
+        xd = t(x)[:, :1]
+        gathers = C.calls["all_gather"]
+        yd, auxd = moe_apply(m_ep, xd, cfg, "swiglu", ctx=ctx)
+        res["decode_gathers"] = C.calls["all_gather"] - gathers
+        y1d, aux1d = moe_apply(module(), xd, cfg, "swiglu")
+        res["decode_equal"] = int(torch.equal(yd, y1d)
+                                  and torch.equal(auxd, aux1d))
+    try:
+        moe_apply(m_ep, xd, cfg, "swiglu")
+        res["slice_without_ctx_raised"] = 0
+    except ValueError:
+        res["slice_without_ctx_raised"] = 1
+    try:
+        moe_apply(module(), x_l.detach(), cfg, "swiglu", ctx=ctx)
+        res["whole_on_mesh_raised"] = 0
+    except ValueError:
+        res["whole_on_mesh_raised"] = 1
 
     m_1 = module()
     x1 = t(x).clone().requires_grad_(True)
@@ -289,6 +334,98 @@ def train_part(res):
                              for x, y in zip(a, _leaves(params)[0]))
     res["train_grad_norm"] = np.asarray([float(m["grad_norm"]),
                                          float(m1["grad_norm"])])
+    from repro_torch.train.loop import TrainLoop
+    try:
+        TrainLoop(loss_mesh, lambda: ref_params, iter([]), prefetch=False,
+                  ctx=ctx)
+        res["train_loop_without_logical_raised"] = 0
+    except ValueError:
+        res["train_loop_without_logical_raised"] = 1
+
+
+def train_moe_part(res):
+    # Qwen3-MoE's smoke LM one step on a (2, 4) mesh, its experts held
+    # split, against one process: the gradients AdamW receives (a spy on
+    # the train step's adamw_update), its clipping norm, and the
+    # parameters after the step, gathered whole.
+    import dataclasses
+    import repro_torch.train.loop as L
+    from repro_torch.checkpoint.ckpt import _leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import lm as LM
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.sharding.specs import NULL_CTX, held_logical, make_ctx
+
+    cfg = get_arch("qwen3-moe-235b-a22b").SMOKE_CONFIG
+    # no token dropped (each rank's capacity is of its own tokens) and no
+    # aux term (each rank's is of its own tokens): the step's gradients
+    # are then one process's, but for the EP wire's rounding
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0, aux_loss_coef=0.0))
+    mesh = make_mesh_compat((2, 4), ("data", "model"), device_type="cpu")
+    ctx = make_ctx(mesh)
+    params = LM.param_tree(LM.init_lm(cfg, seed=0, device="cpu"))
+    logical = LM.lm_param_logical(cfg)
+    shapes = L._tree_shapes(params)
+    axes = ctx.held_axes(logical, params)
+    held = ctx.held_blocks(logical, params)
+    res["moe_lm_held_numel"] = sum(x.numel() for x in _leaves(held)[0])
+    res["moe_lm_whole_numel"] = sum(x.numel() for x in _leaves(params)[0])
+    split = _leaves(axes)[0]
+    res["moe_train_split"] = np.asarray([bool(a) for a in split])
+    log_leaves = []
+
+    def walk(log):
+        if isinstance(log, dict):
+            for k in sorted(log):
+                walk(log[k])
+        else:
+            log_leaves.append(log)
+
+    walk(logical)
+    rng = np.random.default_rng(5)
+    tokens = t(rng.integers(0, cfg.vocab, (8, 17)).astype(np.int64))
+    kw = dict(base_lr=1e-3, warmup=1, total_steps=10, donate=False)
+    real = L.adamw_update
+
+    def run(p, ctx_, axes_=None):
+        seen = []
+
+        def spy(pp, g, o, **k):
+            seen.append(g)
+            return real(pp, g, o, **k)
+
+        L.adamw_update = spy
+        try:
+            new, _, m = L.make_train_step(
+                lambda pp, b: LM.lm_loss(LM.lm_view(pp, cfg), b, ctx=ctx_),
+                ctx=ctx_, held_axes=axes_, **kw)(
+                p, adamw_init(p), {"tokens": tokens})
+        finally:
+            L.adamw_update = real
+        return new, seen[0], float(m["grad_norm"])
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+    ref, g_one, n_one = run(params, NULL_CTX)
+    new, g_held, n_held = run(held, ctx, axes)
+    res["moe_train_bf16_err_one"] = np.asarray([
+        rel(gh, ctx.local_block(gr, held_logical(log)) if ax else gr)
+        for gh, gr, ax, log in zip(_leaves(g_held)[0], _leaves(g_one)[0],
+                                   split, log_leaves)])
+    # the clipping norm is that of the whole gradient tree the ranks hold
+    # parts of
+    whole_g = ctx.gather_held(logical, g_held, shapes)
+    res["moe_train_bf16_norms"] = np.asarray(
+        [n_held, float(global_norm(whole_g)), n_one])
+    gathered = ctx.gather_held(logical, new, shapes)
+    res["moe_train_bf16_param_diff"] = max(
+        float((a - b).abs().max()) for a, b in
+        zip(_leaves(gathered)[0], _leaves(ref)[0]))
 
 
 def main(rank, world, init, out):
@@ -299,6 +436,7 @@ def main(rank, world, init, out):
     search_part(res)
     moe_part(res)
     train_part(res)
+    train_moe_part(res)
     dist.barrier()
     np.savez(f"{out}.{rank}.npz",
              **{k: (v.numpy() if isinstance(v, torch.Tensor)
@@ -477,38 +615,50 @@ MOE_LEAVES = ["router", "w_in", "w_out", "w_gate", "shared.w_in",
               "shared.w_out", "shared.w_gate"]
 
 
+EXPERT_LEAVES = ("w_in", "w_out", "w_gate")
+
+
 @pytest.mark.parametrize("leaf", MOE_LEAVES)
 def test_moe_ep_gradients_are_single_device(runs, leaf):
-    """The data-parallel mean of the ranks' gradients, times the 2 data
-    ranks (each rank's loss sums its own rows), is the one-device
-    gradient of the whole batch's loss — not ep (4) times it — within the
-    bf16 wire's rounding."""
+    """The ranks' gradients reduced by placement, times the 2 data ranks
+    (each rank's loss sums its own rows), are the one-device gradient of
+    the whole batch's loss — not ep (4) times it — within the bf16 wire's
+    rounding: of the whole weight for a replicated leaf (the same on every
+    rank), of the rank's slice for an expert leaf (the same on the ranks
+    of one ``model`` coordinate)."""
     _, ranks = runs
-    g = 2 * ranks[0][f"ep_meangrad_{leaf}"]
-    for res in ranks[1:]:
-        np.testing.assert_array_equal(res[f"ep_meangrad_{leaf}"],
-                                      ranks[0][f"ep_meangrad_{leaf}"])
-    want = ranks[0][f"single_grad_{leaf}"]
-    err = np.linalg.norm(g - want) / max(np.linalg.norm(want), 1e-30)
-    assert err < 1e-2, (leaf, err)
+    per = 8 // 4
+    for res in ranks:
+        m = int(res["coord"][1])
+        same = [r for r in ranks if leaf not in EXPERT_LEAVES
+                or int(r["coord"][1]) == m]
+        for other in same:
+            np.testing.assert_array_equal(res[f"ep_meangrad_{leaf}"],
+                                          other[f"ep_meangrad_{leaf}"])
+        g = 2 * res[f"ep_meangrad_{leaf}"]
+        want = res[f"single_grad_{leaf}"]
+        if leaf in EXPERT_LEAVES:
+            want = want[m * per:(m + 1) * per]
+        assert g.shape == want.shape
+        err = np.linalg.norm(g - want) / max(np.linalg.norm(want), 1e-30)
+        assert err < 1e-2, (leaf, err)
 
 
 def test_moe_ep_fold_is_real_and_undone(runs):
-    """Before the mean, the owner of an expert holds ep copies' gradient:
-    summed over the data ranks it is ep (4) times the one-device
-    gradient, and the other model ranks hold none."""
+    """Before the reduction, the owner of an expert holds ep copies'
+    gradient: summed over the data ranks it is ep (4) times the one-device
+    gradient of its slice, and no rank holds a gradient of another's
+    experts."""
     _, ranks = runs
     want = ranks[0]["single_grad_w_in"]
     per = 8 // 4
     for m in range(4):
         owned = slice(m * per, (m + 1) * per)
         tot = sum(r["ep_raw_w_in"] for r in ranks if int(r["coord"][1]) == m)
-        err = (np.linalg.norm(tot[owned] - 4 * want[owned])
+        assert tot.shape == want[owned].shape
+        err = (np.linalg.norm(tot - 4 * want[owned])
                / np.linalg.norm(4 * want[owned]))
         assert err < 1e-2, (m, err)
-        others = np.ones(8, bool)
-        others[owned] = False
-        assert not tot[others].any()
 
 
 def test_moe_ep_input_gradients(runs):
@@ -532,6 +682,14 @@ def test_train_step_on_mesh_equals_one_process(runs):
         np.testing.assert_allclose(gn[0], gn[1], rtol=1e-4)
 
 
+def test_train_loop_on_a_mesh_needs_the_logical_tree(runs):
+    """``TrainLoop`` places the parameters by their logical axes on a mesh:
+    without them it refuses to start."""
+    _, ranks = runs
+    for res in ranks:
+        assert int(res["train_loop_without_logical_raised"]) == 1
+
+
 def test_train_step_shardings_round_trip(runs):
     """``tree_shardings(lm_param_logical(cfg), params)``: each leaf cut to
     this rank's block (``local_block``) and joined by DTensor under its
@@ -542,3 +700,44 @@ def test_train_step_shardings_round_trip(runs):
         assert res["placements_round_trip"].all()
         assert res["opt_step_placement"].all()
         assert int(res["mu_equals_param_placements"]) == 1
+
+
+def test_moe_each_rank_holds_one_ep_th_of_the_experts(runs):
+    _, ranks = runs
+    for res in ranks:
+        assert res["held_axes_ok"].all()
+        assert int(res["held_expert_bytes"]) * 4 == \
+            int(res["whole_expert_bytes"])
+
+
+def test_moe_decode_under_the_ctx_equals_one_device(runs):
+    _, ranks = runs
+    for res in ranks:
+        assert int(res["decode_equal"]) == 1
+        assert int(res["decode_gathers"]) == 3          # w_in, w_gate, w_out
+        assert int(res["slice_without_ctx_raised"]) == 1
+        # the EP path takes only the rank's slice
+        assert int(res["whole_on_mesh_raised"]) == 1
+
+
+def test_moe_train_step_with_held_experts_equals_one_process(runs):
+    """Qwen3-MoE smoke (capacity 8, no aux term: nothing that depends on a
+    rank's share of the tokens), one step on (2, 4) with the experts held
+    split (one ep-th of the MoE layers' numbers on each rank).  The
+    clipping norm equals, to float32 sums, the norm of the whole gradient
+    tree gathered from the ranks' parts.  Every gradient AdamW receives,
+    each expert leaf its slice, is within 1e-1 of one process's (the bf16
+    exchange rounds each layer's expert inputs and outputs, forward and
+    backward, and the errors of two layers compound: 5.8e-2 at most, on an
+    expert slice), the norm within 1e-2, and the parameters after the
+    step, gathered whole, within twice the learning rate (AdamW's first
+    step moves a weight by about lr times the sign of its gradient)."""
+    _, ranks = runs
+    for res in ranks:
+        assert res["moe_train_split"].sum() == 3   # w_in, w_gate, w_out
+        assert int(res["moe_lm_held_numel"]) < int(res["moe_lm_whole_numel"])
+        assert res["moe_train_bf16_err_one"].max() < 1e-1
+        held, gathered, one = res["moe_train_bf16_norms"]
+        np.testing.assert_allclose(held, gathered, rtol=1e-5)
+        np.testing.assert_allclose(held, one, rtol=1e-2)
+        assert float(res["moe_train_bf16_param_diff"]) <= 2e-3

@@ -216,7 +216,11 @@ class TestPackageRules:
             "             'repro_torch.core.distributed',\n"
             "             'repro_torch.sharding.specs',\n"
             "             'repro_torch.sharding.collectives',\n"
-            "             'repro_torch.launch.mesh'):\n"
+            "             'repro_torch.launch.mesh',\n"
+            "             'repro_torch.launch.inputs',\n"
+            "             'repro_torch.launch.dryrun',\n"
+            "             'repro_torch.launch.costs',\n"
+            "             'repro_torch.launch.roofline'):\n"
             "    assert need in names, (need, names)\n"
             "for name in names:\n"
             "    for mod in [m for m in sys.modules if m.startswith('repro_torch')]:\n"
