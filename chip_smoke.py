@@ -187,29 +187,37 @@ in phases that each print one JSON line:
                  plain version on the card, with CUDA-event and device
                  times, its bound and the library's backward (SDPA through
                  ``torch.autograd.grad``, ``F.embedding_bag``,
-                 ``index_select``): the flash backward at StarCoder2's
-                 training shape (q (1, 24, 4,096, 128), kv (1, 2, 4,096,
-                 128)), Gemma3's head dim 256 with its 1,024-key window and
-                 MLA's padded group-1 call; the bag backward at the
-                 two-tower shape (4 fields x 8,192 bags onto 4 x 1M x 256)
-                 and a padded mean case; the segment backward at EGNN's
-                 minibatch_lg budget.  Then StarCoder2-3B at full depth and
+                 ``index_select``): the flash backward, given the forward
+                 kernel's log-sum-exp (held to the plain one), at
+                 StarCoder2's training shape (q (1, 24, 4,096, 128), kv (1,
+                 2, 4,096, 128); route ``bwd_wgmma``, and the same call
+                 twice, bit-equal), a windowed head-dim-64 call of a group
+                 of 4 off the tiles (``bwd_wgmma``), Gemma3's head dim 256
+                 with its 1,024-key window and MLA's padded group-1 call
+                 (both ``bwd_fma``); the bag backward at the two-tower shape
+                 (4 fields x 8,192 bags onto 4 x 1M x 256) and a padded
+                 mean case; the segment backward at EGNN's minibatch_lg
+                 budget.  Then StarCoder2-3B at full depth and
                  width (30 layers, bf16, remat on), 6 steps of 4 x 4,096
                  tokens from ``lm_batch_stream`` (train_4k's global batch
                  of 256 cut to 4): finite losses and grad norms, the last
                  loss below the first, two flash forward launches (the
                  forward and its recompute) and one backward a layer a
-                 step, step ms, tokens/s, the share of the bf16 peak and
+                 step, all on ``bwd_wgmma``, step ms, tokens/s, the share
+                 of the bf16 peak and
                  peak memory; then at batch 1 the kernel path against the
                  plain path (``impl="dense"``, plain attention under
                  autograd) from the same weights — loss within 1e-2, global
                  grad norm within 2%, cosine >= 0.99 for every leaf of the
                  first, middle and last layers and the embedding — and the
                  same check with the middle layer's causal mask shifted by
-                 one key on the plain path, which must fail.  Two-tower
-                 retrieval whole (8 x 1M x 256 tables, batches of 8,192,
-                 Matryoshka losses): its step-1 gradients against the
-                 plain path's, 5 steps, the loss falls.  EGNN on
+                 one key on the plain path, which must fail.  Gemma3-4B's
+                 first 6 layers (5 windowed, 1 global) at full width, 2
+                 steps of 2,048 tokens: the same kernel-vs-plain check at
+                 the initial weights, every backward on ``bwd_fma``.
+                 Two-tower retrieval whole (8 x 1M x 256 tables, batches
+                 of 8,192, Matryoshka losses): its step-1 gradients against
+                 the plain path's, 5 steps, the loss falls.  EGNN on
                  minibatch_lg subgraphs (1,024 seeds, fanout 15 / 10) of a
                  power-law random graph of Reddit's size (232,965 nodes,
                  114,615,892 edges, 602 features; drawn on the card) built
@@ -334,8 +342,8 @@ LARGE_K = (512, 1024)
 
 KERNEL_LIBS = ("distance_topk", "distance_topk_bf16", "gather_rescore",
                "ivf_scan", "pq_scan",
-               "flash_attention", "flash_attention_bwd", "embedding_bag",
-               "segment_sum")
+               "flash_attention", "flash_attention_bwd",
+               "flash_attention_bwd_wgmma", "embedding_bag", "segment_sum")
 
 # The RAG phase (configs/mistral_nemo_12b.py at full width): a flat corpus
 # of 262,144 documents of 256 tokens, 64 queries, 32 new tokens per request
@@ -590,6 +598,7 @@ def by_kernel_counters():
                                      flash_attention, gather_rescore,
                                      ivf_scan, pq_scan, segment_sum)
     return {"flash_attention": flash_attention.launches_by_kernel,
+            "flash_attention_bwd": flash_attention.bwd_launches_by_kernel,
             "embedding_bag": embedding_bag.launches_by_kernel,
             "distance_topk": distance_topk.launches_by_kernel,
             "segment_sum": segment_sum.launches_by_kernel,
@@ -4118,6 +4127,9 @@ def profile_search(torch, engine, q_host, search_s: float, backend) -> None:
 # its AdamW steps (about lr a weight, all 3,072 inputs of a logit moving
 # together) raised the loss from step 3 on (11.29 -> 12.05, H100).
 TRAIN_LM = ("starcoder2-3b", 4, 4096, 6)        # arch, batch, seq, steps
+# Gemma3-4B's first six layers (five windowed, one global) at full width:
+# the training path of the head-dim-256 backward (`bwd_fma`).
+TRAIN_FMA_LM = ("gemma3-4b", 6, 1, 2048, 2)  # arch, layers, batch, seq, steps
 TRAIN_LM_LR, TRAIN_LM_WARMUP = 3e-4, 3
 TRAIN_TT_BATCH, TRAIN_TT_STEPS, TRAIN_TT_LR = 8192, 5, 1e-3
 REDDIT_NODES, REDDIT_EDGES, REDDIT_FEATS = 232_965, 114_615_892, 602
@@ -4130,6 +4142,10 @@ TRAIN_EG_LR = 1e-3
 # the largest |plain| (float32 atomics add ids that meet in one row in no
 # fixed order).  The segment backward is a copy: equal bits.
 FLASH_BWD_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
+# The forward kernels' log-sum-exp against the plain one: 1e-5 of
+# max(1, |plain|) (float32 sums in another order; exp2 on the
+# special-function unit in the bf16 prefill kernel).
+LSE_RTOL = 1e-5
 BAG_BWD_TOL = 1e-5
 # The LM kernel path against the plain path (impl="dense": plain attention
 # under autograd) from the same weights and batch of one sequence: the loss
@@ -4158,14 +4174,18 @@ def grad_of(torch, fn, inputs, d_out):
     return call, call()
 
 
-def flash_bwd_row(torch, case, q, k, v, *, causal, window, scale=None,
-                  flush=None) -> dict:
-    """The flash backward kernel against its plain version on the card:
-    dq, dk, dv within ``FLASH_BWD_TOL``, CUDA-event and device times, the
-    plain version's and SDPA's backward (``torch.autograd.grad``) times,
-    and the bound: bytes (q, k, v, dO read once, dq, dk, dv written
-    once) and operations (the five products of 2 * dh for every kept
-    (query, key) pair: S, dP, dV, dQ, dK) at the bf16 tensor-core peak."""
+def flash_bwd_row(torch, case, q, k, v, *, causal, window, route,
+                  scale=None, flush=None) -> dict:
+    """The flash backward kernels against their plain version on the card:
+    the forward kernel's log-sum-exp (one call, outside the timed lambda)
+    against the plain one; dq, dk, dv within ``FLASH_BWD_TOL`` of the
+    plain version, which computes its own log-sum-exp; the call on backward
+    route ``route``; CUDA-event and device times, the plain version's and
+    SDPA's backward (``torch.autograd.grad``) times, and the bound: bytes
+    (q, k, v, dO read once, dq, dk, dv written once) and operations (the
+    five products of 2 * dh for every kept (query, key) pair: S, dP, dV,
+    dQ, dK — the function's, not the nine of `bwd_wgmma`) at the bf16
+    tensor-core peak."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -4176,16 +4196,36 @@ def flash_bwd_row(torch, case, q, k, v, *, causal, window, scale=None,
     g = torch.Generator(device=q.device)
     g.manual_seed(sq + dh)
     do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    _, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                scale=scale, return_lse=True)
+    _, lse_want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, scale=scale,
+                                           return_lse=True)
+    live = torch.isfinite(lse_want)
+    if not torch.equal(torch.isfinite(lse), live):
+        fail(f"flash backward {case}: the forward's lse is finite on other "
+             f"rows than the plain one's")
+    lse_err = float(((lse - lse_want).abs()
+                     / lse_want.abs().clamp(min=1.0))[live].max())
+    if lse_err > LSE_RTOL:
+        fail(f"flash backward {case}: forward lse off by {lse_err}")
+    del lse_want, live
+    kind = fa.backward_route(q.dtype, dh)
+    if kind != route:
+        fail(f"flash backward {case}: route {kind}, expected {route}")
     kern = lambda: fa.flash_attention_backward(
-        q, k, v, do, causal=causal, window=window, scale=scale)
+        q, k, v, do, lse, causal=causal, window=window, scale=scale)
     plain = lambda: fa.flash_attention_backward_plain(
         q, k, v, do, causal=causal, window=window, scale=scale)
-    before = fa.bwd_launches
+    before = (fa.bwd_launches, fa.bwd_launches_by_kernel[kind])
     got = kern()
     want = plain()
     torch.cuda.synchronize()
-    if fa.bwd_launches != before + 1:
-        fail(f"flash backward {case}: {fa.bwd_launches - before} launches")
+    if (fa.bwd_launches, fa.bwd_launches_by_kernel[kind]) != \
+            (before[0] + 1, before[1] + 1):
+        fail(f"flash backward {case}: {fa.bwd_launches - before[0]} "
+             f"launches, {fa.bwd_launches_by_kernel[kind] - before[1]} on "
+             f"{kind}")
     errs = {n: rel_err(torch, x, y) for n, x, y in zip(("dq", "dk", "dv"),
                                                        got, want)}
     tol = FLASH_BWD_TOL[dtype]
@@ -4208,10 +4248,11 @@ def flash_bwd_row(torch, case, q, k, v, *, causal, window, scale=None,
     bnd, by = bound_ms(n_bytes, n_ops, PEAK_BF16_FLOPS)
     dev_all, dev_own = device_ms(torch, kern, ("flash_bwd",), per_call=2)
     row = {"kernel": "flash_attention.flash_attention_backward",
-           "case": case, "dtype": dtype,
+           "case": case, "dtype": dtype, "route": kind,
            "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} "
                     f"causal={causal} window={window}",
            "max_abs_err": max_abs, "rel_err": errs, "tol": tol,
+           "lse_rel_err": lse_err,
            "ms": cuda_ms(torch, kern, runs=5, warmup=1, flush=flush),
            "plain_ms": cuda_ms(torch, plain, runs=3, warmup=1, flush=flush),
            "library_ms": cuda_ms(torch, lib, runs=5, warmup=1, flush=flush),
@@ -4225,14 +4266,40 @@ def flash_bwd_row(torch, case, q, k, v, *, causal, window, scale=None,
     return row
 
 
+def flash_bwd_twice(torch, case, q, k, v, *, causal, window) -> dict:
+    """The same backward call twice on its route, checked bit-equal: no
+    atomics, sums in a fixed order."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=q.device)
+    g.manual_seed(q.shape[2] + 1)
+    do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    _, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                return_lse=True)
+    call = lambda: fa.flash_attention_backward(q, k, v, do, lse,
+                                               causal=causal, window=window)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(first, second))
+    if not equal:
+        fail(f"flash backward {case}: two calls differ")
+    row = {"kernel": "flash_attention.flash_attention_backward",
+           "case": case, "route": fa.backward_route(q.dtype, q.shape[3]),
+           "shape": f"q {tuple(q.shape)} kv {tuple(k.shape)} "
+                    f"causal={causal} window={window}",
+           "calls": 2, "bit_equal": equal}
+    emit({"phase": "train_kernels", **row})
+    return row
+
+
 def bag_bwd_row(torch, case, ids, n_rows, d, mode, *, flush,
                 library=False) -> dict:
     """The embedding-bag backward kernel against its plain version: dense
     (F, V, D) float32 table gradients within ``BAG_BWD_TOL``, CUDA-event
-    and device times, the plain version's, and (``library``: bags of one
-    id, no padding) ``F.embedding_bag``'s backward over the stacked tables;
-    bound by bytes: d_out and the ids read once, the dense gradient written
-    once."""
+    and device times, the plain version's, and (``library``)
+    ``F.embedding_bag``'s backward over the stacked tables, its gradient
+    held to the plain version too; bound by bytes: d_out and the ids read
+    once, the dense gradient written once."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import embedding_bag as eb
@@ -4255,15 +4322,30 @@ def bag_bwd_row(torch, case, ids, n_rows, d, mode, *, flush,
         fail(f"embedding_bag backward {case}: relative error {err}")
     del got, want
     torch.cuda.empty_cache()
-    lib_ms = None
+    lib_ms = lib_err = None
     if library:
-        weight = torch.randn((f * n_rows, d), generator=g, device=ids.device)
-        flat = (ids.long() + n_rows * torch.arange(
-            f, device=ids.device)[None, :, None]).reshape(b * f, bag_len)
-        lib, _ = grad_of(torch, lambda w: F.embedding_bag(flat, w, mode=mode),
-                         (weight,), d_out.reshape(b * f, d))
+        # one (F * V + 2, D) table, ids offset by field; padding (-1) reads
+        # row F * V as ``padding_idx`` (out of the sum, the mean's count and
+        # the gradient, as in the kernel) and ids >= V a sink row F * V + 1
+        # (in the count, its gradient dropped, as in the kernel)
+        weight = torch.randn((f * n_rows + 2, d), generator=g,
+                             device=ids.device)
+        idx = ids.long()
+        flat = torch.where(idx < 0, f * n_rows, torch.where(
+            idx >= n_rows, f * n_rows + 1,
+            idx + n_rows * torch.arange(f, device=ids.device)[None, :, None])
+            ).reshape(b * f, bag_len)
+        pad = {"padding_idx": f * n_rows} if bool((idx < 0).any()) else {}
+        lib, (grad,) = grad_of(
+            torch, lambda w: F.embedding_bag(flat, w, mode=mode, **pad),
+            (weight,), d_out.reshape(b * f, d))
+        lib_err = rel_err(torch, grad[:f * n_rows].view(f, n_rows, d),
+                          plain())
+        if lib_err > BAG_BWD_TOL:
+            fail(f"embedding_bag backward {case}: F.embedding_bag's gradient "
+                 f"differs from the plain version by {lib_err}")
         lib_ms = cuda_ms(torch, lib, runs=5, warmup=1, flush=flush)
-        del lib, weight
+        del lib, grad, weight, flat, idx
         torch.cuda.empty_cache()
     n_bytes = d_out.numel() * 4 + ids.numel() * 4 + f * n_rows * d * 4
     bnd, by = bound_ms(n_bytes, 0.0)
@@ -4278,9 +4360,9 @@ def bag_bwd_row(torch, case, ids, n_rows, d, mode, *, flush,
            "max_abs_err": max_abs, "rel_err": err, "tol": BAG_BWD_TOL,
            "ms": cuda_ms(torch, kern, runs=5, warmup=1, flush=flush),
            "plain_ms": cuda_ms(torch, plain, runs=3, warmup=1, flush=flush),
-           "library_ms": lib_ms, "device_ms": dev_all,
-           "kernel_device_ms": dev_own, "bound_ms": bnd, "bound_by": by,
-           "bytes": n_bytes}
+           "library_ms": lib_ms, "library_rel_err": lib_err,
+           "device_ms": dev_all, "kernel_device_ms": dev_own,
+           "bound_ms": bnd, "bound_by": by, "bytes": n_bytes}
     emit({"phase": "train_kernels", **row})
     return row
 
@@ -4334,10 +4416,13 @@ def seg_bwd_row(torch, dev, case, n_rows, n_seg, d, *, flush) -> dict:
 def train_kernel_rows(torch, dev) -> dict:
     """Each backward kernel against its plain version at the training
     path's shapes: the flash backward at StarCoder2's (q (1, 24, 4096,
-    128), kv (1, 2, 4096, 128)), Gemma3's head dim 256 with its 1,024-key
-    window and DeepSeek-V2's MLA call padded to 256 (group 1, 128 heads,
-    1,024 tokens); the bag backward at the two-tower shape and a padded
-    mean case; the segment backward at minibatch_lg's budget."""
+    128), kv (1, 2, 4096, 128); route `bwd_wgmma`, and twice, bit-equal),
+    a windowed head-dim-64 call of a group of 4 off the tiles
+    (`bwd_wgmma`), Gemma3's head dim 256 with its 1,024-key window and
+    DeepSeek-V2's MLA call padded to 256 (group 1, 128 heads, 1,024 tokens;
+    both `bwd_fma`); the bag backward at the two-tower shape and a padded
+    mean case, both beside ``F.embedding_bag``'s backward; the segment
+    backward at minibatch_lg's budget."""
     from repro_torch.configs import get_arch
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
@@ -4347,26 +4432,37 @@ def train_kernel_rows(torch, dev) -> dict:
     def rnd(*shape):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
-    rows = {"flash": [], "bag": [], "seg": []}
+    rows = {"flash": [], "flash_twice": [], "bag": [], "seg": []}
     sc = get_arch("starcoder2-3b").CONFIG
     s = TRAIN_LM[2]
+    sc_qkv = (rnd(1, sc.n_heads, s, sc.d_head),
+              rnd(1, sc.n_kv_heads, s, sc.d_head),
+              rnd(1, s, sc.n_kv_heads, sc.d_head).transpose(1, 2))
     rows["flash"].append(flash_bwd_row(
-        torch, "starcoder2_train", rnd(1, sc.n_heads, s, sc.d_head),
-        rnd(1, sc.n_kv_heads, s, sc.d_head),
-        rnd(1, s, sc.n_kv_heads, sc.d_head).transpose(1, 2), causal=True,
-        window=None, flush=flush))
+        torch, "starcoder2_train", *sc_qkv, causal=True, window=None,
+        route="bwd_wgmma", flush=flush))
+    rows["flash_twice"].append(flash_bwd_twice(
+        torch, "starcoder2_train_twice", *sc_qkv, causal=True, window=None))
+    del sc_qkv
+    # head dim 64, a group of 4, Sq < Skv and neither a multiple of 64, a
+    # window without the causal mask
+    rows["flash"].append(flash_bwd_row(
+        torch, "dh64_group4_window", rnd(2, 16, 1000, 64),
+        rnd(2, 4, 1234, 64), rnd(2, 4, 1234, 64), causal=False, window=300,
+        route="bwd_wgmma", flush=flush))
     gm = get_arch("gemma3-4b").CONFIG
     rows["flash"].append(flash_bwd_row(
         torch, "gemma3_window_dh256", rnd(1, gm.n_heads, s, gm.d_head),
         rnd(1, gm.n_kv_heads, s, gm.d_head),
         rnd(1, s, gm.n_kv_heads, gm.d_head).transpose(1, 2), causal=True,
-        window=gm.window, flush=flush))
+        window=gm.window, route="bwd_fma", flush=flush))
     m = get_arch("deepseek-v2-236b").CONFIG
     dqk = m.mla.d_nope + m.mla.d_rope
     rows["flash"].append(flash_bwd_row(
         torch, "mla_padded_group1", rnd(1, m.n_heads, 1024, 256),
         rnd(1, m.n_heads, 1024, 256), rnd(1, m.n_heads, 1024, 256),
-        causal=True, window=None, scale=dqk ** -0.5, flush=flush))
+        causal=True, window=None, route="bwd_fma", scale=dqk ** -0.5,
+        flush=flush))
 
     tt = get_arch("two-tower-retrieval").CONFIG
     nf = tt.n_sparse // 2
@@ -4378,7 +4474,7 @@ def train_kernel_rows(torch, dev) -> dict:
     ids = torch.randint(-1, 100_000 + 2, (4096, 8, 20), generator=g,
                         device=dev, dtype=torch.int32)
     rows["bag"].append(bag_bwd_row(torch, "padded_mean_L20", ids, 100_000,
-                                   64, "mean", flush=flush))
+                                   64, "mean", flush=flush, library=True))
     del ids
     f = TRAIN_EG_FANOUT
     n_nodes = TRAIN_EG_SEEDS * (1 + f[0] + f[0] * f[1])
@@ -4580,12 +4676,17 @@ def lm_train_run(torch, dev, seed) -> dict:
         fail(f"{arch} training: losses {losses}, grad norms {gnorms}")
     kind = fa.route(torch.bfloat16, cfg.d_head, s,
                     cfg.n_heads // cfg.n_kv_heads, s)
+    if fa.backward_route(torch.bfloat16, cfg.d_head) != "bwd_wgmma":
+        fail(f"{arch}: its backward is not on bwd_wgmma")
     want = {"flash_attention.flash_attention": 2 * cfg.n_layers * steps,
             f"flash_attention.{kind}": 2 * cfg.n_layers * steps,
-            "flash_attention.flash_attention_backward": cfg.n_layers * steps}
+            "flash_attention.flash_attention_backward": cfg.n_layers * steps,
+            "flash_attention_bwd.bwd_wgmma": cfg.n_layers * steps,
+            "flash_attention_bwd.bwd_fma": 0}
     if any(counts[k] != n for k, n in want.items()):
         fail(f"{arch} training launches {counts}, expected {want} (a "
-             f"forward and a remat recompute, one backward a layer a step)")
+             f"forward and a remat recompute, one backward a layer a step, "
+             f"all on bwd_wgmma)")
     step_s = float(np.median(loop.step_times))
     tokens = b * s
     attn_flops = 3 * 4.0 * b * cfg.n_heads * cfg.d_head * s * (s + 1) / 2 \
@@ -4623,6 +4724,60 @@ def lm_train_run(torch, dev, seed) -> dict:
     del params, kern, plain, witness
     _free(torch)
     return {k: counts[k] for k in want}
+
+
+def fma_lm_train_run(torch, dev, seed) -> dict:
+    """Gemma3-4B at full width cut to its first ``TRAIN_FMA_LM`` layers
+    (five windowed, one global; head dim 256, so every backward takes
+    `bwd_fma`): the kernel path against the plain path at the initial
+    weights on one sequence, then a few AdamW steps."""
+    from repro_torch.checkpoint.ckpt import _leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synth import lm_batch_stream
+    from repro_torch.models import lm as LM
+    from repro_torch.train import TrainLoop
+    from repro_torch.train.loop import to_device
+
+    arch, n_layers, b, s, steps = TRAIN_FMA_LM
+    cfg = dataclasses.replace(get_arch(arch).CONFIG, n_layers=n_layers)
+    params = LM.param_tree(LM.init_lm(cfg, seed=seed, device=dev))
+    for p in _leaves(params)[0]:
+        p.requires_grad_(True)
+    one = to_device(next(lm_batch_stream(np.random.default_rng(seed + 2),
+                                         cfg.vocab, 1, s)), dev)
+    layers = (0, n_layers // 2, n_layers - 1)
+    check = lm_compare(
+        torch, lm_grad_check(torch, cfg, params, one, "chunked", layers),
+        lm_grad_check(torch, cfg, params, one, "dense", layers))
+    if not check["ok"]:
+        fail(f"{arch} ({n_layers} layers): kernel path against plain path "
+             f"{check}")
+    _free(torch)
+    loop = TrainLoop(lambda p, bt: LM.lm_loss(LM.lm_view(p, cfg), bt),
+                     lambda: params,
+                     lm_batch_stream(np.random.default_rng(seed), cfg.vocab,
+                                     b, s),
+                     log_every=1, base_lr=TRAIN_LM_LR, warmup=1,
+                     total_steps=steps)
+    zero_counts()
+    loop.run(steps)
+    counts = read_counts()
+    losses = [h["loss"] for h in loop.history]
+    if not all(np.isfinite(losses)):
+        fail(f"{arch} training: losses {losses}")
+    want = {"flash_attention.fma": 2 * n_layers * steps,
+            "flash_attention_bwd.bwd_fma": n_layers * steps,
+            "flash_attention_bwd.bwd_wgmma": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"{arch} training launches {counts}, expected {want}")
+    emit({"phase": "train", "model": arch, "layers": n_layers,
+          "layers_cut": f"{cfg.n_layers} of 34: five windowed and one global",
+          "batch": b, "seq": s, "steps": steps, "losses": losses,
+          "step_ms": [t * 1e3 for t in loop.step_times],
+          "plain_check": check, "launches": {k: counts[k] for k in want}})
+    del loop, params
+    _free(torch)
+    return {k: counts[k] for k in ("flash_attention_bwd.bwd_fma",)}
 
 
 def loss_grads(torch, loss_fn, params, batch):
@@ -4810,7 +4965,8 @@ def train_phase(torch, dev, seed):
           "allocated_gb": torch.cuda.memory_allocated() / 2**30})
     rows = train_kernel_rows(torch, dev)
     counts = {}
-    for run in (lm_train_run, two_tower_train_run, egnn_train_run):
+    for run in (lm_train_run, fma_lm_train_run, two_tower_train_run,
+                egnn_train_run):
         counts.update(run(torch, dev, seed))
         # what a run leaves on the card (it should free all it made)
         emit({"phase": "train_memory", "after": run.__name__,
@@ -4834,11 +4990,19 @@ def _bwd_entry(name, source, launches, rows, note) -> dict:
 def train_entries(counts, rows) -> list:
     new = "none: new in the port, no Pallas counterpart (the JAX package " \
           "trains through XLA: {})"
+    flash = {kind: [r for r in rows["flash"] if r["route"] == kind]
+             for kind in ("bwd_wgmma", "bwd_fma")}
+    wgmma = _bwd_entry("flash_attention.flash_attention_backward.bwd_wgmma",
+                       "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
+                       counts["flash_attention_bwd.bwd_wgmma"],
+                       flash["bwd_wgmma"],
+                       new.format("src/repro/layers/attention.py:95"))
+    wgmma["bit_equal"] = all(r["bit_equal"] for r in rows["flash_twice"])
     return [
-        _bwd_entry("flash_attention.flash_attention_backward",
+        wgmma,
+        _bwd_entry("flash_attention.flash_attention_backward.bwd_fma",
                    "src/repro_torch/csrc/flash_attention_bwd.cu",
-                   counts["flash_attention.flash_attention_backward"],
-                   rows["flash"],
+                   counts["flash_attention_bwd.bwd_fma"], flash["bwd_fma"],
                    new.format("src/repro/layers/attention.py:95")),
         _bwd_entry("embedding_bag.embedding_bag_backward",
                    "src/repro_torch/csrc/embedding_bag.cu",

@@ -12,7 +12,10 @@
 //   l = l * exp(m - m_new) + rowsum(p), acc = acc * exp(m - m_new) + p'V
 //   where p' is p rounded to v's type; out = acc / max(l, 1e-30) in q's
 //   type.  The running max, sum and accumulator are float32.  A row with
-//   nothing to attend gives 0.
+//   nothing to attend gives 0.  Given an `lse` buffer (training: the
+//   backward's input), each kernel also writes the row's log-sum-exp m +
+//   log(l) of the scaled scores in natural units, -inf where l = 0; a null
+//   buffer (serving) writes nothing and changes nothing else.
 //
 // GQA without a copy in all three: a block serves one (batch, kv head) and
 // all rep = Hq / Hkv q heads of its group, its rows being (q position,
@@ -101,6 +104,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// A row's log-sum-exp from its running max m and sum l (natural units, the
+// scale folded in); -inf for a row with no kept key (l = 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : kNegInf;
+}
+
 // `n` elements of T from global memory into floats in shared memory; with
 // VEC, 16-byte loads (n a multiple of 16 / sizeof(T), src 16-byte aligned).
 template <typename T, bool VEC>
@@ -144,7 +153,8 @@ __device__ __forceinline__ void load_tile(float* dst, int stride, int rows,
 template <typename T, int DH, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int hq,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int hq,
                        int rep, int sq, int skv, int bq, long long q_sb,
                        long long q_sh, long long q_ss, long long k_sb,
                        long long k_sh, long long k_ss, long long v_sb,
@@ -344,6 +354,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) dst[u] = from_f<T>(acc[i][u] / l);
     }
   }
+  if (lse != nullptr) {
+    for (int r = tid; r < nrows; r += kThreads)
+      lse[((long long)b * hq + g * rep + r % rep) * sq + q0 + r / rep] =
+          row_lse(m_s[r], l_s[r]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -396,7 +411,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel_decode_splitkv(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ part_ml,
-    float* __restrict__ part_acc, int* __restrict__ counters, int hq,
+    float* __restrict__ part_acc, int* __restrict__ counters,
+    float* __restrict__ lse, int hq,
     int rep, int sq, int skv, int split_keys, int n_split, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
@@ -628,6 +644,8 @@ flash_attention_kernel_decode_splitkv(
     dst[1] = from_f<T>(o1 / inv);
     dst[2] = from_f<T>(o2 / inv);
     dst[3] = from_f<T>(o3 / inv);
+    if (lse != nullptr && d4 == 0)
+      lse[((long long)b * hq + h) * sq + r / rep] = row_lse(mx, l);
   }
   if (tid == 0) counters[bg] = 0;
 }
@@ -647,6 +665,7 @@ constexpr int kVStages = 2;      // V ring depth
 constexpr int kBox = 128 * 128;  // bytes of a 128-row x 64-column bf16 box
 constexpr float kLog2e = 1.4426950408889634f;
 }  // namespace pf
+constexpr float kLn2 = 0.6931471805599453f;
 
 // One K or V box: the tensor map's middle dims are (key, head) unless
 // `swap`, where they are (head, key) (whichever order has the smaller
@@ -723,7 +742,8 @@ flash_attention_kernel_prefill_wgmma(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
-    const __grid_constant__ CUtensorMap tm_o, int pairs, int hkv, int rep, int sq, int skv, int bq, int n_qt,
+    const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse,
+    int pairs, int hkv, int rep, int sq, int skv, int bq, int n_qt,
     float scale_log2,
     int causal, int has_window, int window, int q_head_major, int k_swap,
     int v_swap) {
@@ -1038,6 +1058,13 @@ flash_attention_kernel_prefill_wgmma(
           const int pl = div_small(r, inv_rep);
           sr = (r - pl * rep) * bq + pl;
         }
+        // the row's log-sum-exp in natural units (box row sr is head
+        // sr / bq, position sr % bq of the item)
+        const int hl = div_small(sr, inv_bq), pos = it.q0 + sr - hl * bq;
+        if (lse != nullptr && lane % 4 == 0 && pos < sq)
+          lse[((long long)it.b * hkv * rep + it.g * rep + hl) * sq + pos] =
+              l_run[u] > 0.f ? (m_run[u] + log2f(l_run[u])) * kLn2
+                             : kNegInf;
 #pragma unroll
         for (int jj = 0; jj < DH / 8; ++jj) {
           const int at = (jj / 8) * pf::kBox + sr * 128 +
@@ -1075,7 +1102,7 @@ cudaError_t allow_smem(Kern kern, bool& done, size_t bytes) {
 
 template <typename T, int DH, bool VEC>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int b, int hq, int hkv, int sq, int skv,
+                       float* lse, int b, int hq, int hkv, int sq, int skv,
                        const Strides& st, float scale, int causal,
                        int has_window, int window, cudaStream_t stream) {
   const int rep = hq / hkv;
@@ -1090,7 +1117,7 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((sq + bq - 1) / bq, hkv, b);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, rep, sq, skv, bq,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, hq, rep, sq, skv, bq,
       st.q_sb, st.q_sh, st.q_ss, st.k_sb, st.k_sh, st.k_ss, st.v_sb, st.v_sh,
       st.v_ss, scale, causal, has_window, window);
   return cudaGetLastError();
@@ -1104,7 +1131,8 @@ size_t decode_smem(int nrows) {
 
 template <typename T, int DH, bool VEC, int ROWS>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          void* o, float* part, int* counters, int b, int hq,
+                          void* o, float* part, int* counters, float* lse,
+                          int b, int hq,
                           int hkv, int sq, int skv, const Strides& st,
                           float scale, int causal, int has_window, int window,
                           int n_split, int split_keys, cudaStream_t stream) {
@@ -1119,7 +1147,7 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
   kern<<<grid, kThreads, decode_smem<T, DH>(nrows), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), part, part_acc, counters,
-      hq, rep, sq, skv, split_keys, n_split, st.q_sb, st.q_sh, st.q_ss,
+      lse, hq, rep, sq, skv, split_keys, n_split, st.q_sb, st.q_sh, st.q_ss,
       st.k_sb, st.k_sh, st.k_ss, st.v_sb, st.v_sh, st.v_ss, scale, causal,
       has_window, window);
   return cudaGetLastError();
@@ -1127,28 +1155,11 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 
 using sm90::EncodeTiled;
 using sm90::encode_tiled;
-
-// A bf16 4-d tensor map: dims {d0 (contiguous), d1, d2, d3} with element
-// strides {s1, s2, s3}, a box of {64, b1, b2, 1} with the 128-byte swizzle;
-// out-of-range rows read as 0.
-bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
-                long long d0, long long d1, long long d2, long long d3,
-                long long s1, long long s2, long long s3, int b1, int b2) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2,
-                              (cuuint64_t)d3};
-  const cuuint64_t strides[3] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2,
-                                 (cuuint64_t)s3 * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)b1, (cuuint32_t)b2, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using sm90::tensor_map;
 
 template <int DH>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v,
-                           void* o, int b, int hq, int hkv, int sq, int skv,
+                           void* o, float* lse, int b, int hq, int hkv, int sq, int skv,
                            const Strides& st, float scale, int causal,
                            int has_window, int window, cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
@@ -1197,7 +1208,7 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
   const int pairs = b * hkv, n_qt = (sq + bq - 1) / bq;
   const int grid = min(n_sm, pairs * n_qt);
   kern<<<grid, pf::kThreads, smem, stream>>>(
-      tq, tk, tv, to, pairs, hkv, rep, sq, skv,
+      tq, tk, tv, to, lse, pairs, hkv, rep, sq, skv,
       bq, n_qt, scale * pf::kLog2e, causal, has_window, window, q_head_major,
       k_swap, v_swap);
   return cudaGetLastError();
@@ -1214,6 +1225,7 @@ struct FlashArgs {
   void* o;
   void* part;       // split-kv scratch: float32
   void* counters;   // split-kv tickets: int32, all 0
+  float* lse;       // (b, hq, sq) float32 log-sum-exp out, or null: not asked
   void* stream;
   Strides st;       // element strides {batch, head, position} of q, k, v
   int b, hq, hkv, sq, skv, dh;
@@ -1228,9 +1240,9 @@ cudaError_t fma_dh(const FlashArgs& a) {
   cudaStream_t s = static_cast<cudaStream_t>(a.stream);
 #define FA_CASE(D)                                                          \
   if (a.dh == D)                                                            \
-    return launch_fma<T, D, VEC>(a.q, a.k, a.v, a.o, a.b, a.hq, a.hkv,      \
-                                 a.sq, a.skv, a.st, a.scale, a.causal,      \
-                                 a.has_window, a.window, s);
+    return launch_fma<T, D, VEC>(a.q, a.k, a.v, a.o, a.lse, a.b, a.hq,      \
+                                 a.hkv, a.sq, a.skv, a.st, a.scale,         \
+                                 a.causal, a.has_window, a.window, s);
   FA_HEAD_DIMS(FA_CASE)
 #undef FA_CASE
   return cudaErrorInvalidValue;
@@ -1244,8 +1256,8 @@ cudaError_t decode_dh(const FlashArgs& a) {
 #define FA_CASE(D)                                                            \
   if (a.dh == D)                                                              \
     return launch_decode<T, D, VEC, ROWS>(                                    \
-        a.q, a.k, a.v, a.o, part, counters, a.b, a.hq, a.hkv, a.sq, a.skv,    \
-        a.st, a.scale, a.causal, a.has_window, a.window, a.n_split,           \
+        a.q, a.k, a.v, a.o, part, counters, a.lse, a.b, a.hq, a.hkv, a.sq,    \
+        a.skv, a.st, a.scale, a.causal, a.has_window, a.window, a.n_split,    \
         a.split_keys, s);
   FA_HEAD_DIMS(FA_CASE)
 #undef FA_CASE
@@ -1288,11 +1300,11 @@ int flash_attention_launch(const void* args, int kind) {
   } else if (kind == 2 && a.is_bf16 && a.vec) {
     cudaStream_t s = static_cast<cudaStream_t>(a.stream);
     if (a.dh == 64)
-      err = launch_prefill<64>(a.q, a.k, a.v, a.o, a.b, a.hq, a.hkv, a.sq,
+      err = launch_prefill<64>(a.q, a.k, a.v, a.o, a.lse, a.b, a.hq, a.hkv, a.sq,
                                a.skv, a.st, a.scale, a.causal, a.has_window,
                                a.window, s);
     else if (a.dh == 128)
-      err = launch_prefill<128>(a.q, a.k, a.v, a.o, a.b, a.hq, a.hkv, a.sq,
+      err = launch_prefill<128>(a.q, a.k, a.v, a.o, a.lse, a.b, a.hq, a.hkv, a.sq,
                                 a.skv, a.st, a.scale, a.causal, a.has_window,
                                 a.window, s);
   }

@@ -1,5 +1,12 @@
 // Backward of the fused attention (GQA, causal / sliding window aligned to
-// the end of kv), for Hopper (sm_90a): two kernels behind one function.
+// the end of kv), for Hopper (sm_90a): route `bwd_fma` of
+// kernels/flash_attention.py, two FMA kernels behind one function, for the
+// calls the tensor-core route (`bwd_wgmma`, flash_attention_bwd_wgmma.cu:
+// bf16 at head dim 64 or 128, not compiled here) does not take — head dims
+// 16, 32 and 256 (Gemma3's, MLA's padded call) and float32 at every head
+// dim.  At head dim 256 the dK and dV accumulators of a 64-key tile alone
+// exceed 255 registers a thread of a warpgroup, and float32 on the tensor
+// cores would be TF32.
 //
 // The JAX package has no backward kernel: it trains through XLA's
 // `chunked_attention` (src/repro/layers/attention.py:95), and no Pallas
@@ -10,8 +17,9 @@
 //
 //   offset = skv - sq; query row i sits at position i + offset; key j is
 //   kept when j <= pos (causal) and j > pos - window (window given);
-//   s = scale * q.k, lse = log-sum-exp of s over the kept keys (a row with
-//   no kept key has no gradient: the forward gives it 0);
+//   s = scale * q.k, lse = log-sum-exp of s over the kept keys, written by
+//   the forward (-inf on a row with no kept key: no gradient, the forward
+//   gives it 0);
 //   P = exp(s - lse) on kept keys, 0 elsewhere;
 //   dV = P^T dO, dP = dO V^T, D = rowsum(P o dP), dS = P o (dP - D),
 //   dQ = scale * dS K, dK = scale * dS^T Q; the q heads of a GQA group sum
@@ -28,13 +36,15 @@
 // atomics: the result is deterministic.
 //
 // Two launches (FlashAttention-2, Dao 2023, without atomics):
-// 1. flash_bwd_dq — a block per (q tile, q head, batch).  Pass 1 walks the
-//    tile's key range and recomputes each row's log-sum-exp (the forward
-//    does not keep it); pass 2 walks the keys again, recomputes P and dP
-//    and accumulates, in registers, A = sum_j P dP K and B = sum_j P K,
-//    and D = sum_j P dP; then dQ = scale * (A - D B), which is scale *
-//    sum_j P (dP - D) K without D known in advance.  It writes lse and D
-//    to a float32 workspace for launch 2.
+// 1. flash_bwd_dq — a block per (q tile, q head, batch) walks the tile's
+//    key range once with the forward's lse, recomputes P and dP and
+//    accumulates, in registers, A = sum_j P dP K and B = sum_j P K, and D
+//    = sum_j P dP; then dQ = scale * (A - D B), which is scale * sum_j P
+//    (dP - D) K without D known in advance (in float32: the products are
+//    not rounded, so nothing cancels).  It writes D to a float32 workspace
+//    for launch 2.  Each K and V tile is loaded and waited on, so the
+//    launch first asks L2 for the tile's whole key range (`prefetch_rows`):
+//    without it each wait is a DRAM read.
 // 2. flash_bwd_dkdv — a block per (key tile, kv head, batch): the K and V
 //    tile stay in shared memory while it loops over the group's q heads
 //    and over the q tiles whose mask reaches the tile, recomputing P and
@@ -45,35 +55,20 @@
 // float4 reads of 16 threads on 16 rows are conflict free.  Tiles above the
 // causal diagonal or left of the window are never read.  K, V, Q and dO
 // are read by strides (unit stride on the head dim): prefill's transposed
-// v view is read in place.  A simple kernel that is right: float32 FMA, no
-// tensor cores (a wgmma backward is left for later).
+// v view is read in place.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_attention_bwd.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-// The argument block, packed by kernels/flash_attention.py (_BWD_ARGS).
-struct BwdArgs {
-  const void* q;        // (b, hq, sq, dh)
-  const void* k;        // (b, hkv, skv, dh)
-  const void* v;        // (b, hkv, skv, dh)
-  const void* dout;     // (b, hq, sq, dh)
-  void* dq;             // (b, hq, sq, dh) contiguous
-  void* dk;             // (b, hkv, skv, dh) contiguous
-  void* dv;             // (b, hkv, skv, dh) contiguous
-  float* lse;           // (b, hq, sq) workspace
-  float* delta;         // (b, hq, sq) workspace
-  void* stream;
-  // strides in elements of the batch, head and position axes
-  long long st_q[3], st_k[3], st_v[3], st_do[3];
-  int b, hq, hkv, sq, skv, dh, causal, has_window, window, is_bf16;
-  double scale;
-};
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -142,6 +137,19 @@ __device__ __forceinline__ bool kept(int qpos, int kpos, int skv, int causal,
          (!has_window || kpos > qpos - window);
 }
 
+// Ask L2 for rows [0, n) of a (rows, DH) tile at `src` (row stride `ld`).
+template <typename T, int DH>
+__device__ __forceinline__ void prefetch_rows(const T* src, long long ld,
+                                              int n) {
+  constexpr int kRow = DH * static_cast<int>(sizeof(T));
+  constexpr int kLines = kRow >= 128 ? kRow / 128 : 1;
+  for (int idx = threadIdx.x; idx < n * kLines; idx += kThreads) {
+    const int r = idx / kLines, l = idx - r * kLines;
+    const char* p = reinterpret_cast<const char*>(src + r * ld) + 128 * l;
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+  }
+}
+
 template <int DH, int BQ, int BK>
 constexpr int dq_smem_floats() {
   return (2 * BQ + 2 * BK) * (DH + 4) + 2 * BQ * (BK + 1) + 2 * BQ;
@@ -187,60 +195,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(BwdArgs a) {
   int k_lo = 0, k_hi = a.skv;
   if (a.causal) k_hi = min(a.skv, q0 + nq + off);
   if (a.has_window) k_lo = max(0, q0 + off - a.window + 1);
+  // The walk below loads a K and a V tile and waits on them; ask L2 for
+  // the whole range now, so those waits are L2 reads and not DRAM ones.
+  const int k_first = (k_lo / BK) * BK;
+  prefetch_rows<T, DH>(kb + k_first * a.st_k[2], a.st_k[2], k_hi - k_first);
+  prefetch_rows<T, DH>(vb + k_first * a.st_v[2], a.st_v[2], k_hi - k_first);
 
-  // ---- pass 1: each row's log-sum-exp over its kept keys ----
-  float m[TR], l[TR];
-#pragma unroll
-  for (int r = 0; r < TR; ++r) m[r] = -INFINITY, l[r] = 0.f;
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
-    __syncthreads();
-    load_tile<T, DH>(Ks, kb + k0 * a.st_k[2], a.st_k[2],
-                     min(BK, a.skv - k0), BK);
-    __syncthreads();
-    float s[TR][TC] = {};
-    dot_tile<DH, TR, TC>(s, Qs, Ks, ty, tx);
-#pragma unroll
-    for (int r = 0; r < TR; ++r) {
-      const int qpos = q0 + ty + 16 * r + off;
-#pragma unroll
-      for (int c = 0; c < TC; ++c) {
-        if (ty + 16 * r >= nq ||
-            !kept(qpos, k0 + tx + 16 * c, a.skv, a.causal, a.has_window,
-                  a.window))
-          continue;
-        const float x = s[r][c] * scale;
-        if (x > m[r]) {
-          l[r] = l[r] * expf(m[r] - x) + 1.f;
-          m[r] = x;
-        } else {
-          l[r] += expf(x - m[r]);
-        }
-      }
-    }
-  }
-  // merge the 16 lanes of a row (lanes 0-15 and 16-31 hold other rows)
-#pragma unroll
-  for (int r = 0; r < TR; ++r) {
-#pragma unroll
-    for (int sh = 1; sh < 16; sh <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[r], sh);
-      const float l2 = __shfl_xor_sync(0xffffffffu, l[r], sh);
-      const float mx = fmaxf(m[r], m2);
-      float lt = 0.f;
-      if (m[r] != -INFINITY) lt += l[r] * expf(m[r] - mx);
-      if (m2 != -INFINITY) lt += l2 * expf(m2 - mx);
-      m[r] = mx;
-      l[r] = lt;
-    }
-    if (tx == 0) {
-      const int i = ty + 16 * r;
-      const float v = l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
-      lse_s[i] = v;
-      if (i < nq) a.lse[row0 + i] = v;
-    }
-  }
+  // each row's log-sum-exp, the forward's (rows past the end: +inf, P 0)
+  for (int i = tid; i < BQ; i += kThreads)
+    lse_s[i] = i < nq ? a.lse[row0 + i] : INFINITY;
+  __syncthreads();
 
-  // ---- pass 2: A = sum_j P dP K, B = sum_j P K, D = sum_j P dP ----
+  // ---- A = sum_j P dP K, B = sum_j P K, D = sum_j P dP ----
   const int cq = tid % CW, rg = tid / CW;
   float4 acc_a[RPT], acc_b[RPT];
 #pragma unroll
@@ -251,7 +217,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(BwdArgs a) {
   float dsum[TR];
 #pragma unroll
   for (int r = 0; r < TR; ++r) dsum[r] = 0.f;
-  for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
+  for (int k0 = k_first; k0 < k_hi; k0 += BK) {
     __syncthreads();
     const int nk = min(BK, a.skv - k0);
     load_tile<T, DH>(Ks, kb + k0 * a.st_k[2], a.st_k[2], nk, BK);
@@ -448,16 +414,20 @@ cudaError_t launch(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
+// Head dims 16, 32 and 256 in both types; 64 and 128 in float32 only (bf16
+// there is `bwd_wgmma`'s, and is not compiled here).
 template <typename T>
 cudaError_t launch_dh(const BwdArgs& a) {
   switch (a.dh) {
     case 16: return launch<T, 16, 64, 64>(a);
     case 32: return launch<T, 32, 64, 64>(a);
-    case 64: return launch<T, 64, 64, 64>(a);
-    case 128: return launch<T, 128, 64, 64>(a);
     case 256: return launch<T, 256, 32, 32>(a);
-    default: return cudaErrorInvalidValue;
   }
+  if constexpr (std::is_same_v<T, float>) {
+    if (a.dh == 64) return launch<T, 64, 64, 64>(a);
+    if (a.dh == 128) return launch<T, 128, 64, 64>(a);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -466,14 +436,15 @@ extern "C" {
 
 // The backward of one attention call: q and dout (b, hq, sq, dh), k and
 // v (b, hkv, skv, dh), all of one type (is_bf16: bf16, else float32), unit
-// stride on the head dim; dq, dk, dv contiguous of the same type; lse and
-// delta (b * hq * sq) float32 workspace; hq a multiple of hkv; dh one of
-// 16, 32, 64, 128, 256; sq, skv >= 1.  Two launches on `stream`; returns
-// the first CUDA error (0 on success).
+// stride on the head dim; dq, dk, dv contiguous of the same type;
+// lse (b * hq * sq) float32, the forward's log-sum-exp (-inf on rows with
+// no kept key); delta (b * hq * sq) float32 workspace; hq a multiple of
+// hkv; dh one of 16, 32, 256, or in float32 also 64 or 128; sq, skv >= 1.
+// Two launches on `stream`; returns the first CUDA error (0 on success).
 int flash_attention_backward_launch(const void* args) {
   const BwdArgs& a = *static_cast<const BwdArgs*>(args);
   if (a.b < 1 || a.hq < 1 || a.hkv < 1 || a.hq % a.hkv || a.sq < 1 ||
-      a.skv < 1)
+      a.skv < 1 || a.lse == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err =
       a.is_bf16 ? launch_dh<__nv_bfloat16>(a) : launch_dh<float>(a);

@@ -117,6 +117,54 @@ def library(stem: str) -> ctypes.CDLL:
         return lib
 
 
+def patched(stem: str, patches) -> str:
+    """The text of ``csrc/<stem>.cu`` with each ``(old, new)`` of
+    ``patches`` replaced; raises when an ``old`` is no longer in it."""
+    text = (CSRC / f"{stem}.cu").read_text()
+    for old, new in patches:
+        if old not in text:
+            raise RuntimeError(f"a patch of {stem}.cu no longer matches: "
+                               f"{old[:60]!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_copies(copies, out_dir: Path) -> Dict[str, ctypes.CDLL]:
+    """Copies of kernel sources for the timing tools: ``{name: (source
+    text, extra nvcc flags)}`` compiled with ``NVCC_FLAGS`` against
+    ``csrc/``'s headers into ``out_dir``, one nvcc process a copy, all at
+    once, and loaded: ``{name: library}``.  A copy already built from the
+    same text and flags loads straight away; a failed build raises with
+    nvcc's output."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (text, flags) in copies.items():
+        key = hashlib.sha256("\0".join([_digest(), *flags, text]).encode())
+        lib = out_dir / f"lib{name}-{key.hexdigest()[:16]}.so"
+        proc = None
+        if not lib.exists():
+            src = out_dir / f"{name}.cu"
+            src.write_text(text)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            proc = (subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o",
+                 str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                tmp)
+        procs[name] = (proc, lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        if proc is not None:
+            out, err = proc[0].communicate()
+            if proc[0].returncode:
+                raise RuntimeError(f"nvcc failed on the copy {name!r} (exit "
+                                   f"{proc[0].returncode}):\n{out}{err}")
+            os.replace(proc[1], lib)
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise when a C entry point of ``lib`` returned a CUDA error code."""
     if err != 0:

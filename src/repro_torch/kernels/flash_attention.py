@@ -32,14 +32,26 @@ launches a kernel or raises.  `decode_partials_plain` and
 `combine_partials` spell out the split-kv kernel's arithmetic in plain
 PyTorch for the tests.
 
-The backward (`flash_attention_backward`, ``csrc/flash_attention_bwd.cu``)
-has no Pallas counterpart: the JAX package trains through XLA's
-``chunked_attention``.  Two launches recompute each row's log-sum-exp and
-``D = rowsum(P o dP)`` and accumulate dQ, then dK and dV with the GQA sum
-inside the block, in float32 FMA (see the source).  `FlashAttentionFn`
-puts the forward kernel and this backward behind autograd;
-``ops.flash_attention`` takes it only when gradients are asked for.
-`flash_attention_backward_plain` spells out the same arithmetic.
+Asked with ``return_lse=True``, every kernel also writes each row's
+log-sum-exp (float32 (B, Hq, Sq), natural units with the scale folded in,
+-inf on a row with no kept key); only `FlashAttentionFn` asks, so the
+serving paths keep their arithmetic and their launches.
+
+The backward (`flash_attention_backward`) has no Pallas counterpart: the
+JAX package trains through XLA's ``chunked_attention``.  It reads the
+forward's log-sum-exp and never recomputes it.  Two routes, chosen by dtype
+and head dim alone (`backward_route`), each two launches (dQ with ``D =
+rowsum(P o dP)``, then dK and dV with the GQA sum inside the block):
+
+- ``bwd_wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``): bf16 at head dim
+  64 or 128 — TMA and bf16 ``wgmma`` products with float32 accumulation,
+  D summed in float32 before dS is formed and rounded.
+- ``bwd_fma`` (``csrc/flash_attention_bwd.cu``): head dims 16, 32, 256 and
+  float32 — float32 FMA from shared memory.
+
+`FlashAttentionFn` puts the forward kernel and this backward behind
+autograd; ``ops.flash_attention`` takes it only when gradients are asked
+for.  `flash_attention_backward_plain` spells out the function.
 """
 
 from __future__ import annotations
@@ -79,21 +91,26 @@ launches_by_kernel: Dict[str, int] = {"prefill_wgmma": 0,
                                       "decode_splitkv": 0, "fma": 0}
 
 #: Backward calls that launched the backward kernels on the card (two
-#: launches a call: dQ with the log-sum-exp, then dK and dV).
+#: launches a call: dQ and D, then dK and dV), in all and by route.
 bwd_launches = 0
+bwd_launches_by_kernel: Dict[str, int] = {"bwd_wgmma": 0, "bwd_fma": 0}
 
 _KIND = {"fma": 0, "decode_splitkv": 1, "prefill_wgmma": 2}
-# FlashArgs of csrc/flash_attention.cu: q, k, v, o, part, counters, stream;
-# the nine strides; b, hq, hkv, sq, skv, dh, causal, has_window, window,
-# n_split, split_keys, is_bf16, vec; scale
-_ARGS = struct.Struct("@7Q9q13if")
-# BwdArgs of csrc/flash_attention_bwd.cu: q, k, v, dout, dq, dk, dv, lse,
+# FlashArgs of csrc/flash_attention.cu: q, k, v, o, part, counters, lse,
+# stream; the nine strides; b, hq, hkv, sq, skv, dh, causal, has_window,
+# window, n_split, split_keys, is_bf16, vec; scale
+_ARGS = struct.Struct("@8Q9q13if")
+# BwdArgs of csrc/flash_attention_bwd.cuh: q, k, v, dout, dq, dk, dv, lse,
 # delta, stream; the strides of q, k, v and dout (batch, head, position);
 # b, hq, hkv, sq, skv, dh, causal, has_window, window, is_bf16; scale
 _BWD_ARGS = struct.Struct("@10Q12q10id")
+# the backward routes' libraries and C entries
+_BWD_LIBS = {"bwd_fma": ("flash_attention_bwd", "flash_attention_backward"),
+             "bwd_wgmma": ("flash_attention_bwd_wgmma",
+                           "flash_attention_backward_wgmma")}
 _lib = None
 _fn = None
-_bwd = None
+_bwd: Dict[str, tuple] = {}
 _local = threading.local()        # a packing buffer for each thread
 # per device: (int32 counters, all 0 between launches; float32 scratch)
 _workspace: Dict[int, Tuple[Tensor, Tensor]] = {}
@@ -143,12 +160,22 @@ def decode_splits(b: int, hkv: int, skv: int) -> Tuple[int, int]:
     return max(1, math.ceil(skv / split_keys)), split_keys
 
 
+def backward_route(dtype: torch.dtype, dh: int) -> str:
+    """The backward kernels a call goes to, from its dtype and head dim."""
+    if dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS:
+        return "bwd_wgmma"
+    return "bwd_fma"
+
+
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           causal: bool = False, window: Optional[int] = None,
-                          scale: Optional[float] = None) -> Tensor:
-    """The kernels' function in plain PyTorch (any device)."""
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
+    """The kernels' function in plain PyTorch (any device); with
+    ``return_lse``, (out, lse): each row's float32 log-sum-exp of its kept
+    scores, as the kernels write it, -inf on a row with no kept key."""
     return flash_attention_ref(q, k, v, causal=causal, window=window,
-                               scale=scale)
+                               scale=scale, return_lse=return_lse)
 
 
 def decode_partials_plain(q: Tensor, k: Tensor, v: Tensor, *,
@@ -249,7 +276,7 @@ def _workspace_for(dev: torch.device, n_pairs: int, n_floats: int):
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
                     window: Optional[int] = None,
-                    scale: Optional[float] = None) -> Tensor:
+                    scale: Optional[float] = None, return_lse: bool = False):
     """Fused attention.  q: (B, Hq, Sq, Dh); k, v: (B, Hkv, Skv, Dh).
 
     Args:
@@ -257,22 +284,29 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
               to the end of kv (row i at position ``i + Skv - Sq``).
       window: keep only the last ``window`` positions (None: no window).
       scale:  score scale, ``Dh ** -0.5`` unless given.
+      return_lse: also return each row's log-sum-exp (the backward's input).
 
     Returns (B, Hq, Sq, Dh) contiguous, in q's dtype; a row with nothing to
-    attend is 0.  The split-kv decode kernel keeps per-device scratch, so
-    calls on one device are issued on one stream at a time.
+    attend is 0.  With ``return_lse``, (out, lse): lse float32 (B, Hq, Sq),
+    -inf on a row with no kept key.  The split-kv decode kernel keeps
+    per-device scratch, so calls on one device are issued on one stream at
+    a time.
     """
     devices = (q.device, k.device, v.device)
     if _build.off_card(*devices):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
+                                     scale=scale, return_lse=return_lse)
     global launches
     _check(q, k, v, devices)
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dev = devices[0]
     out = torch.empty((b, hq, sq, dh), dtype=q.dtype, device=dev)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if out.numel() == 0:
+        if lse is not None:
+            return out, lse.fill_(float("-inf"))
         return out
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
@@ -301,6 +335,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     fn = _kernel()
     buf, addr = _args_buffer()
     _ARGS.pack_into(buf, 0, *ptrs, out.data_ptr(), part, counters,
+                    0 if lse is None else lse.data_ptr(),
                     torch._C._cuda_getCurrentRawStream(dev.index), *strides,
                     b, hq, hkv, sq, skv, dh, int(causal), window is not None,
                     0 if window is None else int(window), n_split, split_keys,
@@ -308,40 +343,42 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     _build.check(_lib, fn(addr, _KIND[kind]), f"flash_attention ({kind})")
     launches += 1
     launches_by_kernel[kind] += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 # ---------------------------------------------------------------- backward --
 
-def _bwd_kernel():
-    global _bwd
-    if _bwd is None:
-        lib = _build.library("flash_attention_bwd")
-        size = lib.flash_attention_backward_args_size
+def _bwd_kernel(kind: str):
+    """(library, C entry) of backward route ``kind``, loaded at first use."""
+    if kind not in _bwd:
+        stem, entry = _BWD_LIBS[kind]
+        lib = _build.library(stem)
+        size = getattr(lib, entry + "_args_size")
         size.argtypes, size.restype = [], ctypes.c_int
         if size() != _BWD_ARGS.size:
-            raise RuntimeError(f"flash_attention_bwd: the library's argument "
-                               f"block is {size()} bytes, the wrapper packs "
+            raise RuntimeError(f"{stem}: the library's argument block is "
+                               f"{size()} bytes, the wrapper packs "
                                f"{_BWD_ARGS.size}")
-        fn = lib.flash_attention_backward_launch
+        fn = getattr(lib, entry + "_launch")
         fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
-        _bwd = (lib, fn)
-    return _bwd
+        _bwd[kind] = (lib, fn)
+    return _bwd[kind]
 
 
 def flash_attention_backward_plain(
-    q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
-    causal: bool = False, window: Optional[int] = None,
+    q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Optional[Tensor] = None,
+    *, causal: bool = False, window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """The backward kernels' arithmetic in plain PyTorch (any device).
+    """The backward's function in plain PyTorch (any device).
 
     float32 throughout: s = scale q.k over the kept keys, lse its
-    log-sum-exp, P = exp(s - lse) (0 on masked keys and on rows with no
-    kept key), dV = P^T dO, dP = dO V^T, D = rowsum(P o dP), dS = P o (dP
-    - D), dQ = scale dS K, dK = scale dS^T Q; the q heads of a group summed
-    into their kv head.  The derivative of the unrounded softmax.  Returns
-    (dq, dk, dv) in the inputs' dtypes."""
+    log-sum-exp (``lse`` as the forward wrote it, or computed here when
+    None), P = exp(s - lse) (0 on masked keys and on rows with no kept
+    key), dV = P^T dO, dP = dO V^T, D = rowsum(P o dP), dS = P o (dP - D),
+    dQ = scale dS K, dK = scale dS^T Q; the q heads of a group summed into
+    their kv head.  The derivative of the unrounded softmax.  Returns (dq,
+    dk, dv) in the inputs' dtypes."""
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -359,7 +396,8 @@ def flash_attention_backward_plain(
         keep &= k_pos > q_pos - window
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     s = s.masked_fill(~keep, float("-inf"))
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    lse = (torch.logsumexp(s, dim=-1) if lse is None
+           else lse.float())[..., None]
     p = torch.where(keep & torch.isfinite(lse), torch.exp(s - lse),
                     torch.zeros_like(s))
     dv = torch.matmul(p.transpose(-1, -2), dof)
@@ -374,24 +412,44 @@ def flash_attention_backward_plain(
     return dq.to(q.dtype), group_sum(dk).to(k.dtype), group_sum(dv).to(v.dtype)
 
 
+def _tma_ready(x: Tensor) -> Tuple[Tensor, Tuple[int, int, int]]:
+    """``x`` (or a contiguous copy where a pointer or stride is not 16-byte
+    aligned, as TMA needs) and its (batch, head, position) element strides,
+    a size-1 axis given the tensor's span (its stride is never used, and
+    the span keeps the strides in order)."""
+    def strides(t):
+        span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+        span = -(-span // 8) * 8
+        return tuple(st if n > 1 else span
+                     for n, st in zip(t.shape[:3], t.stride()[:3]))
+    st = strides(x)
+    if x.data_ptr() % 16 or any(v % 8 for v in st) or x.stride(3) != 1:
+        x = x.clone(memory_format=torch.contiguous_format)
+        st = strides(x)
+    return x, st
+
+
 def flash_attention_backward(
-    q: Tensor, k: Tensor, v: Tensor, do: Tensor, *,
+    q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Optional[Tensor], *,
     causal: bool = False, window: Optional[int] = None,
     scale: Optional[float] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Gradients (dq, dk, dv) of `flash_attention` at (q, k, v), given the
     output's gradient ``do`` ((B, Hq, Sq, Dh) of q's dtype, unit stride on
-    the head dim or copied to it).
+    the head dim or copied to it) and the forward's ``lse`` (float32 (B,
+    Hq, Sq), from ``flash_attention(..., return_lse=True)``).
 
     Covers what the forward covers: float32 and bf16, head dims
     `HEAD_DIMS`, groups up to `MAX_GROUP`, causal and windowed masks
     aligned to the end of kv, K and V by strides, any positive scale.
     Returns dq (B, Hq, Sq, Dh) and dk, dv (B, Hkv, Skv, Dh), contiguous, in
-    the inputs' dtype.  CPU tensors go to `flash_attention_backward_plain`;
-    on a CUDA tensor the kernels launch or the call raises."""
+    the inputs' dtype.  CPU tensors go to `flash_attention_backward_plain`
+    (``lse`` may be None there); on a CUDA tensor the kernels of
+    `backward_route` launch or the call raises, and ``lse`` is required:
+    no kernel recomputes it."""
     devices = (q.device, k.device, v.device)
     if _build.off_card(*devices, do):
-        return flash_attention_backward_plain(q, k, v, do, causal=causal,
+        return flash_attention_backward_plain(q, k, v, do, lse, causal=causal,
                                               window=window, scale=scale)
     global bwd_launches
     _check(q, k, v, devices)
@@ -403,6 +461,14 @@ def flash_attention_backward(
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     dev = q.device
+    if lse is None or lse.shape != (b, hq, sq) or lse.dtype != torch.float32 \
+            or lse.device != dev:
+        got = None if lse is None else (tuple(lse.shape), lse.dtype,
+                                        lse.device)
+        raise ValueError(
+            f"lse must be the forward's float32 {(b, hq, sq)} on {dev} "
+            f"(flash_attention(..., return_lse=True)), got {got}")
+    lse = lse.contiguous()
     dq = torch.empty((b, hq, sq, dh), dtype=q.dtype, device=dev)
     dk = torch.empty((b, hkv, skv, dh), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
@@ -410,37 +476,45 @@ def flash_attention_backward(
         return dq.zero_(), dk.zero_(), dv.zero_()
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
-    ws = torch.empty((2, b * hq * sq), dtype=torch.float32, device=dev)
-    lib, fn = _bwd_kernel()
+    kind = backward_route(q.dtype, dh)
+    if kind == "bwd_wgmma":
+        (q, st_q), (k, st_k), (v, st_v), (do, st_do) = (
+            _tma_ready(x) for x in (q, k, v, do))
+    else:
+        st_q, st_k, st_v, st_do = (x.stride()[:3] for x in (q, k, v, do))
+    delta = torch.empty(b * hq * sq, dtype=torch.float32, device=dev)
+    lib, fn = _bwd_kernel(kind)
     buf = ctypes.create_string_buffer(_BWD_ARGS.size)
     _BWD_ARGS.pack_into(
         buf, 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws[0].data_ptr(),
-        ws[1].data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        b, hq, hkv, sq, skv, dh, int(causal),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index),
+        *st_q, *st_k, *st_v, *st_do, b, hq, hkv, sq, skv, dh, int(causal),
         window is not None, 0 if window is None else int(window),
         q.dtype == torch.bfloat16, float(scale))
-    _build.check(lib, fn(ctypes.addressof(buf)), "flash_attention_backward")
+    _build.check(lib, fn(ctypes.addressof(buf)),
+                 f"flash_attention_backward ({kind})")
     bwd_launches += 1
+    bwd_launches_by_kernel[kind] += 1
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """`flash_attention` (the forward kernel, unchanged) with
-    `flash_attention_backward` as its gradient."""
+    """`flash_attention` (the forward kernel, asked for its log-sum-exp)
+    with `flash_attention_backward` as its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        ctx.save_for_backward(q, k, v)
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.mask = (causal, window, scale)
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               scale=scale)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, lse = ctx.saved_tensors
         causal, window, scale = ctx.mask
-        dq, dk, dv = flash_attention_backward(q, k, v, do, causal=causal,
+        dq, dk, dv = flash_attention_backward(q, k, v, do, lse, causal=causal,
                                               window=window, scale=scale)
         return dq, dk, dv, None, None, None

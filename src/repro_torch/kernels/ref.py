@@ -135,7 +135,8 @@ def pq_ivf_scan_ref(
 def flash_attention_ref(
     q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     window: Optional[int] = None, scale: Optional[float] = None,
-) -> Tensor:
+    return_lse: bool = False,
+):
     """Dense softmax attention with the flash kernel's rules.
 
     Args:
@@ -150,12 +151,18 @@ def flash_attention_ref(
     rounded to v's dtype before the product with V and the row sum is taken
     over the unrounded weights; the output is ``(p V) / max(l, 1e-30)`` in
     q's dtype, so a row with nothing to attend gives 0 (the JAX package's
-    ``flash_attention_ref`` uses -inf and gives NaN there).
+    ``flash_attention_ref`` uses -inf and gives NaN there).  With
+    ``return_lse``, (out, lse): lse the float32 (B, Hq, Sq) log-sum-exp of
+    each row's kept scores from the same scores, -inf on a row with none.
     """
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if skv == 0:                                  # nothing to attend
-        return torch.zeros_like(q)
+        out = torch.zeros_like(q)
+        if return_lse:
+            return out, torch.full((b, hq, sq), float("-inf"),
+                                   device=q.device)
+        return out
     if hkv != hq:
         k = k.repeat_interleave(hq // hkv, dim=1)
         v = v.repeat_interleave(hq // hkv, dim=1)
@@ -170,12 +177,15 @@ def flash_attention_ref(
         mask &= k_pos <= q_pos
     if window is not None:
         mask &= k_pos > q_pos - window
+    lse = (torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+           if return_lse else None)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     pv = torch.matmul(p.to(v.dtype).to(torch.float32), v.to(torch.float32))
-    return (pv / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = (pv / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
 def embedding_bag_ref(

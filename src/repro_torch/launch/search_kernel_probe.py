@@ -45,29 +45,13 @@ PATCHES = {
 
 def _build_patched():
     """{name: (library, flat entry)} of every patched copy."""
-    src = (_build.CSRC / "pq_scan.cu").read_text()
-    out_dir = _build.BUILD_DIR.parent / "kernel_probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, reps in PATCHES.items():
-        text = src
-        for old, new in reps:
-            if old not in text:
-                raise RuntimeError(f"patch {name!r} no longer matches the source")
-            text = text.replace(old, new)
-        path = out_dir / f"pq_scan_{name}.cu"
-        path.write_text(text)
-        lib = out_dir / f"libpq_scan_{name}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-o", str(lib), str(path)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True), lib)
+    built = _build.build_copies(
+        {f"pq_scan_{name}": (_build.patched("pq_scan", reps), ())
+         for name, reps in PATCHES.items()},
+        _build.BUILD_DIR.parent / "kernel_probe")
     libs = {}
-    for name, (proc, lib) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the {name!r} copy:\n{err}")
-        dll = ctypes.CDLL(str(lib))
+    for name in PATCHES:
+        dll = built[f"pq_scan_{name}"]
         fn = dll.pq_scan_topk_launch
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])

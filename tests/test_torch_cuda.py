@@ -1745,10 +1745,17 @@ class TestFlashBackwardOnCard:
         q, k = rnd(b, hq, sq, dh), rnd(b, hkv, skv, dh)
         v = rnd(b, skv, hkv, dh).transpose(1, 2) if v_t else rnd(b, hkv, skv, dh)
         do = rnd(b, hq, sq, dh)
-        before = flash_attention.bwd_launches
+        _, lse = flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window, scale=scale,
+            return_lse=True)
+        kind = flash_attention.backward_route(dtype, dh)
+        before = (flash_attention.bwd_launches,
+                  flash_attention.bwd_launches_by_kernel[kind])
         got = flash_attention.flash_attention_backward(
-            q, k, v, do, causal=causal, window=window, scale=scale)
-        assert flash_attention.bwd_launches == before + 1
+            q, k, v, do, lse, causal=causal, window=window, scale=scale)
+        assert (flash_attention.bwd_launches,
+                flash_attention.bwd_launches_by_kernel[kind]) == \
+            (before[0] + 1, before[1] + 1)
         want = flash_attention.flash_attention_backward_plain(
             q, k, v, do, causal=causal, window=window, scale=scale)
         for name, x, y in zip(("dq", "dk", "dv"), got, want):
@@ -1771,7 +1778,9 @@ class TestFlashBackwardOnCard:
             torch.bfloat16)
         do = torch.randn((1, 8, 256, 64), generator=g, device=cuda).to(
             torch.bfloat16)
-        got = flash_attention.flash_attention_backward(q, k, v, do,
+        _, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                                 return_lse=True)
+        got = flash_attention.flash_attention_backward(q, k, v, do, lse,
                                                        causal=True)
         exact = [x.float().requires_grad_(True) for x in (q, k, v)]
         out = torch.nn.functional.scaled_dot_product_attention(
@@ -1804,6 +1813,120 @@ class TestFlashBackwardOnCard:
         ref.backward(torch.ones_like(ref))
         for x, y in ((qs, qr), (ks, kr), (vs, vr)):
             assert _rel_err(x.grad, y.grad) <= 1e-4
+
+
+def _flash_bwd_inputs(dev, b, hq, hkv, sq, skv, dh, v_t, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, k = rnd(b, hq, sq, dh), rnd(b, hkv, skv, dh)
+    v = rnd(b, skv, hkv, dh).transpose(1, 2) if v_t else rnd(b, hkv, skv, dh)
+    return q, k, v, rnd(b, hq, sq, dh)
+
+
+@pytest.mark.cuda
+class TestFlashBackwardWgmmaOnCard:
+    """Route ``bwd_wgmma`` (bf16, head dims 64 and 128) against the plain
+    version, which computes its own log-sum-exp, within ``FLASH_BWD_TOL``;
+    the forward kernels' log-sum-exp against the plain one."""
+
+    @pytest.mark.parametrize(
+        "b,hq,hkv,sq,skv,dh,causal,window,v_t", [
+            (1, 4, 4, 128, 128, 64, False, None, False),     # group 1
+            (2, 8, 2, 100, 100, 64, True, None, False),      # group 4, tails
+            (1, 24, 2, 300, 300, 128, True, None, True),     # group 12, v view
+            (1, 16, 1, 130, 90, 64, True, None, False),      # group 16, Sq > Skv
+            (1, 8, 2, 77, 150, 64, False, 40, False),        # window alone
+            (1, 12, 1, 70, 70, 128, True, 16, True),         # causal + window
+            (2, 16, 4, 1000, 1234, 64, False, 300, False),   # chip_smoke's row
+            (1, 4, 1, 190, 250, 128, True, 100, False),
+            (1, 8, 2, 1, 40, 128, True, None, False),        # a decode shape
+        ])
+    def test_matches_plain(self, cuda, b, hq, hkv, sq, skv, dh, causal,
+                           window, v_t):
+        q, k, v, do = _flash_bwd_inputs(cuda, b, hq, hkv, sq, skv, dh, v_t,
+                                        sq + skv + hq)
+        assert flash_attention.backward_route(q.dtype, dh) == "bwd_wgmma"
+        _, lse = flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        got = flash_attention.flash_attention_backward(
+            q, k, v, do, lse, causal=causal, window=window)
+        want = flash_attention.flash_attention_backward_plain(
+            q, k, v, do, causal=causal, window=window)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            assert x.shape == y.shape and x.dtype == torch.bfloat16, name
+            assert bool(torch.isfinite(x).all()), name
+            assert _rel_err(x, y) <= FLASH_BWD_TOL[torch.bfloat16], \
+                (name, _rel_err(x, y))
+
+    def test_two_calls_bit_equal(self, cuda):
+        """No atomics: the same call twice gives the same bits."""
+        q, k, v, do = _flash_bwd_inputs(cuda, 1, 24, 2, 1000, 1000, 128,
+                                        True, 5)
+        _, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                                 return_lse=True)
+        first = flash_attention.flash_attention_backward(q, k, v, do, lse,
+                                                         causal=True)
+        second = flash_attention.flash_attention_backward(q, k, v, do, lse,
+                                                          causal=True)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,dh,dtype,causal,window,kind", [
+        (2, 8, 2, 100, 100, 128, torch.bfloat16, True, None, "prefill_wgmma"),
+        (1, 12, 1, 70, 90, 64, torch.bfloat16, True, 16, "prefill_wgmma"),
+        (1, 8, 2, 1, 543, 128, torch.bfloat16, True, None, "decode_splitkv"),
+        (1, 4, 4, 16, 40, 64, torch.float32, True, None, "decode_splitkv"),
+        (1, 4, 2, 90, 90, 256, torch.bfloat16, True, 40, "fma"),
+        (1, 3, 1, 50, 120, 128, torch.float32, False, 30, "fma"),
+        (1, 4, 2, 80, 40, 64, torch.float32, True, None, "fma"),  # empty rows
+    ])
+    def test_lse_of_each_forward_kernel(self, cuda, b, hq, hkv, sq, skv, dh,
+                                        dtype, causal, window, kind):
+        """Each forward kernel's log-sum-exp within 1e-5 of max(1, |plain|),
+        -inf on the same rows (no kept key); the output as without it."""
+        g = torch.Generator(device=cuda).manual_seed(sq * skv + dh)
+        q = torch.randn((b, hq, sq, dh), generator=g, device=cuda).to(dtype)
+        k = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(dtype)
+        v = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(dtype)
+        assert flash_attention.route(dtype, dh, sq, hq // hkv, skv) == kind
+        before = flash_attention.launches_by_kernel[kind]
+        out, lse = flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        assert flash_attention.launches_by_kernel[kind] == before + 1
+        _, want = flash_attention.flash_attention_plain(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+        live = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(lse), live)
+        assert torch.equal(lse[~live], want[~live])
+        err = ((lse - want).abs() / want.abs().clamp(min=1.0))[live]
+        assert float(err.max()) <= 1e-5
+        assert torch.equal(out, flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window))
+
+    def test_launches_by_route(self, cuda):
+        """One call counts one launch on its route and none on the other."""
+        for dtype, dh, kind in ((torch.bfloat16, 128, "bwd_wgmma"),
+                                (torch.bfloat16, 256, "bwd_fma"),
+                                (torch.float32, 64, "bwd_fma")):
+            q, k, v, do = (x.to(dtype) for x in _flash_bwd_inputs(
+                cuda, 1, 4, 2, 96, 96, dh, False, dh))
+            _, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                                     return_lse=True)
+            before = dict(flash_attention.bwd_launches_by_kernel)
+            flash_attention.flash_attention_backward(q, k, v, do, lse,
+                                                     causal=True)
+            after = flash_attention.bwd_launches_by_kernel
+            assert after[kind] == before[kind] + 1
+            assert sum(after.values()) == sum(before.values()) + 1
+
+    def test_lse_required(self, cuda):
+        q, k, v, do = _flash_bwd_inputs(cuda, 1, 4, 2, 64, 64, 64, False, 3)
+        with pytest.raises(ValueError, match="lse"):
+            flash_attention.flash_attention_backward(q, k, v, do, None,
+                                                     causal=True)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""The split-kv decode arithmetic and the flash-attention dispatch rule, on
-the CPU.
+"""The split-kv decode arithmetic, the flash-attention dispatch rules and
+the log-sum-exp the forward hands to the backward, on the CPU.
 
 ``decode_partials_plain`` / ``combine_partials`` spell out in plain PyTorch
 what the CUDA split-kv decode kernel computes: a partial (m, l, acc) per
@@ -12,7 +12,10 @@ held against the plain version on the card in ``test_torch_cuda.py``.
 Tolerance: float32 ``2e-4`` (the JAX package's own; the splits rescale at
 other points than one softmax); bfloat16 ``5e-2``, as the JAX package's
 ``TestFlashAttention.test_bf16`` (p is rounded relative to each split's
-max, the Pallas kernel's relative to its tile's).
+max, the Pallas kernel's relative to its tile's).  The plain log-sum-exp
+(``flash_attention_plain(..., return_lse=True)``) is held to
+``jax.nn.logsumexp`` of the JAX reference's masked scores within ``1e-5``
+(float32, another summation order), -inf on the same rows.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import ref as jref
@@ -174,3 +178,166 @@ class TestDispatch:
         assert (tfa.launches, tfa.launches_by_kernel) == before
         torch.testing.assert_close(
             got, tfa.flash_attention_plain(q, k, v, causal=True))
+
+
+def _jax_masked_scores(q, k, causal, window):
+    """The JAX reference's scores (``repro.kernels.ref.flash_attention_ref``:
+    kv heads repeated, scale dh ** -0.5, queries aligned to the end of kv,
+    -inf where masked)."""
+    q, k = jnp.asarray(q), jnp.asarray(k)
+    b, hq, sq, dh = q.shape
+    k = jnp.repeat(k, hq // k.shape[1], axis=1)
+    skv = k.shape[2]
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k,
+                   preferred_element_type=jnp.float32) / (dh ** 0.5)
+    qpos = jnp.arange(sq)[:, None] + (skv - sq)
+    kpos = jnp.arange(skv)[None, :]
+    mask = jnp.ones((sq, skv), bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return jnp.where(mask[None, None], s, -jnp.inf)
+
+
+# b, hq, hkv, sq, skv, dh, causal, window: groups 1, 4, 12; Sq != Skv both
+# ways; windows with and without the causal mask; rows with no kept key
+LSE_CASES = [
+    (2, 4, 4, 24, 24, 16, True, None),
+    (1, 8, 2, 9, 30, 16, True, None),
+    (1, 12, 1, 20, 20, 8, True, 5),
+    (1, 4, 1, 12, 17, 8, False, 6),
+    (1, 24, 2, 16, 40, 8, False, None),
+    (1, 4, 2, 10, 4, 8, True, None),       # Sq > Skv: six rows keep no key
+    (1, 12, 4, 30, 30, 16, False, 1),      # a window of one key
+]
+
+
+class TestLogSumExp:
+    @pytest.mark.parametrize("case", LSE_CASES)
+    def test_plain_lse_matches_jax_logsumexp(self, case):
+        b, hq, hkv, sq, skv, dh, causal, window = case
+        q, k, v = _qkv(len(LSE_CASES) + sq * skv, b, hq, hkv, sq, skv, dh)
+        want = np.asarray(jax.nn.logsumexp(
+            _jax_masked_scores(q, k, causal, window), axis=-1))
+        tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+        out, got = tfa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                             window=window, return_lse=True)
+        assert got.shape == (b, hq, sq) and got.dtype == torch.float32
+        got = got.numpy()
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(got[~fin], want[~fin])
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+        assert torch.equal(out, tfa.flash_attention_plain(
+            tq, tk, tv, causal=causal, window=window))
+        # the wrapper on CPU tensors hands back the same pair, no launch
+        before = (tfa.launches, dict(tfa.launches_by_kernel))
+        out2, lse2 = tfa.flash_attention(tq, tk, tv, causal=causal,
+                                         window=window, return_lse=True)
+        assert (tfa.launches, tfa.launches_by_kernel) == before
+        assert torch.equal(out2, out) and np.array_equal(lse2.numpy(), got)
+
+    def test_scale_and_bf16(self):
+        """A given scale, and bf16 inputs: lse is the float32 log-sum-exp
+        of the float32 scores of the bf16 values."""
+        q, k, v = _qkv(4, 1, 4, 2, 12, 12, 16)
+        tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v))
+        _, got = tfa.flash_attention_plain(tq, tk, tv, causal=True, scale=0.3,
+                                           return_lse=True)
+        s = _jax_masked_scores(tq.float().numpy(), tk.float().numpy(), True,
+                               None) * (0.3 * 16 ** 0.5)
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(jax.nn.logsumexp(s, axis=-1)),
+                                   rtol=1e-5, atol=1e-5)
+        assert got.dtype == torch.float32
+
+
+class TestBackwardRoute:
+    @pytest.mark.parametrize("dtype,dh,kind", [
+        (bf16, 64, "bwd_wgmma"), (bf16, 128, "bwd_wgmma"),
+        (bf16, 16, "bwd_fma"), (bf16, 32, "bwd_fma"), (bf16, 256, "bwd_fma"),
+        (f32, 64, "bwd_fma"), (f32, 128, "bwd_fma"), (f32, 256, "bwd_fma"),
+        (f32, 16, "bwd_fma"),
+    ])
+    def test_route(self, dtype, dh, kind):
+        """The tensor-core backward exactly for bf16 at the prefill
+        kernel's head dims (64, 128); the FMA kernels otherwise."""
+        assert tfa.backward_route(dtype, dh) == kind
+        assert (kind == "bwd_wgmma") == (dtype == bf16
+                                         and dh in tfa.WGMMA_HEAD_DIMS)
+        assert set(tfa.bwd_launches_by_kernel) == {"bwd_wgmma", "bwd_fma"}
+
+    def test_fma_source_holds_what_the_route_sends_it(self):
+        """``csrc/flash_attention_bwd.cu`` compiles the FMA kernels for
+        both types at the head dims of its switch and for float32 alone at
+        64 and 128: every (dtype, head dim) that `backward_route` sends to
+        ``bwd_fma`` is there, and bf16 at 64 / 128 (``bwd_wgmma``'s) is
+        not."""
+        import re
+
+        from repro_torch.kernels import _build
+
+        src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+        body = src[src.index("cudaError_t launch_dh("):]
+        body = body[:body.index("\n}\n")]
+        both = {int(d) for d in re.findall(r"case (\d+): return launch<", body)}
+        f32_only = {int(d) for d in re.findall(
+            r"if \(a\.dh == (\d+)\) return launch<", body)}
+        assert "std::is_same_v<T, float>" in body
+        assert both == {16, 32, 256} and f32_only == {64, 128}
+        for dh in tfa.HEAD_DIMS:
+            assert (tfa.backward_route(bf16, dh) == "bwd_fma") == (dh in both)
+            assert tfa.backward_route(f32, dh) == "bwd_fma"
+            assert dh in both | f32_only
+
+    @pytest.mark.parametrize("route,name", [
+        ("bwd_fma", "no_range"), ("bwd_fma", "k_range"),
+        ("bwd_fma", "touch_k"), ("bwd_fma", "prefetch_dq"),
+        ("bwd_fma", "prefetch"), ("bwd_fma", "dkdv_range")])
+    def test_timing_script_patches_match_the_kernel(self, route, name):
+        """The patched copies `launch/flash_bwd_time.py` builds still find
+        each text they replace, once, in the route's source."""
+        from repro_torch.kernels import _build
+        from repro_torch.launch.flash_bwd_time import PATCHES
+
+        assert set(PATCHES["bwd_fma"]) == {"no_range", "k_range", "touch_k",
+                                           "prefetch_dq", "prefetch",
+                                           "dkdv_range"}
+        stem = tfa._BWD_LIBS[route][0]
+        src = (_build.CSRC / f"{stem}.cu").read_text()
+        text = src
+        for old, new in PATCHES[route][name]:
+            assert text.count(old) == 1 and old != new
+            text = text.replace(old, new)
+        assert _build.patched(stem, PATCHES[route][name]) == text != src
+        with pytest.raises(RuntimeError, match="no longer matches"):
+            _build.patched(stem, [("no such text in the source", "")])
+
+
+class TestFlashAttentionFnLse:
+    @pytest.mark.parametrize("case", LSE_CASES)
+    def test_saves_lse_and_matches_autograd_of_plain(self, case):
+        """On CPU tensors the autograd Function runs the plain forward,
+        saves its log-sum-exp beside q, k and v, and its backward (given
+        that lse) equals autograd of the plain forward."""
+        b, hq, hkv, sq, skv, dh, causal, window = case
+        q, k, v = _qkv(sq + skv, b, hq, hkv, sq, skv, dh)
+        do = torch.from_numpy(np.random.default_rng(sq).normal(
+            size=(b, hq, sq, dh)).astype(np.float32))
+        fn = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+        out = tfa.FlashAttentionFn.apply(*fn, causal, window, None)
+        saved = out.grad_fn.saved_tensors
+        assert len(saved) == 4
+        _, lse = tfa.flash_attention_plain(*fn, causal=causal, window=window,
+                                           return_lse=True)
+        assert torch.equal(saved[3], lse)
+        before = (tfa.bwd_launches, dict(tfa.bwd_launches_by_kernel))
+        out.backward(do)
+        assert (tfa.bwd_launches, tfa.bwd_launches_by_kernel) == before
+        ref = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+        tfa.flash_attention_plain(*ref, causal=causal,
+                                  window=window).backward(do)
+        for f, r in zip(fn, ref):
+            torch.testing.assert_close(f.grad, r.grad, rtol=1e-4, atol=1e-5)

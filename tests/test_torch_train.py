@@ -504,6 +504,7 @@ ATTN_CASES = [  # b, hq, hkv, sq, skv, dh, causal, window
     (1, 4, 1, 20, 20, 16, True, 5),        # window, group 4
     (2, 2, 2, 12, 17, 8, False, 0),
     (1, 3, 3, 15, 15, 8, False, 4),        # window without causal
+    (1, 12, 1, 16, 21, 8, True, 6),        # group 12, Sq < Skv, window
 ]
 
 
@@ -528,6 +529,27 @@ class TestFlashBackwardPlain:
                                                  causal=causal, window=win)
         for name, g, w in zip("qkv", got, want):
             grad_close(g.numpy(), w, "d" + name)
+
+    @pytest.mark.parametrize("case", ATTN_CASES)
+    def test_given_forward_lse_matches_chunked_attention_vjp(self, case):
+        """Given the plain forward's log-sum-exp (what the kernels write),
+        as the card's backward is, instead of computing its own."""
+        b, hq, hkv, sq, skv, dh, causal, window = case
+        q, k, v, do = _attn_inputs(b, hq, hkv, sq, skv, dh, 3)
+        _, vjp = jax.vjp(lambda q_, k_, v_: JA.chunked_attention(
+            q_, k_, v_, causal=causal, window=window, block_q=8, block_k=8),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+        win = window or None
+        _, lse = tfa.flash_attention_plain(t(q), t(k), t(v), causal=causal,
+                                           window=win, return_lse=True)
+        got = tfa.flash_attention_backward_plain(t(q), t(k), t(v), t(do), lse,
+                                                 causal=causal, window=win)
+        for name, g, w in zip("qkv", got, want):
+            grad_close(g.numpy(), w, "d" + name)
+        again = tfa.flash_attention_backward_plain(t(q), t(k), t(v), t(do),
+                                                   causal=causal, window=win)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
     @pytest.mark.parametrize("case", ATTN_CASES + [(1, 2, 2, 10, 4, 8, True, 0)])
     def test_matches_autograd_of_plain_forward(self, case):
