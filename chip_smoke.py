@@ -126,8 +126,10 @@ in phases that each print one JSON line:
                  (the dense layer and 5 MoE layers of 60; MLA) at full width,
                  cut in depth to fit the card.  Flash launches are counted
                  by kernel and checked exactly (prefill on
-                 ``prefill_wgmma`` / ``fma``, decode on ``decode_splitkv``,
-                 none for MLA's absorbed decode); each family is
+                 ``prefill_wgmma`` — head dims 128, and 256 for Gemma3 and
+                 MLA's padded call —, none on ``fma``, decode on
+                 ``decode_splitkv``, none for MLA's absorbed decode);
+                 each family is
                  teacher-forced against its plain path as phase 7 is, with
                  the shifted-mask controls (and, for Gemma3, a local
                  layer's window widened by one key) failing the
@@ -136,7 +138,10 @@ in phases that each print one JSON line:
                  and held apart.  First, the flash kernel at the families'
                  new attention shapes (Gemma3's head dim 256 with and
                  without its window, its ring decode, MLA's prefill padded
-                 to 256) against its plain version, with SDPA and bounds
+                 to 256, each dh-256 prefill checked on ``prefill_wgmma``;
+                 a head-dim-256 group-4 call off the tiles with a window
+                 alone, with its log-sum-exp; Gemma3's global call twice,
+                 bit-equal) against its plain version, with SDPA and bounds
   8. recsys    — the recsys serving path at CONFIG width, random weights
                  from ``--seed``, one model at a time: two-tower retrieval
                  (4 + 4 fields of 1M x 256 rows, towers 1024-1024-512-256)
@@ -214,7 +219,8 @@ in phases that each print one JSON line:
                  one key on the plain path, which must fail.  Gemma3-4B's
                  first 6 layers (5 windowed, 1 global) at full width, 2
                  steps of 2,048 tokens: the same kernel-vs-plain check at
-                 the initial weights, every backward on ``bwd_fma``.
+                 the initial weights, every forward on ``prefill_wgmma``
+                 (writing its log-sum-exp), every backward on ``bwd_fma``.
                  Two-tower retrieval whole (8 x 1M x 256 tables, batches
                  of 8,192, Matryoshka losses): its step-1 gradients against
                  the plain path's, 5 steps, the loss falls.  EGNN on
@@ -295,6 +301,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -361,10 +368,10 @@ LONG_PROMPT = 4096
 # Qwen3-MoE and DeepSeek-V2 are cut in depth to fit the card's 80 GB: 8
 # layers of 4.8 GB of bf16 experts; the dense layer and 5 MoE layers of 7.9.
 FAMILIES = (("starcoder2-3b", None, 256, "prefill_wgmma", "decode_splitkv"),
-            ("gemma3-4b", None, 1024, "fma", "decode_splitkv"),
+            ("gemma3-4b", None, 1024, "prefill_wgmma", "decode_splitkv"),
             ("qwen3-moe-235b-a22b", 8, 256, "prefill_wgmma",
              "decode_splitkv"),
-            ("deepseek-v2-236b", 6, 256, "fma", None))
+            ("deepseek-v2-236b", 6, 256, "prefill_wgmma", None))
 FAM_DOCS, FAM_QUERIES = 16_384, 16
 # Tolerances.  Flash kernel vs its plain version: float32 2e-4 (the JAX
 # package's own); bfloat16 2e-2, a small multiple of the 7.8e-3 (one bf16
@@ -625,6 +632,19 @@ def read_counts() -> dict:
     return out
 
 
+def prefill_ptxas(report: str) -> dict:
+    """{head dim: (registers, spill store bytes, spill load bytes)} of the
+    tensor-core prefill's instantiations in ptxas's report (``-v``) of
+    ``csrc/flash_attention.cu``; empty when the libraries were not built in
+    this process."""
+    out = {}
+    for m in re.finditer(r"Compiling entry function '\S*prefill_wgmmaILi(\d+)E"
+                         r"\S*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
+                         r"loads.*?Used (\d+) registers", report, re.S):
+        out[int(m[1])] = (int(m[4]), int(m[2]), int(m[3]))
+    return out
+
+
 def run(args) -> None:
     import torch
 
@@ -664,13 +684,31 @@ def run(args) -> None:
     ptxas = {stem: [ln.strip() for ln in rep.splitlines()
                     if "registers" in ln or "spill" in ln]
              for stem, rep in _build.ptxas_report.items()}
+    prefill = prefill_ptxas(_build.ptxas_report.get("flash_attention", ""))
+    if "flash_attention" in _build.ptxas_report and (
+            sorted(prefill) != [64, 128, 256]
+            or any(st or ld for _, st, ld in prefill.values())):
+        fail(f"the tensor-core prefill's ptxas report: {prefill} (head dim: "
+             f"registers, spill store and load bytes)")
+    plan = {}                  # the prefill's tiles, read from the build
+    if "flash_attention" in _build.ptxas_report:
+        from repro_torch.kernels import flash_attention as fa
+        names = ("rows", "keys", "q_stages", "k_stages", "v_stages",
+                 "smem_bytes")
+        for dh in fa.WGMMA_HEAD_DIMS:
+            built = fa.built_prefill_plan(dh)
+            if built != fa.prefill_plan(dh):
+                fail(f"the tensor-core prefill at head dim {dh} is built "
+                     f"with {built}, prefill_plan says {fa.prefill_plan(dh)}")
+            plan[dh] = dict(zip(names, built))
     emit({"phase": "device", "card": card,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "build_s": build_s, "nvcc_s": _build.build_seconds,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "prefill_wgmma_ptxas": prefill,
+          "prefill_wgmma_plan": plan})
 
     d_emb, d_start, k0, final_k = D_EMB, D_START, K0, FINAL_K
     sched = make_schedule(d_start, d_emb, k0, final_k=final_k)
@@ -2688,7 +2726,11 @@ def family_flash_rows(torch, dev) -> list:
     q / k of 192 and v of 128 zero-padded to 256, its bound reckoned from
     the unpadded tensors and products, SDPA run on the unpadded ones, and
     the kernel's output held to the plain version on the unpadded inputs
-    too."""
+    too.  Every head-dim-256 prefill must be served by ``prefill_wgmma``;
+    besides Gemma3's, a call of a group of 4 at head dim 256 with Sq !=
+    Skv, neither a multiple of 64, and a window without the causal mask;
+    the log-sum-exp of both held to the plain one (`flash_lse_check`), and
+    Gemma3's global call made twice, bit-equal."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_arch
@@ -2699,6 +2741,15 @@ def family_flash_rows(torch, dev) -> list:
     prompt = {arch: 2 * doc_len for arch, _, doc_len, _, _ in FAMILIES}
     g = torch.Generator(device=dev)
     g.manual_seed(13)
+
+    def on_route(row):
+        """A head-dim-256 bf16 prefill row, failed unless the tensor-core
+        prefill served it."""
+        if row["served_by"] != "prefill_wgmma":
+            fail(f"flash_attention {row['case']}: served by "
+                 f"{row['served_by']}, not prefill_wgmma")
+        return row
+
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     b = RAG_BATCH
 
@@ -2726,11 +2777,37 @@ def family_flash_rows(torch, dev) -> list:
                                  gm.rope_theta),
                                 ("gemma3_window_prefill", gm.window,
                                  gm.rope_theta_local)):
-        rows.append(flash_row(
-            torch, case, projected(s, gm.n_heads, gm.d_head, theta),
-            projected(s, gm.n_kv_heads, gm.d_head, theta),
-            rnd(b, s, gm.n_kv_heads, gm.d_head).transpose(1, 2),
-            causal=True, window=window, flush=flush))
+        qkv = (projected(s, gm.n_heads, gm.d_head, theta),
+               projected(s, gm.n_kv_heads, gm.d_head, theta),
+               rnd(b, s, gm.n_kv_heads, gm.d_head).transpose(1, 2))
+        row = on_route(flash_row(torch, case, *qkv, causal=True,
+                                 window=window, flush=flush))
+        if window is None:
+            _, row["lse_rel_err"] = flash_lse_check(
+                torch, case, *qkv, causal=True, window=None)
+            first = fa.flash_attention(*qkv, causal=True)
+            second = fa.flash_attention(*qkv, causal=True)
+            row["twice_bit_equal"] = bool(torch.equal(first, second))
+            if not row["twice_bit_equal"]:
+                fail(f"flash_attention {case}: two calls differ")
+            emit({"phase": "kernels", "case": f"{case}_twice",
+                  "served_by": row["served_by"], "calls": 2,
+                  "bit_equal": row["twice_bit_equal"],
+                  "lse_rel_err": row["lse_rel_err"]})
+            del first, second
+        rows.append(row)
+        del qkv
+    # head dim 256, a group of 4, Sq != Skv and neither a multiple of 64,
+    # a window without the causal mask
+    qkv = (rnd(2, 16, 1000, 256), rnd(2, 4, 1234, 256), rnd(2, 4, 1234, 256))
+    row = on_route(flash_row(torch, "dh256_group4_window", *qkv,
+                             causal=False, window=300, flush=flush))
+    _, row["lse_rel_err"] = flash_lse_check(
+        torch, "dh256_group4_window", *qkv, causal=False, window=300)
+    emit({"phase": "kernels", "case": "dh256_group4_window",
+          "lse_rel_err": row["lse_rel_err"]})
+    rows.append(row)
+    del qkv
     pos = s + RAG_NEW_TOKENS - 2                     # the last decode step
     ring = rnd(b, gm.n_kv_heads, gm.window, gm.d_head)
     ring_v = rnd(b, gm.n_kv_heads, gm.window, gm.d_head)
@@ -2755,10 +2832,10 @@ def family_flash_rows(torch, dev) -> list:
                   F.pad(v, (0, dh - dv)))
     kept = s * (s + 1) // 2
     n_ops = 2.0 * (dqk + dv) * b * h * kept
-    row = flash_row(torch, "mla_prefill_padded", qp, kp, vp, causal=True,
-                    window=None, scale=dqk ** -0.5, flush=flush,
-                    sdpa_inputs=(q, k, v), n_ops=n_ops,
-                    n_bytes=q.element_size() * b * h * s * (2 * dqk + 2 * dv))
+    row = on_route(flash_row(
+        torch, "mla_prefill_padded", qp, kp, vp, causal=True, window=None,
+        scale=dqk ** -0.5, flush=flush, sdpa_inputs=(q, k, v), n_ops=n_ops,
+        n_bytes=q.element_size() * b * h * s * (2 * dqk + 2 * dv)))
     got = fa.flash_attention(qp, kp, vp, causal=True,
                              scale=dqk ** -0.5)[..., :dv]
     want = fa.flash_attention_plain(q, k, v, causal=True, scale=dqk ** -0.5)
@@ -2772,6 +2849,7 @@ def family_flash_rows(torch, dev) -> list:
     emit({"phase": "kernels", "case": "mla_prefill_padded",
           "unpadded_max_abs_err": err, "unpadded_ops": n_ops,
           "padded_ops": row["padded_ops"]})
+    rows.append(row)
     del q, k, v, qp, kp, vp, got, want, flush
     torch.cuda.empty_cache()
     return rows
@@ -4174,6 +4252,26 @@ def grad_of(torch, fn, inputs, d_out):
     return call, call()
 
 
+def flash_lse_check(torch, case, q, k, v, *, causal, window, scale=None):
+    """The forward kernel's log-sum-exp (one call) against the plain one's:
+    finite on the same rows, within ``LSE_RTOL`` of max(1, |plain|) there.
+    Returns (the kernel's lse, its largest relative error)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    _, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                scale=scale, return_lse=True)
+    _, want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                       scale=scale, return_lse=True)
+    live = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(lse), live):
+        fail(f"flash {case}: the forward's lse is finite on other rows than "
+             f"the plain one's")
+    err = float(((lse - want).abs() / want.abs().clamp(min=1.0))[live].max())
+    if err > LSE_RTOL:
+        fail(f"flash {case}: forward lse off by {err}")
+    return lse, err
+
+
 def flash_bwd_row(torch, case, q, k, v, *, causal, window, route,
                   scale=None, flush=None) -> dict:
     """The flash backward kernels against their plain version on the card:
@@ -4196,20 +4294,8 @@ def flash_bwd_row(torch, case, q, k, v, *, causal, window, route,
     g = torch.Generator(device=q.device)
     g.manual_seed(sq + dh)
     do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
-    _, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                scale=scale, return_lse=True)
-    _, lse_want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                           window=window, scale=scale,
-                                           return_lse=True)
-    live = torch.isfinite(lse_want)
-    if not torch.equal(torch.isfinite(lse), live):
-        fail(f"flash backward {case}: the forward's lse is finite on other "
-             f"rows than the plain one's")
-    lse_err = float(((lse - lse_want).abs()
-                     / lse_want.abs().clamp(min=1.0))[live].max())
-    if lse_err > LSE_RTOL:
-        fail(f"flash backward {case}: forward lse off by {lse_err}")
-    del lse_want, live
+    lse, lse_err = flash_lse_check(torch, f"backward {case}", q, k, v,
+                                   causal=causal, window=window, scale=scale)
     kind = fa.backward_route(q.dtype, dh)
     if kind != route:
         fail(f"flash backward {case}: route {kind}, expected {route}")
@@ -4728,7 +4814,8 @@ def lm_train_run(torch, dev, seed) -> dict:
 
 def fma_lm_train_run(torch, dev, seed) -> dict:
     """Gemma3-4B at full width cut to its first ``TRAIN_FMA_LM`` layers
-    (five windowed, one global; head dim 256, so every backward takes
+    (five windowed, one global; head dim 256, so every forward takes
+    `prefill_wgmma`, writing its log-sum-exp, and every backward
     `bwd_fma`): the kernel path against the plain path at the initial
     weights on one sequence, then a few AdamW steps."""
     from repro_torch.checkpoint.ckpt import _leaves
@@ -4765,7 +4852,8 @@ def fma_lm_train_run(torch, dev, seed) -> dict:
     losses = [h["loss"] for h in loop.history]
     if not all(np.isfinite(losses)):
         fail(f"{arch} training: losses {losses}")
-    want = {"flash_attention.fma": 2 * n_layers * steps,
+    want = {"flash_attention.prefill_wgmma": 2 * n_layers * steps,
+            "flash_attention.fma": 0,
             "flash_attention_bwd.bwd_fma": n_layers * steps,
             "flash_attention_bwd.bwd_wgmma": 0}
     if any(counts[k] != n for k, n in want.items()):
@@ -5042,8 +5130,10 @@ def _scan_entry(name, source, replaces, launches, rows) -> dict:
 def _flash_entry(launches, rows, families) -> dict:
     """The kernels-line entry: the bf16 serving rows (prefill first, then
     decode and the 4k prompt), every case's largest error per type, the
-    main path's launches in all and by kernel; then the LM families'
-    launches by kernel and their rows (phase 7b)."""
+    main path's launches in all and by kernel, the routes (which kernel
+    takes which dtype and head dim, by name; the prefill's tiles are on
+    the device line); then
+    the LM families' launches by kernel and their rows (phase 7b)."""
     fam_launches, fam_rows = families
     rows = rows + fam_rows
     serve = {r["case"]: r for r in rows if r["dtype"] == "bfloat16"}
@@ -5073,8 +5163,14 @@ def _flash_entry(launches, rows, families) -> dict:
                        for k in keys + ("host_us_per_call",)},
             "prefill_4k": {k: serve["prefill_4k"][k] for k in keys},
             "float32": {c: {k: r[k] for k in keys} for c, r in f32.items()},
+            "routes": {
+                "prefill_wgmma": "bf16 prefill, head dims 64 / 128 / 256",
+                "decode_splitkv": "Sq * Hq / Hkv <= 64, bf16 and float32",
+                "fma": "float32 prefill, head dims 16 / 32, no keys"},
             "lm_families_launches": fam_launches,
-            "lm_families": {r["case"]: {k: r[k] for k in keys}
+            "lm_families": {r["case"]: {k: r[k] for k in keys + tuple(
+                                x for x in ("lse_rel_err", "twice_bit_equal")
+                                if x in r)}
                             for r in fam_rows}}
 
 

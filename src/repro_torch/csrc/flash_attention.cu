@@ -25,21 +25,28 @@
 // above the causal diagonal or left of the window are never read.  The
 // wrapper (kernels/flash_attention.py) picks the kernel by dtype and shape:
 //
-// 1. flash_attention_kernel_prefill_wgmma — bf16, head dim 64 or 128, more
-//    than one row tile.  Bound at Mistral-Nemo-12B's prefill (q (8,32,512,
-//    128), kv (8,8,512,128), causal): 84 MB of q, k, v and out, 25 us at
-//    3.35 TB/s, against 17 GFLOP of causal products, 17 us at 989 TFLOP/s,
-//    so bytes first and tensor-core issue close behind; within a tile the
-//    softmax's exponentials on the special-function unit (16 a clock an
-//    SM) take half as long as the products.  Design: persistent CTAs, one
-//    an SM, each walking (q tile, batch, kv head) work items heaviest first
-//    (the last positions first), so the causal tail does not form the last
-//    wave; a work item is 128 rows (32 positions x 4 heads at a group of
-//    4).  One thread of a producer warpgroup (which hands its registers to
-//    the consumers by setmaxnreg) loads the Q tile and then 128-key K and
-//    V tiles with TMA (cp.async.bulk.tensor, 128-byte swizzle) into rings
-//    of 2 Q, 2 K and 2 V tiles tracked by mbarriers.  Two consumer warpgroups
-//    of 64 rows each run S = Q K^T as wgmma.m64n128k16 from shared memory
+// 1. flash_attention_kernel_prefill_wgmma — bf16, head dim 64, 128 or 256,
+//    more than one row tile.  Bound at Mistral-Nemo-12B's prefill (q
+//    (8,32,512,128), kv (8,8,512,128), causal): 84 MB of q, k, v and out,
+//    25 us at 3.35 TB/s, against 17 GFLOP of causal products, 17 us at 989
+//    TFLOP/s, so bytes first and tensor-core issue close behind; within a
+//    tile the softmax's exponentials on the special-function unit (16 a
+//    clock an SM) take half as long as the products.  At head dim 256
+//    (Gemma3's 2,048-token prefill, q (8,8,2048,256), kv (8,4,·)) the
+//    products bound it: 137.5 GFLOP causal, 139 us, against 201 MB of
+//    bytes, 60 us; a score costs twice the products of dh 128 and the same
+//    exponential.  Design: persistent CTAs, one an SM, each walking (q
+//    tile, batch, kv head) work items heaviest first (the last positions
+//    first), so the causal tail does not form the last wave, or, where
+//    the (batch, kv head) pairs alone fill the grid (MLA's 1,024), in
+//    rounds that run all q tiles of a few pairs at once so their K and V
+//    are read from DRAM once (`prefill_item`); a work item is 128 rows
+//    (32 positions x 4 heads at a group of 4).  One thread of
+//    a producer warpgroup (which hands its registers to the consumers by
+//    setmaxnreg) loads the Q tile and then K and V tiles (128 keys at dh
+//    64 / 128, 64 at 256: `PfPlan`) with TMA (cp.async.bulk.tensor,
+//    128-byte swizzle) into rings tracked by mbarriers.  Two consumer
+//    warpgroups of 64 rows each run S = Q K^T as wgmma from shared memory
 //    (K stored [key][dh] is the K-major B operand), the online softmax in
 //    registers (exp2 with the scale folded in, masked scores at -inf so
 //    their weight is exactly 0), and O += P V as wgmma with P from
@@ -48,9 +55,12 @@
 //    bit); P V of tile n is issued with S of tile n + 1, so the tensor
 //    cores work while the other warpgroup runs its softmax.  Tensor maps
 //    are built on the host for each call from the strides (any multiple
-//    of 16 bytes).  The output is staged through shared memory and stored
-//    by TMA from a second producer thread, so the consumers go straight on
-//    to the next item, whose tiles the producer has already loaded.
+//    of 16 bytes).  At dh 64 / 128 the output is staged through shared
+//    memory and stored by TMA from a second producer thread, so the
+//    consumers go straight on to the next item, whose tiles the producer
+//    has already loaded; at 256 the rings fill 193 KB (one Q stage of 64
+//    KB, two K and two V tiles of 32 KB) and the consumers store their
+//    rows from registers.
 // 2. flash_attention_kernel_decode_splitkv — any call whose rows fit one
 //    64-row tile (Sq * rep <= 64: every decode step), bf16 or float32.
 //    Bound at the decode step (q (8,32,1,128), an (8,8,543,128) cache
@@ -65,8 +75,8 @@
 //    contributes m = -1e30, l = 0, which weighs 0 next to a split with
 //    keys and leaves a row with nothing to attend at 0.
 // 3. flash_attention_kernel — everything else: float32 prefill (tensor
-//    cores would mean TF32, beyond the 2e-4 float32 limit) and head dims
-//    16, 32 and 256.  The first version of this port: K and V widened to
+//    cores would mean TF32, beyond the 2e-4 float32 limit), head dims 16
+//    and 32, and a call with no keys.  The first version of this port: K and V widened to
 //    float32 in shared memory, 64x64 score tiles as float32 FMA dot
 //    products, a warp per row for the softmax, p'V accumulated in
 //    registers; about 10 TFLOP/s.
@@ -651,21 +661,59 @@ flash_attention_kernel_decode_splitkv(
 }
 
 // ---------------------------------------------------------------------------
-// 1. tensor-core prefill (bf16, head dim 64 / 128)
+// 1. tensor-core prefill (bf16, head dim 64 / 128 / 256)
 // ---------------------------------------------------------------------------
 
 namespace pf {
-constexpr int kThreads = 384;    // consumer warpgroups 0-1, producer 2
-constexpr int kRows = 128;       // (position, head) rows of a q tile
-constexpr int kWgRows = 64;      // rows of a consumer warpgroup
-constexpr int kKeys = 128;       // keys of a K / V tile
-constexpr int kQStages = 2;      // Q tiles: the next item's loads early
-constexpr int kKStages = 2;      // K ring depth
-constexpr int kVStages = 2;      // V ring depth
-constexpr int kBox = 128 * 128;  // bytes of a 128-row x 64-column bf16 box
+constexpr int kThreads = 384;      // consumer warpgroups 0-1, producer 2
+constexpr int kRows = 128;         // (position, head) rows of a q tile
+constexpr int kWgRows = 64;        // rows of a consumer warpgroup
+constexpr int kQBox = 128 * 128;   // bytes of a 128-row x 64-column bf16 box
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may have
 constexpr float kLog2e = 1.4426950408889634f;
 }  // namespace pf
 constexpr float kLn2 = 0.6931471805599453f;
+
+// The tiles of each head dim: PF_PLAN(head dim, keys of a K / V tile, Q
+// stages, K stages, V stages).  `prefill_plan` in kernels/flash_attention.py
+// gives the same numbers: its CPU test reads them from this table, and on
+// the card `built_prefill_plan` reads them from `flash_prefill_plan`.  At 64
+// and 128 a K / V tile holds 128 keys and two Q stages let the producer
+// load the next item's Q early.  At 256 a 128-key tile (64 KB) leaves no
+// room for two of each ring, and its m64n128 scores (64 registers) beside
+// O's m64n256 (128) and P (32) would spill, so tiles hold 64 keys (32 KB,
+// scores 32 registers, P 16) and there is one Q stage (64 KB): 193 KB.
+template <int DH>
+struct PfPlan;
+#define PF_PLAN(DH, KEYS, QS, KS, VS)                                    \
+  template <>                                                            \
+  struct PfPlan<DH> {                                                    \
+    static constexpr int kKeys = KEYS, kQStages = QS, kKStages = KS,     \
+                         kVStages = VS;                                  \
+  };
+PF_PLAN(64, 128, 2, 2, 2)
+PF_PLAN(128, 128, 2, 2, 2)
+PF_PLAN(256, 64, 1, 2, 2)
+#undef PF_PLAN
+
+// Shared memory of the plan (1024-byte aligned): the Q ring (DH / 64 boxes
+// of [128 rows][64 bf16] a tile), the K and V rings (DH / 64 boxes of
+// [kKeys rows][64 bf16]), the output's staging tile where it fits (else
+// each consumer stores its rows from registers), then the barriers.
+template <int DH>
+struct PfLayout : PfPlan<DH> {
+  using P = PfPlan<DH>;
+  static constexpr int kHalves = DH / 64;
+  static constexpr int kKvBox = P::kKeys * 128;  // bytes of a K / V box
+  static constexpr int kQTile = kHalves * pf::kQBox;
+  static constexpr int kKvTile = kHalves * kKvBox;
+  static constexpr int kBars = 2 * (P::kQStages + P::kKStages + P::kVStages + 1);
+  static constexpr int kRings = 1024 + P::kQStages * kQTile +
+                                (P::kKStages + P::kVStages) * kKvTile + 8 * kBars;
+  static constexpr bool kStageOut = kRings + kQTile <= pf::kSmemMax;
+  static constexpr int kSmem = kRings + (kStageOut ? kQTile : 0);
+  static_assert(kSmem <= pf::kSmemMax, "the prefill plan overflows shared memory");
+};
 
 // One K or V box: the tensor map's middle dims are (key, head) unless
 // `swap`, where they are (head, key) (whichever order has the smaller
@@ -698,105 +746,126 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&x);
 }
 
-// The q tiles of one (batch, kv head): work item w of n_items, heaviest
-// first (the last positions first), and the kv tiles its rows can attend.
+// Work item w of a launch of `grid` CTAs: one q tile of one (batch, kv
+// head) pair, and the kv tiles of KEYS keys its rows can attend; level 0
+// is the last q tile (the heaviest under the causal mask).  Two orders:
+//  per == 0 (fewer pairs than CTAs): level-major, w = level * pairs +
+//    pair, so each SM starts on a heavy tile, the causal tail does not
+//    form the last wave, and the CTAs on one pair's q tiles at once share
+//    its K and V in L2;
+//  per > 0 (the pairs alone fill the grid, as MLA's 1,024 (batch, head)
+//    pairs of group 1 do): rounds of `grid` items, one a CTA.  Round r =
+//    w / grid holds every q tile of pairs r * per .. r * per + per - 1
+//    (per = grid / n_qt), so a pair's K and V come from DRAM once and from
+//    L2 for its other q tiles; slot s takes level (s / per + r) % n_qt,
+//    so over n_qt rounds every CTA takes every level once.  Slots past
+//    per * n_qt and pairs past the last are no item (valid false).
 struct PrefillItem {
   int b, g, q0, p_lo, p_hi, t_lo, n_t;
+  bool valid;
 };
 
+template <int KEYS>
 __device__ __forceinline__ PrefillItem prefill_item(
-    int w, int pairs, int hkv, int n_qt, int sq, int skv, int bq, int causal,
-    int has_window, int window) {
+    int w, int grid, int per, int pairs, int hkv, int n_qt, int sq, int skv,
+    int bq, int causal, int has_window, int window) {
   PrefillItem it;
-  const int bh = w % pairs;
+  int bh, level;
+  if (per == 0) {
+    bh = w % pairs;
+    level = w / pairs;
+    it.valid = true;
+  } else {
+    const int r = w / grid, slot = w - r * grid;
+    bh = r * per + slot % per;
+    level = (slot / per + r) % n_qt;
+    it.valid = slot < per * n_qt && bh < pairs;
+  }
   it.b = bh / hkv;
   it.g = bh % hkv;
-  it.q0 = (n_qt - 1 - w / pairs) * bq;
+  it.q0 = (n_qt - 1 - level) * bq;
   it.p_lo = it.q0 + skv - sq;
   it.p_hi = it.p_lo + min(bq, sq - it.q0) - 1;
   int k_lo = 0, k_hi = skv;
   if (causal) k_hi = min(k_hi, it.p_hi + 1);
   if (has_window) k_lo = max(k_lo, it.p_lo - window + 1);
-  it.t_lo = k_lo / pf::kKeys;
-  it.n_t = k_hi > k_lo ? (k_hi + pf::kKeys - 1) / pf::kKeys - it.t_lo : 0;
+  it.t_lo = k_lo / KEYS;
+  it.n_t = k_hi > k_lo ? (k_hi + KEYS - 1) / KEYS - it.t_lo : 0;
   return it;
 }
 
-// Persistent: gridDim.x CTAs (at most one per SM) walk the n_qt * pairs
-// work items (pairs = b * hkv) w = blockIdx.x, blockIdx.x + gridDim.x, ...,
-// so each SM starts on a heavy tile.  Rows of a tile
+// Persistent: gridDim.x CTAs (at most one per SM) walk the work items
+// (`prefill_item`, pairs = b * hkv, n_items of them, slots that are no
+// item included) w = blockIdx.x, blockIdx.x + gridDim.x, ....  Rows of a tile
 // are head-major (row = head * bq + position) when q_head_major, else
 // position-major (row = position * rep + head): the order of the Q tensor
-// map's middle dims, chosen on the host by stride.  Shared memory
-// (1024-byte aligned): rings of kQStages Q tiles, kKStages K tiles and
-// kVStages V tiles, and the output staging tile, each DH / 64 boxes of
-// [128 rows][64 bf16] with the 128-byte swizzle; then the barriers.  A
-// consumer issues P V of tile n with S of tile n + 1, so the K ring runs a
-// tile ahead of the V ring and each ring frees a slot a tile before the
-// producer needs it.  The rings carry over from one item to the next, so
-// the producer loads the next item's Q, K and V while the consumers finish
-// the current one.
+// map's middle dims, chosen on the host by stride.  Shared memory as
+// `PfLayout`, the tiles in the 128-byte swizzle.  A consumer issues P V of
+// tile n with S of tile n + 1, so the K ring runs a tile ahead of the V
+// ring and each ring frees a slot a tile before the producer needs it.
+// The rings carry over from one item to the next, so the producer loads
+// the next item's K and V (and, with two Q stages, its Q) while the
+// consumers finish the current one; with one Q stage the next Q lands
+// once both warpgroups have issued their last S of the item.
 template <int DH>
 __global__ void __launch_bounds__(pf::kThreads, 1)
 flash_attention_kernel_prefill_wgmma(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
-    const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse,
-    int pairs, int hkv, int rep, int sq, int skv, int bq, int n_qt,
-    float scale_log2,
-    int causal, int has_window, int window, int q_head_major, int k_swap,
-    int v_swap) {
+    const __grid_constant__ CUtensorMap tm_o, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int n_items, int per, int pairs, int hkv,
+    int rep, int sq, int skv, int bq, int n_qt, float scale_log2, int causal,
+    int has_window, int window, int q_head_major, int k_swap, int v_swap) {
   using namespace sm90;
-  constexpr int kHalves = DH / 64;
-  constexpr int kTile = kHalves * pf::kBox;   // bytes of a Q, K or V tile
+  using L = PfLayout<DH>;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kQS = L::kQStages, kKS = L::kKStages, kVS = L::kVStages;
+  constexpr int kHalves = L::kHalves;
   constexpr int kNO = DH / 2;                 // output registers a thread
 
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t s_q = base;
-  const uint32_t s_k = s_q + pf::kQStages * kTile;
-  const uint32_t s_v = s_k + pf::kKStages * kTile;
-  const uint32_t s_o = s_v + pf::kVStages * kTile;
-  const uint32_t s_bar = s_o + kTile;
+  const uint32_t s_k = s_q + kQS * L::kQTile;
+  const uint32_t s_v = s_k + kKS * L::kKvTile;
+  const uint32_t s_o = s_v + kVS * L::kKvTile;   // the staging tile, if any
+  const uint32_t s_bar = s_o + (L::kStageOut ? L::kQTile : 0);
   // full / empty barriers of the K ring, then of the V ring, then Q's
-  auto k_full = [&](int n) { return s_bar + 8u * (n % pf::kKStages); };
-  auto k_empty = [&](int n) {
-    return s_bar + 8u * (pf::kKStages + n % pf::kKStages);
-  };
-  auto v_full = [&](int n) {
-    return s_bar + 8u * (2 * pf::kKStages + n % pf::kVStages);
-  };
+  auto k_full = [&](int n) { return s_bar + 8u * (n % kKS); };
+  auto k_empty = [&](int n) { return s_bar + 8u * (kKS + n % kKS); };
+  auto v_full = [&](int n) { return s_bar + 8u * (2 * kKS + n % kVS); };
   auto v_empty = [&](int n) {
-    return s_bar + 8u * (2 * pf::kKStages + pf::kVStages + n % pf::kVStages);
+    return s_bar + 8u * (2 * kKS + kVS + n % kVS);
   };
   auto q_full = [&](int j) {
-    return s_bar + 8u * (2 * pf::kKStages + 2 * pf::kVStages + j % pf::kQStages);
+    return s_bar + 8u * (2 * kKS + 2 * kVS + j % kQS);
   };
   auto q_empty = [&](int j) {
-    return s_bar + 8u * (2 * pf::kKStages + 2 * pf::kVStages + pf::kQStages +
-                         j % pf::kQStages);
+    return s_bar + 8u * (2 * kKS + 2 * kVS + kQS + j % kQS);
   };
   // the staging tile: written by the consumers, stored by the producer
-  const uint32_t o_full =
-      s_bar + 8u * (2 * (pf::kQStages + pf::kKStages + pf::kVStages));
+  const uint32_t o_full = s_bar + 8u * (2 * (kQS + kKS + kVS));
   const uint32_t o_empty = o_full + 8u;
   // the parity of tile n's phase in a ring of `stages`
   auto phase = [](int n, int stages) { return (uint32_t)((n / stages) & 1); };
 
-  const int n_items = n_qt * pairs;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  auto item = [&](int w) {
+    return prefill_item<kKeys>(w, gridDim.x, per, pairs, hkv, n_qt, sq, skv,
+                               bq, causal, has_window, window);
+  };
   if (tid == 0) {
-    for (int n = 0; n < pf::kKStages; ++n) {
+    for (int n = 0; n < kKS; ++n) {
       mbar_init(k_full(n), 1);
       mbar_init(k_empty(n), 2 * 128);
     }
-    for (int n = 0; n < pf::kVStages; ++n) {
+    for (int n = 0; n < kVS; ++n) {
       mbar_init(v_full(n), 1);
       mbar_init(v_empty(n), 2 * 128);
     }
-    for (int j = 0; j < pf::kQStages; ++j) {
+    for (int j = 0; j < kQS; ++j) {
       mbar_init(q_full(j), 1);
       mbar_init(q_empty(j), 2 * 128);
     }
@@ -808,21 +877,22 @@ flash_attention_kernel_prefill_wgmma(
 
   if (warp >= 8) {
     // ---- producer warpgroup: gives its registers to the consumers; one
-    // thread keeps the rings full, another stores the outputs -------------
+    // thread keeps the rings full, another stores the staged outputs -------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (warp == 9 && lane == 0) {
+    if (L::kStageOut && warp == 9 && lane == 0) {
       int j = 0;
 #pragma unroll 1
-      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++j) {
-        const PrefillItem it = prefill_item(w, pairs, hkv, n_qt, sq, skv, bq,
-                                            causal, has_window, window);
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        const PrefillItem it = item(w);
+        if (!it.valid) continue;
         mbar_wait(o_full, j & 1);
         for (int h = 0; h < kHalves; ++h)
-          tma_store_4d(&tm_o, s_o + h * pf::kBox, h * 64, it.q0, it.g * rep,
+          tma_store_4d(&tm_o, s_o + h * pf::kQBox, h * 64, it.q0, it.g * rep,
                        it.b);
         bulk_commit();
         bulk_wait_read();
         mbar_arrive(o_empty);
+        ++j;
       }
       bulk_wait();                             // the last store has landed
     }
@@ -830,39 +900,37 @@ flash_attention_kernel_prefill_wgmma(
       int n = 0;                               // K / V tiles loaded so far
       int j = 0;                               // items of this CTA so far
 #pragma unroll 1
-      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++j) {
-        const PrefillItem it = prefill_item(w, pairs, hkv, n_qt, sq, skv, bq,
-                                            causal, has_window, window);
-        const uint32_t q_dst = s_q + (j % pf::kQStages) * kTile;
-        if (j >= pf::kQStages)
-          mbar_wait(q_empty(j), phase(j, pf::kQStages) ^ 1);
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        const PrefillItem it = item(w);
+        if (!it.valid) continue;
+        const uint32_t q_dst = s_q + (j % kQS) * L::kQTile;
+        if (j >= kQS) mbar_wait(q_empty(j), phase(j, kQS) ^ 1);
         mbar_expect_tx(q_full(j), kHalves * 128 * rep * bq);
         for (int h = 0; h < kHalves; ++h) {
           if (q_head_major)
-            tma_load_4d(q_dst + h * pf::kBox, &tm_q, q_full(j), h * 64,
+            tma_load_4d(q_dst + h * pf::kQBox, &tm_q, q_full(j), h * 64,
                         it.q0, it.g * rep, it.b);
           else
-            tma_load_4d(q_dst + h * pf::kBox, &tm_q, q_full(j), h * 64,
+            tma_load_4d(q_dst + h * pf::kQBox, &tm_q, q_full(j), h * 64,
                         it.g * rep, it.q0, it.b);
         }
 #pragma unroll 1
         for (int i = 0; i < it.n_t; ++i, ++n) {
-          const int kt0 = (it.t_lo + i) * pf::kKeys;
-          const uint32_t k_dst = s_k + (n % pf::kKStages) * kTile;
-          const uint32_t v_dst = s_v + (n % pf::kVStages) * kTile;
-          if (n >= pf::kKStages)
-            mbar_wait(k_empty(n), phase(n, pf::kKStages) ^ 1);
-          mbar_expect_tx(k_full(n), kTile);
+          const int kt0 = (it.t_lo + i) * kKeys;
+          const uint32_t k_dst = s_k + (n % kKS) * L::kKvTile;
+          const uint32_t v_dst = s_v + (n % kVS) * L::kKvTile;
+          if (n >= kKS) mbar_wait(k_empty(n), phase(n, kKS) ^ 1);
+          mbar_expect_tx(k_full(n), L::kKvTile);
           for (int h = 0; h < kHalves; ++h)
-            load_kv_box(k_dst + h * pf::kBox, &tm_k, k_full(n), h * 64, kt0,
+            load_kv_box(k_dst + h * L::kKvBox, &tm_k, k_full(n), h * 64, kt0,
                         it.g, it.b, k_swap);
-          if (n >= pf::kVStages)
-            mbar_wait(v_empty(n), phase(n, pf::kVStages) ^ 1);
-          mbar_expect_tx(v_full(n), kTile);
+          if (n >= kVS) mbar_wait(v_empty(n), phase(n, kVS) ^ 1);
+          mbar_expect_tx(v_full(n), L::kKvTile);
           for (int h = 0; h < kHalves; ++h)
-            load_kv_box(v_dst + h * pf::kBox, &tm_v, v_full(n), h * 64, kt0,
+            load_kv_box(v_dst + h * L::kKvBox, &tm_v, v_full(n), h * 64, kt0,
                         it.g, it.b, v_swap);
         }
+        ++j;
       }
     }
   } else {
@@ -878,40 +946,55 @@ flash_attention_kernel_prefill_wgmma(
     // serve the other warpgroup; the two run free of each other, coupled
     // only through the rings.
 
-    float sacc[64];                  // scores of one tile (raw q . k)
+    float sacc[kKeys / 2];           // scores of one tile (raw q . k)
     float oacc[kNO];                 // output accumulator
-    uint32_t pa[pf::kKeys / 16][4];  // P of one tile, bf16 A fragments
+    uint32_t pa[kKeys / 16][4];      // P of one tile, bf16 A fragments
 
     // S = Q K^T of the K tile at k_tile: both operands K-major; a k16 step
     // is 32 bytes into the swizzled 128-byte rows of a box
     auto issue_s = [&](uint32_t q_rows, uint32_t k_tile) {
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        const uint32_t off = (kk / 4) * pf::kBox + (kk % 4) * 32;
-        wgmma_ss_m64n128k16(sacc, desc_sw128(q_rows + off, 16, 1024),
-                            desc_sw128(k_tile + off, 16, 1024), kk > 0);
+        const uint32_t col = (kk % 4) * 32;
+        const uint64_t dq = desc_sw128(q_rows + (kk / 4) * pf::kQBox + col, 16, 1024);
+        const uint64_t dk =
+            desc_sw128(k_tile + (kk / 4) * L::kKvBox + col, 16, 1024);
+        if constexpr (kKeys == 128)
+          wgmma_ss_m64n128k16(sacc, dq, dk, kk > 0);
+        else
+          wgmma_ss_m64n64k16(sacc, dq, dk, kk > 0);
       }
     };
     // O += P V of the V tile at v_tile: P from registers (keys 16 kk ..
     // 16 kk + 15 are fragment kk); V MN-major, 16 keys = two 8-row swizzle
-    // atoms (2048 bytes), the dh boxes kBox apart
+    // atoms (2048 bytes), the dh boxes kKvBox apart.  At head dim 256 two
+    // n128 products a k16 step: dh 0-127 into oacc[0, 64), 128-255 into
+    // oacc[64, 128), the register order of one m64n256 fragment.
     auto issue_pv = [&](uint32_t v_tile) {
 #pragma unroll
-      for (int kk = 0; kk < pf::kKeys / 16; ++kk) {
-        const uint64_t dv = desc_sw128(v_tile + kk * 2048, pf::kBox, 1024);
-        if constexpr (DH == 128)
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        const uint32_t at = v_tile + kk * 2048;
+        const uint64_t dv = desc_sw128(at, L::kKvBox, 1024);
+        if constexpr (DH == 256) {
+          wgmma_rs_m64n128k16(*reinterpret_cast<float(*)[64]>(oacc), pa[kk],
+                              dv);
+          wgmma_rs_m64n128k16(*reinterpret_cast<float(*)[64]>(oacc + 64),
+                              pa[kk],
+                              desc_sw128(at + 2 * L::kKvBox, L::kKvBox, 1024));
+        } else if constexpr (DH == 128) {
           wgmma_rs_m64n128k16(oacc, pa[kk], dv);
-        else
+        } else {
           wgmma_rs_m64n64k16(oacc, pa[kk], dv);
+        }
       }
     };
 
     int n = 0;                                 // K / V tiles consumed so far
-    int j = 0;
+    int j = 0;                                 // items of this CTA so far
 #pragma unroll 1
-    for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++j) {
-      const PrefillItem it = prefill_item(w, pairs, hkv, n_qt, sq, skv, bq,
-                                          causal, has_window, window);
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+      const PrefillItem it = item(w);
+      if (!it.valid) continue;
       int q_pos[2];                            // absolute position of a row
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -928,12 +1011,12 @@ flash_attention_kernel_prefill_wgmma(
       // Register 4 jj + e holds (row rl, key 8 jj + 2 (lane % 4) + e),
       // 4 jj + 2 + e the same key of row rl + 8.
       auto softmax = [&](int kt0) {
-        const bool whole = kt0 + pf::kKeys <= skv &&
-                           (!causal || kt0 + pf::kKeys - 1 <= it.p_lo) &&
+        const bool whole = kt0 + kKeys <= skv &&
+                           (!causal || kt0 + kKeys - 1 <= it.p_lo) &&
                            (!has_window || kt0 > it.p_hi - window);
         if (!whole) {
 #pragma unroll
-          for (int jj = 0; jj < 16; ++jj)
+          for (int jj = 0; jj < kKeys / 8; ++jj)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int u = e / 2;
@@ -953,7 +1036,7 @@ flash_attention_kernel_prefill_wgmma(
           for (int c = 0; c < 4; ++c)
             mx4[u][c] = fmaxf(sacc[4 * c + 2 * u], sacc[4 * c + 2 * u + 1]);
 #pragma unroll
-        for (int jj = 4; jj < 16; ++jj)
+        for (int jj = 4; jj < kKeys / 8; ++jj)
 #pragma unroll
           for (int u = 0; u < 2; ++u)
             mx4[u][jj % 4] = fmaxf(mx4[u][jj % 4],
@@ -971,7 +1054,7 @@ flash_attention_kernel_prefill_wgmma(
           neg_m[u] = -m_new;
         }
 #pragma unroll
-        for (int kk = 0; kk < pf::kKeys / 16; ++kk)
+        for (int kk = 0; kk < kKeys / 16; ++kk)
 #pragma unroll
           for (int t = 0; t < 4; ++t) {
             const int u = t % 2, idx = 8 * kk + 2 * t;
@@ -1002,32 +1085,32 @@ flash_attention_kernel_prefill_wgmma(
 
       // this warpgroup's rows of the item's Q tile
       const uint32_t q_rows =
-          s_q + (j % pf::kQStages) * kTile + wg * (pf::kBox / 2);
-      mbar_wait(q_full(j), phase(j, pf::kQStages));
+          s_q + (j % kQS) * L::kQTile + wg * (pf::kQBox / 2);
+      mbar_wait(q_full(j), phase(j, kQS));
       if (it.n_t == 0) {
         mbar_arrive(q_empty(j));
       } else {
-        mbar_wait(k_full(n), phase(n, pf::kKStages));
+        mbar_wait(k_full(n), phase(n, kKS));
         fence_regs(sacc);
         wgmma_fence();
-        issue_s(q_rows, s_k + (n % pf::kKStages) * kTile);
+        issue_s(q_rows, s_k + (n % kKS) * L::kKvTile);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sacc);
         mbar_arrive(k_empty(n));
         if (it.n_t == 1) mbar_arrive(q_empty(j));  // Q read for the last time
-        softmax(it.t_lo * pf::kKeys);
+        softmax(it.t_lo * kKeys);
       }
 #pragma unroll 1
       for (int i = 0; i < it.n_t; ++i, ++n) {
         const bool more = i + 1 < it.n_t;
-        if (more) mbar_wait(k_full(n + 1), phase(n + 1, pf::kKStages));
-        mbar_wait(v_full(n), phase(n, pf::kVStages));
+        if (more) mbar_wait(k_full(n + 1), phase(n + 1, kKS));
+        mbar_wait(v_full(n), phase(n, kVS));
         fence_regs(oacc);
         fence_regs(sacc);
         wgmma_fence();
-        issue_pv(s_v + (n % pf::kVStages) * kTile);
-        if (more) issue_s(q_rows, s_k + ((n + 1) % pf::kKStages) * kTile);
+        issue_pv(s_v + (n % kVS) * L::kKvTile);
+        if (more) issue_s(q_rows, s_k + ((n + 1) % kKS) * L::kKvTile);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(oacc);
@@ -1036,17 +1119,19 @@ flash_attention_kernel_prefill_wgmma(
         if (more) {
           mbar_arrive(k_empty(n + 1));
           if (i + 2 == it.n_t) mbar_arrive(q_empty(j));  // Q's last read
-          softmax((it.t_lo + i + 1) * pf::kKeys);
+          softmax((it.t_lo + i + 1) * kKeys);
         }
       }
 
-      // out = O / max(l, 1e-30), as bf16 into the staging tile in the
-      // layout of the output's tensor map box (row = head * bq + position,
-      // the same swizzle), which the producer warpgroup stores with one
-      // TMA store once both warpgroups have written it; positions past sq
-      // fall outside the output and are not written.  The staging tile is
-      // free once the previous item's store has read it.
-      if (j > 0) mbar_wait(o_empty, (j - 1) & 1);
+      // out = O / max(l, 1e-30) as bf16.  Staged: into the staging tile in
+      // the layout of the output's tensor map box (row = head * bq +
+      // position, the same swizzle), which the producer warpgroup stores
+      // with one TMA store once both warpgroups have written it; positions
+      // past sq fall outside the output and are not written; the tile is
+      // free once the previous item's store has read it.  Else: each
+      // thread stores its rows' pairs of columns to the (b, hq, sq, DH)
+      // output itself.
+      if (L::kStageOut && j > 0) mbar_wait(o_empty, (j - 1) & 1);
       const float inv[2] = {1.f / fmaxf(l_run[0], 1e-30f),
                             1.f / fmaxf(l_run[1], 1e-30f)};
 #pragma unroll
@@ -1061,21 +1146,34 @@ flash_attention_kernel_prefill_wgmma(
         // the row's log-sum-exp in natural units (box row sr is head
         // sr / bq, position sr % bq of the item)
         const int hl = div_small(sr, inv_bq), pos = it.q0 + sr - hl * bq;
+        const long long row =
+            ((long long)it.b * hkv * rep + it.g * rep + hl) * sq + pos;
         if (lse != nullptr && lane % 4 == 0 && pos < sq)
-          lse[((long long)it.b * hkv * rep + it.g * rep + hl) * sq + pos] =
-              l_run[u] > 0.f ? (m_run[u] + log2f(l_run[u])) * kLn2
-                             : kNegInf;
+          lse[row] = l_run[u] > 0.f ? (m_run[u] + log2f(l_run[u])) * kLn2
+                                    : kNegInf;
+        if constexpr (L::kStageOut) {
 #pragma unroll
-        for (int jj = 0; jj < DH / 8; ++jj) {
-          const int at = (jj / 8) * pf::kBox + sr * 128 +
-                         (((jj % 8) ^ (sr % 8)) * 16) + (lane % 4) * 4;
-          *reinterpret_cast<uint32_t*>(stage + at) =
-              pack_bf16(oacc[4 * jj + 2 * u] * inv[u],
-                        oacc[4 * jj + 2 * u + 1] * inv[u]);
+          for (int jj = 0; jj < DH / 8; ++jj) {
+            const int at = (jj / 8) * pf::kQBox + sr * 128 +
+                           (((jj % 8) ^ (sr % 8)) * 16) + (lane % 4) * 4;
+            *reinterpret_cast<uint32_t*>(stage + at) =
+                pack_bf16(oacc[4 * jj + 2 * u] * inv[u],
+                          oacc[4 * jj + 2 * u + 1] * inv[u]);
+          }
+        } else if (pos < sq) {
+          __nv_bfloat16* dst = o + row * DH + 2 * (lane % 4);
+#pragma unroll
+          for (int jj = 0; jj < DH / 8; ++jj)
+            *reinterpret_cast<uint32_t*>(dst + 8 * jj) =
+                pack_bf16(oacc[4 * jj + 2 * u] * inv[u],
+                          oacc[4 * jj + 2 * u + 1] * inv[u]);
         }
       }
-      fence_async_smem();            // the stores visible to the TMA unit
-      mbar_arrive(o_full);
+      if constexpr (L::kStageOut) {
+        fence_async_smem();          // the stores visible to the TMA unit
+        mbar_arrive(o_full);
+      }
+      ++j;
     }
   }
 }
@@ -1162,6 +1260,7 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
                            void* o, float* lse, int b, int hq, int hkv, int sq, int skv,
                            const Strides& st, float scale, int causal,
                            int has_window, int window, cudaStream_t stream) {
+  using L = PfLayout<DH>;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   const int rep = hq / hkv;
@@ -1177,25 +1276,20 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
            : tensor_map(enc, &tq, q, DH, hq, sq, b, st.q_sh, st.q_ss, st.q_sb,
                         rep, bq)) &&
       (k_swap ? tensor_map(enc, &tk, k, DH, hkv, skv, b, st.k_sh, st.k_ss,
-                           st.k_sb, 1, pf::kKeys)
+                           st.k_sb, 1, L::kKeys)
               : tensor_map(enc, &tk, k, DH, skv, hkv, b, st.k_ss, st.k_sh,
-                           st.k_sb, pf::kKeys, 1)) &&
+                           st.k_sb, L::kKeys, 1)) &&
       (v_swap ? tensor_map(enc, &tv, v, DH, hkv, skv, b, st.v_sh, st.v_ss,
-                           st.v_sb, 1, pf::kKeys)
+                           st.v_sb, 1, L::kKeys)
               : tensor_map(enc, &tv, v, DH, skv, hkv, b, st.v_ss, st.v_sh,
-                           st.v_sb, pf::kKeys, 1)) &&
+                           st.v_sb, L::kKeys, 1)) &&
       // the output, (b, hq, sq, DH) contiguous, in boxes of the tile's rows
       tensor_map(enc, &to, o, DH, sq, hq, b, DH, (long long)sq * DH,
                  (long long)hq * sq * DH, bq, rep);
   if (!ok) return cudaErrorInvalidValue;
-  constexpr size_t kTile = (DH / 64) * pf::kBox;
-  // the Q, K and V rings, the output staging tile, the barriers
-  const size_t smem =
-      1024 + (pf::kQStages + pf::kKStages + pf::kVStages + 1) * kTile +
-      8 * 2 * (pf::kQStages + pf::kKStages + pf::kVStages + 1);
   auto kern = flash_attention_kernel_prefill_wgmma<DH>;
   static bool smem_set = false;
-  cudaError_t err = allow_smem(kern, smem_set, smem);
+  cudaError_t err = allow_smem(kern, smem_set, L::kSmem);
   if (err != cudaSuccess) return err;
   static int n_sm = 0;
   if (n_sm == 0) {
@@ -1207,10 +1301,14 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v,
   }
   const int pairs = b * hkv, n_qt = (sq + bq - 1) / bq;
   const int grid = min(n_sm, pairs * n_qt);
-  kern<<<grid, pf::kThreads, smem, stream>>>(
-      tq, tk, tv, to, lse, pairs, hkv, rep, sq, skv,
-      bq, n_qt, scale * pf::kLog2e, causal, has_window, window, q_head_major,
-      k_swap, v_swap);
+  // the order of the work items (`prefill_item`): rounds when the pairs
+  // alone fill the grid
+  const int per = pairs >= grid && n_qt <= grid ? grid / n_qt : 0;
+  const int n_items = per ? (pairs + per - 1) / per * grid : pairs * n_qt;
+  kern<<<grid, pf::kThreads, L::kSmem, stream>>>(
+      tq, tk, tv, to, static_cast<__nv_bfloat16*>(o), lse, n_items, per,
+      pairs, hkv, rep, sq, skv, bq, n_qt, scale * pf::kLog2e, causal,
+      has_window, window, q_head_major, k_swap, v_swap);
   return cudaGetLastError();
 }
 
@@ -1283,8 +1381,8 @@ extern "C" {
 // is 16-byte aligned (16-byte loads).  Decode: sq * hq / hkv <= 64; part
 // holds b * hkv * n_split * sq * hq / hkv * (dh + 2) floats; counters b *
 // hkv int32, all 0 (left 0); keys split in runs of split_keys (n_split =
-// ceil(skv / split_keys), at least 1).  Prefill: bf16, dh 64 or 128, skv
-// >= 1, vec.  Returns the launch's CUDA error (0 on success).
+// ceil(skv / split_keys), at least 1).  Prefill: bf16, dh 64, 128 or 256,
+// skv >= 1, vec.  Returns the launch's CUDA error (0 on success).
 int flash_attention_launch(const void* args, int kind) {
   const FlashArgs& a = *static_cast<const FlashArgs*>(args);
   cudaError_t err = cudaErrorInvalidValue;
@@ -1299,16 +1397,33 @@ int flash_attention_launch(const void* args, int kind) {
                              : decode_rows<float, false>(a));
   } else if (kind == 2 && a.is_bf16 && a.vec) {
     cudaStream_t s = static_cast<cudaStream_t>(a.stream);
-    if (a.dh == 64)
-      err = launch_prefill<64>(a.q, a.k, a.v, a.o, a.lse, a.b, a.hq, a.hkv, a.sq,
-                               a.skv, a.st, a.scale, a.causal, a.has_window,
-                               a.window, s);
-    else if (a.dh == 128)
-      err = launch_prefill<128>(a.q, a.k, a.v, a.o, a.lse, a.b, a.hq, a.hkv, a.sq,
-                                a.skv, a.st, a.scale, a.causal, a.has_window,
-                                a.window, s);
+#define FA_CASE(D)                                                          \
+  if (a.dh == D)                                                            \
+    err = launch_prefill<D>(a.q, a.k, a.v, a.o, a.lse, a.b, a.hq, a.hkv,    \
+                            a.sq, a.skv, a.st, a.scale, a.causal,           \
+                            a.has_window, a.window, s);
+    FA_CASE(64) FA_CASE(128) FA_CASE(256)
+#undef FA_CASE
   }
   return (int)err;
+}
+
+// The tensor-core prefill's plan at head dim dh as it is built: out gets
+// rows of a q tile, keys of a K / V tile, the Q, K and V stages, and the
+// dynamic shared memory a block asks for.  Returns 0, or
+// cudaErrorInvalidValue for a head dim the prefill is not built for.
+int flash_prefill_plan(int dh, int* out) {
+#define FA_PLAN(D)                                                         \
+  if (dh == D) {                                                           \
+    using L = PfLayout<D>;                                                 \
+    const int plan[6] = {pf::kRows, L::kKeys, L::kQStages, L::kKStages,    \
+                         L::kVStages, L::kSmem};                           \
+    for (int i = 0; i < 6; ++i) out[i] = plan[i];                          \
+    return 0;                                                              \
+  }
+  FA_PLAN(64) FA_PLAN(128) FA_PLAN(256)
+#undef FA_PLAN
+  return (int)cudaErrorInvalidValue;
 }
 
 // Size of FlashArgs, for the wrapper to check its packing against.

@@ -12,14 +12,26 @@ prefill's transposed ``v`` are read in place.
 
 Three kernels, chosen by dtype and shape alone (`route`):
 
-- ``prefill_wgmma``: bf16, head dim 64 or 128, more than one 64-row tile —
-  TMA loads and ``wgmma`` tensor-core products, warp-specialised.
+- ``prefill_wgmma``: bf16, head dim 64, 128 or 256, more than one 64-row
+  tile — TMA loads and ``wgmma`` tensor-core products, warp-specialised;
+  its tiles by head dim are `prefill_plan`'s (64-key K / V tiles and one
+  Q stage at 256, where 128-key tiles overflow shared memory and
+  registers).
 - ``decode_splitkv``: every call whose Sq * (Hq / Hkv) rows fit one 64-row
   tile (each decode step), bf16 or float32 — the key range split over
   blocks, partials merged in the same launch by the last block of each
   (batch, kv head).
-- ``fma``: everything else (float32 prefill, head dims 16 / 32 / 256) —
-  float32 FMA from shared memory.
+- ``fma``: everything else (float32 prefill, head dims 16 / 32, a call
+  with no keys) — float32 FMA from shared memory.
+
+By dtype and head dim, a call of more than one 64-row tile takes:
+
+=============  ==================  ========
+head dim       bf16                float32
+=============  ==================  ========
+16, 32         ``fma``             ``fma``
+64, 128, 256   ``prefill_wgmma``   ``fma``
+=============  ==================  ========
 
 Bound on an H100 SXM at Mistral-Nemo-12B's serving shapes (bf16, batch 8,
 32 / 8 heads, d_head 128): prefill over 512 tokens moves 84 MB — 25 us of
@@ -72,8 +84,18 @@ Tensor = torch.Tensor
 
 #: Head dims the kernels are built for.
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: Head dims of the tensor-core prefill kernel.
-WGMMA_HEAD_DIMS = (64, 128)
+#: Head dims of the tensor-core prefill kernel (bf16).
+WGMMA_HEAD_DIMS = (64, 128, 256)
+#: Head dims of the tensor-core backward (bf16; `backward_route`).
+BWD_WGMMA_HEAD_DIMS = (64, 128)
+#: The tensor-core prefill's tiles by head dim, as ``PF_PLAN`` in
+#: ``csrc/flash_attention.cu``: (keys of a K / V tile, Q stages, K stages,
+#: V stages).
+PREFILL_PLANS = {64: (128, 2, 2, 2), 128: (128, 2, 2, 2), 256: (64, 1, 2, 2)}
+#: Rows of the tensor-core prefill's q tile, and the dynamic shared memory
+#: a block may have on the H100.
+PREFILL_ROWS = 128
+SMEM_MAX = 232_448
 #: Largest q heads per kv head (a block holds 64 (position, head) rows).
 MAX_GROUP = 64
 #: Rows of one tile of the decode and FMA kernels.
@@ -160,9 +182,39 @@ def decode_splits(b: int, hkv: int, skv: int) -> Tuple[int, int]:
     return max(1, math.ceil(skv / split_keys)), split_keys
 
 
+def prefill_plan(dh: int) -> Tuple[int, int, int, int, int, int]:
+    """(rows, keys, q_stages, k_stages, v_stages, smem_bytes) of the
+    tensor-core prefill at head dim ``dh``: 128 (position, head) rows a q
+    tile, K / V tiles of ``keys`` keys, the rings' depths, and the dynamic
+    shared memory a block asks for — 1,024 bytes of alignment, the rings
+    (bf16 rows of ``dh``), the output's staging tile where it still fits
+    `SMEM_MAX` (else the consumers store from registers), and two 8-byte
+    barriers a ring slot and for the staging tile, as ``PfLayout`` in
+    ``csrc/flash_attention.cu`` reckons it."""
+    keys, q_st, k_st, v_st = PREFILL_PLANS[dh]
+    q_tile = PREFILL_ROWS * 2 * dh
+    rings = (1024 + q_st * q_tile + (k_st + v_st) * keys * 2 * dh
+             + 8 * 2 * (q_st + k_st + v_st + 1))
+    smem = rings + q_tile if rings + q_tile <= SMEM_MAX else rings
+    return PREFILL_ROWS, keys, q_st, k_st, v_st, smem
+
+
+def built_prefill_plan(dh: int) -> Tuple[int, int, int, int, int, int]:
+    """`prefill_plan`'s six numbers as the built library reports them
+    (``flash_prefill_plan``: the ``PfLayout`` it was compiled with); builds
+    the library, so it needs the CUDA toolchain."""
+    _kernel()
+    fn = _lib.flash_prefill_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _build.check(_lib, fn(dh, out), f"flash_prefill_plan({dh})")
+    return tuple(out)
+
+
 def backward_route(dtype: torch.dtype, dh: int) -> str:
     """The backward kernels a call goes to, from its dtype and head dim."""
-    if dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS:
+    if dtype == torch.bfloat16 and dh in BWD_WGMMA_HEAD_DIMS:
         return "bwd_wgmma"
     return "bwd_fma"
 

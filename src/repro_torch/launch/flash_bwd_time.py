@@ -131,6 +131,63 @@ PATCHES = {
     "bwd_wgmma": {}}
 
 
+def timers(torch, dev, own):
+    """(events_ms, cold_ms, device_ms) of a call on ``dev``: CUDA events
+    over 10 calls back to back after 2; the median of 5 single calls, each
+    after overwriting 256 MB so the L2 is cold; and (every kernel's device
+    ms of one call, {kernel name matching the regex ``own``: its ms}) from
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+
+    def events_ms(call):
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(10):
+            call()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / 10
+
+    def cold_ms(call):
+        times = []
+        for _ in range(5):
+            flush.zero_()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            call()
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return sorted(times)[2]
+
+    def device_ms(call):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        total, mine = 0.0, {}
+        for ev in prof.key_averages():
+            ms = getattr(ev, "self_device_time_total",
+                         getattr(ev, "device_time_total", 0.0)) / 1e3
+            if ms <= 0:
+                continue
+            total += ms
+            found = re.search(own, ev.key)
+            if found:
+                mine[found.group(0)] = ms
+        return total, mine
+
+    return events_ms, cold_ms, device_ms
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("variants", nargs="*",
@@ -142,7 +199,6 @@ def main() -> None:
 
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -206,51 +262,7 @@ def main() -> None:
                 raise SystemExit(f"{name}: {case} off")
     fa._bwd[route] = libs["tree"]
 
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-
-    def events_ms(call):
-        for _ in range(2):
-            call()
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(10):
-            call()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / 10
-
-    def cold_ms(call):
-        times = []
-        for _ in range(5):
-            flush.zero_()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            call()
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return sorted(times)[2]
-
-    def device_ms(call):
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        total, own = 0.0, {}
-        for ev in prof.key_averages():
-            ms = getattr(ev, "self_device_time_total",
-                         getattr(ev, "device_time_total", 0.0)) / 1e3
-            if ms <= 0:
-                continue
-            total += ms
-            found = re.search(r"flash_bwd_\w+", ev.key)
-            if found:
-                own[found.group(0)] = ms
-        return total, own
+    events_ms, cold_ms, device_ms = timers(torch, dev, r"flash_bwd_\w+")
 
     builds = [*libs, "sdpa"]
     for shape, (b, hq, hkv, s, dh, window) in SHAPES[route].items():

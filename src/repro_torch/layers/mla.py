@@ -18,7 +18,11 @@ k and v, one of ``HEAD_DIMS``; MLA's q and k have ``d_nope + d_rope`` (192
 at full width) and v ``d_v`` (128), so all three are zero-padded to the
 least head dim that holds both (256) and the output cut back to ``d_v``.
 A zero column adds nothing to a dot product, and the scale is given
-explicitly: ``(d_nope + d_rope) ** -0.5``, as DeepSeek scales.
+explicitly: ``(d_nope + d_rope) ** -0.5``, as DeepSeek scales.  On the
+card the padded bf16 call takes the tensor-core prefill
+(``prefill_wgmma`` at head dim 256; float32 takes ``fma``), which reads
+and multiplies the zero columns too: 1.07 GB moved a full-width layer
+where the unpadded tensors hold 0.67.
 
 Both norms use ``rmsnorm``'s default eps (1e-6), not the config's
 ``norm_eps``, as in the JAX package.

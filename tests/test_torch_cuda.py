@@ -1086,6 +1086,10 @@ WGMMA_CASES = [
     (1, 4, 2, 150, 150, 64, False, None, True),    # no mask
     (2, 12, 4, 77, 333, 128, True, 100, False),    # group 3: 126-row tiles
     (1, 32, 8, 512, 512, 128, True, None, True),   # the RAG prefill, batch 1
+    # grids the (batch, kv head) pairs alone fill: the rounds order
+    (2, 80, 80, 300, 300, 64, True, None, True),   # 160 pairs, 3 q tiles
+    (1, 140, 140, 600, 600, 128, True, 200, False),  # 5 tiles: idle slots
+    (4, 80, 40, 200, 200, 128, False, None, False),  # group 2, 160 pairs
 ]
 
 # (b, hq, hkv, sq, skv, dh, causal, window): the split-kv decode kernel
@@ -1209,12 +1213,137 @@ class TestLMOnCard:
 
 
 # the other LM families' attention shapes (Gemma3: 8 / 4 heads of 256, a
-# window; MLA: q / k of 192 and v of 128 padded to 256)
+# window; MLA: q / k of 192 and v of 128 padded to 256), bf16 on the
+# tensor-core prefill
 FAMILY_FLASH_CASES = [
     (1, 8, 4, 300, 300, 256, True, 100),     # windowed prefill, dh 256
     (2, 8, 4, 1100, 1100, 256, True, 1024),  # Gemma3's window, cut short
     (2, 8, 4, 700, 700, 256, True, None),    # a global layer's prefill
 ]
+
+
+# (b, hq, hkv, sq, skv, causal, window, v a transposed view): bf16 at head
+# dim 256 on ``prefill_wgmma`` (64-key tiles, one Q stage, the output
+# stored from registers) at groups 1, 2, 4 and 8; causal, windowed and
+# neither; Sq != Skv both ways; tails off the 64-key and 128-row tiles
+DH256_WGMMA_CASES = [
+    (1, 4, 4, 130, 130, True, None, False),     # group 1
+    (2, 8, 4, 300, 300, True, 100, True),       # Gemma3's group 2, window
+    (1, 16, 4, 77, 333, False, 100, False),     # group 4, window alone
+    (1, 16, 2, 70, 45, True, None, False),      # group 8, 25 rows see nothing
+    (1, 8, 2, 200, 131, False, None, True),     # no mask, Sq > Skv
+    (1, 4, 2, 1000, 1234, False, 300, False),   # chip_smoke's dh-256 row
+    (2, 8, 4, 2048, 2048, True, None, True),    # a Gemma3 global layer
+    (2, 128, 128, 512, 512, True, None, False),  # 256 pairs: rounds order
+    (1, 264, 132, 100, 150, False, 50, True),   # 132 pairs of group 2
+]
+
+
+@pytest.mark.cuda
+class TestPrefillWgmmaDh256OnCard:
+    """The tensor-core prefill at head dim 256 against the plain version
+    within ``FLASH_TOL``, one ``prefill_wgmma`` launch a call."""
+
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,window,vt",
+                             DH256_WGMMA_CASES)
+    def test_matches_plain(self, cuda, b, hq, hkv, sq, skv, causal, window,
+                           vt):
+        g = torch.Generator(device=cuda).manual_seed(sq * 3 + skv + hq)
+        bf = torch.bfloat16
+        q = torch.randn((b, hq, sq, 256), generator=g, device=cuda).to(bf)
+        k = torch.randn((b, hkv, skv, 256), generator=g, device=cuda).to(bf)
+        if vt:      # prefill's v: the (B, S, Hkv, Dh) projection, transposed
+            v = torch.randn((b, skv, hkv, 256), generator=g,
+                            device=cuda).to(bf).transpose(1, 2)
+        else:
+            v = torch.randn((b, hkv, skv, 256), generator=g,
+                            device=cuda).to(bf)
+        _flash_on_card(q, k, v, causal, window, "prefill_wgmma")
+
+    @pytest.mark.parametrize("dh", [64, 128, 256])
+    def test_built_plan_is_prefill_plan(self, cuda, dh):
+        """The library reports the tiles and shared memory it was built
+        with (``flash_prefill_plan``), and they are `prefill_plan`'s."""
+        assert flash_attention.built_prefill_plan(dh) == \
+            flash_attention.prefill_plan(dh)
+
+    def test_mla_padded_tensors(self, cuda):
+        """MLA's padded call (group 1, 16 heads, q / k 192 and v 128
+        zero-padded to 256, the scale of 192) against the plain version on
+        the padded tensors and, cut to 128 columns, on the unpadded ones;
+        the padded output columns are 0."""
+        import torch.nn.functional as F
+        g = torch.Generator(device=cuda).manual_seed(8)
+        bf = torch.bfloat16
+        q = torch.randn((2, 16, 333, 192), generator=g, device=cuda).to(bf)
+        k = torch.randn((2, 16, 333, 192), generator=g, device=cuda).to(bf)
+        v = torch.randn((2, 16, 333, 128), generator=g, device=cuda).to(bf)
+        qp, kp, vp = F.pad(q, (0, 64)), F.pad(k, (0, 64)), F.pad(v, (0, 128))
+        before = flash_attention.launches_by_kernel["prefill_wgmma"]
+        got = flash_attention.flash_attention(qp, kp, vp, causal=True,
+                                              scale=192 ** -0.5)
+        assert flash_attention.launches_by_kernel["prefill_wgmma"] == \
+            before + 1
+        tol = FLASH_TOL[bf]
+        want = flash_attention.flash_attention_plain(qp, kp, vp, causal=True,
+                                                     scale=192 ** -0.5)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert not got[..., 128:].any()
+        want = flash_attention.flash_attention_plain(q, k, v, causal=True,
+                                                     scale=192 ** -0.5)
+        torch.testing.assert_close(got[..., :128].float(), want.float(),
+                                   rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("sq,skv,causal,window", [
+        (300, 300, True, 100), (70, 45, True, None), (77, 333, False, 100)])
+    def test_lse_matches_plain(self, cuda, sq, skv, causal, window):
+        """The route's log-sum-exp within 1e-5 of max(1, |plain|), -inf on
+        the same rows; the output as without it."""
+        g = torch.Generator(device=cuda).manual_seed(sq + skv)
+        bf = torch.bfloat16
+        q = torch.randn((2, 8, sq, 256), generator=g, device=cuda).to(bf)
+        k = torch.randn((2, 4, skv, 256), generator=g, device=cuda).to(bf)
+        v = torch.randn((2, 4, skv, 256), generator=g, device=cuda).to(bf)
+        before = flash_attention.launches_by_kernel["prefill_wgmma"]
+        out, lse = flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        assert flash_attention.launches_by_kernel["prefill_wgmma"] == \
+            before + 1
+        _, want = flash_attention.flash_attention_plain(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        live = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(lse), live)
+        assert torch.equal(lse[~live], want[~live])
+        err = ((lse - want).abs() / want.abs().clamp(min=1.0))[live]
+        assert float(err.max()) <= 1e-5
+        assert torch.equal(out, flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window))
+
+    def test_two_calls_bit_equal(self, cuda):
+        """No atomics, a fixed order: Gemma3's global call twice gives the
+        same bits, one launch each."""
+        g = torch.Generator(device=cuda).manual_seed(2)
+        bf = torch.bfloat16
+        q = torch.randn((8, 8, 2048, 256), generator=g, device=cuda).to(bf)
+        k = torch.randn((8, 4, 2048, 256), generator=g, device=cuda).to(bf)
+        v = torch.randn((8, 2048, 4, 256), generator=g,
+                        device=cuda).to(bf).transpose(1, 2)
+        before = dict(flash_attention.launches_by_kernel)
+        first = flash_attention.flash_attention(q, k, v, causal=True)
+        second = flash_attention.flash_attention(q, k, v, causal=True)
+        assert torch.equal(first, second)
+        after = flash_attention.launches_by_kernel
+        assert {n: after[n] - before[n] for n in after} == {
+            "prefill_wgmma": 2, "decode_splitkv": 0, "fma": 0}
+
+    def test_float32_stays_on_fma(self, cuda):
+        """float32 at head dim 256 keeps the FMA kernel (tensor cores
+        would mean TF32)."""
+        g = torch.Generator(device=cuda).manual_seed(3)
+        q = torch.randn((1, 8, 150, 256), generator=g, device=cuda)
+        k = torch.randn((1, 4, 150, 256), generator=g, device=cuda)
+        _flash_on_card(q, k, k, True, 64, "fma")
 
 
 @pytest.mark.cuda
@@ -1229,7 +1358,7 @@ class TestLMFamiliesOnCard:
         k = torch.randn((b, hkv, skv, dh), generator=g, device=cuda).to(bf)
         v = torch.randn((b, skv, hkv, dh), generator=g,
                         device=cuda).to(bf).transpose(1, 2)
-        _flash_on_card(q, k, v, causal, window, "fma")
+        _flash_on_card(q, k, v, causal, window, "prefill_wgmma")
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_ring_decode_across_the_wrap(self, cuda, dtype):
@@ -1279,7 +1408,8 @@ class TestLMFamiliesOnCard:
                                   scale=192 ** -0.5)[..., :128]
         want = flash_attention.flash_attention_plain(q, k, v, causal=True,
                                                      scale=192 ** -0.5)
-        assert flash_attention.launches_by_kernel["fma"] == before["fma"] + 1
+        assert flash_attention.launches_by_kernel["prefill_wgmma"] == \
+            before["prefill_wgmma"] + 1
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2)
         cfg = MLAConfig(q_lora_rank=48, kv_lora_rank=32, d_nope=32,
@@ -1878,7 +2008,8 @@ class TestFlashBackwardWgmmaOnCard:
         (1, 12, 1, 70, 90, 64, torch.bfloat16, True, 16, "prefill_wgmma"),
         (1, 8, 2, 1, 543, 128, torch.bfloat16, True, None, "decode_splitkv"),
         (1, 4, 4, 16, 40, 64, torch.float32, True, None, "decode_splitkv"),
-        (1, 4, 2, 90, 90, 256, torch.bfloat16, True, 40, "fma"),
+        (1, 4, 2, 90, 90, 256, torch.bfloat16, True, 40, "prefill_wgmma"),
+        (1, 4, 2, 90, 90, 256, torch.float32, True, 40, "fma"),
         (1, 3, 1, 50, 120, 128, torch.float32, False, 30, "fma"),
         (1, 4, 2, 80, 40, 64, torch.float32, True, None, "fma"),  # empty rows
     ])

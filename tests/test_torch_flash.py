@@ -147,11 +147,22 @@ class TestDispatch:
         (bf16, 128, 1, 64, 300, "decode_splitkv"),    # a group of 64
         (bf16, 128, 2, 64, 300, "prefill_wgmma"),
         (f32, 128, 512, 4, 512, "fma"),               # float32 prefill
-        (bf16, 32, 512, 4, 512, "fma"),               # head dims 16/32/256
-        (bf16, 256, 512, 4, 512, "fma"),
+        (bf16, 32, 512, 4, 512, "fma"),               # head dims 16 / 32
+        (bf16, 256, 512, 4, 512, "prefill_wgmma"),    # head dim 256
         (bf16, 16, 100, 1, 100, "fma"),
         (bf16, 128, 100, 1, 0, "fma"),                # no keys: no tensor map
         (f32, 256, 1, 8, 40, "decode_splitkv"),
+        (f32, 256, 512, 4, 512, "fma"),               # float32 at dh 256
+        (f32, 256, 2048, 2, 2048, "fma"),
+        (bf16, 16, 512, 4, 512, "fma"),
+        (bf16, 32, 2048, 2, 2048, "fma"),
+        (bf16, 256, 2048, 2, 2048, "prefill_wgmma"),  # Gemma3's prefill
+        (bf16, 256, 512, 1, 512, "prefill_wgmma"),    # MLA's padded prefill
+        (bf16, 256, 33, 2, 33, "prefill_wgmma"),      # 66 rows: two tiles
+        (bf16, 256, 1, 2, 2079, "decode_splitkv"),    # Gemma3's decode steps
+        (bf16, 256, 1, 2, 1024, "decode_splitkv"),
+        (bf16, 256, 32, 2, 32, "decode_splitkv"),     # 64 rows: one tile
+        (bf16, 256, 100, 4, 0, "fma"),                # no keys
     ])
     def test_route(self, dtype, dh, sq, rep, skv, kind):
         assert tfa.route(dtype, dh, sq, rep, skv) == kind
@@ -178,6 +189,142 @@ class TestDispatch:
         assert (tfa.launches, tfa.launches_by_kernel) == before
         torch.testing.assert_close(
             got, tfa.flash_attention_plain(q, k, v, causal=True))
+
+
+class TestPrefillPlan:
+    """`prefill_plan`: the tensor-core prefill's tiles and shared memory by
+    head dim, as ``csrc/flash_attention.cu`` builds them."""
+
+    @pytest.mark.parametrize("dh", [64, 128, 256])
+    def test_fits_shared_memory(self, dh):
+        rows, keys, q_st, k_st, v_st, smem = tfa.prefill_plan(dh)
+        assert dh in tfa.WGMMA_HEAD_DIMS
+        assert rows == 128 and keys % 64 == 0 and min(q_st, k_st, v_st) >= 1
+        assert smem <= tfa.SMEM_MAX == 232_448
+        rings = (1024 + q_st * rows * 2 * dh + (k_st + v_st) * keys * 2 * dh
+                 + 8 * 2 * (q_st + k_st + v_st + 1))
+        # the output's staging tile (a Q tile) is there exactly when it fits
+        staged = smem == rings + rows * 2 * dh
+        assert staged == (rings + rows * 2 * dh <= tfa.SMEM_MAX)
+        assert staged or smem == rings
+
+    def test_dh64_dh128_keep_their_layout_dh256_fits(self):
+        """Head dims 64 and 128 keep the layout they ran with before 256
+        joined (128-key tiles, two stages of each ring, the staged output:
+        115,824 and 230,512 bytes); 256 takes 64-key tiles, one Q stage
+        and no staging tile."""
+        assert tfa.prefill_plan(64) == (128, 128, 2, 2, 2, 115_824)
+        assert tfa.prefill_plan(128) == (128, 128, 2, 2, 2, 230_512)
+        assert tfa.prefill_plan(256) == (128, 64, 1, 2, 2, 197_728)
+
+    def test_plan_matches_the_source(self):
+        """The ``PF_PLAN`` table and the constants of ``pf`` in the CUDA
+        source are the wrapper's; the kernel's launcher dispatches every
+        head dim the route sends it."""
+        import re
+
+        from repro_torch.kernels import _build
+
+        src = (_build.CSRC / "flash_attention.cu").read_text()
+        table = {int(m[0]): tuple(int(x) for x in m[1:]) for m in re.findall(
+            r"^PF_PLAN\((\d+), (\d+), (\d+), (\d+), (\d+)\)$", src,
+            re.M)}
+        assert table == tfa.PREFILL_PLANS
+        assert set(table) == set(tfa.WGMMA_HEAD_DIMS)
+        pf = src[src.index("namespace pf {"):]
+        pf = pf[:pf.index("}  // namespace pf")]
+        assert re.search(r"kRows = (\d+);", pf)[1] == str(tfa.PREFILL_ROWS)
+        assert re.search(r"kSmemMax = (\d+);", pf)[1] == str(tfa.SMEM_MAX)
+        entry = src[src.index("int flash_attention_launch("):]
+        entry = entry[:entry.index("\n}\n")]
+        cases = re.search(r"FA_CASE\((\d+)\) FA_CASE\((\d+)\) "
+                          r"FA_CASE\((\d+)\)", entry)
+        assert tuple(int(d) for d in cases.groups()) == tfa.WGMMA_HEAD_DIMS
+
+
+    def test_forward_timing_checks_cover_the_route(self):
+        """`launch/flash_fwd_time.py` holds each build against the plain
+        version on every head dim of the route, on grids that the (batch,
+        kv head) pairs alone fill (the rounds order) and on grids they do
+        not; the line its docstring edits for the level-major order is in
+        the source once."""
+        from repro_torch.kernels import _build
+        from repro_torch.launch import flash_fwd_time
+
+        checks = flash_fwd_time.CHECKS
+        assert {c[5] for c in checks} == set(tfa.WGMMA_HEAD_DIMS)
+        assert any(c[0] * c[2] >= 132 for c in checks)
+        assert any(c[0] * c[2] < 132 for c in checks)
+        src = (_build.CSRC / "flash_attention.cu").read_text()
+        assert src.count("  const int per = pairs >= grid ") == 1
+        assert "const int per = pairs >= grid .*;$" in flash_fwd_time.__doc__
+
+
+# b, hq, hkv, sq, skv, causal, window, scale: bf16 at head dim 256 on the
+# shapes ``prefill_wgmma`` now takes — group 2 with a window and Sq != Skv,
+# neither a multiple of 64; the window alone; MLA's group 1 with its scale
+DH256_CASES = [
+    (1, 4, 2, 40, 72, True, 24, None),
+    (1, 4, 2, 70, 45, False, 30, None),
+    (2, 2, 2, 80, 80, True, None, 192 ** -0.5),
+]
+
+
+class TestHeadDim256:
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,window,scale",
+                             DH256_CASES)
+    def test_bf16_plain_matches_pallas(self, b, hq, hkv, sq, skv, causal,
+                                       window, scale):
+        """The plain version (what ``prefill_wgmma`` is held to on the
+        card) against the JAX package's Pallas kernel in interpret mode on
+        the same bf16 values, within ``BF16_TOL`` (the JAX package's own
+        bf16 tolerance: p is rounded relative to each one's running
+        max)."""
+        q, k, v = _qkv(sq * 7 + skv, b, hq, hkv, sq, skv, 256)
+        assert tfa.route(bf16, 256, sq, hq // hkv, skv) == "prefill_wgmma"
+        tq, tk, tv = (torch.from_numpy(a).to(bf16) for a in (q, k, v))
+        got = tfa.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                  scale=scale)
+        assert got.dtype == bf16 and got.shape == (b, hq, sq, 256)
+        want = pallas_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                            causal=causal, window=window, scale=scale,
+                            block_q=16, block_k=16, interpret=True)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+
+    @pytest.mark.parametrize("dtype,tol", [(f32, TOL), (bf16, BF16_TOL)])
+    def test_mla_padded_call_cut_to_dv(self, dtype, tol):
+        """MLA's prefill call — q / k of 192 and v of 128 zero-padded to
+        256 (``layers.mla.padded_head_dim``), the scale of 192 — cut back
+        to 128 columns equals the plain version on the unpadded tensors
+        (float32 within ``TOL``: only the order of the sums differs; bf16
+        within ``BF16_TOL``); the padded columns come out 0."""
+        import torch.nn.functional as F
+
+        from repro_torch.configs import get_arch
+        from repro_torch.layers.mla import padded_head_dim
+
+        mla = get_arch("deepseek-v2-236b").CONFIG.mla
+        dqk, dv = mla.d_nope + mla.d_rope, mla.d_v
+        dh = padded_head_dim(mla)
+        assert (dqk, dv, dh) == (192, 128, 256)
+        rng = np.random.default_rng(17)
+        q, k = (torch.from_numpy(rng.normal(size=(1, 3, 70, dqk)).astype(
+            np.float32)).to(dtype) for _ in range(2))
+        v = torch.from_numpy(rng.normal(size=(1, 3, 70, dv)).astype(
+            np.float32)).to(dtype)
+        assert tfa.route(dtype, dh, 70, 1, 70) == (
+            "prefill_wgmma" if dtype == bf16 else "fma")
+        out = ops.flash_attention(F.pad(q, (0, dh - dqk)),
+                                  F.pad(k, (0, dh - dqk)),
+                                  F.pad(v, (0, dh - dv)), causal=True,
+                                  scale=dqk ** -0.5)
+        assert not out[..., dv:].any()
+        want = tfa.flash_attention_plain(q, k, v, causal=True,
+                                         scale=dqk ** -0.5)
+        torch.testing.assert_close(out[..., :dv].float(), want.float(),
+                                   rtol=tol, atol=tol)
 
 
 def _jax_masked_scores(q, k, causal, window):
@@ -266,8 +413,20 @@ class TestBackwardRoute:
         kernel's head dims (64, 128); the FMA kernels otherwise."""
         assert tfa.backward_route(dtype, dh) == kind
         assert (kind == "bwd_wgmma") == (dtype == bf16
-                                         and dh in tfa.WGMMA_HEAD_DIMS)
+                                         and dh in tfa.BWD_WGMMA_HEAD_DIMS)
         assert set(tfa.bwd_launches_by_kernel) == {"bwd_wgmma", "bwd_fma"}
+
+    def test_dh256_forward_on_wgmma_backward_on_fma(self):
+        """The forward's tensor-core head dims gained 256; the backward's
+        did not: bf16 at 256 prefills on ``prefill_wgmma`` and still takes
+        ``bwd_fma`` for its gradient."""
+        assert 256 in tfa.WGMMA_HEAD_DIMS
+        assert tfa.BWD_WGMMA_HEAD_DIMS == (64, 128)
+        assert tfa.route(bf16, 256, 2048, 2, 2048) == "prefill_wgmma"
+        assert tfa.backward_route(bf16, 256) == "bwd_fma"
+        for dh in tfa.BWD_WGMMA_HEAD_DIMS:
+            assert dh in tfa.WGMMA_HEAD_DIMS
+            assert tfa.backward_route(bf16, dh) == "bwd_wgmma"
 
     def test_fma_source_holds_what_the_route_sends_it(self):
         """``csrc/flash_attention_bwd.cu`` compiles the FMA kernels for
