@@ -6,7 +6,9 @@ serving paths at the paper's deployment size (1,000,000 documents x 3584
 dims, 2,470 queries, schedule d_start=128, d_max=3584, k0=64, final_k=10),
 in phases that each print one JSON line:
 
-  1. device    — ``nvidia-smi`` name and power limit, kernel build time
+  1. device    — ``nvidia-smi`` name and power limit, kernel build time,
+                 ptxas's registers and spills, the tensor-core prefill's
+                 and backward's plans as the built libraries report them
   2. kernels   — the flat stage-0 and rescore kernels against their plain
                  PyTorch versions on the card, at the serving shapes, with
                  CUDA-event timings (stage 0 also with its device time, the
@@ -198,8 +200,11 @@ in phases that each print one JSON line:
                  2, 4,096, 128); route ``bwd_wgmma``, and the same call
                  twice, bit-equal), a windowed head-dim-64 call of a group
                  of 4 off the tiles (``bwd_wgmma``), Gemma3's head dim 256
-                 with its 1,024-key window and MLA's padded group-1 call
-                 (both ``bwd_fma``); the bag backward at the two-tower shape
+                 with its 1,024-key window and without it (global), and
+                 MLA's padded group-1 call (all three ``bwd_wgmma``, each
+                 also twice, bit-equal), and Gemma3's windowed call in
+                 float32 at 2,048 tokens (``bwd_fma``, which no main path
+                 takes any more); the bag backward at the two-tower shape
                  (4 fields x 8,192 bags onto 4 x 1M x 256) and a padded
                  mean case; the segment backward at EGNN's minibatch_lg
                  budget.  Then StarCoder2-3B at full depth and
@@ -220,7 +225,8 @@ in phases that each print one JSON line:
                  first 6 layers (5 windowed, 1 global) at full width, 2
                  steps of 2,048 tokens: the same kernel-vs-plain check at
                  the initial weights, every forward on ``prefill_wgmma``
-                 (writing its log-sum-exp), every backward on ``bwd_fma``.
+                 (writing its log-sum-exp), every backward on
+                 ``bwd_wgmma`` (none on ``bwd_fma``), step ms.
                  Two-tower retrieval whole (8 x 1M x 256 tables, batches
                  of 8,192, Matryoshka losses): its step-1 gradients against
                  the plain path's, 5 steps, the loss falls.  EGNN on
@@ -313,6 +319,9 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# Wall time at import: the clock line also gives the seconds since then,
+# so a run's own time can be told from its interpreter's start and exit.
+T_IMPORT = time.time()
 
 # The paper's deployment (configs/paper_rag.py): gte-Qwen2-7B widths, 1M
 # docs, 2,470 queries, Table III schedule (128 -> 3584, k0=64); final_k=10
@@ -632,16 +641,17 @@ def read_counts() -> dict:
     return out
 
 
-def prefill_ptxas(report: str) -> dict:
-    """{head dim: (registers, spill store bytes, spill load bytes)} of the
-    tensor-core prefill's instantiations in ptxas's report (``-v``) of
-    ``csrc/flash_attention.cu``; empty when the libraries were not built in
-    this process."""
+def ptxas_rows(report: str, kernels: str) -> dict:
+    """{"<kernel> <head dim>": (registers, spill store bytes, spill load
+    bytes)} of the instantiations named by the regex ``kernels`` in
+    ptxas's report (``-v``) of one source; empty when the libraries were
+    not built in this process."""
     out = {}
-    for m in re.finditer(r"Compiling entry function '\S*prefill_wgmmaILi(\d+)E"
-                         r"\S*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
-                         r"loads.*?Used (\d+) registers", report, re.S):
-        out[int(m[1])] = (int(m[4]), int(m[2]), int(m[3]))
+    for m in re.finditer(r"Compiling entry function '\S*?(" + kernels +
+                         r")ILi(\d+)E\S*'.*?(\d+) bytes spill stores, "
+                         r"(\d+) bytes spill loads.*?Used (\d+) registers",
+                         report, re.S):
+        out[f"{m[1]} {m[2]}"] = (int(m[5]), int(m[3]), int(m[4]))
     return out
 
 
@@ -684,13 +694,37 @@ def run(args) -> None:
     ptxas = {stem: [ln.strip() for ln in rep.splitlines()
                     if "registers" in ln or "spill" in ln]
              for stem, rep in _build.ptxas_report.items()}
-    prefill = prefill_ptxas(_build.ptxas_report.get("flash_attention", ""))
+    # the tensor-core prefill's instantiations by head dim
+    prefill = {int(k.split()[1]): v for k, v in ptxas_rows(
+        _build.ptxas_report.get("flash_attention", ""),
+        "flash_attention_kernel_prefill_wgmma").items()}
     if "flash_attention" in _build.ptxas_report and (
             sorted(prefill) != [64, 128, 256]
             or any(st or ld for _, st, ld in prefill.values())):
         fail(f"the tensor-core prefill's ptxas report: {prefill} (head dim: "
              f"registers, spill store and load bytes)")
-    plan = {}                  # the prefill's tiles, read from the build
+    backward = ptxas_rows(_build.ptxas_report.get(
+        "flash_attention_bwd_wgmma", ""), r"flash_bwd_\w+?")
+    bwd_kernels = {"flash_bwd_dq_wgmma 64", "flash_bwd_dq_wgmma 128",
+                   "flash_bwd_dq_wgmma 256", "flash_bwd_dkdv_wgmma 64",
+                   "flash_bwd_dkdv_wgmma 128", "flash_bwd_dkdv_roles 256"}
+    if "flash_attention_bwd_wgmma" in _build.ptxas_report and (
+            set(backward) != bwd_kernels
+            or any(st or ld for _, st, ld in backward.values())):
+        fail(f"the tensor-core backward's ptxas report: {backward} (kernel "
+             f"and head dim: registers, spill store and load bytes)")
+    plan, bwd_plan = {}, {}    # the tiles, read from the build
+    if "flash_attention_bwd_wgmma" in _build.ptxas_report:
+        from repro_torch.kernels import flash_attention as fa
+        names = ("rows", "roles", "ring", "cluster", "order", "smem_dq",
+                 "smem_kv")
+        for dh in fa.BWD_WGMMA_HEAD_DIMS:
+            built = fa.built_backward_plan(dh)
+            if built != fa.backward_plan(dh):
+                fail(f"the tensor-core backward at head dim {dh} is built "
+                     f"with {built}, backward_plan says "
+                     f"{fa.backward_plan(dh)}")
+            bwd_plan[dh] = dict(zip(names, built))
     if "flash_attention" in _build.ptxas_report:
         from repro_torch.kernels import flash_attention as fa
         names = ("rows", "keys", "q_stages", "k_stages", "v_stages",
@@ -708,7 +742,8 @@ def run(args) -> None:
           "python": sys.version.split()[0],
           "build_s": build_s, "nvcc_s": _build.build_seconds,
           "ptxas": ptxas, "prefill_wgmma_ptxas": prefill,
-          "prefill_wgmma_plan": plan})
+          "prefill_wgmma_plan": plan, "bwd_wgmma_ptxas": backward,
+          "bwd_wgmma_plan": bwd_plan})
 
     d_emb, d_start, k0, final_k = D_EMB, D_START, K0, FINAL_K
     sched = make_schedule(d_start, d_emb, k0, final_k=final_k)
@@ -1030,7 +1065,8 @@ def run(args) -> None:
     dist_counts, _ = distributed_phase(torch, dev, args.seed)
     lap("distributed")
     emit({"phase": "clock", "seconds": clock,
-          "total_s": time.perf_counter() - t0})
+          "total_s": time.perf_counter() - t0,
+          "since_import_s": time.time() - T_IMPORT})
     finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
            launches, paper_counts, dur_counts, scan_rows, flash_rows,
            bag_rows, seg_rows, families, train, dist_counts)
@@ -4206,8 +4242,8 @@ def profile_search(torch, engine, q_host, search_s: float, backend) -> None:
 # together) raised the loss from step 3 on (11.29 -> 12.05, H100).
 TRAIN_LM = ("starcoder2-3b", 4, 4096, 6)        # arch, batch, seq, steps
 # Gemma3-4B's first six layers (five windowed, one global) at full width:
-# the training path of the head-dim-256 backward (`bwd_fma`).
-TRAIN_FMA_LM = ("gemma3-4b", 6, 1, 2048, 2)  # arch, layers, batch, seq, steps
+# the training path of the head-dim-256 backward (`bwd_wgmma`).
+TRAIN_GEMMA3 = ("gemma3-4b", 6, 1, 2048, 2)  # arch, layers, batch, seq, steps
 TRAIN_LM_LR, TRAIN_LM_WARMUP = 3e-4, 3
 TRAIN_TT_BATCH, TRAIN_TT_STEPS, TRAIN_TT_LR = 8192, 5, 1e-3
 REDDIT_NODES, REDDIT_EDGES, REDDIT_FEATS = 232_965, 114_615_892, 602
@@ -4283,7 +4319,7 @@ def flash_bwd_row(torch, case, q, k, v, *, causal, window, route,
     (q, k, v, dO read once, dq, dk, dv written once) and operations (the
     five products of 2 * dh for every kept (query, key) pair: S, dP, dV,
     dQ, dK — the function's, not the nine of `bwd_wgmma`) at the bf16
-    tensor-core peak."""
+    tensor-core peak, or in float32 at the FMA peak."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -4331,7 +4367,8 @@ def flash_bwd_row(torch, case, q, k, v, *, causal, window, route,
         a, b_, c, enable_gqa=True, **sdpa_kw), (q, k, v), do)
     n_bytes = q.element_size() * dh * (4 * b * hq * sq + 4 * b * hkv * skv)
     n_ops = 10.0 * dh * b * hq * kept
-    bnd, by = bound_ms(n_bytes, n_ops, PEAK_BF16_FLOPS)
+    bnd, by = bound_ms(n_bytes, n_ops, PEAK_F32_FLOPS if dtype == "float32"
+                       else PEAK_BF16_FLOPS)
     dev_all, dev_own = device_ms(torch, kern, ("flash_bwd",), per_call=2)
     row = {"kernel": "flash_attention.flash_attention_backward",
            "case": case, "dtype": dtype, "route": kind,
@@ -4352,7 +4389,8 @@ def flash_bwd_row(torch, case, q, k, v, *, causal, window, route,
     return row
 
 
-def flash_bwd_twice(torch, case, q, k, v, *, causal, window) -> dict:
+def flash_bwd_twice(torch, case, q, k, v, *, causal, window,
+                    scale=None) -> dict:
     """The same backward call twice on its route, checked bit-equal: no
     atomics, sums in a fixed order."""
     from repro_torch.kernels import flash_attention as fa
@@ -4361,9 +4399,10 @@ def flash_bwd_twice(torch, case, q, k, v, *, causal, window) -> dict:
     g.manual_seed(q.shape[2] + 1)
     do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
     _, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
-                                return_lse=True)
+                                scale=scale, return_lse=True)
     call = lambda: fa.flash_attention_backward(q, k, v, do, lse,
-                                               causal=causal, window=window)
+                                               causal=causal, window=window,
+                                               scale=scale)
     first, second = call(), call()
     torch.cuda.synchronize()
     equal = all(torch.equal(a, b) for a, b in zip(first, second))
@@ -4505,10 +4544,12 @@ def train_kernel_rows(torch, dev) -> dict:
     128), kv (1, 2, 4096, 128); route `bwd_wgmma`, and twice, bit-equal),
     a windowed head-dim-64 call of a group of 4 off the tiles
     (`bwd_wgmma`), Gemma3's head dim 256 with its 1,024-key window and
-    DeepSeek-V2's MLA call padded to 256 (group 1, 128 heads, 1,024 tokens;
-    both `bwd_fma`); the bag backward at the two-tower shape and a padded
-    mean case, both beside ``F.embedding_bag``'s backward; the segment
-    backward at minibatch_lg's budget."""
+    without it, and DeepSeek-V2's MLA call padded to 256 (group 1, 128
+    heads, 1,024 tokens; all `bwd_wgmma`, each also twice, bit-equal), the
+    windowed call in float32 at 2,048 tokens (`bwd_fma`); the bag backward
+    at the two-tower shape and a padded mean case, both beside
+    ``F.embedding_bag``'s backward; the segment backward at minibatch_lg's
+    budget."""
     from repro_torch.configs import get_arch
 
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
@@ -4537,18 +4578,34 @@ def train_kernel_rows(torch, dev) -> dict:
         rnd(2, 4, 1234, 64), rnd(2, 4, 1234, 64), causal=False, window=300,
         route="bwd_wgmma", flush=flush))
     gm = get_arch("gemma3-4b").CONFIG
+    gm_qkv = (rnd(1, gm.n_heads, s, gm.d_head),
+              rnd(1, gm.n_kv_heads, s, gm.d_head),
+              rnd(1, s, gm.n_kv_heads, gm.d_head).transpose(1, 2))
+    for case, window in (("gemma3_window_dh256", gm.window),
+                         ("gemma3_global_dh256", None)):
+        rows["flash"].append(flash_bwd_row(
+            torch, case, *gm_qkv, causal=True, window=window,
+            route="bwd_wgmma", flush=flush))
+        rows["flash_twice"].append(flash_bwd_twice(
+            torch, case + "_twice", *gm_qkv, causal=True, window=window))
+    # the FMA kernels, which no main path takes now: Gemma3's windowed call
+    # in float32, cut to the cut run's 2,048 tokens
+    n_tok = TRAIN_GEMMA3[3]
     rows["flash"].append(flash_bwd_row(
-        torch, "gemma3_window_dh256", rnd(1, gm.n_heads, s, gm.d_head),
-        rnd(1, gm.n_kv_heads, s, gm.d_head),
-        rnd(1, s, gm.n_kv_heads, gm.d_head).transpose(1, 2), causal=True,
+        torch, "gemma3_window_dh256_float32",
+        *(x[:, :, :n_tok].float() for x in gm_qkv), causal=True,
         window=gm.window, route="bwd_fma", flush=flush))
+    del gm_qkv
     m = get_arch("deepseek-v2-236b").CONFIG
     dqk = m.mla.d_nope + m.mla.d_rope
+    mla_qkv = tuple(rnd(1, m.n_heads, 1024, 256) for _ in range(3))
     rows["flash"].append(flash_bwd_row(
-        torch, "mla_padded_group1", rnd(1, m.n_heads, 1024, 256),
-        rnd(1, m.n_heads, 1024, 256), rnd(1, m.n_heads, 1024, 256),
-        causal=True, window=None, route="bwd_fma", scale=dqk ** -0.5,
-        flush=flush))
+        torch, "mla_padded_group1", *mla_qkv, causal=True, window=None,
+        route="bwd_wgmma", scale=dqk ** -0.5, flush=flush))
+    rows["flash_twice"].append(flash_bwd_twice(
+        torch, "mla_padded_group1_twice", *mla_qkv, causal=True, window=None,
+        scale=dqk ** -0.5))
+    del mla_qkv
 
     tt = get_arch("two-tower-retrieval").CONFIG
     nf = tt.n_sparse // 2
@@ -4812,20 +4869,21 @@ def lm_train_run(torch, dev, seed) -> dict:
     return {k: counts[k] for k in want}
 
 
-def fma_lm_train_run(torch, dev, seed) -> dict:
-    """Gemma3-4B at full width cut to its first ``TRAIN_FMA_LM`` layers
+def gemma3_train_run(torch, dev, seed) -> dict:
+    """Gemma3-4B at full width cut to its first ``TRAIN_GEMMA3`` layers
     (five windowed, one global; head dim 256, so every forward takes
     `prefill_wgmma`, writing its log-sum-exp, and every backward
-    `bwd_fma`): the kernel path against the plain path at the initial
-    weights on one sequence, then a few AdamW steps."""
+    `bwd_wgmma`): the kernel path against the plain path at the initial
+    weights on one sequence, then a few AdamW steps, their step ms."""
     from repro_torch.checkpoint.ckpt import _leaves
     from repro_torch.configs import get_arch
     from repro_torch.data.synth import lm_batch_stream
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import lm as LM
     from repro_torch.train import TrainLoop
     from repro_torch.train.loop import to_device
 
-    arch, n_layers, b, s, steps = TRAIN_FMA_LM
+    arch, n_layers, b, s, steps = TRAIN_GEMMA3
     cfg = dataclasses.replace(get_arch(arch).CONFIG, n_layers=n_layers)
     params = LM.param_tree(LM.init_lm(cfg, seed=seed, device=dev))
     for p in _leaves(params)[0]:
@@ -4852,20 +4910,25 @@ def fma_lm_train_run(torch, dev, seed) -> dict:
     losses = [h["loss"] for h in loop.history]
     if not all(np.isfinite(losses)):
         fail(f"{arch} training: losses {losses}")
+    if fa.backward_route(torch.bfloat16, cfg.d_head) != "bwd_wgmma":
+        fail(f"{arch}: its backward is not on bwd_wgmma")
     want = {"flash_attention.prefill_wgmma": 2 * n_layers * steps,
             "flash_attention.fma": 0,
-            "flash_attention_bwd.bwd_fma": n_layers * steps,
-            "flash_attention_bwd.bwd_wgmma": 0}
+            "flash_attention_bwd.bwd_wgmma": n_layers * steps,
+            "flash_attention_bwd.bwd_fma": 0}
     if any(counts[k] != n for k, n in want.items()):
-        fail(f"{arch} training launches {counts}, expected {want}")
+        fail(f"{arch} training launches {counts}, expected {want} (every "
+             f"backward on bwd_wgmma)")
     emit({"phase": "train", "model": arch, "layers": n_layers,
           "layers_cut": f"{cfg.n_layers} of 34: five windowed and one global",
           "batch": b, "seq": s, "steps": steps, "losses": losses,
+          "step_ms_p50": float(np.median(loop.step_times)) * 1e3,
           "step_ms": [t * 1e3 for t in loop.step_times],
           "plain_check": check, "launches": {k: counts[k] for k in want}})
     del loop, params
     _free(torch)
-    return {k: counts[k] for k in ("flash_attention_bwd.bwd_fma",)}
+    return {k: counts[k] for k in ("flash_attention_bwd.bwd_wgmma",
+                                   "flash_attention_bwd.bwd_fma")}
 
 
 def loss_grads(torch, loss_fn, params, batch):
@@ -5047,15 +5110,17 @@ def egnn_train_run(torch, dev, seed) -> dict:
 
 
 def train_phase(torch, dev, seed):
-    """Phase 11: the backward kernels' rows, then the three training runs.
-    Returns (the main paths' launches by counter, the kernel rows)."""
+    """Phase 11: the backward kernels' rows, then the four training runs.
+    Returns (the main paths' launches by counter, summed over the runs,
+    and the kernel rows)."""
     emit({"phase": "train_memory", "before": "train_phase",
           "allocated_gb": torch.cuda.memory_allocated() / 2**30})
     rows = train_kernel_rows(torch, dev)
     counts = {}
-    for run in (lm_train_run, fma_lm_train_run, two_tower_train_run,
+    for run in (lm_train_run, gemma3_train_run, two_tower_train_run,
                 egnn_train_run):
-        counts.update(run(torch, dev, seed))
+        for name, n in run(torch, dev, seed).items():
+            counts[name] = counts.get(name, 0) + n
         # what a run leaves on the card (it should free all it made)
         emit({"phase": "train_memory", "after": run.__name__,
               "allocated_gb": torch.cuda.memory_allocated() / 2**30})
@@ -5075,23 +5140,45 @@ def _bwd_entry(name, source, launches, rows, note) -> dict:
             **{r["case"]: {k: r[k] for k in keys} for r in rows[1:]}}
 
 
+def _flash_bwd_entry(counts, rows, note) -> dict:
+    """The kernels-line entry of the flash backward, both routes in one as
+    the forward's kernels are: StarCoder2's training row first, the other
+    rows by case beside it (each naming the route that served it), every
+    row's largest error, the training runs' launches in all and by route,
+    the bit-equality of the calls made twice, the routes."""
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "kernel_device_ms",
+            "bound_ms", "bound_by", "shape")
+    flash = rows["flash"]
+    first = flash[0]
+    by_kernel = {kind: counts[f"flash_attention_bwd.{kind}"]
+                 for kind in ("bwd_wgmma", "bwd_fma")}
+    return {"name": "flash_attention.flash_attention_backward",
+            "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
+            "sources_by_kernel": {
+                kind: f"src/repro_torch/csrc/{stem}.cu" for kind, stem in (
+                    ("bwd_wgmma", "flash_attention_bwd_wgmma"),
+                    ("bwd_fma", "flash_attention_bwd"))},
+            "replaces": note, "launches": sum(by_kernel.values()),
+            "launches_by_kernel": by_kernel, "served_by": first["route"],
+            "max_abs_err": max(r["max_abs_err"] for r in flash),
+            **{k: first[k] for k in keys},
+            **{r["case"]: {"served_by": r["route"],
+                           "max_abs_err": r["max_abs_err"],
+                           **{k: r[k] for k in keys}} for r in flash[1:]},
+            "bit_equal": {r["case"]: r["bit_equal"]
+                          for r in rows["flash_twice"]},
+            "routes": {
+                "bwd_wgmma": "bf16, head dims 64 / 128 / 256",
+                "bwd_fma": "float32 at every head dim, bf16 at 16 / 32"}}
+
+
 def train_entries(counts, rows) -> list:
     new = "none: new in the port, no Pallas counterpart (the JAX package " \
           "trains through XLA: {})"
-    flash = {kind: [r for r in rows["flash"] if r["route"] == kind]
-             for kind in ("bwd_wgmma", "bwd_fma")}
-    wgmma = _bwd_entry("flash_attention.flash_attention_backward.bwd_wgmma",
-                       "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
-                       counts["flash_attention_bwd.bwd_wgmma"],
-                       flash["bwd_wgmma"],
-                       new.format("src/repro/layers/attention.py:95"))
-    wgmma["bit_equal"] = all(r["bit_equal"] for r in rows["flash_twice"])
     return [
-        wgmma,
-        _bwd_entry("flash_attention.flash_attention_backward.bwd_fma",
-                   "src/repro_torch/csrc/flash_attention_bwd.cu",
-                   counts["flash_attention_bwd.bwd_fma"], flash["bwd_fma"],
-                   new.format("src/repro/layers/attention.py:95")),
+        _flash_bwd_entry(counts, rows,
+                         new.format("src/repro/layers/attention.py:95")),
         _bwd_entry("embedding_bag.embedding_bag_backward",
                    "src/repro_torch/csrc/embedding_bag.cu",
                    counts["embedding_bag.embedding_bag_backward"],

@@ -2,11 +2,9 @@
 // the end of kv), for Hopper (sm_90a): route `bwd_fma` of
 // kernels/flash_attention.py, two FMA kernels behind one function, for the
 // calls the tensor-core route (`bwd_wgmma`, flash_attention_bwd_wgmma.cu:
-// bf16 at head dim 64 or 128, not compiled here) does not take — head dims
-// 16, 32 and 256 (Gemma3's, MLA's padded call) and float32 at every head
-// dim.  At head dim 256 the dK and dV accumulators of a 64-key tile alone
-// exceed 255 registers a thread of a warpgroup, and float32 on the tensor
-// cores would be TF32.
+// bf16 at head dim 64, 128 or 256, not compiled here) does not take — head
+// dims 16 and 32, and float32 at every head dim (on the tensor cores
+// float32 would be TF32).
 //
 // The JAX package has no backward kernel: it trains through XLA's
 // `chunked_attention` (src/repro/layers/attention.py:95), and no Pallas
@@ -414,18 +412,18 @@ cudaError_t launch(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-// Head dims 16, 32 and 256 in both types; 64 and 128 in float32 only (bf16
+// Head dims 16 and 32 in both types; 64, 128 and 256 in float32 only (bf16
 // there is `bwd_wgmma`'s, and is not compiled here).
 template <typename T>
 cudaError_t launch_dh(const BwdArgs& a) {
   switch (a.dh) {
     case 16: return launch<T, 16, 64, 64>(a);
     case 32: return launch<T, 32, 64, 64>(a);
-    case 256: return launch<T, 256, 32, 32>(a);
   }
   if constexpr (std::is_same_v<T, float>) {
     if (a.dh == 64) return launch<T, 64, 64, 64>(a);
     if (a.dh == 128) return launch<T, 128, 64, 64>(a);
+    if (a.dh == 256) return launch<T, 256, 32, 32>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -439,7 +437,7 @@ extern "C" {
 // stride on the head dim; dq, dk, dv contiguous of the same type;
 // lse (b * hq * sq) float32, the forward's log-sum-exp (-inf on rows with
 // no kept key); delta (b * hq * sq) float32 workspace; hq a multiple of
-// hkv; dh one of 16, 32, 256, or in float32 also 64 or 128; sq, skv >= 1.
+// hkv; dh 16 or 32, or in float32 also 64, 128 or 256; sq, skv >= 1.
 // Two launches on `stream`; returns the first CUDA error (0 on success).
 int flash_attention_backward_launch(const void* args) {
   const BwdArgs& a = *static_cast<const BwdArgs*>(args);

@@ -1,7 +1,7 @@
 // Backward of the fused attention on the tensor cores, for Hopper (sm_90a):
 // route `bwd_wgmma` of kernels/flash_attention.py, bf16 q, k, v and dO at
-// head dim 64 or 128.  Other calls (head dim 16, 32, 256; float32) take
-// route `bwd_fma` (flash_attention_bwd.cu).
+// head dim 64, 128 or 256.  Other calls (head dim 16 or 32; float32 at every
+// head dim) take route `bwd_fma` (flash_attention_bwd.cu).
 //
 // No TPU kernel is replaced: the JAX package trains through XLA's
 // `chunked_attention` (src/repro/layers/attention.py:95).  The function is
@@ -60,6 +60,40 @@
 // and keys past the ends are zero-filled by TMA and masked.  Tensor maps
 // are built per call from the strides (any multiple of 16 bytes), so the
 // transposed v view of prefill is read in place.
+//
+// Head dim 256 (Gemma3-4B's windowed and global layers, DeepSeek-V2's MLA
+// call padded to 256; `BWD_PLAN` below).  Bound at Gemma3's windowed
+// training call (q (1, 8, 4096, 256), kv (1, 4, 4096, 256), window 1,024,
+// causal): 75 GFLOP of the five products over the kept pairs, 0.076 ms;
+// 50 MB of inputs and outputs, 15 us.  A 64-row tile is 32 KB.
+// 1. The dQ launch keeps its plan: Q and dO (64 KB) and two K / V slots
+//    (128 KB), 197,656 bytes, so one block an SM.  dQ is m64n256: two
+//    n128 products a k16 step on its halves (the register order of one
+//    m64n256 fragment, K's boxes 8,192 bytes apart), 128 registers a
+//    thread beside S and dP (32 + 32).
+// 2. The dK / dV launch cannot keep its plan: dK and dV are 128 float32 a
+//    thread each, more than one warpgroup can hold (255), and its ten
+//    tiles would be 320 KB.  flash_bwd_dkdv_roles gives the two
+//    warpgroups of a block one 64-key tile and every step, by role.
+//    Warpgroup 0 runs S^T = K Q^T, forms P^T in float32, hands it to
+//    warpgroup 1 through a 16 KB float32 exchange buffer and accumulates
+//    dV += P^T dO; warpgroup 1 runs dP^T = V dO^T, forms dS^T = P^T o
+//    (dP^T - D) in float32 from the handed P^T, and accumulates dK += dS^T
+//    Q.  Four products a step, two on each warpgroup, with the arithmetic
+//    of the kernel above; S^T of one warpgroup runs beside dP^T of the
+//    other, and dV beside dK.  One buffer, written again only after it was
+//    read (two named barriers).  K and V (64 KB) arrive once; one
+//    two-slot ring of Q and dO serves both warpgroups (128 KB), a slot
+//    freed when both have arrived on its mbarrier, then loaded two steps
+//    ahead by warpgroup 1's first thread.  215,080 bytes, no cluster
+//    (Gemma3's call has 256 key-tile blocks, MLA's 2,048).  Each
+//    warpgroup stores its own sum from registers: nothing to add up
+//    between them, so the bits are the same on every run.
+// Both launches walk their blocks in rounds of (batch, kv head) groups
+// (the plan's order 1): blocks that run together read a few groups' tiles
+// and share them in L2, where MLA's 128 one-head groups, a tile of each in
+// a wave, read every tile from DRAM.  ptxas (sm_90a): dQ 218 registers,
+// dK / dV 224, no spills; one block an SM each.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -78,6 +112,57 @@ constexpr int kBox = kRows * 128;      // bytes of a 64-row x 64-column box
 constexpr float kLog2e = 1.4426950408889634f;
 #define kInf __int_as_float(0x7f800000)
 #define kNegInf __int_as_float(0xff800000)
+constexpr int kSmemMax = 232448;       // dynamic shared memory a block may have
+
+// The backward's plan by head dim: BWD_PLAN(head dim, dK / dV by role, Q /
+// dO slots of the dK / dV launch, largest cluster of its CTAs, block
+// order).  Tiles are 64 rows (q rows or keys) at every head dim, and the
+// dQ launch holds Q, dO and two K / V slots.  Role 0: each warpgroup of
+// the dK / dV launch takes its own steps and holds dK and dV, with two Q /
+// dO slots of its own (four a block), and the key tile's steps spread over
+// a cluster of two CTAs when one CTA a tile leaves the grid in one wave.
+// Role 1 (head dim 256): the two warpgroups share each step and one ring
+// (flash_bwd_dkdv_roles).  Order 0: blocks by tile first (the dQ launch's
+// last q tiles, the dK / dV launch's first key tiles: the most work first)
+// over all heads and batches.  Order 1 (head dim 256): rounds of (batch,
+// kv head) groups, as many groups a round as one wave holds of their
+// blocks (at least one), by tile first within a round; the blocks that
+// run together then read a few groups' K and V (dQ) or Q and dO (dK / dV)
+// and find them in L2, and each round still starts its heaviest blocks
+// first.  In order 0 a wave of MLA's 128 one-head groups holds one tile
+// of every head, so every read came from DRAM; one group a round left
+// Gemma3's global call's heaviest key tiles waiting behind whole groups.  `backward_plan` in
+// kernels/flash_attention.py
+// gives the same numbers and shared memory: its CPU test reads this table,
+// and on the card `built_backward_plan` reads them from `flash_bwd_plan`.
+template <int DH>
+struct BwdPlan;
+#define BWD_PLAN(DH, ROLES, RING, CLUSTER, ORDER)                         \
+  template <>                                                             \
+  struct BwdPlan<DH> {                                                    \
+    static constexpr int kRoles = ROLES, kRing = RING, kCluster = CLUSTER, \
+                         kOrder = ORDER;                                  \
+  };
+BWD_PLAN(64, 0, 4, 2, 0)
+BWD_PLAN(128, 0, 4, 2, 0)
+BWD_PLAN(256, 1, 2, 1, 1)
+#undef BWD_PLAN
+
+// Shared memory of each launch (1024-byte aligned).  dQ: Q, dO and two K
+// and V slots, then three barriers.  dK / dV: K, V, the Q / dO ring, the
+// float32 P^T exchange (role 1), each warpgroup's lse and D rows, then the
+// barriers (K / V, and a full one a slot, with an empty one by role 1).
+template <int DH>
+struct BwdLayout : BwdPlan<DH> {
+  using P = BwdPlan<DH>;
+  static constexpr int kTile = DH / 64 * kBox;   // bytes of a 64-row tile
+  static constexpr int kSmemDq = 1024 + 6 * kTile + 3 * 8;
+  static constexpr int kSmemKv =
+      1024 + (2 + 2 * P::kRing) * kTile + (P::kRoles ? kRows * kRows * 4 : 0) +
+      2 * 2 * kRows * 4 + 8 * (1 + (P::kRoles ? 2 : 1) * P::kRing);
+  static_assert(kSmemDq <= kSmemMax && kSmemKv <= kSmemMax,
+                "the backward plan overflows shared memory");
+};
 
 // What the two kernels read besides the tensor maps.
 struct BwdDims {
@@ -88,6 +173,7 @@ struct BwdDims {
   __nv_bfloat16* dv;
   int b, hq, hkv, rep, sq, skv, causal, has_window, window;
   int n_qt;             // 64-row q tiles
+  int round_dq, round_kv;  // order 1: (batch, kv head) groups a round
   int swaps;            // bit 1 q, 2 k, 4 v, 8 dO: map dims (head, position)
   float scale, scale_log2;
 };
@@ -141,6 +227,7 @@ __device__ __forceinline__ void issue_abt(float (&acc)[32], uint32_t a,
 // acc (64 x DH) += A B: A (64 x 64) as bf16 register fragments (fragment kk
 // holds columns 16 kk .. 16 kk + 15), B a 64-row tile read MN-major (16
 // rows = two 8-row swizzle atoms, 2,048 bytes; the dh boxes kBox apart).
+// At DH 256 two n128 products a k16 step, on acc's halves.
 template <int DH>
 __device__ __forceinline__ void issue_ab(float (&acc)[DH / 2],
                                          const uint32_t (&a)[4][4],
@@ -148,10 +235,17 @@ __device__ __forceinline__ void issue_ab(float (&acc)[DH / 2],
 #pragma unroll
   for (int kk = 0; kk < kRows / 16; ++kk) {
     const uint64_t db = sm90::desc_sw128(b + kk * 2048, kBox, 1024);
-    if constexpr (DH == 128)
+    if constexpr (DH == 256) {     // columns 0-127, then 128-255 (boxes 2, 3)
+      sm90::wgmma_rs_m64n128k16(*reinterpret_cast<float(*)[64]>(acc), a[kk],
+                                db);
+      sm90::wgmma_rs_m64n128k16(
+          *reinterpret_cast<float(*)[64]>(acc + 64), a[kk],
+          sm90::desc_sw128(b + 2 * kBox + kk * 2048, kBox, 1024));
+    } else if constexpr (DH == 128) {
       sm90::wgmma_rs_m64n128k16(acc, a[kk], db);
-    else
+    } else {
       sm90::wgmma_rs_m64n64k16(acc, a[kk], db);
+    }
   }
 }
 
@@ -198,11 +292,26 @@ __global__ void __launch_bounds__(128, 2) flash_bwd_dq_wgmma(
   const uint32_t bar_qdo = base + 6 * kTile;
   auto bar_kv = [&](int n) { return bar_qdo + 8u * (1 + (n & 1)); };
 
-  // block i: q tile n_qt - 1 - i / (hq b) (the tiles with the most keys
-  // first over all heads and batches), head and batch from i % (hq b)
-  const int pairs = p.hq * p.b, pair = blockIdx.x % pairs;
-  const int qt = p.n_qt - 1 - blockIdx.x / pairs;
-  const int h = pair % p.hq, b = pair / p.hq, g = h / p.rep;
+  int qt, h, b;
+  if constexpr (BwdPlan<DH>::kOrder) {
+    // block i: round i / (round_dq n_qt rep) of round_dq groups (fewer in
+    // the last), within it q tiles last first, then groups, then q heads
+    const int per = p.round_dq * p.n_qt * p.rep, r = blockIdx.x / per;
+    const int in_r = min(p.round_dq, p.hkv * p.b - r * p.round_dq);
+    const int w = blockIdx.x - r * per, rest = w % (in_r * p.rep);
+    const int grp = r * p.round_dq + rest / p.rep;
+    qt = p.n_qt - 1 - w / (in_r * p.rep);
+    h = grp % p.hkv * p.rep + rest % p.rep;
+    b = grp / p.hkv;
+  } else {
+    // block i: q tile n_qt - 1 - i / (hq b) (the tiles with the most keys
+    // first over all heads and batches), head and batch from i % (hq b)
+    const int pairs = p.hq * p.b, pair = blockIdx.x % pairs;
+    qt = p.n_qt - 1 - blockIdx.x / pairs;
+    h = pair % p.hq;
+    b = pair / p.hq;
+  }
+  const int g = h / p.rep;
   const int q0 = qt * kRows, off = p.skv - p.sq;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int p_lo = q0 + off, p_hi = min(q0 + kRows, p.sq) - 1 + off;
@@ -530,6 +639,192 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dkdv_wgmma(
 }
 
 // ---------------------------------------------------------------------------
+// 2b. dK and dV by role (head dim 256)
+// ---------------------------------------------------------------------------
+
+// A block of two warpgroups per (64-key tile, kv head, batch), in rounds
+// of groups; both take every step (q head of the group, 64-row q tile the
+// mask reaches): warpgroup 0 forms P^T and sums dV, warpgroup 1 forms dS^T
+// from the P^T it is handed and sums dK.
+template <int DH>
+__global__ void __launch_bounds__(256, 1) flash_bwd_dkdv_roles(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do, const BwdDims p) {
+  using namespace sm90;
+  using L = BwdLayout<DH>;
+  constexpr int kTile = L::kTile, kRing = L::kRing;
+  constexpr int kNO = DH / 2;                // dV or dK registers a thread
+  constexpr int kHanded = 3, kFree = 4;      // named barriers of the exchange
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_k = base, s_v = base + kTile;
+  const uint32_t s_ring = base + 2 * kTile;  // slot j: Q, then dO
+  const uint32_t s_x = s_ring + 2 * kRing * kTile;   // P^T, float32
+  const uint32_t s_stat = s_x + kRows * kRows * 4;   // per warpgroup
+  const uint32_t s_bar = s_stat + 2 * 2 * kRows * 4;
+  auto full = [&](int m) { return s_bar + 8u * (1 + m % kRing); };
+  auto empty = [&](int m) { return s_bar + 8u * (1 + kRing + m % kRing); };
+
+  // block i: round i / (round_kv n_kt) of round_kv groups (fewer in the
+  // last), within it the first key tiles (the most q rows under the
+  // causal mask) first, then groups: the plan's order 1
+  static_assert(L::kOrder == 1, "flash_bwd_dkdv_roles walks in rounds");
+  const int n_kt = (p.skv + kRows - 1) / kRows;
+  const int per = p.round_kv * n_kt, r = blockIdx.x / per;
+  const int in_r = min(p.round_kv, p.hkv * p.b - r * p.round_kv);
+  const int w = blockIdx.x - r * per, kt = w / in_r;
+  const int grp = r * p.round_kv + w % in_r;
+  const int kvh = grp % p.hkv, b = grp / p.hkv;
+  const int k0 = kt * kRows, nk = min(kRows, p.skv - k0), off = p.skv - p.sq;
+  const int tid = threadIdx.x, wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, lane = tid % 32;
+  // the q rows whose mask keeps a key of the tile: [i_lo, i_hi)
+  int i_lo = 0, i_hi = p.sq;
+  if (p.causal) i_lo = max(0, k0 - off);
+  if (p.has_window) i_hi = min(p.sq, k0 + nk - 1 + p.window - off);
+  const int qt_lo = i_lo / kRows;
+  const int n_qt = i_hi > i_lo ? (i_hi + kRows - 1) / kRows - qt_lo : 0;
+  const int n_steps = p.rep * n_qt;          // (q head, q tile) pairs
+  const int rl = warp * 16 + lane / 4;       // keys rl, rl + 8 of the tile
+
+  float acc[kNO];                            // warpgroup 0: dV; 1: dK
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) acc[i] = 0.f;
+
+  if (n_steps > 0) {                         // (uniform over the block)
+    if (tid == 0) {
+      mbar_init(s_bar, 1);
+      for (int j = 0; j < kRing; ++j) {
+        mbar_init(full(j), 1);
+        mbar_init(empty(j), 2);              // one thread of each warpgroup
+      }
+      mbar_fence_init();
+    }
+    __syncthreads();
+    auto step_of = [&](int m, int& h, int& q0) {
+      const int gl = m / n_qt;
+      h = kvh * p.rep + gl;
+      q0 = (qt_lo + m - gl * n_qt) * kRows;
+    };
+    auto load_step = [&](int m) {
+      int h, q0;
+      step_of(m, h, q0);
+      const uint32_t dst = s_ring + 2 * (m % kRing) * kTile;
+      mbar_expect_tx(full(m), 2 * kTile);
+      load_tile<DH>(dst, &tm_q, full(m), q0, h, b, p.swaps & 1);
+      load_tile<DH>(dst + kTile, &tm_do, full(m), q0, h, b, p.swaps & 8);
+    };
+    if (tid == 0) {
+      mbar_expect_tx(s_bar, 2 * kTile);
+      load_tile<DH>(s_k, &tm_k, s_bar, k0, kvh, b, p.swaps & 2);
+      load_tile<DH>(s_v, &tm_v, s_bar, k0, kvh, b, p.swaps & 4);
+      for (int m = 0; m < kRing && m < n_steps; ++m) load_step(m);
+    }
+    // warpgroup 0's step rows' lse (log2 units, +inf: P = 0), warpgroup
+    // 1's D; the exchange holds P^T in the accumulator's register order
+    float* stat =
+        reinterpret_cast<float*>(smem_raw + (s_stat - raw)) + wg * 2 * kRows;
+    float* xch = reinterpret_cast<float*>(smem_raw + (s_x - raw));
+    mbar_wait(s_bar, 0);
+
+    float sacc[32];                          // S^T (warpgroup 0), dP^T (1)
+#pragma unroll 1
+    for (int m = 0; m < n_steps; ++m) {
+      int h, q0;
+      step_of(m, h, q0);
+      const long long row0 = ((long long)b * p.hq + h) * p.sq + q0;
+      if (wt < kRows) {
+        const bool live = q0 + wt < p.sq;
+        if (wg == 0) {
+          const float x = live ? p.lse[row0 + wt] : kNegInf;
+          stat[wt] = x > kNegInf ? x * kLog2e : kInf;
+        } else {
+          stat[wt] = live ? p.delta[row0 + wt] : 0.f;
+        }
+      }
+      const uint32_t q_t = s_ring + 2 * (m % kRing) * kTile;
+      const uint32_t do_t = q_t + kTile;
+      mbar_wait(full(m), (m / kRing) & 1);
+      fence_regs(sacc);
+      wgmma_fence();
+      issue_abt<DH>(sacc, wg == 0 ? s_k : s_v, wg == 0 ? q_t : do_t);
+      wgmma_commit();
+      bar_sync(1 + wg, 128);                  // the step's rows in place
+      wgmma_wait<0>();
+      fence_regs(sacc);
+
+      // P^T (warpgroup 0) or dS^T (1) as bf16 A fragments: row = key
+      // k0 + rl + 8 u, column = q row q0 + col
+      uint32_t fa[4][4];
+      if (wg == 0) {
+        const int p_hi = min(q0 + kRows, p.sq) - 1 + off;
+        const bool whole = k0 + kRows <= p.skv &&
+                           (!p.causal || k0 + kRows - 1 <= q0 + off) &&
+                           (!p.has_window || k0 > p_hi - p.window);
+        if (m > 0) bar_sync(kFree, 256);      // step m - 1's P^T was read
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int idx = 8 * kk + 2 * t, u = t % 2;
+            const int col = 16 * kk + 8 * (t / 2) + 2 * (lane % 4);
+            float p0 = fast_exp2(fmaf(sacc[idx], p.scale_log2, -stat[col]));
+            float p1 =
+                fast_exp2(fmaf(sacc[idx + 1], p.scale_log2, -stat[col + 1]));
+            if (!whole) {
+              const int key = k0 + rl + 8 * u, qpos = q0 + col + off;
+              if (!kept(qpos, key, p)) p0 = 0.f;
+              if (!kept(qpos + 1, key, p)) p1 = 0.f;
+            }
+            xch[idx * 128 + wt] = p0;
+            xch[(idx + 1) * 128 + wt] = p1;
+            fa[kk][t] = pack_bf16(p0, p1);
+          }
+        bar_arrive(kHanded, 256);
+      } else {
+        bar_sync(kHanded, 256);               // this step's P^T written
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int idx = 8 * kk + 2 * t;
+            const int col = 16 * kk + 8 * (t / 2) + 2 * (lane % 4);
+            fa[kk][t] =
+                pack_bf16(xch[idx * 128 + wt] * (sacc[idx] - stat[col]),
+                          xch[(idx + 1) * 128 + wt] *
+                              (sacc[idx + 1] - stat[col + 1]));
+          }
+        if (m + 1 < n_steps) bar_arrive(kFree, 256);
+      }
+      fence_regs(acc);
+      wgmma_fence();
+      issue_ab<DH>(acc, fa, wg == 0 ? do_t : q_t);  // dV += P^T dO; dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      bar_sync(1 + wg, 128);                  // done with the slot and rows
+      if (wt == 0) {
+        mbar_arrive(empty(m));
+        if (wg == 1 && m + kRing < n_steps) {
+          mbar_wait(empty(m), (m / kRing) & 1);  // both warpgroups are
+          load_step(m + kRing);
+        }
+      }
+    }
+  }
+
+  const bool live[2] = {rl < nk, rl + 8 < nk};
+  const long long kv_row0 = ((long long)b * p.hkv + kvh) * p.skv + k0;
+  if (wg == 0)
+    store_rows<DH>(p.dv + kv_row0 * DH, acc, 1.f, rl, live);
+  else
+    store_rows<DH>(p.dk + kv_row0 * DH, acc, p.scale, rl, live);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -584,13 +879,14 @@ cudaError_t launch(const BwdArgs& a) {
   p.scale = static_cast<float>(a.scale);
   p.scale_log2 = static_cast<float>(a.scale * 1.4426950408889634);
 
-  constexpr size_t kTile = DH / 64 * kBox;
-  const size_t smem_dq = 1024 + 6 * kTile + 3 * 8;
-  const size_t smem_kv = 1024 + 10 * kTile + 2 * 2 * kRows * 4 + 5 * 8;
+  using L = BwdLayout<DH>;
   static bool dq_set = false, kv_set = false;
-  cudaError_t err = allow_smem(flash_bwd_dq_wgmma<DH>, dq_set, smem_dq);
+  cudaError_t err = allow_smem(flash_bwd_dq_wgmma<DH>, dq_set, L::kSmemDq);
   if (err != cudaSuccess) return err;
-  err = allow_smem(flash_bwd_dkdv_wgmma<DH>, kv_set, smem_kv);
+  if constexpr (L::kRoles)
+    err = allow_smem(flash_bwd_dkdv_roles<DH>, kv_set, L::kSmemKv);
+  else
+    err = allow_smem(flash_bwd_dkdv_wgmma<DH>, kv_set, L::kSmemKv);
   if (err != cudaSuccess) return err;
   static int n_sm = 0;
   if (n_sm == 0) {
@@ -600,29 +896,39 @@ cudaError_t launch(const BwdArgs& a) {
       err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
+  const int n_kt = (a.skv + kRows - 1) / kRows, groups = a.hkv * a.b;
+  // order 1: as many groups a round as one wave holds of their blocks
+  p.round_dq = min(groups, max(1, n_sm / (p.n_qt * p.rep)));
+  p.round_kv = min(groups, max(1, n_sm / n_kt));
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
-  flash_bwd_dq_wgmma<DH><<<p.n_qt * a.hq * a.b, 128, smem_dq, st>>>(
+  flash_bwd_dq_wgmma<DH><<<p.n_qt * a.hq * a.b, 128, L::kSmemDq, st>>>(
       tq, tk, tv, tdo, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // two CTAs a key tile when one a tile leaves the card in one wave (the
-  // first tiles' causal work then splits four ways, not two)
-  const int items = (a.skv + kRows - 1) / kRows * a.hkv * a.b;
-  const int n_cta = items <= n_sm ? 2 : 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(items * n_cta));
-  cfg.blockDim = dim3(256);
-  cfg.dynamicSmemBytes = smem_kv;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_cta;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_wgmma<DH>, tq, tk, tv, tdo, p);
-  if (err != cudaSuccess) return err;
+  const int items = n_kt * groups;
+  if constexpr (L::kRoles) {
+    flash_bwd_dkdv_roles<DH><<<items, 256, L::kSmemKv, st>>>(tq, tk, tv, tdo,
+                                                            p);
+  } else {
+    // two CTAs a key tile when one a tile leaves the card in one wave (the
+    // first tiles' causal work then splits four ways, not two)
+    const int n_cta = items <= n_sm ? L::kCluster : 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(items * n_cta));
+    cfg.blockDim = dim3(256);
+    cfg.dynamicSmemBytes = L::kSmemKv;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n_cta;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, flash_bwd_dkdv_wgmma<DH>, tq, tk, tv, tdo,
+                             p);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
@@ -630,7 +936,7 @@ cudaError_t launch(const BwdArgs& a) {
 
 extern "C" {
 
-// The backward of one bf16 attention call at head dim 64 or 128: the
+// The backward of one bf16 attention call at head dim 64, 128 or 256: the
 // arguments of flash_attention_backward_launch (flash_attention_bwd.cu),
 // with every pointer and every stride of q, k, v and dout 16-byte aligned
 // (TMA), lse the forward's and delta b * hq * sq float32 workspace.  Two
@@ -643,7 +949,27 @@ int flash_attention_backward_wgmma_launch(const void* args) {
   cudaError_t err = cudaErrorInvalidValue;
   if (a.dh == 64) err = launch<64>(a);
   if (a.dh == 128) err = launch<128>(a);
+  if (a.dh == 256) err = launch<256>(a);
   return static_cast<int>(err);
+}
+
+// The backward's plan at head dim dh as it is built: out gets rows of a
+// tile, dK / dV by role (0 or 1), the Q / dO slots of the dK / dV launch,
+// its largest cluster, the block order (0 or 1), and the dynamic shared
+// memory of the dQ and of the dK / dV launch.  Returns 0, or cudaErrorInvalidValue for a head dim the
+// route is not built for.
+int flash_bwd_plan(int dh, int* out) {
+#define BWD_CASE(D)                                                         \
+  if (dh == D) {                                                            \
+    using L = BwdLayout<D>;                                                 \
+    const int plan[7] = {kRows,     L::kRoles,  L::kRing,  L::kCluster,     \
+                         L::kOrder, L::kSmemDq, L::kSmemKv};                \
+    for (int i = 0; i < 7; ++i) out[i] = plan[i];                           \
+    return 0;                                                               \
+  }
+  BWD_CASE(64) BWD_CASE(128) BWD_CASE(256)
+#undef BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Size of BwdArgs, for the wrapper to check its packing against.

@@ -431,4 +431,11 @@ __device__ __forceinline__ bool bar_or(int id, int count, bool pred) {
   return r != 0;
 }
 
+// Arrive at barrier `id` without waiting: with `bar_sync` on the same id
+// and count, the arriving threads' earlier shared-memory writes are seen
+// by the threads that wait there.
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 }  // namespace sm90

@@ -56,10 +56,22 @@ and head dim alone (`backward_route`), each two launches (dQ with ``D =
 rowsum(P o dP)``, then dK and dV with the GQA sum inside the block):
 
 - ``bwd_wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``): bf16 at head dim
-  64 or 128 — TMA and bf16 ``wgmma`` products with float32 accumulation,
-  D summed in float32 before dS is formed and rounded.
-- ``bwd_fma`` (``csrc/flash_attention_bwd.cu``): head dims 16, 32, 256 and
-  float32 — float32 FMA from shared memory.
+  64, 128 or 256 — TMA and bf16 ``wgmma`` products with float32
+  accumulation, D summed in float32 before dS is formed and rounded; its
+  tiles by head dim are `backward_plan`'s (at 256 the dK / dV launch's two
+  warpgroups split each step by role, one summing dV and the other dK,
+  as one warpgroup cannot hold both).
+- ``bwd_fma`` (``csrc/flash_attention_bwd.cu``): head dims 16 and 32, and
+  float32 at every head dim — float32 FMA from shared memory.
+
+By dtype and head dim the backward takes:
+
+=============  ==============  ========
+head dim       bf16            float32
+=============  ==============  ========
+16, 32         ``bwd_fma``     ``bwd_fma``
+64, 128, 256   ``bwd_wgmma``   ``bwd_fma``
+=============  ==============  ========
 
 `FlashAttentionFn` puts the forward kernel and this backward behind
 autograd; ``ops.flash_attention`` takes it only when gradients are asked
@@ -87,7 +99,13 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 #: Head dims of the tensor-core prefill kernel (bf16).
 WGMMA_HEAD_DIMS = (64, 128, 256)
 #: Head dims of the tensor-core backward (bf16; `backward_route`).
-BWD_WGMMA_HEAD_DIMS = (64, 128)
+BWD_WGMMA_HEAD_DIMS = (64, 128, 256)
+#: The tensor-core backward's plan by head dim, as ``BWD_PLAN`` in
+#: ``csrc/flash_attention_bwd_wgmma.cu``: (dK / dV by role, Q / dO slots of
+#: the dK / dV launch, largest cluster of its CTAs, block order).
+BACKWARD_PLANS = {64: (0, 4, 2, 0), 128: (0, 4, 2, 0), 256: (1, 2, 1, 1)}
+#: Rows (q rows or keys) of the tensor-core backward's tiles.
+BACKWARD_ROWS = 64
 #: The tensor-core prefill's tiles by head dim, as ``PF_PLAN`` in
 #: ``csrc/flash_attention.cu``: (keys of a K / V tile, Q stages, K stages,
 #: V stages).
@@ -209,6 +227,41 @@ def built_prefill_plan(dh: int) -> Tuple[int, int, int, int, int, int]:
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
     _build.check(_lib, fn(dh, out), f"flash_prefill_plan({dh})")
+    return tuple(out)
+
+
+def backward_plan(dh: int) -> Tuple[int, int, int, int, int, int, int]:
+    """(rows, roles, ring, cluster, order, smem_dq, smem_kv) of the
+    tensor-core backward at head dim ``dh``: 64-row tiles; whether the dK /
+    dV launch's two warpgroups split each step by role (1: one sums dV, the
+    other dK) or take their own steps, each holding both (0); the Q / dO
+    slots of that launch's block; its largest cluster; the blocks' order
+    (0: by tile over all heads and batches; 1: in rounds of (batch, kv
+    head) groups, so that blocks running together share their reads in
+    L2); and the dynamic shared memory of each launch — 1,024 bytes of
+    alignment, the bf16 tiles (dQ: Q, dO, two K and two V slots; dK / dV:
+    K, V and the ring of Q and dO), the float32 Pᵀ exchange by role, each
+    warpgroup's 64 lse and 64 D rows, and the 8-byte barriers, as
+    ``BwdLayout`` in ``csrc/flash_attention_bwd_wgmma.cu`` reckons it."""
+    roles, ring, cluster, order = BACKWARD_PLANS[dh]
+    rows = BACKWARD_ROWS
+    tile = rows * 2 * dh
+    smem_dq = 1024 + 6 * tile + 3 * 8
+    smem_kv = (1024 + (2 + 2 * ring) * tile + (rows * rows * 4 if roles else 0)
+               + 2 * 2 * rows * 4 + 8 * (1 + (2 if roles else 1) * ring))
+    return rows, roles, ring, cluster, order, smem_dq, smem_kv
+
+
+def built_backward_plan(dh: int) -> Tuple[int, int, int, int, int, int, int]:
+    """`backward_plan`'s seven numbers as the built library reports them
+    (``flash_bwd_plan``: the ``BwdLayout`` it was compiled with); builds
+    the library, so it needs the CUDA toolchain."""
+    lib, _ = _bwd_kernel("bwd_wgmma")
+    fn = lib.flash_bwd_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    _build.check(lib, fn(dh, out), f"flash_bwd_plan({dh})")
     return tuple(out)
 
 

@@ -3,20 +3,24 @@
 For the tree's source of the route (``--route bwd_wgmma``:
 ``csrc/flash_attention_bwd_wgmma.cu``; ``bwd_fma``:
 ``csrc/flash_attention_bwd.cu``), each patched copy named with ``--patch``
-(``PATCHES``) and each variant source given (another copy of that file
-with the same C entry and argument block, say the parent commit's from
-``git show``), all built with the tree's flags by
-``kernels._build.build_copies``, it first holds every build against
-``flash_attention_backward_plain`` on shapes off the tiles (within 8e-3 of
-the largest |plain| in bf16, 1e-4 in float32, as ``chip_smoke.py``; two
-calls bit-equal), then times each at the route's causal training shapes —
-``bwd_wgmma``: StarCoder2-3B's call at batch 1 and 4 (q (B, 24, 4096,
-128), kv (B, 2, ·), v a transposed view), Mistral-Nemo-12B's group of 4
-and a head-dim-64 group of 4; ``bwd_fma``: Gemma3-4B's head dim 256 with
-its 1,024-key window and DeepSeek-V2's MLA call padded to 256 — together
-with SDPA's backward (``torch.autograd.grad`` of
-``scaled_dot_product_attention`` on the same tensors and mask) in turns
-(builds then SDPA, and back).  Each turn gives ``ms``, CUDA events over 10
+(``PATCHES``) and each variant source given (a copy of either route's
+source with its C entry and the same argument block, say the parent
+commit's from ``git show``; it serves the calls of the route it is timed
+for), all built with the tree's flags by ``kernels._build.build_copies``,
+it first holds every build against ``flash_attention_backward_plain`` on
+shapes off the tiles (within 8e-3 of the largest |plain| in bf16, 1e-4 in
+float32, as ``chip_smoke.py``; two calls bit-equal; a variant whose
+launcher refuses a head dim, as the parent's ``bwd_fma`` source refuses
+bf16 at 64 / 128, is reported and left out at that head dim), then times
+each at the route's causal training shapes — ``bwd_wgmma``: StarCoder2-3B's
+call at batch 1 and 4 (q (B, 24, 4096, 128), kv (B, 2, ·), v a transposed
+view), Mistral-Nemo-12B's group of 4, a head-dim-64 group of 4, and at
+head dim 256 Gemma3-4B's call with its 1,024-key window and without it
+(global) and DeepSeek-V2's MLA call padded to 256 at its scale 192^-0.5;
+``bwd_fma``: Gemma3-4B's windowed call in float32 at 2,048 tokens —
+together with SDPA's backward (``torch.autograd.grad`` of
+``scaled_dot_product_attention`` on the same tensors, mask and scale) in
+turns (builds then SDPA, and back).  Each turn gives ``ms``, CUDA events over 10
 calls back to back after 2 (the device stays busy, so the host's enqueue
 time hides); ``cold_ms``, ``chip_smoke.py``'s way: the median of 5 single
 calls, each after overwriting 256 MB so the L2 is cold, in which the
@@ -28,6 +32,11 @@ device waits on whatever the host does before the first kernel; and
         > build/old.cu
     PYTHONPATH=src python3 -m repro_torch.launch.flash_bwd_time \\
         --route bwd_fma --patch prefetch build/old.cu
+
+or, for the head-dim-256 rows that ``bwd_wgmma`` took from ``bwd_fma``,
+the parent's FMA source beside the tree's tensor-core route::
+
+    PYTHONPATH=src python3 -m repro_torch.launch.flash_bwd_time build/old.cu
 
 Needs a CUDA device; prints one JSON line per check and per timing, then
 the card's name and power limit.
@@ -43,6 +52,9 @@ import subprocess
 
 CHECKS = {  # b, hq, hkv, sq, skv, dh, causal, window, v transposed, dtype
     "bwd_wgmma": (
+        (1, 4, 2, 90, 90, 256, True, 40, False),
+        (1, 4, 4, 96, 96, 256, True, None, False),
+        (1, 16, 4, 77, 333, 256, False, 100, True),
         (1, 4, 4, 128, 128, 64, False, None, False),
         (2, 8, 2, 100, 100, 64, True, None, False),
         (1, 24, 2, 300, 300, 128, True, None, True),
@@ -54,18 +66,24 @@ CHECKS = {  # b, hq, hkv, sq, skv, dh, causal, window, v transposed, dtype
         (1, 24, 2, 4096, 4096, 128, True, None, True),
         (4, 24, 2, 1024, 1024, 128, True, None, True)),
     "bwd_fma": (
-        (1, 4, 2, 90, 90, 256, True, 40, False),
-        (1, 4, 4, 96, 96, 256, True, None, False),
+        (1, 4, 2, 90, 90, 256, True, 40, False, "float32"),
         (1, 2, 1, 77, 77, 32, True, 16, True),
         (1, 3, 1, 50, 120, 128, False, 30, False, "float32"),
         (1, 2, 2, 80, 40, 64, True, None, False, "float32"))}
-SHAPES = {  # name: b, hq, hkv, s, dh, window (causal, v a transposed view)
-    "bwd_wgmma": {"starcoder2_b1": (1, 24, 2, 4096, 128, None),
-                  "starcoder2_b4": (4, 24, 2, 4096, 128, None),
-                  "mistral_b1": (1, 32, 8, 4096, 128, None),
-                  "dh64_group4_b1": (1, 16, 4, 4096, 64, None)},
-    "bwd_fma": {"gemma3_window_dh256": (1, 8, 4, 4096, 256, 1024),
-                "mla_padded_group1": (1, 128, 128, 1024, 256, None)}}
+_MLA = 192 ** -0.5
+SHAPES = {  # name: b, hq, hkv, s, dh, window, scale, dtype (causal, v a
+            # transposed view)
+    "bwd_wgmma": {
+        "starcoder2_b1": (1, 24, 2, 4096, 128, None, None, "bfloat16"),
+        "starcoder2_b4": (4, 24, 2, 4096, 128, None, None, "bfloat16"),
+        "mistral_b1": (1, 32, 8, 4096, 128, None, None, "bfloat16"),
+        "dh64_group4_b1": (1, 16, 4, 4096, 64, None, None, "bfloat16"),
+        "gemma3_window_dh256": (1, 8, 4, 4096, 256, 1024, None, "bfloat16"),
+        "gemma3_global_dh256": (1, 8, 4, 4096, 256, None, None, "bfloat16"),
+        "mla_padded_group1": (1, 128, 128, 1024, 256, None, _MLA,
+                              "bfloat16")},
+    "bwd_fma": {"gemma3_window_dh256_float32": (1, 8, 4, 2048, 256, 1024,
+                                                None, "float32")}}
 TOL = {"bfloat16": 8e-3, "float32": 1e-4}
 
 # Patched copies of the route's source: {route: {name: [(text, replacement)]}}.
@@ -207,15 +225,18 @@ def main() -> None:
         raise SystemExit("flash_bwd_time needs a CUDA device")
     dev = torch.device("cuda")
     route = args.route
-    stem, entry = fa._BWD_LIBS[route]
+    stem = fa._BWD_LIBS[route][0]
     copies = {f"{stem}_{name}": (_build.patched(stem, PATCHES[route][name]),
                                  ()) for name in args.patch}
     copies.update({f"{stem}_variant{i}": (open(src).read(), ())
                    for i, src in enumerate(args.variants)})
     built = _build.build_copies(copies, _build.BUILD_DIR.parent / "flash_bwd")
     libs = {"tree": fa._bwd_kernel(route)}
+    entries = [e for _, e in fa._BWD_LIBS.values()]
     for name, key in zip([*args.patch, *args.variants], copies):
-        fn = getattr(built[key], entry + "_launch")
+        # the copy's own C entry: a variant may be the other route's source
+        own = next(e for e in entries if hasattr(built[key], e + "_launch"))
+        fn = getattr(built[key], own + "_launch")
         fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
         libs[name] = (built[key], fn)
 
@@ -235,6 +256,7 @@ def main() -> None:
         scale = float(b.float().abs().max()) or 1.0
         return float((a.float() - b.float()).abs().max()) / scale
 
+    served = {name: set() for name in libs}   # (head dim, dtype) it takes
     for name, lf in libs.items():
         fa._bwd[route] = lf
         for case in CHECKS[route]:
@@ -248,7 +270,15 @@ def main() -> None:
                                         return_lse=True)
             call = lambda: fa.flash_attention_backward(
                 q, k, v, do, lse, causal=causal, window=window)
-            got, again = call(), call()
+            try:
+                got, again = call(), call()
+            except RuntimeError as err:        # the launcher refused it
+                if name == "tree":
+                    raise
+                print(json.dumps({"check": name, "case": case,
+                                  "refused": str(err)}), flush=True)
+                continue
+            served[name].add((dh, dtype))
             want = fa.flash_attention_backward_plain(q, k, v, do,
                                                      causal=causal,
                                                      window=window)
@@ -264,19 +294,22 @@ def main() -> None:
 
     events_ms, cold_ms, device_ms = timers(torch, dev, r"flash_bwd_\w+")
 
-    builds = [*libs, "sdpa"]
-    for shape, (b, hq, hkv, s, dh, window) in SHAPES[route].items():
-        q, k, v, do = inputs(b, hq, hkv, s, s, dh, True, 7)
+    for shape, (b, hq, hkv, s, dh, window, scale, dtype) in \
+            SHAPES[route].items():
+        builds = [n for n in libs if (dh, dtype) in served[n]] + ["sdpa"]
+        q, k, v, do = inputs(b, hq, hkv, s, s, dh, True, 7, dtype)
         _, lse = fa.flash_attention(q, k, v, causal=True, window=window,
-                                    return_lse=True)
-        kern = lambda: fa.flash_attention_backward(q, k, v, do, lse,
-                                                   causal=True, window=window)
+                                    scale=scale, return_lse=True)
+        kern = lambda: fa.flash_attention_backward(
+            q, k, v, do, lse, causal=True, window=window, scale=scale)
         if window is None:
             sdpa_kw = {"is_causal": True}
         else:
             pos = torch.arange(s, device=dev)
             rel_pos = pos[:, None] - pos[None, :]
             sdpa_kw = {"attn_mask": (rel_pos >= 0) & (rel_pos < window)}
+        if scale is not None:
+            sdpa_kw["scale"] = scale
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         out = F.scaled_dot_product_attention(*leaves, enable_gqa=True,
                                              **sdpa_kw)

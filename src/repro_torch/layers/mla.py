@@ -20,9 +20,12 @@ least head dim that holds both (256) and the output cut back to ``d_v``.
 A zero column adds nothing to a dot product, and the scale is given
 explicitly: ``(d_nope + d_rope) ** -0.5``, as DeepSeek scales.  On the
 card the padded bf16 call takes the tensor-core prefill
-(``prefill_wgmma`` at head dim 256; float32 takes ``fma``), which reads
-and multiplies the zero columns too: 1.07 GB moved a full-width layer
-where the unpadded tensors hold 0.67.
+(``prefill_wgmma`` at head dim 256; float32 takes ``fma``) and, under
+autograd, the tensor-core backward (``bwd_wgmma`` at head dim 256;
+float32 takes ``bwd_fma``), whose gradients of the zero columns are 0
+(dO's padded columns are 0, as the output is cut).  Both read and
+multiply the zero columns too: 1.07 GB moved a full-width layer's
+forward where the unpadded tensors hold 0.67.
 
 Both norms use ``rmsnorm``'s default eps (1e-6), not the config's
 ``norm_eps``, as in the JAX package.

@@ -1958,7 +1958,8 @@ def _flash_bwd_inputs(dev, b, hq, hkv, sq, skv, dh, v_t, seed):
 
 @pytest.mark.cuda
 class TestFlashBackwardWgmmaOnCard:
-    """Route ``bwd_wgmma`` (bf16, head dims 64 and 128) against the plain
+    """Route ``bwd_wgmma`` (bf16, head dims 64 and 128; 256 has its own
+    class below) against the plain
     version, which computes its own log-sum-exp, within ``FLASH_BWD_TOL``;
     the forward kernels' log-sum-exp against the plain one."""
 
@@ -2040,7 +2041,8 @@ class TestFlashBackwardWgmmaOnCard:
     def test_launches_by_route(self, cuda):
         """One call counts one launch on its route and none on the other."""
         for dtype, dh, kind in ((torch.bfloat16, 128, "bwd_wgmma"),
-                                (torch.bfloat16, 256, "bwd_fma"),
+                                (torch.bfloat16, 256, "bwd_wgmma"),
+                                (torch.float32, 256, "bwd_fma"),
                                 (torch.float32, 64, "bwd_fma")):
             q, k, v, do = (x.to(dtype) for x in _flash_bwd_inputs(
                 cuda, 1, 4, 2, 96, 96, dh, False, dh))
@@ -2058,6 +2060,97 @@ class TestFlashBackwardWgmmaOnCard:
         with pytest.raises(ValueError, match="lse"):
             flash_attention.flash_attention_backward(q, k, v, do, None,
                                                      causal=True)
+
+
+# b, hq, hkv, sq, skv, causal, window, v a transposed view, scale: route
+# ``bwd_wgmma`` at head dim 256 — groups 1, 2 and 4; causal, window, both
+# and neither; Sq != Skv both ways (rows with no key), lengths off the
+# 64-row tiles, prefill's v view, MLA's scale
+DH256_BWD_CASES = [
+    (1, 4, 4, 128, 128, False, None, False, None),   # group 1, neither
+    (1, 8, 4, 300, 300, True, 100, True, None),      # Gemma3's group 2, both
+    (2, 8, 4, 200, 200, True, None, False, None),    # group 2, causal
+    (1, 16, 4, 77, 333, False, 100, False, None),    # group 4, window alone
+    (1, 8, 2, 130, 90, True, None, True, None),      # group 4, Sq > Skv
+    (1, 4, 4, 190, 190, True, None, False, 192 ** -0.5),  # MLA's scale
+    (1, 8, 2, 1, 40, True, None, False, None),       # one row
+]
+
+
+@pytest.mark.cuda
+class TestFlashBackwardDh256OnCard:
+    """Route ``bwd_wgmma`` at head dim 256 (the dK / dV launch split by
+    role) against the plain version, which computes its own log-sum-exp,
+    within ``FLASH_BWD_TOL`` (8e-3 of the largest |plain| in bf16, as
+    ``chip_smoke.py``), one launch on the route a call."""
+
+    @pytest.mark.parametrize("b,hq,hkv,sq,skv,causal,window,v_t,scale",
+                             DH256_BWD_CASES)
+    def test_matches_plain(self, cuda, b, hq, hkv, sq, skv, causal, window,
+                           v_t, scale):
+        q, k, v, do = _flash_bwd_inputs(cuda, b, hq, hkv, sq, skv, 256, v_t,
+                                        sq * 7 + skv + hq)
+        assert flash_attention.backward_route(q.dtype, 256) == "bwd_wgmma"
+        _, lse = flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window, scale=scale,
+            return_lse=True)
+        before = dict(flash_attention.bwd_launches_by_kernel)
+        got = flash_attention.flash_attention_backward(
+            q, k, v, do, lse, causal=causal, window=window, scale=scale)
+        after = flash_attention.bwd_launches_by_kernel
+        assert {n: after[n] - before[n] for n in after} == {
+            "bwd_wgmma": 1, "bwd_fma": 0}
+        want = flash_attention.flash_attention_backward_plain(
+            q, k, v, do, causal=causal, window=window, scale=scale)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            assert x.shape == y.shape and x.dtype == torch.bfloat16, name
+            assert bool(torch.isfinite(x).all()), name
+            assert _rel_err(x, y) <= FLASH_BWD_TOL[torch.bfloat16], \
+                (name, _rel_err(x, y))
+
+    def test_mla_padded_tensors(self, cuda):
+        """MLA's padded call (q / k 192 and v 128 zero-padded to 256, group
+        1, scale 192^-0.5, dO's padded columns 0): the gradients of the
+        padded columns are exactly 0, the rest within the tolerance."""
+        import torch.nn.functional as F
+        g = torch.Generator(device=cuda).manual_seed(9)
+        bf = torch.bfloat16
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=cuda).to(bf)
+
+        q, k = (F.pad(rnd(1, 16, 333, 192), (0, 64)) for _ in range(2))
+        v, do = (F.pad(rnd(1, 16, 333, 128), (0, 128)) for _ in range(2))
+        sc = 192 ** -0.5
+        _, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                                 scale=sc, return_lse=True)
+        got = flash_attention.flash_attention_backward(q, k, v, do, lse,
+                                                       causal=True, scale=sc)
+        want = flash_attention.flash_attention_backward_plain(
+            q, k, v, do, causal=True, scale=sc)
+        for name, x, y, d in zip(("dq", "dk", "dv"), got, want,
+                                 (192, 192, 128)):
+            assert not x[..., d:].any(), name
+            assert _rel_err(x, y) <= FLASH_BWD_TOL[bf], (name, _rel_err(x, y))
+
+    def test_two_calls_bit_equal(self, cuda):
+        """No atomics, a fixed order: the same call twice, the same bits."""
+        q, k, v, do = _flash_bwd_inputs(cuda, 1, 8, 4, 1000, 1000, 256, True,
+                                        6)
+        _, lse = flash_attention.flash_attention(q, k, v, causal=True,
+                                                 window=300, return_lse=True)
+        first = flash_attention.flash_attention_backward(
+            q, k, v, do, lse, causal=True, window=300)
+        second = flash_attention.flash_attention_backward(
+            q, k, v, do, lse, causal=True, window=300)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+    @pytest.mark.parametrize("dh", [64, 128, 256])
+    def test_built_plan_is_backward_plan(self, cuda, dh):
+        """The library reports the plan and shared memory it was built
+        with (``flash_bwd_plan``), and they are `backward_plan`'s."""
+        assert flash_attention.built_backward_plan(dh) == \
+            flash_attention.backward_plan(dh)
 
 
 @pytest.mark.cuda

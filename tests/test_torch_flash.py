@@ -404,36 +404,37 @@ class TestLogSumExp:
 class TestBackwardRoute:
     @pytest.mark.parametrize("dtype,dh,kind", [
         (bf16, 64, "bwd_wgmma"), (bf16, 128, "bwd_wgmma"),
-        (bf16, 16, "bwd_fma"), (bf16, 32, "bwd_fma"), (bf16, 256, "bwd_fma"),
+        (bf16, 16, "bwd_fma"), (bf16, 32, "bwd_fma"), (bf16, 256, "bwd_wgmma"),
         (f32, 64, "bwd_fma"), (f32, 128, "bwd_fma"), (f32, 256, "bwd_fma"),
         (f32, 16, "bwd_fma"),
     ])
     def test_route(self, dtype, dh, kind):
         """The tensor-core backward exactly for bf16 at the prefill
-        kernel's head dims (64, 128); the FMA kernels otherwise."""
+        kernel's head dims (64, 128, 256); the FMA kernels otherwise."""
         assert tfa.backward_route(dtype, dh) == kind
         assert (kind == "bwd_wgmma") == (dtype == bf16
                                          and dh in tfa.BWD_WGMMA_HEAD_DIMS)
         assert set(tfa.bwd_launches_by_kernel) == {"bwd_wgmma", "bwd_fma"}
 
     def test_dh256_forward_on_wgmma_backward_on_fma(self):
-        """The forward's tensor-core head dims gained 256; the backward's
-        did not: bf16 at 256 prefills on ``prefill_wgmma`` and still takes
-        ``bwd_fma`` for its gradient."""
+        """bf16 at head dim 256 is on the tensor cores both ways: it
+        prefills on ``prefill_wgmma`` and takes ``bwd_wgmma`` for its
+        gradient; the two routes' head dims are the same."""
         assert 256 in tfa.WGMMA_HEAD_DIMS
-        assert tfa.BWD_WGMMA_HEAD_DIMS == (64, 128)
+        assert tfa.BWD_WGMMA_HEAD_DIMS == tfa.WGMMA_HEAD_DIMS == (64, 128, 256)
         assert tfa.route(bf16, 256, 2048, 2, 2048) == "prefill_wgmma"
-        assert tfa.backward_route(bf16, 256) == "bwd_fma"
+        assert tfa.backward_route(bf16, 256) == "bwd_wgmma"
+        assert tfa.backward_route(f32, 256) == "bwd_fma"
         for dh in tfa.BWD_WGMMA_HEAD_DIMS:
             assert dh in tfa.WGMMA_HEAD_DIMS
             assert tfa.backward_route(bf16, dh) == "bwd_wgmma"
 
     def test_fma_source_holds_what_the_route_sends_it(self):
         """``csrc/flash_attention_bwd.cu`` compiles the FMA kernels for
-        both types at the head dims of its switch and for float32 alone at
-        64 and 128: every (dtype, head dim) that `backward_route` sends to
-        ``bwd_fma`` is there, and bf16 at 64 / 128 (``bwd_wgmma``'s) is
-        not."""
+        both types at the head dims of its switch (16, 32) and for float32
+        alone at 64, 128 and 256: every (dtype, head dim) that
+        `backward_route` sends to ``bwd_fma`` is there, and bf16 at 64 /
+        128 / 256 (``bwd_wgmma``'s) is not."""
         import re
 
         from repro_torch.kernels import _build
@@ -445,11 +446,34 @@ class TestBackwardRoute:
         f32_only = {int(d) for d in re.findall(
             r"if \(a\.dh == (\d+)\) return launch<", body)}
         assert "std::is_same_v<T, float>" in body
-        assert both == {16, 32, 256} and f32_only == {64, 128}
+        assert both == {16, 32} and f32_only == {64, 128, 256}
         for dh in tfa.HEAD_DIMS:
             assert (tfa.backward_route(bf16, dh) == "bwd_fma") == (dh in both)
             assert tfa.backward_route(f32, dh) == "bwd_fma"
             assert dh in both | f32_only
+
+    def test_timing_script_covers_the_routes(self):
+        """`launch/flash_bwd_time.py` checks and times each route only on
+        calls the route takes: ``bwd_wgmma`` at Gemma3's windowed and
+        global calls and MLA's padded call (its scale) at head dim 256
+        beside StarCoder2's, ``bwd_fma`` in float32 and at head dim 32."""
+        from repro_torch.launch.flash_bwd_time import CHECKS, SHAPES
+
+        for route, cases in CHECKS.items():
+            for case in cases:
+                dtype = getattr(torch, (list(case[9:]) or ["bfloat16"])[0])
+                assert tfa.backward_route(dtype, case[5]) == route, case
+        for route, shapes in SHAPES.items():
+            for b, hq, hkv, s, dh, window, scale, dtype in shapes.values():
+                assert tfa.backward_route(getattr(torch, dtype), dh) == route
+        wgmma = SHAPES["bwd_wgmma"]
+        assert {n for n, v in wgmma.items() if v[4] == 256} == {
+            "gemma3_window_dh256", "gemma3_global_dh256", "mla_padded_group1"}
+        assert wgmma["gemma3_window_dh256"][5] == 1024
+        assert wgmma["mla_padded_group1"][6] == 192 ** -0.5
+        assert {c[5] for c in CHECKS["bwd_wgmma"]} == set(
+            tfa.BWD_WGMMA_HEAD_DIMS)
+        assert {c[5] for c in CHECKS["bwd_fma"]} >= {32, 256}
 
     @pytest.mark.parametrize("route,name", [
         ("bwd_fma", "no_range"), ("bwd_fma", "k_range"),
@@ -473,6 +497,73 @@ class TestBackwardRoute:
         assert _build.patched(stem, PATCHES[route][name]) == text != src
         with pytest.raises(RuntimeError, match="no longer matches"):
             _build.patched(stem, [("no such text in the source", "")])
+
+
+class TestBackwardPlan:
+    """`backward_plan`: the tensor-core backward's tiles and each launch's
+    shared memory by head dim, as ``csrc/flash_attention_bwd_wgmma.cu``
+    builds them."""
+
+    @pytest.mark.parametrize("dh", [64, 128, 256])
+    def test_fits_shared_memory(self, dh):
+        rows, roles, ring, cluster, order, smem_dq, smem_kv = \
+            tfa.backward_plan(dh)
+        assert dh in tfa.BWD_WGMMA_HEAD_DIMS
+        assert rows == tfa.BACKWARD_ROWS == 64
+        assert roles in (0, 1) and ring >= 2 and cluster in (1, 2)
+        assert order in (0, 1)
+        assert max(smem_dq, smem_kv) <= tfa.SMEM_MAX == 232_448
+        tile = rows * 2 * dh
+        # dQ: Q, dO and two K / V slots; dK / dV: K, V and the Q / dO ring
+        assert smem_dq > 6 * tile and smem_kv > (2 + 2 * ring) * tile
+        # by role the warpgroups share one step, so one 64 x 64 float32 P^T
+        # exchange; else each warpgroup has two slots of its own
+        assert smem_kv - (1024 + (2 + 2 * ring) * tile) > \
+            (rows * rows * 4 if roles else 0)
+        assert roles or ring == 4
+
+    def test_dh64_dh128_keep_their_layout_dh256_splits_by_role(self):
+        """Head dims 64 and 128 keep the plan they ran with before 256
+        joined (each dK / dV warpgroup its own steps and two slots, clusters
+        of two, blocks by tile; 50,200 / 84,008 and 99,352 / 165,928
+        bytes); 256 splits each step by role over one two-slot ring, with
+        no cluster, blocks by group, 197,656 / 215,080 bytes (ten 32 KB
+        tiles would be 320 KB)."""
+        assert tfa.backward_plan(64) == (64, 0, 4, 2, 0, 50_200, 84_008)
+        assert tfa.backward_plan(128) == (64, 0, 4, 2, 0, 99_352, 165_928)
+        assert tfa.backward_plan(256) == (64, 1, 2, 1, 1, 197_656, 215_080)
+        assert 1024 + 10 * 64 * 2 * 256 > tfa.SMEM_MAX
+
+    def test_plan_matches_the_source(self):
+        """The ``BWD_PLAN`` table and the constants of the CUDA source are
+        the wrapper's; the launcher dispatches every head dim the route
+        sends it, and the plan entry reports each of them."""
+        import re
+
+        from repro_torch.kernels import _build
+
+        src = (_build.CSRC / "flash_attention_bwd_wgmma.cu").read_text()
+        table = {int(m[0]): tuple(int(x) for x in m[1:]) for m in re.findall(
+            r"^BWD_PLAN\((\d+), (\d+), (\d+), (\d+), (\d+)\)$", src,
+            re.M)}
+        assert table == tfa.BACKWARD_PLANS
+        assert set(table) == set(tfa.BWD_WGMMA_HEAD_DIMS)
+        assert re.search(r"constexpr int kRows = (\d+);", src)[1] == \
+            str(tfa.BACKWARD_ROWS)
+        assert re.search(r"constexpr int kSmemMax = (\d+);", src)[1] == \
+            str(tfa.SMEM_MAX)
+        entry = src[src.index("int flash_attention_backward_wgmma_launch("):]
+        entry = entry[:entry.index("\n}\n")]
+        launched = re.findall(r"if \(a\.dh == (\d+)\) err = launch<(\d+)>",
+                              entry)
+        assert all(dh == inst for dh, inst in launched)
+        assert {int(dh) for dh, _ in launched} == set(tfa.BWD_WGMMA_HEAD_DIMS)
+        plan = src[src.index("int flash_bwd_plan("):]
+        plan = plan[:plan.index("\n}\n")]
+        cases = re.search(r"BWD_CASE\((\d+)\) BWD_CASE\((\d+)\) "
+                          r"BWD_CASE\((\d+)\)", plan)
+        assert tuple(int(d) for d in cases.groups()) == \
+            tfa.BWD_WGMMA_HEAD_DIMS
 
 
 class TestFlashAttentionFnLse:

@@ -583,6 +583,76 @@ class TestFlashBackwardPlain:
         assert all(g.dtype == torch.bfloat16 for g in gb)
 
 
+# bf16 at head dim 256 (route ``bwd_wgmma`` on the card): b, hq, hkv, sq,
+# skv, causal, window — Gemma3's group 2 with a window off the 8-row
+# chunks, and Sq < Skv causal
+DH256_ATTN_CASES = [(1, 4, 2, 20, 20, True, 6), (1, 4, 2, 11, 19, True, 0)]
+# The bf16 results against the float32 VJP: one bf16 rounding of each
+# gradient (2 ** -9 of it) and another float32 summation order, within 8e-3
+# of the largest |VJP| (``chip_smoke.py``'s bf16 tolerance on the card).
+BF16_GRAD_TOL = 8e-3
+
+
+def _bf16_close(got, want, what):
+    g = got.float().numpy()
+    w = np.asarray(want, np.float32)
+    assert g.shape == w.shape, (what, g.shape, w.shape)
+    assert got.dtype == torch.bfloat16, what
+    err = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
+    assert err <= BF16_GRAD_TOL, (what, err)
+
+
+def _bf16_values(a):
+    """``a`` rounded to bf16, as float32 (both packages' inputs)."""
+    return t(a).to(torch.bfloat16).float().numpy()
+
+
+class TestFlashBackwardPlainDh256:
+    @pytest.mark.parametrize("case", DH256_ATTN_CASES)
+    def test_bf16_matches_chunked_attention_vjp(self, case):
+        """bf16 q, k, v, dO at head dim 256 through the plain backward,
+        against ``jax.vjp`` of the reference's ``chunked_attention`` on the
+        same values in float32."""
+        b, hq, hkv, sq, skv, causal, window = case
+        q, k, v, do = (_bf16_values(a) for a in
+                       _attn_inputs(b, hq, hkv, sq, skv, 256, 5))
+        _, vjp = jax.vjp(lambda q_, k_, v_: JA.chunked_attention(
+            q_, k_, v_, causal=causal, window=window, block_q=8, block_k=8),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+        got = tfa.flash_attention_backward_plain(
+            *(t(a).to(torch.bfloat16) for a in (q, k, v, do)), causal=causal,
+            window=window or None)
+        for name, g, w in zip("qkv", got, want):
+            _bf16_close(g, w, "d" + name)
+
+    def test_mla_padded_call_matches_unpadded_vjp(self):
+        """MLA's call as the port makes it (``layers/mla.py``): q and k of
+        192 and v of 128 zero-padded to 256, group 1, scale 192^-0.5, bf16;
+        the gradients' first 192 / 128 columns against ``jax.vjp`` of
+        ``chunked_attention`` on the unpadded tensors (whose own scale is
+        192^-0.5), and the padded columns' gradients exactly 0."""
+        import torch.nn.functional as F
+
+        rng = np.random.default_rng(11)
+        b, h, s = 1, 3, 18
+        q, k, v, do = (_bf16_values(rng.normal(size=(b, h, s, d)).astype(
+            np.float32)) for d in (192, 192, 128, 128))
+        _, vjp = jax.vjp(lambda q_, k_, v_: JA.chunked_attention(
+            q_, k_, v_, causal=True, window=0, block_q=8, block_k=8),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+        qp, kp = (F.pad(t(a), (0, 64)).to(torch.bfloat16) for a in (q, k))
+        vp, dop = (F.pad(t(a), (0, 128)).to(torch.bfloat16) for a in (v, do))
+        dq, dk, dv = tfa.flash_attention_backward_plain(
+            qp, kp, vp, dop, causal=True, scale=192 ** -0.5)
+        assert dq.shape == dk.shape == dv.shape == (b, h, s, 256)
+        for name, g, w, d in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                 (192, 192, 128)):
+            _bf16_close(g[..., :d], w, name)
+            assert not g[..., d:].any(), name
+
+
 class TestEmbeddingBagBackwardPlain:
     @pytest.mark.parametrize("f,v,d,b,l", [(3, 20, 8, 10, 4), (1, 5, 3, 7, 1),
                                            (2, 50, 16, 30, 6)])
