@@ -22,10 +22,12 @@ in phases that each print one JSON line:
                  dead lists only, k beyond the rows scanned; the list-major
                  scans given the raw lists and the validity bits, and the
                  pre-masked table, which must give the same bits); the
-                 stage-0 kernel at k = 512 and 1,024 on both its pass-1
-                 kernels (dim 128 on ``wgmma``, 512 on ``fma``) at the
-                 serving batch and at the paper sweep's 2,470 queries, with
-                 tombstones, and on stores with fewer live rows than k;
+                 stage-0 kernel at k = 512 and 1,024 on its tensor-core
+                 pass-1 kernels (dim 128 on ``wgmma``, 512 on ``wide``) at
+                 the serving batch and at the paper sweep's 2,470 queries,
+                 with tombstones, and on stores with fewer live rows than
+                 k, and on ``fma`` at dim 512 on rows TMA cannot read (the
+                 store seen one float past its start);
                  the stage-0 kernel's bf16 route (``wgmma_bf16``) at the
                  serving shape on the rows' (N, 128) bf16 block, with its
                  bf16 bound and a bf16 ``matmul`` + ``topk`` yardstick
@@ -182,7 +184,9 @@ in phases that each print one JSON line:
                  configurations against truncated at their d_max (and
                  ``matmul`` + ``topk``), the reference benchmark's check
                  (the closest row within 2 points), one Fig. 3 cell at
-                 k0 = 1,024 on each stage-0 kernel, Table 2b (PCA by power
+                 k0 = 1,024 on each tensor-core stage-0 kernel (d_start
+                 128 on ``wgmma``, 512 on ``wide``, as every truncated
+                 search above 256 dims), Table 2b (PCA by power
                  iteration against truncation) and the pooled search
                  against the per-query one at (128, 3,584, 64); every
                  search held against the plain path on the same inputs,
@@ -322,6 +326,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Wall time at import: the clock line also gives the seconds since then,
 # so a run's own time can be told from its interpreter's start and exit.
 T_IMPORT = time.time()
+# The seconds a whole run may take, its kernels' build included.
+TIME_LIMIT_S = 1200
 
 # The paper's deployment (configs/paper_rag.py): gte-Qwen2-7B widths, 1M
 # docs, 2,470 queries, Table III schedule (128 -> 3584, k0=64); final_k=10
@@ -356,8 +362,8 @@ TRACE_ATTEMPTS = 10
 # The stage-0 kernel's large-k cases (phase 2): the paper sweeps k0 to 1,024.
 LARGE_K = (512, 1024)
 
-KERNEL_LIBS = ("distance_topk", "distance_topk_bf16", "gather_rescore",
-               "ivf_scan", "pq_scan",
+KERNEL_LIBS = ("distance_topk", "distance_topk_bf16", "distance_topk_wide",
+               "gather_rescore", "ivf_scan", "pq_scan",
                "flash_attention", "flash_attention_bwd",
                "flash_attention_bwd_wgmma", "embedding_bag", "segment_sum")
 
@@ -1066,7 +1072,8 @@ def run(args) -> None:
     lap("distributed")
     emit({"phase": "clock", "seconds": clock,
           "total_s": time.perf_counter() - t0,
-          "since_import_s": time.time() - T_IMPORT})
+          "since_import_s": time.time() - T_IMPORT, "limit_s": TIME_LIMIT_S,
+          "share_of_limit": (time.time() - T_IMPORT) / TIME_LIMIT_S})
     finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
            launches, paper_counts, dur_counts, scan_rows, flash_rows,
            bag_rows, seg_rows, families, train, dist_counts)
@@ -1079,9 +1086,9 @@ def run(args) -> None:
 # do not depend on the other queries).
 PAPER_RUNS = 3
 PLAIN_QUERIES = 512
-# The Fig. 3 cells the phase runs: one at k0 = 1,024 on each pass-1 kernel
-# of stage 0 (d_start 128 on ``wgmma``, 512 on ``fma``), d_max 3,584; and the
-# configuration of the pooled-against-per-query row.
+# The Fig. 3 cells the phase runs: one at k0 = 1,024 on each tensor-core
+# pass-1 kernel of stage 0 (d_start 128 on ``wgmma``, 512 on ``wide``), d_max
+# 3,584; and the configuration of the pooled-against-per-query row.
 PAPER_SWEEP_CELLS = ((128, 3584, 1024), (512, 3584, 1024))
 PAPER_POOLED = (128, 3584, 64)
 
@@ -1176,9 +1183,10 @@ def paper_phase(torch, dev, seed) -> dict:
         for key in ("acc", "prog_acc", "trunc_acc", "pca_acc"):
             if key in r and not 0.0 <= r[key] <= 100.0:
                 fail(f"paper row {r}: {key} out of range")
-    if min(counts["distance_topk.wgmma"], counts["distance_topk.fma"],
-           counts["gather_rescore.ladder"]) <= 0:
-        fail(f"the paper phase missed a kernel: {counts}")
+    if min(counts["distance_topk.wgmma"], counts["distance_topk.wide"],
+           counts["gather_rescore.ladder"]) <= 0 \
+            or counts["distance_topk.fma"] != 0:
+        fail(f"the paper phase missed a kernel or went to fma: {counts}")
     checks = [paper_check(torch, *k) for k in keep]
     emit({"phase": "paper_checks", "searches": len(checks),
           "min_ids_agree": min(c["ids_agree"] for c in checks),
@@ -2250,10 +2258,11 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None,
     beside it and beside ``torch.matmul`` + ``torch.topk`` (the yardstick,
     in blocks of at most `YARD_QUERIES` queries), with its device time and
     both bounds: operations at the float32 FMA rate and as 3xTF32 on the
-    tensor cores; on bf16 rows and queries (the bf16 route) two bytes a
-    dim and one bf16 product an operation, with a bf16 ``matmul`` (float32
-    accumulation) in the yardstick.  ``plain_runs`` runs time the plain
-    version and the yardstick (fewer where one call takes seconds).
+    tensor cores (the bound of ``wgmma`` and ``wide``); on bf16 rows and
+    queries (the bf16 route) two bytes a dim and one bf16 product an
+    operation, with a bf16 ``matmul`` (float32 accumulation) in the
+    yardstick.  ``plain_runs`` runs time the plain version and the
+    yardstick (fewer where one call takes seconds).
     Returns (row, kernel output)."""
     from repro_torch.core import truncated as T
     from repro_torch.kernels import distance_topk
@@ -2296,8 +2305,11 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None,
     served = distance_topk.route(q, db, dim, k)
     key = distance_topk.counter_key(served, db.dtype)
     n_groups = distance_topk.plan(q, db, dim, k)[-1]
-    dev_all, dev_own = device_ms(torch, kern, ("l2_scan", "l2_merge"),
-                                 per_call=2 if n_groups == 1 else 3)
+    # ``wide`` launches its query pre-pass before pass 1
+    dev_all, dev_own = device_ms(
+        torch, kern, ("l2_scan", "l2_merge", "wide_split"),
+        per_call=(2 if n_groups == 1 else 3) + (served == "wide"))
+    tensor = served in ("wgmma", "wide")
     slow = dict(runs=plain_runs, warmup=min(3, plain_runs))
     before = distance_topk.launches_by_kernel[key]
     kern()
@@ -2310,8 +2322,8 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None,
            "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain, **slow),
            "matmul_topk_ms": cuda_ms(torch, yardstick, **slow),
            "device_ms": dev_all, "kernel_device_ms": dev_own,
-           "bound_ms": bbf if bf16 else btf if served == "wgmma" else b32,
-           "bound_by": bybf if bf16 else bytf if served == "wgmma" else by32,
+           "bound_ms": bbf if bf16 else btf if tensor else b32,
+           "bound_by": bybf if bf16 else bytf if tensor else by32,
            "bound_f32_ms": b32, "bound_3xtf32_ms": btf, "bytes": n_bytes,
            "shape": f"Q={nq} Ncap={n} dim={dim} k={k}"}
     if bf16:
@@ -2323,21 +2335,27 @@ def l2_row(torch, case, q, db, dim, k, *, sq=None, valid=None,
 def large_k_rows(torch, dev, gen, db, scales, q32, sq_all, dims,
                  valid) -> list:
     """The stage-0 kernel above k = 256 (phase 2): k = 512 and 1,024 on
-    both pass-1 kernels at the serving batch (dim 128 on ``wgmma``, dim
-    512 on ``fma``, 1% tombstones), the paper sweep's 2,470-query batch at
-    dim 128 and k 1,024, and stores with fewer live rows than k; each held
-    against the plain version.  Returns the timed rows."""
+    the tensor-core pass-1 kernels at the serving batch (dim 128 on
+    ``wgmma``, dim 512 on ``wide``, 1% tombstones) and on ``fma`` at dim
+    512 on rows TMA cannot read (the store seen one float past its start,
+    norms from the rows), the paper sweep's 2,470-query batch at dim 128
+    and k 1,024, and stores with fewer live rows than k; each held against
+    the plain version.  Returns the timed rows."""
     from repro_torch.core import truncated as T
     from repro_torch.kernels import distance_topk
 
     rows = []
     sq = {d: sq_all[:, dims.index(d)].contiguous() for d in (128, 512)}
-    route = {128: "wgmma", 512: "fma"}
+    route = {128: "wgmma", 512: "wide"}
     for k in LARGE_K:
         for dim in (128, 512):
             row, _ = l2_row(torch, f"q32_dim{dim}_k{k}", q32, db, dim, k,
                             sq=sq[dim], valid=valid)
             rows.append(row)
+    # the rows one float past the store's start: a base TMA cannot read
+    row, _ = l2_row(torch, "fma_q32_dim512_k1024", q32[:, 1:], db[:, 1:],
+                    512, 1024, valid=valid)
+    rows.append(row)
     src = torch.randint(0, db.shape[0], (N_QUERIES,), generator=gen,
                         device=dev)
     q_sweep = db[src] + torch.randn((N_QUERIES, db.shape[1]), generator=gen,
@@ -2346,9 +2364,10 @@ def large_k_rows(torch, dev, gen, db, scales, q32, sq_all, dims,
                     1024, sq=sq[128], valid=valid, plain_runs=3)
     rows.append(row)
     for r in rows:
-        if r["served_by"] != route[r["dim"]]:
+        want = "fma" if r["case"].startswith("fma_") else route[r["dim"]]
+        if r["served_by"] != want:
             fail(f"l2_topk {r['case']} served by {r['served_by']}, not "
-                 f"{route[r['dim']]}")
+                 f"{want}")
     n_small = 4000
     few = torch.rand((n_small,), generator=gen, device=dev) < 0.1
     live = int(few.sum())
@@ -6173,10 +6192,15 @@ def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
         {"name": "distance_topk.l2_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/distance_topk.cuh (built by "
                    "distance_topk.cu and distance_topk_bf16.cu)",
+         "sources_by_kernel": {
+             **{kind: "src/repro_torch/csrc/distance_topk.cuh"
+                for kind in ("wgmma", "fma")},
+             "wide": "src/repro_torch/csrc/distance_topk_wide.cu"},
          "replaces": "src/repro/kernels/distance_topk.py:128",
          "launches": launches["distance_topk.l2_topk"],
          "launches_by_kernel": {kind: launches[f"distance_topk.{kind}"]
-                                for kind in ("wgmma", "fma", "wgmma_bf16",
+                                for kind in ("wgmma", "wide", "fma",
+                                             "wgmma_bf16",
                                              "fma_bf16")},
          "max_abs_err": max(r["max_abs_err"]
                             for r in stage_rows + large_rows),
@@ -6196,7 +6220,8 @@ def finish(torch, card, stage_rows, large_rows, step_rows, ladder_rows,
          "large_k": {r["case"]: {k: r[k] for k in s_keys}
                      for r in large_rows},
          "paper_launches": {kind: paper_counts[f"distance_topk.{kind}"]
-                            for kind in ("l2_topk", "wgmma", "fma")}},
+                            for kind in ("l2_topk", "wgmma", "wide",
+                                         "fma")}},
         _ladder_entry(launches, step_rows, ladder_rows),
         _scan_entry("ivf_scan.ivf_scan_topk", "src/repro_torch/csrc/ivf_scan.cu",
                     "src/repro/kernels/ivf_scan.py:275",

@@ -5,7 +5,8 @@
 // prefill kernel in flash_attention.cu, the tensor-core backward in
 // flash_attention_bwd_wgmma.cu and the tensor-core stage-0 scan in
 // distance_topk.cu (its float32 route on the TF32 products, its bf16 route
-// on `wgmma_bf16`).
+// on `wgmma_bf16`) and its wide-dim scan in distance_topk_wide.cu (TF32
+// products; the queries by a plain bulk copy).
 
 #pragma once
 
@@ -144,6 +145,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory at `src` (16-byte
+// aligned) into shared memory at `dst`, counted on `bar` in bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -306,31 +318,32 @@ __device__ __forceinline__ float tf32_round(float x) {
 }
 
 // D (64 x N, float32) += A (64 x 8 tf32, registers) * B (8 x N tf32, shared
-// memory, K-major), for N = 8, 16, 32.  A's fragment: a[0] row g, column t;
-// a[1] row g + 8, column t; a[2] row g, column t + 4; a[3] row g + 8, column
-// t + 4 (g = lane / 4, t = lane % 4, rows 16 w + ... for warp w of the
-// warpgroup).
+// memory, K-major), for N = 8, 16, 32, 64; scale_d = 0 overwrites D.  A's
+// fragment: a[0] row g, column t; a[1] row g + 8, column t; a[2] row g,
+// column t + 4; a[3] row g + 8, column t + 4 (g = lane / 4, t = lane % 4,
+// rows 16 w + ... for warp w of the warpgroup).
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
-                                           const uint32_t (&a)[4], uint64_t db);
+                                           const uint32_t (&a)[4], uint64_t db,
+                                           int scale_d = 1);
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4],
                                               const uint32_t (&a)[4],
-                                              uint64_t db) {
+                                              uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %9, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8],
                                                const uint32_t (&a)[4],
-                                               uint64_t db) {
+                                               uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %13, 0;\n"
@@ -338,13 +351,13 @@ __device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8],
       "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16],
                                                const uint32_t (&a)[4],
-                                               uint64_t db) {
+                                               uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %21, 0;\n"
@@ -354,7 +367,27 @@ __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // D (64 x N, float32) += A (64 x 16 bf16, registers) * B (16 x N bf16,

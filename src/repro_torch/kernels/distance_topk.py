@@ -2,12 +2,14 @@
 
 Replaces the TPU kernel ``l2_topk`` of the JAX package
 (``src/repro/kernels/distance_topk.py:128``, body ``:84``, ``pallas_call``
-``:176``).  The kernel (``csrc/distance_topk.cuh``, built as two libraries
-— ``distance_topk.cu`` for float32 rows, ``distance_topk_bf16.cu`` for
-bf16 rows, which compile side by side) reads only each row's
-``[:dim]`` prefix at the buffer's row stride — never a contiguous copy of
-``db[:, :dim]`` — and keeps the per-query top-k in shared memory, so the
-(Q, N) score matrix never reaches device memory.
+``:176``).  The kernels (``csrc/distance_topk.cuh``, built as two
+libraries — ``distance_topk.cu`` for float32 rows, ``distance_topk_bf16.cu``
+for bf16 rows —, and ``csrc/distance_topk_wide.cu`` for float32 rows above
+256 dims, all three compiling side by side and sharing the selection and
+pass 2 of ``csrc/l2_select.cuh``) read only each row's ``[:dim]`` prefix at
+the buffer's row stride — never a contiguous copy of ``db[:, :dim]`` — and
+keep the per-query top-k in shared memory, so the (Q, N) score matrix
+never reaches device memory.
 
 ``q`` and ``db`` are both float32 or both bfloat16 (the JAX kernel takes
 either, with a float32 accumulator); scores, prefix norms and the top-k
@@ -19,31 +21,41 @@ N·(4·dim + 5) bytes (542 MB, 0.16 ms) against 2·Q·N·dim operations —
 memory-bound; bf16 rows halve the row bytes (N·(2·dim + 5), 0.08 ms).  At
 the two-tower's stage 0 (Q 512, dim 64, 1M rows) the operations lead: 67
 GFLOP, 0.41 ms as 3xTF32 (three TF32 products) and 0.068 ms as one bf16
-product.
+product.  At the paper's truncated baseline (Q 2,470, dim 3,584, 1M rows)
+the 3xTF32 operations lead by far: 53 TFLOP, 107 ms.
 
-Two pass-1 kernels, chosen from the shapes, strides and dtype alone
-(`route`), each with a float32 and a bf16 instantiation:
+Three pass-1 kernels, chosen from the shapes, strides and dtype alone
+(`route`):
 
-- ``wgmma``: the tensor-core scan — TMA loads of the rows' prefix, query
-  tiles of 8, 16 or 32, two or three consumer warpgroups (`warpgroups`);
-  float32 rows as split TF32 (3xTF32) products, bf16 rows as one bf16
-  product a k16 step.  For a row buffer that TMA can read (16-byte aligned
-  base; float32: a row stride and a dim that are multiples of 4; bf16: a
-  row stride that is a multiple of 8 and a dim that is a multiple of 16)
-  and a dim whose query tiles fit shared memory (up to 256 at 32 queries a
-  tile).
-- ``fma``: everything else — FMA in float32 from shared memory, the first
-  kernel of this port; bf16 rows are widened on their way in.
+- ``wgmma``: the tensor-core scan up to 256 dims — TMA loads of the rows'
+  prefix, query tiles of 8, 16 or 32 kept whole in shared memory, two or
+  three consumer warpgroups (`warpgroups`); float32 rows as split TF32
+  (3xTF32) products, bf16 rows as one bf16 product a k16 step.  For a row
+  buffer that TMA can read (16-byte aligned base; float32: a row stride
+  and a dim that are multiples of 4; bf16: a row stride that is a multiple
+  of 8 and a dim that is a multiple of 16).
+- ``wide``: float32 rows that TMA can read, above 256 dims
+  (``csrc/distance_topk_wide.cu``, its own library): the same 3xTF32
+  products with the dims as a K loop — the queries split into TF32 hi and
+  lo once a call by a pre-pass, their boxes streamed through the ring
+  beside the rows' —, query tiles of up to 64 sized by k (`wide_plan`,
+  mirroring the source's ``WIDE_PLAN`` table), and a persistent grid
+  walking (row range, query tile) items doc-major (`wide_splits`).
+- ``fma``: everything else (rows TMA cannot read, a dim that is not a
+  multiple of 4, bf16 rows above 256 dims) — FMA in float32 from shared
+  memory, the first kernel of this port; bf16 rows are widened on their
+  way in.
 
-Both split the doc axis over enough blocks to fill every SM (a Hopper grid
-cannot carry a top-k the way the TPU's sequential grid does) and merge the
-per-block lists in pass 2, over groups of lists first when the batch is
+``wgmma`` and ``fma`` have a float32 and a bf16 instantiation.  Every route
+splits the doc axis over enough blocks to fill every SM (a Hopper grid
+cannot carry a top-k the way the TPU's sequential grid does) and merges
+the per-block lists in pass 2, over groups of lists first when the batch is
 too small to fill the card.  Above k = 256 (up to `MAX_K`, the paper's
 k0 sweep) each query's list has `list_slots` (1,024 or 2,048) slots in
 shared memory, so a block holds at most 16 queries at k <= 512 and 8
 above; those lists are tightened and sorted in shared memory rather than
 registers, and pass 2 folds fewer lists a round.  `scores_3xtf32` spells
-out the tensor-core kernel's float32 arithmetic in plain PyTorch for the
+out the tensor-core kernels' float32 arithmetic in plain PyTorch for the
 tests; on bf16 rows every product is exact in float32, so both kernels'
 scores are the plain version's up to the order of the float32 sums.
 
@@ -54,6 +66,7 @@ CUDA tensor it launches the kernels or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 import threading
 from typing import Optional, Tuple
@@ -80,6 +93,15 @@ WGMMA_WARPGROUPS = (3, 2)
 WGMMA_TILES = (8, 16, 32)
 WGMMA_MAX_DIM = 256
 WGMMA_MAX_STAGES = 8
+#: The wide-dim tensor-core kernel's plan by k, as ``WIDE_PLAN`` in
+#: ``csrc/distance_topk_wide.cu``: (largest k, queries a tile, slots a
+#: list, ring stages), the first row whose k covers the call's.
+WIDE_PLANS = ((64, 64, 256, 3), (256, 32, 512, 4), (512, 16, 1024, 4),
+              (1024, 8, 2048, 5))
+#: Rows of a wide-kernel tile (two consumer warpgroups of 64), and the
+#: bytes its pass-1 lists (Q, n_split, k) may take, which caps its splits.
+WIDE_ROWS = 128
+WIDE_PART_BYTES = 256 << 20
 #: Lists a pass-2 block folds (one round of its 32 warps).
 MERGE_GROUP = 32
 #: Shared memory a block may use on the H100 (227 KB).
@@ -88,7 +110,8 @@ SMEM_LIMIT = 232448
 #: Calls that launched a pass-1 kernel and its merge on the card, in all and
 #: by pass-1 kernel and input type (`counter_key`).
 launches = 0
-launches_by_kernel = {"wgmma": 0, "fma": 0, "wgmma_bf16": 0, "fma_bf16": 0}
+launches_by_kernel = {"wgmma": 0, "fma": 0, "wide": 0, "wgmma_bf16": 0,
+                      "fma_bf16": 0}
 
 # L2Args of csrc/distance_topk.cuh: q, db, sq, valid, part_s, part_i, mid_s,
 # mid_i, out_s, out_i, stream; ld_q, ld_db; nq, n, dim, k, kind, tile_q,
@@ -96,6 +119,10 @@ launches_by_kernel = {"wgmma": 0, "fma": 0, "wgmma_bf16": 0, "fma_bf16": 0}
 # tail padding
 _ARGS = struct.Struct("@11Q2q13i4x")
 _KIND = {"fma": 0, "wgmma": 1}
+# WideArgs of csrc/distance_topk_wide.cu: q, db, sq, valid, qsplit, part_s,
+# part_i, mid_s, mid_i, out_s, out_i, stream; ld_q, ld_db; nq, n, dim, k,
+# tile_q, slots, stages, n_split, grid, n_groups
+_WIDE_ARGS = struct.Struct("@12Q2q10i")
 _local = threading.local()
 _fns = {}
 
@@ -132,6 +159,83 @@ def _kernel(bf16: bool = False):
                         "layout differ from list_slots / wgmma_smem_bytes")
         _fns[bf16] = (lib, fn, smem)
     return _fns[bf16]
+
+
+def _kernel_wide():
+    """(library, its launcher) of the wide-dim build, its argument block
+    and plan checked against the wrapper's."""
+    if "wide" not in _fns:
+        lib = _build.library("distance_topk_wide")
+        size = lib.l2_topk_wide_args_size
+        size.argtypes, size.restype = [], ctypes.c_int
+        if size() != _WIDE_ARGS.size:
+            raise RuntimeError(f"l2_topk: the wide library's argument block "
+                               f"is {size()} bytes, the wrapper packs "
+                               f"{_WIDE_ARGS.size}")
+        fn = lib.l2_topk_wide_launch
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+        _fns["wide"] = (lib, fn)
+        for nq in (1, 9, 33, 2470):
+            for k in (1, 64, 65, 256, 257, 512, 513, MAX_K):
+                if built_wide_plan(nq, k) != wide_plan(nq, k):
+                    del _fns["wide"]
+                    raise RuntimeError(
+                        f"l2_topk: the wide library's plan at nq={nq}, "
+                        f"k={k} is {built_wide_plan(nq, k)}, the wrapper's "
+                        f"{wide_plan(nq, k)}")
+    return _fns["wide"]
+
+
+def wide_plan(nq: int, k: int) -> Tuple[int, int, int, int]:
+    """(queries a tile, slots a list, ring stages, dynamic shared memory)
+    of the wide-dim kernel for nq queries at ``k``, as ``wide_plan`` and
+    ``wide_smem_bytes`` in ``csrc/distance_topk_wide.cu`` reckon them: the
+    first `WIDE_PLANS` row whose k covers ``k``, its tile cut to the
+    smallest of 8, 16, 32, 64 that holds the batch; the shared memory is
+    1,024 bytes of alignment, the ring (a 128-row box of rows and the
+    tile's hi and lo query boxes, 128 bytes a row each, a stage), the
+    lists of (score, id) slots, their counts and thresholds, the
+    barriers."""
+    for max_k, tile, slots, stages in WIDE_PLANS:
+        if k <= max_k:
+            t = 8
+            while t < nq and t < tile:
+                t *= 2
+            smem = (1024 + stages * (WIDE_ROWS * 128 + 2 * t * 128)
+                    + t * slots * 8 + t * 12 + 8 + stages * 16)
+            return t, slots, stages, smem
+    raise ValueError(f"k={k} above the wide plan's {WIDE_PLANS[-1][0]}")
+
+
+def built_wide_plan(nq: int, k: int) -> Tuple[int, int, int, int]:
+    """`wide_plan` as the built library reports it (``l2_topk_wide_plan``);
+    builds the library, so it needs the CUDA toolchain."""
+    lib = _kernel_wide()[0]
+    fn = lib.l2_topk_wide_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, fn(nq, k, out), f"l2_topk_wide_plan({nq}, {k})")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def wide_splits(n_tiles: int, q_tiles: int, n_sm: int,
+                max_split: int) -> Tuple[int, int, int]:
+    """(n_split, most tiles a split, grid) of the wide-dim kernel: the doc
+    axis cut into n_split ranges that differ by at most one tile, so that
+    the q_tiles x n_split (row range, query tile) items, walked by a
+    persistent grid of at most n_sm blocks, finish in the fewest rounds of
+    tiles (items a block x tiles an item); of the cuts within 2% of that,
+    at most ``max_split``, the fewest splits that still give every SM an
+    item where the cuts can."""
+    top = max(1, min(n_tiles, max_split, 4 * n_sm))
+    cost = {ns: -(-(ns * q_tiles) // n_sm) * -(-n_tiles // ns)
+            for ns in range(1, top + 1)}
+    near = [ns for ns in cost if cost[ns] <= 1.02 * min(cost.values())]
+    full = [ns for ns in near if ns * q_tiles >= n_sm]
+    ns = min(full or near)
+    return ns, -(-n_tiles // ns), min(n_sm, ns * q_tiles)
 
 
 def warpgroups(k: int) -> int:
@@ -183,15 +287,18 @@ def wgmma_tile(nq: int, dim: int, wgs: int, slots: int = LIST_SLOTS,
 def route(q: Tensor, db: Tensor, dim: int, k: int = MAX_K) -> str:
     """The pass-1 kernel a call goes to, from its shapes, strides and dtype
     alone: TMA reads 16-byte aligned rows at a stride of a multiple of 16
-    bytes, and a bf16 product takes 16 dims a step."""
+    bytes, and a bf16 product takes 16 dims a step; float32 rows above
+    `WGMMA_MAX_DIM` go to ``wide``, bf16 ones to ``fma``."""
     bf16 = db.dtype == torch.bfloat16
     aligned = (db.data_ptr() % 16 == 0
                and db.stride(0) % (8 if bf16 else 4) == 0
                and dim % (16 if bf16 else 4) == 0)
-    if aligned and db.shape[0] > 0 and dim <= WGMMA_MAX_DIM \
-            and wgmma_tile(q.shape[0], dim, warpgroups(k), list_slots(k),
-                           bf16)[0]:
-        return "wgmma"
+    if aligned and db.shape[0] > 0:
+        if dim <= WGMMA_MAX_DIM and wgmma_tile(
+                q.shape[0], dim, warpgroups(k), list_slots(k), bf16)[0]:
+            return "wgmma"
+        if not bf16:
+            return "wide"
     return "fma"
 
 
@@ -313,8 +420,11 @@ def l2_topk(
     if nq == 0:
         return out_s, out_i
     bf16 = db.dtype == torch.bfloat16
-    lib, fn, _ = _kernel(bf16)
     kind, tile_q, stages, wgs, n_split, per, n_groups = plan(q, db, dim, k)
+    if kind == "wide":
+        return _launch_wide(q, db, dim, k, sq_at_dim, valid, out_s, out_i,
+                            tile_q, stages, n_split, n_groups)
+    lib, fn, _ = _kernel(bf16)
     vec = 0
     if kind == "fma":
         # 16-byte loads: 4 float32 or 8 bf16 dims
@@ -346,16 +456,73 @@ def l2_topk(
     return out_s, out_i
 
 
+def pack_wide_args(buf, *, q, db, sq, valid, qsplit, part_s, part_i, mid_s,
+                   mid_i, out_s, out_i, stream, ld_q, ld_db, nq, n, dim, k,
+                   tile_q, slots, stages, n_split, grid, n_groups) -> None:
+    """Packs the fields of ``WideArgs`` (``csrc/distance_topk_wide.cu``),
+    named and ordered as there (pointers as ints, 0 for null), into
+    ``buf``."""
+    _WIDE_ARGS.pack_into(buf, 0, q, db, sq, valid, qsplit, part_s, part_i,
+                         mid_s, mid_i, out_s, out_i, stream, ld_q, ld_db, nq,
+                         n, dim, k, tile_q, slots, stages, n_split, grid,
+                         n_groups)
+
+
+def _launch_wide(q, db, dim, k, sq_at_dim, valid, out_s, out_i, tile_q,
+                 stages, n_split, n_groups):
+    """The wide-dim kernel's call: the query pre-pass's scratch and the
+    pass-1 lists allocated here, one packed argument block, one C call."""
+    global launches
+    lib, fn = _kernel_wide()
+    nq, dev = q.shape[0], q.device
+    slots = wide_plan(nq, k)[1]
+    q_tiles = -(-nq // tile_q)
+    qsplit = torch.empty(q_tiles * -(-dim // 32) * 2 * tile_q * 32,
+                         dtype=torch.float32, device=dev)
+    part_s = torch.empty((nq, n_split, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((nq, n_split, k), dtype=torch.int32, device=dev)
+    mid_s = mid_i = None
+    if n_groups > 1:
+        mid_s = torch.empty((nq, n_groups, k), dtype=torch.float32, device=dev)
+        mid_i = torch.empty((nq, n_groups, k), dtype=torch.int32, device=dev)
+    buf = getattr(_local, "wide_buf", None)
+    if buf is None:
+        buf = _local.wide_buf = ctypes.create_string_buffer(_WIDE_ARGS.size)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    pack_wide_args(
+        buf, q=q.data_ptr(), db=db.data_ptr(), sq=ptr(sq_at_dim),
+        valid=ptr(valid), qsplit=qsplit.data_ptr(), part_s=part_s.data_ptr(),
+        part_i=part_i.data_ptr(), mid_s=ptr(mid_s), mid_i=ptr(mid_i),
+        out_s=out_s.data_ptr(), out_i=out_i.data_ptr(),
+        stream=torch.cuda.current_stream(dev).cuda_stream, ld_q=q.stride(0),
+        ld_db=db.stride(0), nq=nq, n=db.shape[0], dim=dim, k=k,
+        tile_q=tile_q, slots=slots, stages=stages, n_split=n_split,
+        grid=min(_sm_count(dev), n_split * q_tiles), n_groups=n_groups)
+    _build.check(lib, fn(ctypes.addressof(buf)), "l2_topk (wide)")
+    launches += 1
+    launches_by_kernel["wide"] += 1
+    return out_s, out_i
+
+
 def plan(q: Tensor, db: Tensor, dim: int, k: int
          ) -> Tuple[str, int, int, int, int, int, int]:
     """How a call on the card runs: (pass-1 kernel, its query tile — queries
     a warp for ``fma`` —, ring stages, warpgroups, n_split, tiles a split,
-    pass-2 groups); pass 2 launches once, or twice with groups."""
+    pass-2 groups); pass 2 launches once, or twice with groups.  A
+    ``wide`` call's grid is min(SMs, n_split x query tiles)."""
     nq, n = q.shape[0], db.shape[0]
     kind = route(q, db, dim, k)
     stages = 0
     wgs = warpgroups(k)
     slots = list_slots(k)
+    if kind == "wide":
+        tile_q, _, stages, _ = wide_plan(nq, k)
+        n_sm = _sm_count(q.device)
+        n_split, per, _ = wide_splits(
+            max(-(-n // WIDE_ROWS), 1), -(-nq // tile_q), n_sm,
+            max(1, WIDE_PART_BYTES // (nq * k * 8)))
+        return kind, tile_q, stages, 2, n_split, per, \
+            merge_groups(nq, n_split, n_sm)
     if kind == "wgmma":
         tile_q, stages = wgmma_tile(nq, dim, wgs, slots,
                                     db.dtype == torch.bfloat16)

@@ -11,7 +11,7 @@ inputs, at shapes that reach every code path (16-byte and scalar loads,
 precomputed and in-kernel norms, several query tiles, k > N, padding and
 invalid candidates; for the IVF and PQ scans float32 and int8 slabs, empty
 and fully tombstoned lists, k beyond the rows scanned; stage 0 at k 257 to
-1,024 on both of its kernels).  The pooled search and PCA run on the card
+1,024 on its kernels, and its ``wide`` route above 256 dims at every k).  The pooled search and PCA run on the card
 against the CPU port (the same tolerance; PCA variances 1e-4 relative).  Tolerance: scores
 ``rtol=1e-5, atol=1e-4`` (another float32 summation order); ids equal up to
 near-ties.  The flash-attention kernels (the tensor-core bf16 prefill, the
@@ -207,7 +207,8 @@ class TestLargeKOnCard:
         (13, 64, 68, "wgmma"),       # Q below one tile
         (37, 128, 128, "wgmma"),     # Q not a multiple of the tile
         (9, 30, 34, "fma"),          # odd dim: scalar loads
-        (21, 512, 512, "fma"),       # wider than the tensor-core kernel
+        (21, 512, 512, "wide"),      # wider than ``wgmma``
+        (21, 512, 514, "fma"),       # stride 514: TMA cannot read
     ])
     def test_matches_plain(self, cuda, nq, dim, d, kind, k):
         g = torch.Generator(device=cuda).manual_seed(nq * 31 + k)
@@ -269,14 +270,17 @@ class TestLargeKOnCard:
     def test_small_k_keeps_its_plan(self, cuda):
         """Calls at k <= 256 keep the route and tiles they had before the
         large-k lists: the serving stage 0, the two-tower's and the FMA
-        kernel's."""
+        kernel's (on rows TMA cannot read; aligned float32 rows at 512 dims
+        go to ``wide``)."""
         q = torch.zeros((32, 3584), device=cuda)
         db = torch.zeros((4096, 3584), device=cuda)
         assert distance_topk.plan(q, db, 128, 64)[:4] == ("wgmma", 32, 2, 3)
         q512 = torch.zeros((512, 64), device=cuda)
         assert distance_topk.plan(q512, db[:, :64].contiguous(), 64,
                                   128)[:4] == ("wgmma", 32, 3, 3)
-        assert distance_topk.plan(q, db, 512, 256)[:4] == ("fma", 4, 0, 2)
+        assert distance_topk.plan(q, db[:, 1:], 512, 256)[:4] == (
+            "fma", 4, 0, 2)
+        assert distance_topk.plan(q, db, 512, 256)[:4] == ("wide", 32, 4, 2)
         assert distance_topk.plan(q, db, 256, 256)[:4] == ("wgmma", 32, 2, 2)
 
     def test_rejects_k_above_1024(self, cuda):
@@ -286,6 +290,113 @@ class TestLargeKOnCard:
             distance_topk.l2_topk(q, db, dim=16, k=1025)
         s, i = distance_topk.l2_topk(q, db, dim=16, k=1024)
         assert s.shape == (2, 1024)
+
+
+@pytest.mark.cuda
+class TestWideStage0OnCard:
+    """The wide-dim tensor-core route of stage 0 (``wide``,
+    ``csrc/distance_topk_wide.cu``: float32 rows TMA can read above 256
+    dims, every k up to 1,024) against the plain version; the route is
+    counted."""
+
+    @pytest.mark.parametrize("nq", [1, 33, 300])
+    @pytest.mark.parametrize("k", [1, 16, 64, 256, 512, 1024])
+    @pytest.mark.parametrize("dim", [260, 516, 1000, 3584])
+    def test_matches_plain(self, cuda, dim, k, nq):
+        g = torch.Generator(device=cuda).manual_seed(dim * 7 + k + nq)
+        n = 12_000 if dim > 1000 else 30_000
+        db = torch.randn((n, dim + 4), generator=g, device=cuda)
+        q = torch.randn((nq, dim + 4), generator=g, device=cuda)
+        valid = torch.rand((n,), generator=g, device=cuda) > 0.1
+        sq = (db[:, :dim] ** 2).sum(1)
+        assert distance_topk.route(q, db, dim, k) == "wide"
+        for sq_at, ok in ((sq, valid), (None, None)):
+            before = distance_topk.launches_by_kernel["wide"]
+            got = distance_topk.l2_topk(q, db, dim=dim, k=k, sq_at_dim=sq_at,
+                                        valid=ok)
+            assert distance_topk.launches_by_kernel["wide"] == before + 1
+            want = distance_topk.l2_topk_plain(q, db, dim=dim, k=k,
+                                               sq_at_dim=sq_at, valid=ok)
+            torch.cuda.synchronize()
+            assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+
+    @pytest.mark.parametrize("k", [1, 64])
+    def test_near_twins_at_3584_dims(self, cuda, k):
+        """Queries that are near copies of rows (dot products as large as
+        the norms, as in the paper's corpus) keep the plain version's scores
+        over 3,584 dims: the products' sums do not drift."""
+        g = torch.Generator(device=cuda).manual_seed(k)
+        db = torch.randn((20_000, 3584), generator=g, device=cuda)
+        src = torch.randint(0, 20_000, (300,), generator=g, device=cuda)
+        q = db[src] + 0.05 * torch.randn((300, 3584), generator=g,
+                                         device=cuda)
+        got = distance_topk.l2_topk(q, db, dim=3584, k=k)
+        want = distance_topk.l2_topk_plain(q, db, dim=3584, k=k)
+        torch.cuda.synchronize()
+        assert_topk_close([x.cpu() for x in got], [x.cpu() for x in want])
+        assert torch.equal(got[1][:, 0], src.int())
+
+    @pytest.mark.parametrize("k", [16, 1024])
+    def test_ncap_below_k_and_all_invalid(self, cuda, k):
+        """A store with fewer rows than k: its tail (+inf, -1); every row
+        invalid: every slot (+inf, -1)."""
+        g = torch.Generator(device=cuda).manual_seed(k)
+        q = torch.randn((40, 516), generator=g, device=cuda)
+        few = torch.randn((k // 2 + 3, 516), generator=g, device=cuda)
+        s, i = distance_topk.l2_topk(q, few, dim=516, k=k)
+        torch.cuda.synchronize()
+        live = few.shape[0]
+        assert (i[:, live:] == -1).all() and torch.isinf(s[:, live:]).all()
+        assert_topk_close([s.cpu(), i.cpu()],
+                          [x.cpu() for x in distance_topk.l2_topk_plain(
+                              q, few, dim=516, k=k)])
+        db = torch.randn((3000, 516), generator=g, device=cuda)
+        none = torch.zeros((3000,), dtype=torch.bool, device=cuda)
+        s, i = distance_topk.l2_topk(q, db, dim=516, k=k, valid=none)
+        assert distance_topk.route(q, db, 516, k) == "wide"
+        assert (i == -1).all() and torch.isinf(s).all()
+
+    @pytest.mark.parametrize("nq,dim,k", [(33, 516, 64), (300, 1000, 1024),
+                                          (1, 3584, 16), (70, 512, 300)])
+    def test_split_count_does_not_matter(self, cuda, nq, dim, k,
+                                         monkeypatch):
+        """The same call planned for 1, 7, 50 and 132 SMs (other cuts of the
+        doc axis, grids, merge groups) gives the same bits."""
+        g = torch.Generator(device=cuda).manual_seed(nq + dim + k)
+        db = torch.randn((40_000, dim), generator=g, device=cuda)
+        q = torch.randn((nq, dim), generator=g, device=cuda)
+        outs = []
+        for n_sm in (1, 7, 50, 132):
+            monkeypatch.setitem(distance_topk._n_sm, cuda.index or 0, n_sm)
+            outs.append(distance_topk.l2_topk(q, db, dim=dim, k=k))
+        for s, i in outs[1:]:
+            assert torch.equal(s, outs[0][0]) and torch.equal(i, outs[0][1])
+
+    def test_exact_ties_keep_the_lower_id(self, cuda):
+        g = torch.Generator(device=cuda).manual_seed(3)
+        db = torch.randn((500, 512), generator=g, device=cuda).repeat(8, 1)
+        q = torch.randn((20, 512), generator=g, device=cuda)
+        s, i = distance_topk.l2_topk(q, db, dim=512, k=64)
+        want = distance_topk.l2_topk_plain(q, db, dim=512, k=64)
+        torch.cuda.synchronize()
+        assert torch.equal(i, want[1])
+
+    def test_built_plan_and_counters(self, cuda):
+        """The built library's plan is `wide_plan`'s; a call is one
+        ``wide`` launch of ``l2_topk`` through ``ops``."""
+        for nq in (1, 9, 33, 2470):
+            for k in (1, 64, 65, 256, 300, 512, 700, 1024):
+                assert distance_topk.built_wide_plan(nq, k) == \
+                    distance_topk.wide_plan(nq, k)
+        q = torch.randn((5, 600), device=cuda)
+        db = torch.randn((1000, 600), device=cuda)
+        before = (distance_topk.launches,
+                  dict(distance_topk.launches_by_kernel))
+        ops.truncated_search(q, db, dim=600, k=8)
+        assert distance_topk.launches == before[0] + 1
+        after = dict(distance_topk.launches_by_kernel)
+        assert after.pop("wide") == before[1].pop("wide") + 1
+        assert after == before[1]
 
 
 def _bf16_case(dev, nq, n, d, seed):

@@ -138,7 +138,7 @@ class TestStage0TensorCoreArithmetic:
     0.025), which is why the kernel takes three products.
     """
 
-    @pytest.mark.parametrize("dim", [64, 128])
+    @pytest.mark.parametrize("dim", [64, 128, 512, 3584])
     def test_3xtf32_matches_pallas_interpret(self, dim):
         rng = np.random.default_rng(dim)
         q, db = _deployment_data(rng, 32, 4096, dim)
@@ -187,7 +187,7 @@ class TestStage0TensorCoreArithmetic:
         assert distance_topk.route(q, db, 64) == "wgmma"
         assert distance_topk.route(q, db, 30) == "fma"          # dim % 4
         assert distance_topk.route(q, db[:, 1:], 64) == "fma"   # unaligned
-        assert distance_topk.route(q, torch.zeros((10, 300)), 260) == "fma"
+        assert distance_topk.route(q, torch.zeros((10, 300)), 260) == "wide"
         assert distance_topk.warpgroups(128) == 3
         assert distance_topk.warpgroups(129) == 2
         assert distance_topk.wgmma_tile(5, 64, 3)[0] == 8
@@ -202,6 +202,141 @@ class TestStage0TensorCoreArithmetic:
         assert distance_topk.splits(8192, 1, 132) == (131, 63)
         assert distance_topk.merge_groups(32, 132, 132) == 5
         assert distance_topk.merge_groups(512, 8, 132) == 1
+
+    @pytest.mark.parametrize("dim,want", [
+        (260, "wide"), (512, "wide"), (3584, "wide"),   # float32, aligned
+        (514, "fma"),                                   # dim % 4
+        (128, "wgmma"), (256, "wgmma"),                 # up to 256 dims
+    ])
+    def test_wide_route(self, dim, want):
+        """Aligned float32 rows above 256 dims go to ``wide``; a dim that
+        is not a multiple of 4 stays on ``fma``, 256 dims and fewer on
+        ``wgmma``."""
+        db = torch.zeros((50, 3588))
+        for nq, k in ((1, 1), (2470, 1), (32, 1024)):
+            assert distance_topk.route(torch.zeros((nq, 3588)), db, dim,
+                                       k) == want
+
+    def test_wide_route_leaves_fma_what_tma_cannot_read(self):
+        """An unaligned base or row stride and bf16 rows at 512 dims stay on
+        ``fma``; an empty store too."""
+        q = torch.zeros((32, 1024))
+        db = torch.zeros((100, 1024))
+        assert distance_topk.route(q, db, 512) == "wide"
+        assert distance_topk.route(q, db[:, 1:], 512) == "fma"      # base
+        assert distance_topk.route(q, torch.zeros((100, 1026)), 512) == "fma"
+        assert distance_topk.route(q.bfloat16(), db.bfloat16(), 512) == "fma"
+        assert distance_topk.route(q, db[:0], 512) == "fma"
+        assert distance_topk.counter_key("wide", torch.float32) == "wide"
+        assert "wide" in distance_topk.launches_by_kernel
+
+    def test_wide_plan_by_k(self):
+        """The query tile by k class (64 up to k = 64, 32 to 256, 16 to 512,
+        8 to 1,024), smaller for a batch that fits a smaller tile; every
+        class's lists leave a tile (128 rows) of room above k, and its
+        shared memory fits `SMEM_LIMIT` at every tile."""
+        for k, tile, slots in ((1, 64, 256), (16, 64, 256), (64, 64, 256),
+                               (65, 32, 512), (256, 32, 512),
+                               (257, 16, 1024), (512, 16, 1024),
+                               (513, 8, 2048), (1024, 8, 2048)):
+            assert distance_topk.wide_plan(2470, k)[:2] == (tile, slots)
+            assert slots >= k + distance_topk.WIDE_ROWS
+            for nq in (1, 9, 17, 33, 64, 2470):
+                t, sl, st, smem = distance_topk.wide_plan(nq, k)
+                assert t == min(tile, max(8, 1 << (nq - 1).bit_length()))
+                assert sl == slots and st >= 3
+                assert smem <= distance_topk.SMEM_LIMIT
+        assert distance_topk.wide_plan(2470, 1)[3] == 231_224
+        with pytest.raises(ValueError):
+            distance_topk.wide_plan(1, distance_topk.MAX_K + 1)
+
+    @pytest.mark.parametrize("nq", [32, 2470])
+    @pytest.mark.parametrize("k", [1, 16, 64, 256, 512, 1024])
+    def test_wide_grid_fills_the_card(self, nq, k):
+        """At the serving batch and at the paper's, over the 1M-row store
+        (8,192 tiles of 128 rows): a grid of at least 132 CTAs, as many
+        items as CTAs or more, ranges that differ by at most one tile, and
+        the pass-1 lists within `WIDE_PART_BYTES`."""
+        tile = distance_topk.wide_plan(nq, k)[0]
+        q_tiles = -(-nq // tile)
+        cap = max(1, distance_topk.WIDE_PART_BYTES // (nq * k * 8))
+        n_split, per, grid = distance_topk.wide_splits(8192, q_tiles, 132,
+                                                       cap)
+        assert grid >= 132 and n_split * q_tiles >= grid
+        assert 1 <= n_split <= min(8192, cap) and per == -(-8192 // n_split)
+        begins = [s * 8192 // n_split for s in range(n_split + 1)]
+        sizes = {b - a for a, b in zip(begins, begins[1:])}
+        assert max(sizes) - min(sizes) <= 1 and max(sizes) == per
+        # no cut of the range gives fewer rounds of tiles by more than 2%
+        rounds = lambda ns: -(-(ns * q_tiles) // 132) * -(-8192 // ns)
+        best = min(rounds(ns) for ns in range(1, min(8192, cap, 528) + 1))
+        assert rounds(n_split) <= 1.02 * best
+
+    def test_timing_script_patches_match_the_wide_kernel(self):
+        """Each patch of ``launch/stage0_time.py``'s `WIDE_PATCHES` still
+        finds its text in ``csrc/distance_topk_wide.cu``, once; its cases
+        hold the paper's wide shapes."""
+        from repro_torch.kernels import _build
+        from repro_torch.launch import stage0_time
+
+        src = (_build.CSRC / "distance_topk_wide.cu").read_text()
+        assert set(stage0_time.WIDE_PATCHES) == {
+            "no_products", "no_loads", "rows_only", "queries_only",
+            "fold_every_box", "fold_at_tile_end"}
+        for name, patches in stage0_time.WIDE_PATCHES.items():
+            for old, new in patches:
+                assert src.count(old) == 1 and old != new, name
+        shapes = {c[1:] for c in stage0_time.CASES}
+        for dim in (512, 1024, 2048, 3584):
+            assert (2470, dim, 1) in shapes
+        assert {(2470, 512, 16), (2470, 512, 1024), (32, 512, 512),
+                (32, 512, 1024)} <= shapes
+
+    def test_wide_plan_mirrors_the_source(self):
+        """``WIDE_PLAN`` and the constants of ``wd`` in
+        ``csrc/distance_topk_wide.cu`` are the wrapper's, and the argument
+        block's fields (``WideArgs``) are `pack_wide_args`'s, in order, each
+        packed at its C offset."""
+        import inspect
+        import re
+        import struct
+
+        from repro_torch.kernels import _build
+
+        src = (_build.CSRC / "distance_topk_wide.cu").read_text()
+        table = tuple(tuple(int(x) for x in m) for m in re.findall(
+            r"^WIDE_PLAN\((\d+), (\d+), (\d+), (\d+)\)$", src, re.M))
+        assert table == distance_topk.WIDE_PLANS
+        assert table[-1][0] == distance_topk.MAX_K
+        wd = src[src.index("namespace wd {"):src.index("}  // namespace wd")]
+        assert re.search(r"kRows = 64 \* kWgs;", wd)
+        assert re.search(r"kWgs = (\d+);", wd)[1] == "2"
+        assert 64 * 2 == distance_topk.WIDE_ROWS
+        assert re.search(r"kSmemMax = (\d+);", wd)[1] == str(
+            distance_topk.SMEM_LIMIT)
+        body = re.search(r"struct WideArgs \{(.*?)\n\};", src, re.S)[1]
+        fields = []
+        for line in body.splitlines():
+            m = re.match(r"\s*((?:const )?[a-z0-9_ ]+?\*?)\s*(\w+(?:, \w+)*);",
+                         line)
+            if m:
+                fields += [(n, m[1].strip()) for n in m[2].split(", ")]
+        names = list(inspect.signature(
+            distance_topk.pack_wide_args).parameters)[1:]
+        assert names == [n for n, _ in fields]
+        offsets, off = {}, 0
+        for name, ty in fields:
+            code = "q" if ty == "long long" else "i" if ty == "int" else "Q"
+            size = struct.calcsize(code)
+            off = -(-off // size) * size
+            offsets[name] = (off, code)
+            off += size
+        assert distance_topk._WIDE_ARGS.size == -(-off // 8) * 8
+        values = {n: 1000 + 7 * j for j, n in enumerate(names)}
+        buf = bytearray(distance_topk._WIDE_ARGS.size)
+        distance_topk.pack_wide_args(buf, **values)
+        for name, (o, code) in offsets.items():
+            assert struct.unpack_from("@" + code, buf, o)[0] == values[name]
 
 
 class TestGatherRescorePlain:
