@@ -24,10 +24,11 @@ in phases that each print one JSON line:
                  pre-masked table, which must give the same bits); the
                  stage-0 kernel at k = 512 and 1,024 on its tensor-core
                  pass-1 kernels (dim 128 on ``wgmma``, 512 on ``wide``) at
-                 the serving batch and at the paper sweep's 2,470 queries,
-                 with tombstones, and on stores with fewer live rows than
-                 k, and on ``fma`` at dim 512 on rows TMA cannot read (the
-                 store seen one float past its start);
+                 the serving batch, at the paper sweep's 2,470 queries (dims
+                 64, 128 and 256 at k 1,024, 128 at 512, all on ``wgmma``'s
+                 large-k kernel), with tombstones, and on stores with fewer
+                 live rows than k, and on ``fma`` at dim 512 on rows TMA
+                 cannot read (the store seen one float past its start);
                  the stage-0 kernel's bf16 route (``wgmma_bf16``) at the
                  serving shape on the rows' (N, 128) bf16 block, with its
                  bf16 bound and a bf16 ``matmul`` + ``topk`` yardstick
@@ -719,6 +720,20 @@ def run(args) -> None:
             or any(st or ld for _, st, ld in backward.values())):
         fail(f"the tensor-core backward's ptxas report: {backward} (kernel "
              f"and head dim: registers, spill store and load bytes)")
+    # the large-k tensor-core stage 0 (both row types; NT, HAS_SQ)
+    bigk = {}
+    for stem in ("distance_topk", "distance_topk_bf16"):
+        for m in re.finditer(
+                r"Compiling entry function '\S*?l2_scan_bigk_kernelILi(\d+)"
+                r"ELb(\d)E\S*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
+                r"loads.*?Used (\d+) registers",
+                _build.ptxas_report.get(stem, ""), re.S):
+            bigk[f"{stem} {m[1]} {m[2]}"] = (int(m[5]), int(m[3]), int(m[4]))
+    if "distance_topk" in _build.ptxas_report and (
+            len(bigk) != 16 or any(st or ld for _, st, ld in bigk.values())):
+        fail(f"the large-k tensor-core stage 0's ptxas report: {bigk} "
+             f"(library, tile, norms given: registers, spill store and "
+             f"load bytes)")
     plan, bwd_plan = {}, {}    # the tiles, read from the build
     if "flash_attention_bwd_wgmma" in _build.ptxas_report:
         from repro_torch.kernels import flash_attention as fa
@@ -749,6 +764,7 @@ def run(args) -> None:
           "build_s": build_s, "nvcc_s": _build.build_seconds,
           "ptxas": ptxas, "prefill_wgmma_ptxas": prefill,
           "prefill_wgmma_plan": plan, "bwd_wgmma_ptxas": backward,
+          "bigk_ptxas": bigk,
           "bwd_wgmma_plan": bwd_plan})
 
     d_emb, d_start, k0, final_k = D_EMB, D_START, K0, FINAL_K
@@ -2338,15 +2354,17 @@ def large_k_rows(torch, dev, gen, db, scales, q32, sq_all, dims,
     the tensor-core pass-1 kernels at the serving batch (dim 128 on
     ``wgmma``, dim 512 on ``wide``, 1% tombstones) and on ``fma`` at dim
     512 on rows TMA cannot read (the store seen one float past its start,
-    norms from the rows), the paper sweep's 2,470-query batch at dim 128
-    and k 1,024, and stores with fewer live rows than k; each held against
-    the plain version.  Returns the timed rows."""
+    norms from the rows), the paper sweep's 2,470-query batch (Fig. 3's
+    stage 0 below 512 dims: dims 64, 128 and 256 at k 1,024, 128 at 512;
+    dims 64 and 256 with norms from the rows), and stores with fewer live
+    rows than k; each held against the plain version.  Returns the timed
+    rows."""
     from repro_torch.core import truncated as T
     from repro_torch.kernels import distance_topk
 
     rows = []
     sq = {d: sq_all[:, dims.index(d)].contiguous() for d in (128, 512)}
-    route = {128: "wgmma", 512: "wide"}
+    route = {64: "wgmma", 128: "wgmma", 256: "wgmma", 512: "wide"}
     for k in LARGE_K:
         for dim in (128, 512):
             row, _ = l2_row(torch, f"q32_dim{dim}_k{k}", q32, db, dim, k,
@@ -2360,9 +2378,10 @@ def large_k_rows(torch, dev, gen, db, scales, q32, sq_all, dims,
                         device=dev)
     q_sweep = db[src] + torch.randn((N_QUERIES, db.shape[1]), generator=gen,
                                     device=dev) * scales
-    row, _ = l2_row(torch, "sweep_q2470_dim128_k1024", q_sweep, db, 128,
-                    1024, sq=sq[128], valid=valid, plain_runs=3)
-    rows.append(row)
+    for dim, k in ((128, 1024), (64, 1024), (256, 1024), (128, 512)):
+        row, _ = l2_row(torch, f"sweep_q2470_dim{dim}_k{k}", q_sweep, db,
+                        dim, k, sq=sq.get(dim), valid=valid, plain_runs=3)
+        rows.append(row)
     for r in rows:
         want = "fma" if r["case"].startswith("fma_") else route[r["dim"]]
         if r["served_by"] != want:

@@ -441,6 +441,118 @@ __device__ __forceinline__ void emit_list(float* s, int* id, int cnt, int k,
   else emit_sorted(s, id, cnt, k, out_s, out_i);
 }
 
+// `tighten` for a large-k list of 32 E slots in global memory (the `wgmma`
+// route's lists at k > 256, csrc/distance_topk.cuh), each slot a (score,
+// id) pair of 8 bytes.  The owning warp reads the cnt scores once into
+// registers as order keys (E a lane), runs the radix select there (four
+// counts a lane, so the adds do not wait on each other) and writes the
+// kept entries compacted: back into the list (TO_LIST), or into a scratch
+// of separate score and id arrays in shared memory (out_s, out_id).  The
+// ids are read 8 chunks at a time, each group before any lane writes into
+// it.  With room = 32 E - k it keeps exactly the top k (the emit's cut);
+// cnt <= k keeps every entry (a copy).  A flood of exact ties at the k-th
+// score is cut by a second select over the tied entries' ids, the
+// smallest kept, so the list is never sorted here.  Called by the whole
+// warp with warp-uniform arguments; the list's earlier writes by other
+// warps must be visible (a barrier).
+template <int E, bool TO_LIST>
+__device__ __noinline__ Tight tighten_global(float2* list, int cnt, int k,
+                                             int room, float* out_s,
+                                             int* out_id) {
+  constexpr int kSp = 32 * E;
+  const int lane = threadIdx.x & 31;
+  unsigned key[E];                             // 0xffffffff past cnt
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int e = i * 32 + lane;
+    key[i] = e < cnt ? order_key(list[e].x) : 0xffffffffu;
+  }
+  unsigned top = 0xfffffffeu;                  // keys <= top are kept
+  bool cut = false;
+  unsigned id_top = 0x7fffffffu;
+  if (cnt > k) {
+    unsigned prefix = 0;
+    int remaining = k;
+    int n_top = cnt;                           // entries with key <= top
+    for (int bit = 31; bit >= 0; --bit) {
+      // a key counts if it matches the prefix above `bit` and has a 0 there
+      const unsigned mask =
+          (bit == 31 ? 0u : (0xffffffffu << (bit + 1))) | (1u << bit);
+      int c4[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int i = 0; i < E; ++i) c4[i & 3] += (key[i] & mask) == prefix;
+      const int c = __reduce_add_sync(kFull, c4[0] + c4[1] + c4[2] + c4[3]);
+      if (c < remaining) {
+        prefix |= 1u << bit;
+        remaining -= c;
+      }
+      // real keys are below 0xff800000 (+inf), so top never counts padding
+      top = prefix | ((1u << bit) - 1u);
+      if (bit == 16 || bit == 0) {             // is the bucket enough?
+        int n4[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int i = 0; i < E; ++i) n4[i & 3] += key[i] <= top;
+        n_top = __reduce_add_sync(kFull, n4[0] + n4[1] + n4[2] + n4[3]);
+        if (n_top <= kSp - room) break;
+      }
+    }
+    // ties at the exact k-th key that leave too little room: keep the
+    // `remaining` smallest ids among them (ids are distinct and >= 0)
+    cut = n_top > kSp - room;
+    if (cut) {
+      unsigned ipre = 0;
+      int rem = remaining;
+      for (int bit = 30; bit >= 0; --bit) {
+        const unsigned mask = (0x7fffffffu & ~((2u << bit) - 1u)) | (1u << bit);
+        int c = 0;
+#pragma unroll
+        for (int i = 0; i < E; ++i)
+          if (key[i] == top)
+            c += (static_cast<unsigned>(__float_as_int(
+                      list[i * 32 + lane].y)) & mask) == ipre;
+        c = __reduce_add_sync(kFull, c);
+        if (c < rem) {
+          ipre |= 1u << bit;
+          rem -= c;
+        }
+      }
+      id_top = ipre;
+    }
+  }
+  // compact: an entry moves only to a slot at or before its own, so a
+  // group's writes land in chunks whose ids are already read
+  int kept = 0;
+#pragma unroll
+  for (int g = 0; g < E; g += 8) {
+    int ids[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      ids[j] = key[g + j] <= top ? __float_as_int(list[(g + j) * 32 + lane].y)
+                                 : kPadId;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const unsigned kk = key[g + j];
+      const bool keep = kk <= top && (!cut || kk < top ||
+                                      static_cast<unsigned>(ids[j]) <= id_top);
+      const unsigned m = __ballot_sync(kFull, keep);
+      if (keep) {
+        const int pos = kept + __popc(m & ((1u << lane) - 1u));
+        if (TO_LIST) {
+          list[pos] = make_float2(key_float(kk), __int_as_float(ids[j]));
+        } else {
+          out_s[pos] = key_float(kk);
+          out_id[pos] = ids[j];
+        }
+      }
+      kept += __popc(m);
+    }
+  }
+  __syncwarp();
+  return cut ? Tight{kept, Cand{key_float(top), static_cast<int>(id_top)}}
+             : Tight{kept, Cand{key_float(top), kPadId}};
+}
+
 // Byte offset of element (row, k) of a tile of 128-byte rows under the
 // 128-byte swizzle (16-byte chunks permuted by the row's low 3 bits).
 __device__ __forceinline__ int swz128(int row, int kk) {

@@ -5,8 +5,8 @@
 // prefill kernel in flash_attention.cu, the tensor-core backward in
 // flash_attention_bwd_wgmma.cu and the tensor-core stage-0 scan in
 // distance_topk.cu (its float32 route on the TF32 products, its bf16 route
-// on `wgmma_bf16`) and its wide-dim scan in distance_topk_wide.cu (TF32
-// products; the queries by a plain bulk copy).
+// on `wgmma_bf16`; up to N = 64 at large k) and its wide-dim scan in
+// distance_topk_wide.cu (TF32 products; the queries by a plain bulk copy).
 
 #pragma once
 
@@ -391,7 +391,7 @@ __device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
 }
 
 // D (64 x N, float32) += A (64 x 16 bf16, registers) * B (16 x N bf16,
-// shared memory, K-major), for N = 8, 16, 32.  A's fragment (two bf16 a
+// shared memory, K-major), for N = 8, 16, 32, 64.  A's fragment (two bf16 a
 // register, the lower column in the low half): a[0] row g, columns 2t,
 // 2t + 1; a[1] row g + 8, the same columns; a[2] row g, columns 2t + 8,
 // 2t + 9; a[3] row g + 8, the same (g = lane / 4, t = lane % 4).
@@ -440,6 +440,26 @@ __device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

@@ -40,7 +40,7 @@ Three pass-1 kernels, chosen from the shapes, strides and dtype alone
   lo once a call by a pre-pass, their boxes streamed through the ring
   beside the rows' —, query tiles of up to 64 sized by k (`wide_plan`,
   mirroring the source's ``WIDE_PLAN`` table), and a persistent grid
-  walking (row range, query tile) items doc-major (`wide_splits`).
+  walking (row range, query tile) items doc-major (`persistent_splits`).
 - ``fma``: everything else (rows TMA cannot read, a dim that is not a
   multiple of 4, bf16 rows above 256 dims) — FMA in float32 from shared
   memory, the first kernel of this port; bf16 rows are widened on their
@@ -51,10 +51,16 @@ splits the doc axis over enough blocks to fill every SM (a Hopper grid
 cannot carry a top-k the way the TPU's sequential grid does) and merges
 the per-block lists in pass 2, over groups of lists first when the batch is
 too small to fill the card.  Above k = 256 (up to `MAX_K`, the paper's
-k0 sweep) each query's list has `list_slots` (1,024 or 2,048) slots in
-shared memory, so a block holds at most 16 queries at k <= 512 and 8
-above; those lists are tightened and sorted in shared memory rather than
-registers, and pass 2 folds fewer lists a round.  `scores_3xtf32` spells
+k0 sweep) each query's list has `list_slots` (1,024 or 2,048) slots, and
+pass 2 folds fewer lists a round.  On ``wgmma`` such a call goes to its
+large-k kernel: the lists live in a global scratch (one set a CTA of a
+persistent grid walking (row range, query tile) items,
+`persistent_splits`), so a tile holds 64 queries at every dim up to 256
+(`wgmma_bigk_plan`, mirroring the source's ``WGMMA_BIGK_PLAN``); a list
+is tightened by a radix select that reads it once into registers and, at
+an item's end, cut to its top k and sorted in shared memory.  ``wide`` and
+``fma`` keep such lists in shared memory, 16 queries a block at k <= 512
+and 8 above, tightened and sorted there.  `scores_3xtf32` spells
 out the tensor-core kernels' float32 arithmetic in plain PyTorch for the
 tests; on bf16 rows every product is exact in float32, so both kernels'
 scores are the plain version's up to the order of the float32 sums.
@@ -93,15 +99,33 @@ WGMMA_WARPGROUPS = (3, 2)
 WGMMA_TILES = (8, 16, 32)
 WGMMA_MAX_DIM = 256
 WGMMA_MAX_STAGES = 8
+#: The tensor-core kernel's plan above k = 256 by dim, as ``WGMMA_BIGK_PLAN``
+#: in ``csrc/distance_topk.cuh``: (largest dim, queries a tile, ring
+#: stages), the first row whose dim covers the call's.  Its tiles are 128
+#: rows (two consumer warpgroups), and a warp's sort scratch holds
+#: `BIGK_SORT_SLOTS` (score, id) slots; the eight warps' scratch shares one
+#: region with the query tiles of an item.
+WGMMA_BIGK_PLANS = ((128, 64, 8), (256, 64, 6))
+WGMMA_BIGK_ROWS = 128
+BIGK_SORT_SLOTS = 1024
+#: A batch smaller than two of the plan's tiles makes at least this many
+#: query tiles (``kBigkMinQTiles``).
+BIGK_MIN_Q_TILES = 2
+#: What an item of the large-k kernel costs beyond its rows, in tiles per
+#: unit of k: its lists refill from empty (every row of its first tiles
+#: enters them, then about seven tightens), so few long row ranges beat
+#: many short ones (the ``item_tiles`` of `persistent_splits`).
+BIGK_ITEM_TILES_PER_K = 0.7
 #: The wide-dim tensor-core kernel's plan by k, as ``WIDE_PLAN`` in
 #: ``csrc/distance_topk_wide.cu``: (largest k, queries a tile, slots a
 #: list, ring stages), the first row whose k covers the call's.
 WIDE_PLANS = ((64, 64, 256, 3), (256, 32, 512, 4), (512, 16, 1024, 4),
               (1024, 8, 2048, 5))
-#: Rows of a wide-kernel tile (two consumer warpgroups of 64), and the
-#: bytes its pass-1 lists (Q, n_split, k) may take, which caps its splits.
+#: Rows of a wide-kernel tile (two consumer warpgroups of 64).
 WIDE_ROWS = 128
-WIDE_PART_BYTES = 256 << 20
+#: The bytes the pass-1 lists (Q, n_split, k) of a persistent kernel
+#: (``wide``, and ``wgmma`` above k = 256) may take, which caps its splits.
+PART_BYTES = 256 << 20
 #: Lists a pass-2 block folds (one round of its 32 warps).
 MERGE_GROUP = 32
 #: Shared memory a block may use on the H100 (227 KB).
@@ -114,10 +138,9 @@ launches_by_kernel = {"wgmma": 0, "fma": 0, "wide": 0, "wgmma_bf16": 0,
                       "fma_bf16": 0}
 
 # L2Args of csrc/distance_topk.cuh: q, db, sq, valid, part_s, part_i, mid_s,
-# mid_i, out_s, out_i, stream; ld_q, ld_db; nq, n, dim, k, kind, tile_q,
-# vec, n_split, tiles_per_split, n_groups, stages, wgs, bf16; the struct's
-# tail padding
-_ARGS = struct.Struct("@11Q2q13i4x")
+# mid_i, out_s, out_i, lists, stream; ld_q, ld_db; nq, n, dim, k, kind,
+# tile_q, vec, n_split, tiles_per_split, n_groups, stages, wgs, bf16, grid
+_ARGS = struct.Struct("@12Q2q14i")
 _KIND = {"fma": 0, "wgmma": 1}
 # WideArgs of csrc/distance_topk_wide.cu: q, db, sq, valid, qsplit, part_s,
 # part_i, mid_s, mid_i, out_s, out_i, stream; ld_q, ld_db; nq, n, dim, k,
@@ -145,20 +168,74 @@ def _kernel(bf16: bool = False):
         smem.argtypes = [ctypes.c_int] * 3
         smem.restype = ctypes.c_size_t
         wg_smem = lib.l2_topk_wgmma_smem
-        wg_smem.argtypes = [ctypes.c_int] * 6
+        wg_smem.argtypes = [ctypes.c_int] * 5
         wg_smem.restype = ctypes.c_size_t
         slots = lib.l2_topk_list_slots
         slots.argtypes, slots.restype = [ctypes.c_int], ctypes.c_int
         for k in (1, 256, 257, 512, 513, MAX_K):
             for b16 in (0, 1):
                 if slots(k) != list_slots(k) or wg_smem(
-                        32, 100, 3, 3, slots(k), b16) != wgmma_smem_bytes(
-                        32, 100, 3, 3, list_slots(k), bool(b16)):
+                        32, 100, 3, 3, b16) != wgmma_smem_bytes(
+                        32, 100, 3, 3, bool(b16)):
                     raise RuntimeError(
                         "l2_topk: the library's list slots or shared-memory "
                         "layout differ from list_slots / wgmma_smem_bytes")
         _fns[bf16] = (lib, fn, smem)
+        for nq in (1, 9, 33, 2470):
+            for dim in (4, 64, 128, 132, 256):
+                if built_bigk_plan(nq, dim, bf16) != wgmma_bigk_plan(nq, dim):
+                    del _fns[bf16]
+                    raise RuntimeError(
+                        f"l2_topk: the library's large-k plan at nq={nq}, "
+                        f"dim={dim} is {built_bigk_plan(nq, dim, bf16)}, the "
+                        f"wrapper's {wgmma_bigk_plan(nq, dim)}")
     return _fns[bf16]
+
+
+def wgmma_bigk_plan(nq: int, dim: int) -> Tuple[int, int, int]:
+    """(queries a tile, ring stages, dynamic shared memory) of the
+    tensor-core kernel above k = 256 for nq queries at ``dim``, as
+    ``bigk_plan`` and ``bigk_smem_bytes`` in ``csrc/distance_topk.cuh``
+    reckon them: the first `WGMMA_BIGK_PLANS` row whose dim covers
+    ``dim``, its tile cut to the smallest of 8, 16, 32, 64 that makes at
+    least `BIGK_MIN_Q_TILES` query tiles of the batch; the shared memory is
+    1,024 bytes of alignment, the ring (a 128-row box of 128 bytes a
+    stage), the region of the query tiles (float32 hi and lo tiles at the
+    row's largest dim) and the warps' sort scratch (8 x `BIGK_SORT_SLOTS`
+    x 8 bytes), whichever is larger, the counts and thresholds, the
+    barriers."""
+    for max_dim, tile, stages in WGMMA_BIGK_PLANS:
+        if dim <= max_dim:
+            t = 8
+            while t * BIGK_MIN_Q_TILES < nq and t < tile:
+                t *= 2
+            region = max(2 * -(-max_dim // 32) * t * 128,
+                         8 * BIGK_SORT_SLOTS * 8)
+            smem = (1024 + stages * WGMMA_BIGK_ROWS * 128 + region
+                    + t * 12 + 8 + stages * 16)
+            return t, stages, smem
+    raise ValueError(f"dim={dim} above the large-k plan's "
+                     f"{WGMMA_BIGK_PLANS[-1][0]}")
+
+
+def built_bigk_plan(nq: int, dim: int, bf16: bool = False
+                    ) -> Tuple[int, int, int]:
+    """`wgmma_bigk_plan` as the built float32 or bf16 library reports it
+    (``l2_topk_bigk_plan``); builds the library, so it needs the CUDA
+    toolchain."""
+    lib = _fns[bf16][0] if bf16 in _fns else _kernel(bf16)[0]
+    fn = lib.l2_topk_bigk_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    _build.check(lib, fn(nq, dim, out), f"l2_topk_bigk_plan({nq}, {dim})")
+    return tuple(out)
+
+
+def bigk_lists_bytes(grid: int, tile: int, k: int) -> int:
+    """Bytes of the large-k kernel's global lists: ``tile`` lists of
+    `list_slots` (score, id) slots for each of the ``grid`` CTAs."""
+    return grid * tile * list_slots(k) * 8
 
 
 def _kernel_wide():
@@ -220,17 +297,19 @@ def built_wide_plan(nq: int, k: int) -> Tuple[int, int, int, int]:
 
 
 @functools.lru_cache(maxsize=256)
-def wide_splits(n_tiles: int, q_tiles: int, n_sm: int,
-                max_split: int) -> Tuple[int, int, int]:
-    """(n_split, most tiles a split, grid) of the wide-dim kernel: the doc
-    axis cut into n_split ranges that differ by at most one tile, so that
-    the q_tiles x n_split (row range, query tile) items, walked by a
-    persistent grid of at most n_sm blocks, finish in the fewest rounds of
-    tiles (items a block x tiles an item); of the cuts within 2% of that,
-    at most ``max_split``, the fewest splits that still give every SM an
-    item where the cuts can."""
+def persistent_splits(n_tiles: int, q_tiles: int, n_sm: int,
+                      max_split: int,
+                      item_tiles: int = 0) -> Tuple[int, int, int]:
+    """(n_split, most tiles a split, grid) of a persistent kernel
+    (``wide``, and ``wgmma`` above k = 256): the doc axis cut into n_split
+    ranges that differ by at most one tile, so that the q_tiles x n_split
+    (row range, query tile) items, walked by a persistent grid of at most
+    n_sm blocks, finish in the fewest rounds of tiles (items a block x
+    (tiles an item + ``item_tiles``, what an item costs beyond its rows));
+    of the cuts within 2% of that, at most ``max_split``, the fewest splits
+    that still give every SM an item where the cuts can."""
     top = max(1, min(n_tiles, max_split, 4 * n_sm))
-    cost = {ns: -(-(ns * q_tiles) // n_sm) * -(-n_tiles // ns)
+    cost = {ns: -(-(ns * q_tiles) // n_sm) * (-(-n_tiles // ns) + item_tiles)
             for ns in range(1, top + 1)}
     near = [ns for ns in cost if cost[ns] <= 1.02 * min(cost.values())]
     full = [ns for ns in near if ns * q_tiles >= n_sm]
@@ -251,31 +330,31 @@ def list_slots(k: int) -> int:
 
 
 def wgmma_smem_bytes(nt: int, dim: int, stages: int, wgs: int,
-                     slots: int = LIST_SLOTS, bf16: bool = False) -> int:
-    """Shared memory of a tensor-core block, as ``wgmma_smem_bytes`` in the
-    source: the row ring (a stage is 64 * wgs rows of 128 bytes: 32
-    float32 or 64 bf16 dims), the query tiles (hi and lo for float32, one
-    for bf16), nt lists of ``slots`` (score, id) slots, their counts and
-    thresholds, the barriers."""
+                     bf16: bool = False) -> int:
+    """Shared memory of a tensor-core block up to k = 256, as
+    ``wgmma_smem_bytes`` in the source: the row ring (a stage is 64 * wgs
+    rows of 128 bytes: 32 float32 or 64 bf16 dims), the query tiles (hi and
+    lo for float32, one for bf16), nt lists of `LIST_SLOTS` (score, id)
+    slots, their counts and thresholds, the barriers."""
     nbox = -(-dim // (64 if bf16 else 32))
     return (1024 + stages * 64 * wgs * 128 + (1 if bf16 else 2) * nbox * nt
-            * 128 + nt * slots * 8 + nt * 12 + 8 + stages * 16)
+            * 128 + nt * LIST_SLOTS * 8 + nt * 12 + 8 + stages * 16)
 
 
-def wgmma_tile(nq: int, dim: int, wgs: int, slots: int = LIST_SLOTS,
+def wgmma_tile(nq: int, dim: int, wgs: int,
                bf16: bool = False) -> Tuple[int, int]:
-    """(queries a tile, ring stages) of the tensor-core kernel for a batch
-    of nq at ``dim`` with lists of ``slots``: the smallest tile that holds
-    the batch (at most 32), halved until at least two stages fit, then as
-    many stages as shared memory holds (at most 8); (0, 0) when not even
-    two stages fit at 8 queries."""
+    """(queries a tile, ring stages) of the tensor-core kernel up to k =
+    256 for a batch of nq at ``dim``: the smallest tile that holds the
+    batch (at most 32), halved until at least two stages fit, then as many
+    stages as shared memory holds (at most 8); (0, 0) when not even two
+    stages fit at 8 queries."""
     for nt in WGMMA_TILES:
         if nt >= nq or nt == WGMMA_TILES[-1]:
             break
     while True:
         stages = WGMMA_MAX_STAGES
         while stages >= 2 and wgmma_smem_bytes(nt, dim, stages, wgs,
-                                               slots, bf16) > SMEM_LIMIT:
+                                               bf16) > SMEM_LIMIT:
             stages -= 1
         if stages >= 2:
             return nt, stages
@@ -286,16 +365,17 @@ def wgmma_tile(nq: int, dim: int, wgs: int, slots: int = LIST_SLOTS,
 
 def route(q: Tensor, db: Tensor, dim: int, k: int = MAX_K) -> str:
     """The pass-1 kernel a call goes to, from its shapes, strides and dtype
-    alone: TMA reads 16-byte aligned rows at a stride of a multiple of 16
-    bytes, and a bf16 product takes 16 dims a step; float32 rows above
-    `WGMMA_MAX_DIM` go to ``wide``, bf16 ones to ``fma``."""
+    alone (``k`` does not change it): TMA reads 16-byte aligned rows at a
+    stride of a multiple of 16 bytes, and a bf16 product takes 16 dims a
+    step; float32 rows above `WGMMA_MAX_DIM` go to ``wide``, bf16 ones to
+    ``fma``."""
     bf16 = db.dtype == torch.bfloat16
     aligned = (db.data_ptr() % 16 == 0
                and db.stride(0) % (8 if bf16 else 4) == 0
                and dim % (16 if bf16 else 4) == 0)
     if aligned and db.shape[0] > 0:
-        if dim <= WGMMA_MAX_DIM and wgmma_tile(
-                q.shape[0], dim, warpgroups(k), list_slots(k), bf16)[0]:
+        # both of its kernels' plans fit every dim up to 256
+        if dim <= WGMMA_MAX_DIM:
             return "wgmma"
         if not bf16:
             return "wide"
@@ -425,6 +505,12 @@ def l2_topk(
         return _launch_wide(q, db, dim, k, sq_at_dim, valid, out_s, out_i,
                             tile_q, stages, n_split, n_groups)
     lib, fn, _ = _kernel(bf16)
+    grid, lists = 0, None
+    if kind == "wgmma" and k > 256:
+        # the large-k kernel's persistent grid and its lists
+        grid = min(_sm_count(dev), n_split * -(-nq // tile_q))
+        lists = torch.empty(bigk_lists_bytes(grid, tile_q, k) // 4,
+                            dtype=torch.float32, device=dev)
     vec = 0
     if kind == "fma":
         # 16-byte loads: 4 float32 or 8 bf16 dims
@@ -445,10 +531,10 @@ def l2_topk(
     _ARGS.pack_into(buf, 0, q.data_ptr(), db.data_ptr(), ptr(sq_at_dim),
                     ptr(valid), part_s.data_ptr(), part_i.data_ptr(),
                     ptr(mid_s), ptr(mid_i), out_s.data_ptr(), out_i.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream,
+                    ptr(lists), torch.cuda.current_stream(dev).cuda_stream,
                     q.stride(0), db.stride(0), nq, n, dim, k, _KIND[kind],
                     tile_q, vec, n_split, per, n_groups, stages, wgs,
-                    int(bf16))
+                    int(bf16), grid)
     key = counter_key(kind, db.dtype)
     _build.check(lib, fn(ctypes.addressof(buf)), f"l2_topk ({key})")
     launches += 1
@@ -509,23 +595,29 @@ def plan(q: Tensor, db: Tensor, dim: int, k: int
     """How a call on the card runs: (pass-1 kernel, its query tile — queries
     a warp for ``fma`` —, ring stages, warpgroups, n_split, tiles a split,
     pass-2 groups); pass 2 launches once, or twice with groups.  A
-    ``wide`` call's grid is min(SMs, n_split x query tiles)."""
+    ``wide`` call's grid, and a ``wgmma`` call's above k = 256, is
+    min(SMs, n_split x query tiles)."""
     nq, n = q.shape[0], db.shape[0]
     kind = route(q, db, dim, k)
     stages = 0
     wgs = warpgroups(k)
     slots = list_slots(k)
-    if kind == "wide":
-        tile_q, _, stages, _ = wide_plan(nq, k)
+    if kind == "wide" or (kind == "wgmma" and k > 256):
         n_sm = _sm_count(q.device)
-        n_split, per, _ = wide_splits(
-            max(-(-n // WIDE_ROWS), 1), -(-nq // tile_q), n_sm,
-            max(1, WIDE_PART_BYTES // (nq * k * 8)))
+        cap = max(1, PART_BYTES // (nq * k * 8))
+        if kind == "wide":
+            tile_q, _, stages, _ = wide_plan(nq, k)
+            n_split, per, _ = persistent_splits(
+                max(-(-n // WIDE_ROWS), 1), -(-nq // tile_q), n_sm, cap)
+        else:
+            tile_q, stages, _ = wgmma_bigk_plan(nq, dim)
+            n_split, per, _ = persistent_splits(
+                max(-(-n // WGMMA_BIGK_ROWS), 1), -(-nq // tile_q), n_sm,
+                cap, round(BIGK_ITEM_TILES_PER_K * k))
         return kind, tile_q, stages, 2, n_split, per, \
             merge_groups(nq, n_split, n_sm)
     if kind == "wgmma":
-        tile_q, stages = wgmma_tile(nq, dim, wgs, slots,
-                                    db.dtype == torch.bfloat16)
+        tile_q, stages = wgmma_tile(nq, dim, wgs, db.dtype == torch.bfloat16)
         q_tiles = -(-nq // tile_q)
         n_tiles = max(-(-n // (64 * wgs)), 1)
     else:

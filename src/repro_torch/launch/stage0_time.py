@@ -31,7 +31,10 @@ copies of the tree's ``csrc/distance_topk_wide.cu`` with one section of the
 ``wide`` kernel switched off each (`WIDE_PATCHES`) into
 ``build/stage0_patches/`` and times every ``wide`` case through each (``ms``
 only, ``"variant"`` the patch's name): beside the unpatched build, what the
-section costs.  A tree without the source skips them.
+section costs.  ``--bigk-patches a,b`` does the same for the large-k
+``wgmma`` kernel (`BIGK_PATCHES`, copies of the float32 library's
+``csrc/distance_topk.cuh``) on every float32 ``wgmma`` case above k = 256.
+A tree without the source skips them.
 
 Needs a CUDA device; prints one JSON line per (tree, case[, variant]).
 """
@@ -74,15 +77,42 @@ WIDE_PATCHES = {
                           "constexpr int kFold = 1 << 20;")],
 }
 
+# Sections of the large-k ``wgmma`` kernel (``l2_scan_bigk_kernel`` in
+# ``csrc/distance_topk.cuh``) switched off in a patched copy of the float32
+# library: ``no_products``: a box's twelve TF32 products skipped (the
+# scores are the norms alone); ``no_loads``: the producer loads nothing;
+# ``no_appends``: no survivor is stored, so no list is ever tightened and
+# each item emits empty lists.  The first and the last patch the pieces
+# that ``l2_scan_wgmma_kernel`` shares (``box_products``, ``offer_tile``),
+# so only the cases above k = 256 are timed through them.
+_BIGK_LOAD = """            mbar_expect_tx(full(st), kStage);
+            tma_load_2d(base + st * kStage, &tm_db, full(st), b * kDims,
+                        tile * kRows);"""
+BIGK_PATCHES = {
+    "no_products": [("    for (int j = 0; j < 4; ++j) {\n"
+                     "      const uint32_t off = b * NT * 128 + 32 * j;",
+                     "    for (int j = 0; j < 0; ++j) {\n"
+                     "      const uint32_t off = b * NT * 128 + 32 * j;")],
+    "no_loads": [(_BIGK_LOAD, "            mbar_expect_tx(full(st), 0);")],
+    "no_appends": [("  if (__any_sync(kFull, mine)) {",
+                    "  if (false && __any_sync(kFull, mine)) {")],
+}
+
 # (case, Q, dim, k)
 CASES = (
     ("serving_q32_dim128_k64", 32, 128, 64),
     ("two_tower_q512_dim64_k128", 512, 64, 128),
     ("fma_q32_dim512_k256", 32, 512, 256),
+    ("q32_dim128_k512", 32, 128, 512),
     ("q32_dim128_k1024", 32, 128, 1024),
     ("q32_dim512_k512", 32, 512, 512),
     ("q32_dim512_k1024", 32, 512, 1024),
     ("sweep_q2470_dim128_k1024", 2470, 128, 1024),
+    # Fig. 3's other large-k stage 0s below 512 dims (d_start 64 and 256 at
+    # k0 1,024, 128 at 512)
+    ("sweep_q2470_dim64_k1024", 2470, 64, 1024),
+    ("sweep_q2470_dim256_k1024", 2470, 256, 1024),
+    ("sweep_q2470_dim128_k512", 2470, 128, 512),
     # the paper's truncated baselines (Table II) and the stage 0 of its
     # progressive searches from 512 dims (Table III's k0 16, Fig. 3's 1,024)
     ("table2_q2470_dim512_k1", 2470, 512, 1),
@@ -98,6 +128,7 @@ import json, statistics, subprocess, sys
 sys.path.insert(0, sys.argv[1])
 seed, cases = int(sys.argv[2]), json.loads(sys.argv[3])
 patches, with_plain = json.loads(sys.argv[4]), sys.argv[5] == "1"
+bigk_patches = json.loads(sys.argv[6])
 import torch
 from torch.profiler import ProfilerActivity, profile
 from repro_torch.core.index import prefix_squared_norms
@@ -230,6 +261,31 @@ if patches and (_build.CSRC / "distance_topk_wide.cu").exists():
             print(json.dumps({"case": case, "variant": name, "Q": nq,
                               "dim": dim, "k": k, "ms": ms, "card": card}),
                   flush=True)
+header = _build.CSRC / "distance_topk.cuh"
+if bigk_patches and header.exists() and "WGMMA_BIGK_PLAN" in header.read_text():
+    copies = {}
+    for name, reps in bigk_patches.items():
+        text = header.read_text()
+        for old, new in reps:
+            if text.count(old) != 1:
+                raise SystemExit(f"the patch {name!r} no longer matches once")
+            text = text.replace(old, new)
+        copies[name] = ("#define L2_ELEM float\n" + text, ())
+    libs = _build.build_copies(copies, _build.BUILD_DIR.parent /
+                               "stage0_patches")
+    for name in bigk_patches:
+        _build._libs["distance_topk"] = libs[name]
+        distance_topk._fns.pop(False, None)
+        for case, nq, dim, k in cases:
+            q = queries[:nq].contiguous()
+            if k <= 256 or distance_topk.route(q, db, dim, k) != "wgmma":
+                continue
+            s = sq[:, dims.index(dim)].contiguous()
+            ms = cuda_ms(lambda: distance_topk.l2_topk(
+                q, db, dim=dim, k=k, sq_at_dim=s, valid=valid))
+            print(json.dumps({"case": case, "variant": name, "Q": nq,
+                              "dim": dim, "k": k, "ms": ms, "card": card}),
+                  flush=True)
 '''
 
 
@@ -245,6 +301,8 @@ def main() -> None:
                     help="comma-separated case names to keep (default all)")
     ap.add_argument("--wide-patches", default="",
                     help="comma-separated names of WIDE_PATCHES to time")
+    ap.add_argument("--bigk-patches", default="",
+                    help="comma-separated names of BIGK_PATCHES to time")
     ap.add_argument("--plain", action="store_true",
                     help="also time the plain version and matmul + topk")
 
@@ -255,11 +313,13 @@ def main() -> None:
     cases = [c for c in CASES if not keep or c[0] in keep]
     patches = {name: WIDE_PATCHES[name]
                for name in filter(None, args.wide_patches.split(","))}
+    bigk = {name: BIGK_PATCHES[name]
+            for name in filter(None, args.bigk_patches.split(","))}
     for tree in args.trees:
         proc = subprocess.run(
             [sys.executable, "-c", _CHILD, tree, str(args.seed),
              json.dumps(cases), json.dumps(patches),
-             "1" if args.plain else "0"],
+             "1" if args.plain else "0", json.dumps(bigk)],
             capture_output=True, text=True, timeout=1800)
         if proc.returncode != 0:
             raise SystemExit(f"{tree}: exit {proc.returncode}\n{proc.stderr}")

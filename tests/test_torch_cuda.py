@@ -198,9 +198,129 @@ class TestKernelsOnCard:
 
 @pytest.mark.cuda
 class TestLargeKOnCard:
-    """The stage-0 kernel above k = 256 (lists of 1,024 / 2,048 slots in
-    shared memory, tightened and sorted there; pass 2 folding fewer lists a
-    round), on both pass-1 kernels, against the plain version."""
+    """The stage-0 kernel above k = 256 (lists of 1,024 / 2,048 slots; pass
+    2 folding fewer lists a round) against the plain version: on ``wgmma``
+    its large-k kernel (the lists in a global scratch, 64 / 32 queries a
+    tile, a persistent grid), on ``wide`` and ``fma`` lists in shared
+    memory."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("k", [257, 512, 513, 1024])
+    @pytest.mark.parametrize("dim", [4, 16, 36, 64, 128, 256])
+    def test_large_k_kernel_matches_plain(self, cuda, dim, k, dtype):
+        """Dims 4 to 256 at every k class, batches of 1, 33, 300 and 2,470
+        (one partial tile, several, the paper's batch) on a small store,
+        float32 and bf16, with and without norms and tombstones; aligned
+        rows go to ``wgmma`` and are counted there (bf16 below a k16 step
+        of 16 dims to ``fma``)."""
+        g = torch.Generator(device=cuda).manual_seed(dim * 7 + k)
+        n = 6000
+        db = torch.randn((n, dim), generator=g, device=cuda).to(dtype)
+        qs = torch.randn((2470, dim), generator=g, device=cuda).to(dtype)
+        valid = torch.rand((n,), generator=g, device=cuda) > 0.1
+        sq = (db.float() ** 2).sum(1)
+        bf16 = dtype == torch.bfloat16
+        kind = "fma" if bf16 and dim % 16 else "wgmma"
+        key = distance_topk.counter_key(kind, dtype)
+        for nq in (1, 33, 300, 2470):
+            q = qs[:nq]
+            assert distance_topk.route(q, db, dim, k) == kind
+            for sq_at, ok in ((sq, valid), (None, None)):
+                before = dict(distance_topk.launches_by_kernel)
+                got = distance_topk.l2_topk(q, db, dim=dim, k=k,
+                                            sq_at_dim=sq_at, valid=ok)
+                after = distance_topk.launches_by_kernel
+                assert after[key] == before[key] + 1
+                assert all(after[x] == before[x] for x in after if x != key)
+                want = distance_topk.l2_topk_plain(q, db, dim=dim, k=k,
+                                                   sq_at_dim=sq_at, valid=ok)
+                torch.cuda.synchronize()
+                assert_topk_close([x.cpu() for x in got],
+                                  [x.cpu() for x in want])
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("k", [512, 1024])
+    def test_falling_distances_tighten_every_tile(self, cuda, k, dtype):
+        """Rows in falling order of distance to every query (the score is
+        the first dim squared, the queries orthogonal to it): each row
+        beats the threshold (bf16: ties in steps, the lower id first), so
+        every tile appends its rows and the lists tighten every few tiles;
+        float32 gives the last k rows, nearest first.  Ids equal the plain
+        version's."""
+        n, dim, nq = 20_000, 64, 70
+        g = torch.Generator(device=cuda).manual_seed(k)
+        db = torch.zeros((n, dim), device=cuda)
+        db[:, 0] = torch.arange(n, 0, -1, device=cuda, dtype=torch.float32)
+        q = torch.zeros((nq, dim), device=cuda)
+        q[:, 1:] = torch.randn((nq, dim - 1), generator=g, device=cuda)
+        db, q = db.to(dtype), q.to(dtype)
+        assert distance_topk.route(q, db, dim, k) == "wgmma"
+        for sq_at in ((db.float() ** 2).sum(1), None):
+            s, i = distance_topk.l2_topk(q, db, dim=dim, k=k, sq_at_dim=sq_at)
+            want = distance_topk.l2_topk_plain(q, db, dim=dim, k=k,
+                                               sq_at_dim=sq_at)
+            torch.cuda.synchronize()
+            assert torch.equal(i, want[1])
+            assert_topk_close([s.cpu(), i.cpu()], [x.cpu() for x in want])
+            if dtype == torch.float32:
+                last = torch.arange(n - 1, n - 1 - k, -1, device=cuda,
+                                    dtype=torch.int32)
+                assert torch.equal(i, last.expand(nq, k))
+                assert torch.equal(s[:, 0], torch.ones(nq, device=cuda))
+
+    @pytest.mark.parametrize("k", [300, 1024])
+    def test_exact_tie_flood_keeps_the_lower_ids(self, cuda, k):
+        """Every row the same: all scores tie, so each tighten keeps the k
+        lowest ids among the tied entries; the result is rows 0 .. k - 1 in
+        order, as the plain version's."""
+        n, dim = 9000, 128
+        row = torch.randn((1, dim), device=cuda)
+        db = row.expand(n, dim).contiguous()
+        q = torch.randn((40, dim), device=cuda)
+        s, i = distance_topk.l2_topk(q, db, dim=dim, k=k)
+        want = distance_topk.l2_topk_plain(q, db, dim=dim, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(i, torch.arange(k, device=cuda,
+                                           dtype=torch.int32).expand(40, k))
+        assert torch.equal(i.cpu(), want[1].cpu())
+        assert (s == s[:, :1]).all()
+
+    def test_ncap_below_k_and_all_invalid(self, cuda):
+        """Fewer rows than k and no valid row at all: (+inf, -1) past the
+        live rows, on both row types."""
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((50, 128), device=cuda).to(dtype)
+            db = torch.randn((700, 128), device=cuda).to(dtype)
+            s, i = distance_topk.l2_topk(q, db, dim=128, k=1024)
+            torch.cuda.synchronize()
+            assert (i[:, 700:] == -1).all() and torch.isinf(s[:, 700:]).all()
+            assert_topk_close([s.cpu(), i.cpu()], [
+                x.cpu() for x in distance_topk.l2_topk_plain(q, db, dim=128,
+                                                             k=1024)])
+            none = torch.zeros((700,), dtype=torch.bool, device=cuda)
+            s, i = distance_topk.l2_topk(q, db, dim=128, k=512, valid=none)
+            assert (i == -1).all() and torch.isinf(s).all()
+
+    def test_built_plan_and_grid(self, cuda):
+        """The library's large-k plan is `wgmma_bigk_plan`'s (also checked
+        when it loads); the paper's batch runs 64-query tiles at dims 128
+        and 256 (eight and six ring stages), its doc axis cut as
+        `persistent_splits` cuts it with an item's extra tiles."""
+        for bf16 in (False, True):
+            for nq, dim in ((1, 4), (33, 128), (2470, 128), (2470, 256)):
+                assert distance_topk.built_bigk_plan(nq, dim, bf16) == \
+                    distance_topk.wgmma_bigk_plan(nq, dim)
+        q = torch.zeros((2470, 256), device=cuda)
+        db = torch.zeros((1 << 20, 256), device=cuda)
+        n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+        for dim, stages in ((128, 8), (256, 6)):
+            kind, t, st, wgs, n_split, per, _ = distance_topk.plan(q, db, dim,
+                                                                   1024)
+            assert (kind, t, st, wgs) == ("wgmma", 64, stages, 2)
+            cap = distance_topk.PART_BYTES // (2470 * 1024 * 8)
+            assert (n_split, per) == distance_topk.persistent_splits(
+                8192, 39, n_sm, cap,
+                round(distance_topk.BIGK_ITEM_TILES_PER_K * 1024))[:2]
 
     @pytest.mark.parametrize("k", [257, 512, 1000, 1024])
     @pytest.mark.parametrize("nq,dim,d,kind", [
@@ -253,15 +373,17 @@ class TestLargeKOnCard:
             [x.cpu() for x in distance_topk.l2_topk_plain(q, few, dim=dim,
                                                           k=k)])
 
-    @pytest.mark.parametrize("nq,dim,k", [(32, 128, 1024), (40, 512, 512),
-                                          (5, 30, 700)])
-    def test_split_count_does_not_matter(self, cuda, nq, dim, k,
+    @pytest.mark.parametrize("nq,dim,k,dtype", [
+        (32, 128, 1024, torch.float32), (300, 64, 1024, torch.float32),
+        (70, 256, 1024, torch.float32), (33, 128, 1024, torch.bfloat16),
+        (40, 512, 512, torch.float32), (5, 30, 700, torch.float32)])
+    def test_split_count_does_not_matter(self, cuda, nq, dim, k, dtype,
                                          monkeypatch):
         g = torch.Generator(device=cuda).manual_seed(nq + dim + k)
-        db = torch.randn((40_000, dim), generator=g, device=cuda)
-        q = torch.randn((nq, dim), generator=g, device=cuda)
+        db = torch.randn((40_000, dim), generator=g, device=cuda).to(dtype)
+        q = torch.randn((nq, dim), generator=g, device=cuda).to(dtype)
         outs = []
-        for n_sm in (1, 7, 132):
+        for n_sm in (1, 7, 50, 132):
             monkeypatch.setitem(distance_topk._n_sm, cuda.index or 0, n_sm)
             outs.append(distance_topk.l2_topk(q, db, dim=dim, k=k))
         for s, i in outs[1:]:

@@ -203,6 +203,123 @@ class TestStage0TensorCoreArithmetic:
         assert distance_topk.merge_groups(32, 132, 132) == 5
         assert distance_topk.merge_groups(512, 8, 132) == 1
 
+    @pytest.mark.parametrize("k", [257, 512, 513, 1024])
+    @pytest.mark.parametrize("dim", [4, 64, 128, 256])
+    def test_bigk_plan_by_dim_k_batch(self, dim, k):
+        """The large-k ``wgmma`` kernel's tile: 64 queries at every dim up
+        to 256, cut to the smallest of 8 .. 64 that makes two query tiles
+        of the batch (32 queries: two tiles of 16); one
+        shared-memory layout for every k (the lists are in global memory),
+        within `SMEM_LIMIT`: eight ring stages up to 128 dims, six above,
+        where the region that holds the float32 hi / lo query tiles (and
+        the warps' sort scratch, k <= `BIGK_SORT_SLOTS`, at an item's end)
+        doubles to 128 KB; the lists' scratch is tile x slots x 8 bytes a
+        CTA."""
+        stages = 8 if dim <= 128 else 6
+        sort = 8 * distance_topk.BIGK_SORT_SLOTS * 8
+        assert k <= distance_topk.BIGK_SORT_SLOTS
+        for nq in (1, 8, 9, 33, 64, 300, 2470):
+            t, st, smem = distance_topk.wgmma_bigk_plan(nq, dim)
+            # the smallest that makes two query tiles, at most 64
+            assert t == min(64, max(8, 1 << (-(-nq // 2) - 1).bit_length()))
+            assert t == 64 or -(-nq // t) >= 2 or t == 8
+            region = max(2 * (4 if dim <= 128 else 8) * t * 128, sort)
+            assert 2 * -(-dim // 32) * t * 128 <= region
+            assert st == stages and smem <= distance_topk.SMEM_LIMIT
+            assert smem == (1024 + st * 128 * 128 + region + t * 12 + 8
+                            + st * 16)
+            slots = distance_topk.list_slots(k)
+            assert slots >= k + distance_topk.WGMMA_BIGK_ROWS
+            assert distance_topk.bigk_lists_bytes(132, t, k) == \
+                132 * t * slots * 8
+        assert distance_topk.wgmma_bigk_plan(2470, 256)[2] == 231_272
+        assert distance_topk.bigk_lists_bytes(132, 64, 1024) == 138_412_032
+        with pytest.raises(ValueError):
+            distance_topk.wgmma_bigk_plan(1, 260)
+
+    @pytest.mark.parametrize("nq", [32, 300, 2470])
+    @pytest.mark.parametrize("dim,k", [(64, 1024), (128, 512), (128, 1024),
+                                       (256, 1024)])
+    def test_bigk_grid_fills_the_card(self, nq, dim, k):
+        """Over the 1M-row store (8,192 tiles of 128 rows): the paper's
+        2,470 queries make 39 tiles of 64, not 309 of 8; the cut of the doc
+        axis is the cheapest of `persistent_splits`' model with an item
+        costing `BIGK_ITEM_TILES_PER_K` x k tiles beyond its rows, at least
+        132 items where the batch has few tiles, and the pass-1 lists stay
+        within `PART_BYTES`."""
+        tile = distance_topk.wgmma_bigk_plan(nq, dim)[0]
+        q_tiles = -(-nq // tile)
+        cap = max(1, distance_topk.PART_BYTES // (nq * k * 8))
+        extra = round(distance_topk.BIGK_ITEM_TILES_PER_K * k)
+        n_split, per, grid = distance_topk.persistent_splits(
+            8192, q_tiles, 132, cap, extra)
+        assert grid == min(132, n_split * q_tiles)
+        assert n_split <= cap and per == -(-8192 // n_split)
+        cost = lambda ns: -(-(ns * q_tiles) // 132) * (-(-8192 // ns) + extra)
+        best = min(cost(ns) for ns in range(1, min(cap, 528) + 1))
+        assert cost(n_split) <= 1.02 * best
+        if nq == 32:
+            assert n_split * q_tiles >= 132
+        if nq == 2470:
+            assert q_tiles == 39
+
+    @pytest.mark.parametrize("k", [257, 512, 513, 1024])
+    def test_large_k_routes(self, k):
+        """Above k = 256, aligned rows at dims up to 256 stay on ``wgmma``
+        for every batch, float32 and bf16 alike; float32 above 256 dims go
+        to ``wide``, unaligned rows to ``fma``."""
+        db = torch.zeros((100, 264))
+        for nq in (1, 33, 2470):
+            q = torch.zeros((nq, 264))
+            for dim in (4, 64, 128, 256):
+                assert distance_topk.route(q, db, dim, k) == "wgmma"
+            for dim in (16, 64, 128, 256):
+                assert distance_topk.route(q.bfloat16(), db.bfloat16(), dim,
+                                           k) == "wgmma"
+            assert distance_topk.route(q.bfloat16(), db.bfloat16(), 36,
+                                       k) == "fma"
+            assert distance_topk.route(q, db, 260, k) == "wide"
+            assert distance_topk.route(q, db[:, 1:], 128, k) == "fma"
+
+    def test_bigk_plan_mirrors_the_source(self):
+        """``WGMMA_BIGK_PLAN`` and the constants of ``bk`` in
+        ``csrc/distance_topk.cuh`` are the wrapper's, and the argument
+        block's fields (``L2Args``) are `_ARGS`'s, in order, each at its C
+        offset."""
+        import re
+        import struct
+
+        from repro_torch.kernels import _build
+
+        src = (_build.CSRC / "distance_topk.cuh").read_text()
+        table = tuple(tuple(int(x) for x in m) for m in re.findall(
+            r"^WGMMA_BIGK_PLAN\((\d+), (\d+), (\d+)\)$", src, re.M))
+        assert table == distance_topk.WGMMA_BIGK_PLANS
+        assert table[-1][0] == distance_topk.WGMMA_MAX_DIM
+        bk = src[src.index("namespace bk {"):src.index("}  // namespace bk")]
+        assert re.search(r"kWgs = (\d+);", bk)[1] == "2"
+        assert re.search(r"kRows = 64 \* kWgs;", bk)
+        assert 64 * 2 == distance_topk.WGMMA_BIGK_ROWS
+        assert re.search(r"kSortSlots = (\d+);", bk)[1] == str(
+            distance_topk.BIGK_SORT_SLOTS)
+        assert re.search(r"kSortBytes = kWarps \* kSortSlots \* 8;", bk)
+        assert re.search(r"kSmemMax = (\d+);", bk)[1] == str(
+            distance_topk.SMEM_LIMIT)
+        body = re.search(r"struct L2Args \{(.*?)\n\};", src, re.S)[1]
+        codes = ""
+        for line in body.splitlines():
+            m = re.match(r"\s*((?:const )?[a-z0-9_ ]+?\*?)\s*(\w+(?:, \w+)*);",
+                         line)
+            if m:
+                ty = m[1].strip()
+                code = ("q" if ty == "long long" else "i" if ty == "int"
+                        else "Q")
+                codes += code * len(m[2].split(", "))
+        assert struct.Struct("@" + codes).size == distance_topk._ARGS.size
+        expand = re.sub(r"(\d+)(\w)", lambda m: m[2] * int(m[1]),
+                        distance_topk._ARGS.format.lstrip("@"))
+        assert expand == codes
+
     @pytest.mark.parametrize("dim,want", [
         (260, "wide"), (512, "wide"), (3584, "wide"),   # float32, aligned
         (514, "fma"),                                   # dim % 4
@@ -256,12 +373,12 @@ class TestStage0TensorCoreArithmetic:
         """At the serving batch and at the paper's, over the 1M-row store
         (8,192 tiles of 128 rows): a grid of at least 132 CTAs, as many
         items as CTAs or more, ranges that differ by at most one tile, and
-        the pass-1 lists within `WIDE_PART_BYTES`."""
+        the pass-1 lists within `PART_BYTES`."""
         tile = distance_topk.wide_plan(nq, k)[0]
         q_tiles = -(-nq // tile)
-        cap = max(1, distance_topk.WIDE_PART_BYTES // (nq * k * 8))
-        n_split, per, grid = distance_topk.wide_splits(8192, q_tiles, 132,
-                                                       cap)
+        cap = max(1, distance_topk.PART_BYTES // (nq * k * 8))
+        n_split, per, grid = distance_topk.persistent_splits(
+            8192, q_tiles, 132, cap)
         assert grid >= 132 and n_split * q_tiles >= grid
         assert 1 <= n_split <= min(8192, cap) and per == -(-8192 // n_split)
         begins = [s * 8192 // n_split for s in range(n_split + 1)]
@@ -291,6 +408,32 @@ class TestStage0TensorCoreArithmetic:
             assert (2470, dim, 1) in shapes
         assert {(2470, 512, 16), (2470, 512, 1024), (32, 512, 512),
                 (32, 512, 1024)} <= shapes
+
+    def test_timing_script_patches_match_the_bigk_kernel(self):
+        """Each patch of ``launch/stage0_time.py``'s `BIGK_PATCHES` finds
+        its text in ``csrc/distance_topk.cuh`` once, inside the large-k
+        kernel or the pieces it shares with ``l2_scan_wgmma_kernel``
+        (``box_products``, ``offer_tile``), which it calls; its cases hold
+        Fig. 3's large-k stage 0s below 512 dims and the serving batch at
+        k 512 / 1,024."""
+        from repro_torch.kernels import _build
+        from repro_torch.launch import stage0_time
+
+        src = (_build.CSRC / "distance_topk.cuh").read_text()
+        body = src[src.index("l2_scan_bigk_kernel(const"):
+                   src.index("struct L2Args {")]
+        pieces = src[src.index("void box_products("):
+                     src.index("l2_scan_wgmma_kernel(const")]
+        assert "box_products<" in body and "offer_tile<" in body
+        assert set(stage0_time.BIGK_PATCHES) == {"no_products", "no_loads",
+                                                 "no_appends"}
+        for name, patches in stage0_time.BIGK_PATCHES.items():
+            for old, new in patches:
+                assert src.count(old) == 1 and old != new, name
+                assert old in body or old in pieces, name
+        shapes = {c[1:] for c in stage0_time.CASES}
+        assert {(2470, 64, 1024), (2470, 128, 1024), (2470, 256, 1024),
+                (2470, 128, 512), (32, 128, 512), (32, 128, 1024)} <= shapes
 
     def test_wide_plan_mirrors_the_source(self):
         """``WIDE_PLAN`` and the constants of ``wd`` in
